@@ -5,20 +5,33 @@
 
 Phases, in order; any failure exits nonzero:
 1. the card: `nvidia-smi` name and power limit;
-2. the build: every CUDA kernel of the clip-inference path, from the sources
-   in tmrnet_torch/csrc, one nvcc per source in parallel;
-3. each kernel against its plain PyTorch version at the main path's shapes:
-   bf16 inputs, the plain version in f32 (TF32 off) on the same inputs,
-   max |kernel - plain| / max |plain| <= 2e-2; times of the kernel, the
-   plain version and one PyTorch library chain for the same function;
-4. the slice: full-width TMRNet (ResNet-50, BN folded, hidden 512, window
-   30, 7 classes, bf16) with seeded random weights through the weight
-   bridge, a 4096x512 bf16 bank on the card, and ClipInference answering 3
-   requests of 32 uint8 clips of 10 224x224 frames; launch counts must be
-   12 fused_bottleneck, 1 time_conv and 1 nl_attention per forward; the
-   first 2 clips rerun on the CPU in f32 through the plain ops must match
-   the card's softmax within 2e-2 and agree on the argmax;
-5. a JSON line of per-kernel numbers, the card's name and power limit, and
+2. the build: every CUDA kernel of the port's paths, from the sources in
+   tmrnet_torch/csrc, one nvcc per source in parallel;
+3. each kernel against its plain PyTorch version at its path's shapes, with
+   times of the kernel, the plain version and one PyTorch library call or
+   chain for the same function: the bf16 kernels (nl_attention, time_conv,
+   fused_bottleneck, fused_bottleneck_tiled) against the plain version in
+   f32 (TF32 off) on the same inputs, max |kernel - plain| / max |plain|
+   <= 2e-2; the int8 kernels (int8_matmul, int8_conv3x3) at the int8 gate's
+   shapes (B = 128 frames) and a square 8192^3 product, bit for bit;
+4. the block slice: full-width TMRNet (ResNet-50, BN folded, hidden 512,
+   window 30, 7 classes, bf16) with seeded random weights through the
+   weight bridge, a 4096x512 bf16 bank on the card, and ClipInference
+   answering 3 requests of 32 uint8 clips of 10 224x224 frames; launch
+   counts must be 12 fused_bottleneck, 1 time_conv and 1 nl_attention per
+   forward; the first 2 clips rerun on the CPU in f32 through the plain ops
+   must match the card's softmax within 2e-2 and agree on the argmax;
+4b. the tiled slice: the same model, weights, bank and requests through
+   ClipInference(fused_kernel="tiled"); 10 fused_bottleneck_tiled, 2
+   fused_bottleneck, 1 time_conv and 1 nl_attention launches per forward;
+   the same CPU check on the first 2 clips, and its softmax within 2e-2 of
+   the block slice's on all 96 clips;
+5. the int8 gate (tmrnet_torch.experimental.int8_gate) at B = 128 over the
+   four stages: the int8 bottleneck chain through the kernels equal to the
+   same chain through the plain versions, 2 int8_matmul and 1 int8_conv3x3
+   launches per chain, and the gate's rows (bf16 ms, int8 ms, rates,
+   speedups);
+6. a JSON line of per-kernel numbers, the card's name and power limit, and
    last the line {"ok": true, "device": {...}}.
 
 It needs a CUDA card and the rest of the repository beside it.
@@ -38,11 +51,15 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CLIPS, SEQ, IMG, WINDOW, BANK_ROWS, HIDDEN, CLASSES = 32, 10, 224, 30, 4096, 512, 7
 REQUESTS = 3
 TOL = 2e-2
-# Published H100 SXM peaks (dense): bf16 tensor cores, f32 outside them, HBM.
-PEAK_BF16, PEAK_F32, HBM_BYTES_S = 989e12, 67e12, 3.35e12
+# Published H100 SXM peaks (dense): bf16 and int8 tensor cores, f32 outside
+# them, HBM.
+PEAK_BF16, PEAK_I8, PEAK_F32, HBM_BYTES_S = 989e12, 1979e12, 67e12, 3.35e12
 # ResNet-50 stride-1 identity blocks per stage at 224x224: (H, C, P, count).
 STAGES = ((56, 256, 64, 2), (28, 512, 128, 3), (14, 1024, 256, 5),
           (7, 2048, 512, 2))
+TILED_MAX_C = 2048      # wider identity blocks stay on fused_bottleneck
+GATE_BATCH = 128        # frames per int8 gate stage
+SQUARE = 8192           # the square int8 product
 
 
 def card_line():
@@ -87,6 +104,8 @@ def check_kernels(torch, seed):
 
     from tmrnet_torch.experimental.fused_bottleneck import (
         fused_bottleneck_cuda, fused_bottleneck_plain)
+    from tmrnet_torch.experimental.fused_bottleneck_tiled import (
+        fused_bottleneck_tiled_cuda)
     from tmrnet_torch.ops.nl_attention import nl_attention_cuda, nl_attention_plain
     from tmrnet_torch.ops.time_conv import time_conv_cuda, time_conv_plain
 
@@ -149,11 +168,14 @@ def check_kernels(torch, seed):
         plain_ms=time_ms(torch, lambda: time_conv_plain(x.float(), *wsf), 20),
         bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(torch, tc_lib, 20)))
 
-    # 3. fused_bottleneck at each stage, N = B*T frames; per-forward numbers
-    # weight each stage by its count of identity blocks.
+    # 3 and 4. fused_bottleneck at each stage, and fused_bottleneck_tiled at
+    # the stages the tiled path gives it (C < 2048), on the same inputs,
+    # N = B*T frames; per-forward numbers weight each stage by its count of
+    # identity blocks.
     n = CLIPS * SEQ
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, bytes=0.0)
-    max_err = 0.0
+    keys = ("ms", "plain_ms", "library_ms", "flops", "bytes")
+    tot = {k: dict.fromkeys(keys, 0.0) for k in ("block", "tiled")}
+    max_err = dict(block=0.0, tiled=0.0)
     for h, cc, p, count in STAGES:
         xs = torch.relu(bf((n, h, h, cc)))
         w1 = bf((cc, p), (2.0 / cc) ** 0.5)
@@ -162,11 +184,16 @@ def check_kernels(torch, seed):
         b1, b2, b3 = (f32((s,), 0.05) for s in (p, p, cc))
         args = (xs, w1, b1, w2, b2, w3, b3)
         argsf = tuple(t.float() for t in args)
-        err, ok = compare(torch, f"fused_bottleneck {h}x{h}x{cc} P={p}",
-                          fused_bottleneck_cuda(*args),
-                          fused_bottleneck_plain(*argsf))
-        all_ok &= ok
-        max_err = max(max_err, err)
+        want = fused_bottleneck_plain(*argsf)
+        kernels = {"block": fused_bottleneck_cuda}
+        if cc < TILED_MAX_C:
+            kernels["tiled"] = fused_bottleneck_tiled_cuda
+        for path, kernel in kernels.items():
+            err, ok = compare(torch, f"{kernel.__name__[:-5]} {h}x{h}x{cc} P={p}",
+                              kernel(*args), want)
+            all_ok &= ok
+            max_err[path] = max(max_err[path], err)
+        del want
         # cuDNN chain on the same NHWC data (channels_last views).
         xc = xs.permute(0, 3, 1, 2)
         cw1 = w1.t().reshape(p, cc, 1, 1).contiguous(memory_format=torch.channels_last)
@@ -179,35 +206,165 @@ def check_kernels(torch, seed):
             y = torch.relu(F.conv2d(y, cw2, cb[1], padding=1))
             return torch.relu(F.conv2d(y, cw3, cb[2]) + xc)
 
-        ms = time_ms(torch, lambda: fused_bottleneck_cuda(*args), 5, 1)
         plain = time_ms(torch, lambda: fused_bottleneck_plain(*argsf), 3, 1)
         library = time_ms(torch, chain, 5, 1)
         flops = 2.0 * n * h * h * (cc * p + 9 * p * p + p * cc)
         nbytes = 2.0 * (2 * n * h * h * cc + 2 * cc * p + 9 * p * p) + 4 * (2 * p + cc)
-        print(f"    stage {h}x{h}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-              f"cuDNN chain {library:.4f} ms, bound "
-              f"{bound(flops, nbytes, PEAK_BF16)[0]:.4f} ms, x{count} per forward")
-        for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", library),
-                         ("flops", flops), ("bytes", nbytes)):
-            tot[key] += count * val
+        for path, kernel in kernels.items():
+            ms = time_ms(torch, lambda: kernel(*args), 5, 1)
+            print(f"    {path} stage {h}x{h}: kernel {ms:.4f} ms, plain "
+                  f"{plain:.4f} ms, cuDNN chain {library:.4f} ms, bound "
+                  f"{bound(flops, nbytes, PEAK_BF16)[0]:.4f} ms, x{count} "
+                  f"per forward")
+            for key, val in (("ms", ms), ("plain_ms", plain),
+                             ("library_ms", library), ("flops", flops),
+                             ("bytes", nbytes)):
+                tot[path][key] += count * val
         del xs, args, argsf, xc
-    b_ms, b_by = bound(tot["flops"], tot["bytes"], PEAK_BF16)
-    records.append(dict(
-        name="fused_bottleneck", route="cuda",
-        source="tmrnet_torch/csrc/fused_bottleneck.cu",
-        replaces="tmrnet_tpu/experimental/fused_bottleneck.py:58",
-        max_abs_err=max_err, ms=tot["ms"], plain_ms=tot["plain_ms"],
-        bound_ms=b_ms, bound_by=b_by, library_ms=tot["library_ms"]))
+    for path, name, source, replaces in (
+            ("block", "fused_bottleneck", "tmrnet_torch/csrc/fused_bottleneck.cu",
+             "tmrnet_tpu/experimental/fused_bottleneck.py:58"),
+            ("tiled", "fused_bottleneck_tiled",
+             "tmrnet_torch/csrc/fused_bottleneck_tiled.cu",
+             "tmrnet_tpu/experimental/fused_bottleneck_tiled.py:123")):
+        t = tot[path]
+        b_ms, b_by = bound(t["flops"], t["bytes"], PEAK_BF16)
+        records.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            max_abs_err=max_err[path], ms=t["ms"], plain_ms=t["plain_ms"],
+            bound_ms=b_ms, bound_by=b_by, library_ms=t["library_ms"]))
     torch.cuda.empty_cache()
     return records, all_ok
 
 
-def run_slice(torch, seed, card):
-    """Phase 4: full-width clip inference on the card, launch counts, and
-    the first 2 clips against an f32 CPU run of the same model."""
+def int_mm_ms(torch, a, b, scale, iters):
+    """The library yardstick of the int8 kernels: one torch._int_mm call
+    (cuBLASLt int8) and the same f32 epilogue; None where it refuses the
+    shapes."""
+    try:
+        return time_ms(torch, lambda: torch._int_mm(a, b).float() * scale,
+                       iters, 1)
+    except RuntimeError as exc:
+        print(f"    torch._int_mm refused {tuple(a.shape)} @ {tuple(b.shape)}: "
+              f"{str(exc).splitlines()[0]}")
+        return None
+
+
+def check_int8_kernels(torch, seed):
+    """Phase 3, int8: int8_matmul and int8_conv3x3 against their plain
+    versions, bit for bit, at the int8 gate's shapes (B = 128 frames per
+    stage) and for int8_matmul also a square 8192^3 product. Each record
+    sums one bottleneck chain per stage: two 1x1 products (C -> P, P -> C)
+    and one 3x3 conv (P -> P), f32 output."""
+    import torch.nn.functional as F
+
+    from tmrnet_torch.experimental.int8_gate import STAGES as GATE_STAGES
+    from tmrnet_torch.experimental.quant_conv import (
+        im2col3x3, int8_conv3x3_cuda, int8_conv3x3_plain)
+    from tmrnet_torch.ops.quant import int8_matmul_cuda, int8_matmul_plain
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    i8 = lambda *shape: torch.randint(-127, 128, shape, generator=gen,
+                                      device=dev, dtype=torch.int8)
+    scales = lambda n: (torch.rand((), generator=gen, device=dev) * 0.1,
+                        torch.rand((n,), generator=gen, device=dev) * 0.01)
+    all_ok = True
+    tot = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, ops=0.0, bytes=0.0)
+           for k in ("mm", "conv")}
+    library_ok = dict(mm=True, conv=True)
+    max_err = dict(mm=0.0, conv=0.0)
+
+    def exact(name, got, want):
+        same = bool(torch.equal(got, want))
+        diff = (got - want).abs().max().item()
+        print(f"  {name}: bit-exact {same} (max_abs_err {diff:.4g}) "
+              f"{'ok' if same else 'FAIL'}")
+        return same, diff
+
+    def matmul(m, k, n, chain, iters=10):
+        nonlocal all_ok
+        a, b = i8(m, k), i8(k, n)
+        a_s, b_s = scales(n)
+        ok, err = exact(f"int8_matmul {m}x{k}x{n}",
+                        int8_matmul_cuda(a, b, a_s, b_s),
+                        int8_matmul_plain(a, b, a_s, b_s))
+        all_ok &= ok
+        max_err["mm"] = max(max_err["mm"], err)
+        ms = time_ms(torch, lambda: int8_matmul_cuda(a, b, a_s, b_s), iters, 2)
+        plain = time_ms(torch, lambda: int8_matmul_plain(a, b, a_s, b_s), 3, 1)
+        library = int_mm_ms(torch, a, b, a_s * b_s, iters)
+        ops, nbytes = 2.0 * m * k * n, m * k + k * n + 4.0 * m * n
+        lib_s = "n/a" if library is None else f"{library:.4f}"
+        print(f"    kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} TOP/s), plain "
+              f"{plain:.4f} ms, torch._int_mm {lib_s} ms, bound "
+              f"{bound(ops, nbytes, PEAK_I8)[0]:.4f} ms")
+        if chain:
+            for key, val in (("ms", ms), ("plain_ms", plain), ("ops", ops),
+                             ("bytes", nbytes)):
+                tot["mm"][key] += val
+            library_ok["mm"] &= library is not None
+            tot["mm"]["library_ms"] += library or 0.0
+
+    for _, h, c, p in GATE_STAGES:
+        m = GATE_BATCH * h * h
+        matmul(m, c, p, True)
+        matmul(m, p, c, True)
+        matmul(m, p, p, False)          # the gate's mm row
+        # the 3x3 conv, P -> P
+        x, w = i8(GATE_BATCH, h, h, p), i8(3, 3, p, p)
+        x_s, w_s = scales(p)
+        ok, err = exact(f"int8_conv3x3 {GATE_BATCH}x{h}x{h}x{p}",
+                        int8_conv3x3_cuda(x, w, x_s, w_s),
+                        int8_conv3x3_plain(x, w, x_s, w_s))
+        all_ok &= ok
+        max_err["conv"] = max(max_err["conv"], err)
+        ms = time_ms(torch, lambda: int8_conv3x3_cuda(x, w, x_s, w_s), 10, 2)
+        plain = time_ms(torch, lambda: int8_conv3x3_plain(x, w, x_s, w_s), 3, 1)
+        col, w2d = im2col3x3(x), w.reshape(9 * p, p)
+        library = int_mm_ms(torch, col, w2d, x_s * w_s, 10)
+        del col
+        xc = (x.float() * 0.05).to(torch.bfloat16).permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last)
+        wc = (w.float() * 0.005).to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        cudnn = time_ms(torch, lambda: F.conv2d(xc, wc, padding=1), 10, 2)
+        ops = 2.0 * m * 9 * p * p
+        nbytes = m * p + 9.0 * p * p + 4.0 * m * p
+        lib_s = "n/a" if library is None else f"{library:.4f}"
+        print(f"    kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} TOP/s), plain "
+              f"{plain:.4f} ms, torch._int_mm on an int8 im2col {lib_s} ms, "
+              f"bf16 cuDNN conv3x3 {cudnn:.4f} ms, bound "
+              f"{bound(ops, nbytes, PEAK_I8)[0]:.4f} ms")
+        for key, val in (("ms", ms), ("plain_ms", plain), ("ops", ops),
+                         ("bytes", nbytes)):
+            tot["conv"][key] += val
+        library_ok["conv"] &= library is not None
+        tot["conv"]["library_ms"] += library or 0.0
+        del x, xc
+    matmul(SQUARE, SQUARE, SQUARE, False, iters=5)
+    torch.cuda.empty_cache()
+
+    records = []
+    for key, name, source, replaces in (
+            ("mm", "int8_matmul", "tmrnet_torch/csrc/int8_matmul.cu",
+             "tmrnet_tpu/ops/quant.py:66"),
+            ("conv", "int8_conv3x3", "tmrnet_torch/csrc/int8_conv3x3.cu",
+             "tmrnet_tpu/experimental/quant_conv.py:47")):
+        t = tot[key]
+        b_ms, b_by = bound(t["ops"], t["bytes"], PEAK_I8)
+        records.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            max_abs_err=max_err[key], ms=t["ms"], plain_ms=t["plain_ms"],
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=t["library_ms"] if library_ok[key] else None))
+    return records, all_ok
+
+
+def slice_setup(torch, seed):
+    """The slices' model config, folded seeded weights, bank on the card
+    and 1 + REQUESTS host requests (the first is the warm-up)."""
     from tmrnet_torch.config import DataConfig, ExperimentConfig, MemoryConfig, ModelConfig
-    from tmrnet_torch.eval.infer import ClipInference
-    from tmrnet_torch.kernels.build import LAUNCHES, reset_launches
     from tmrnet_torch.memory.lfb import FeatureBank
     from tmrnet_torch.models.convert import from_jax_variables, random_variables
     from tmrnet_torch.models.fold_bn import fold_variables
@@ -230,8 +387,24 @@ def run_slice(torch, seed, card):
         clips = rng.integers(0, 256, (CLIPS, SEQ, IMG, IMG, 3), dtype=np.uint8)
         rows = rng.integers(0, BANK_ROWS, CLIPS)
         requests.append((clips, rng.integers(0, CLASSES, CLIPS), rows, 0))
+    return dict(ecfg=ecfg, state=state, bank=bank, first_rows=first_rows,
+                requests=requests)
 
-    engine = ClipInference(ecfg, state, bank, device="cuda")
+
+def run_slice(torch, setup, card, fused_kernel, want_per_forward):
+    """Phase 4 / 4b: full-width clip inference on the card through the
+    `fused_kernel` path, launch counts, and the first 2 clips against an f32
+    CPU run of the same path. Returns (counts, frames/s, scores, ok)."""
+    from tmrnet_torch.config import ModelConfig
+    from tmrnet_torch.eval.infer import ClipInference
+    from tmrnet_torch.kernels.build import LAUNCHES, reset_launches
+    from tmrnet_torch.memory.lfb import FeatureBank
+
+    ecfg, state, bank = setup["ecfg"], setup["state"], setup["bank"]
+    first_rows, requests = setup["first_rows"], setup["requests"]
+    tag = f"{fused_kernel} slice"
+    engine = ClipInference(ecfg, state, bank, device="cuda",
+                           fused_kernel=fused_kernel)
     engine.run(requests[:1], first_rows)          # warm-up, not counted
     torch.cuda.synchronize()
     reset_launches()
@@ -240,11 +413,10 @@ def run_slice(torch, seed, card):
     dt = time.perf_counter() - t0
     counts = dict(LAUNCHES)
     frames = REQUESTS * CLIPS * SEQ
-    print(f"slice: {frames} frames in {dt:.4f} s = {frames / dt:.1f} frames/s "
+    print(f"{tag}: {frames} frames in {dt:.4f} s = {frames / dt:.1f} frames/s "
           f"on {card}")
-    want = {"fused_bottleneck": 12 * REQUESTS, "time_conv": REQUESTS,
-            "nl_attention": REQUESTS}
-    print(f"slice: launches {counts} over {REQUESTS} forwards "
+    want = {k: v * REQUESTS for k, v in want_per_forward.items()}
+    print(f"{tag}: launches {counts} over {REQUESTS} forwards "
           f"(want {want})")
     ok = counts == want
     scores = res.scores
@@ -255,7 +427,8 @@ def run_slice(torch, seed, card):
         backbone="resnet50", head="tmr", hidden_dim=HIDDEN, num_classes=CLASSES,
         compute_dtype="float32", folded=True))
     cpu_bank = FeatureBank(bank.features.float().cpu(), bank.first_rows.cpu())
-    cpu_engine = ClipInference(cpu_cfg, state, cpu_bank, device="cpu")
+    cpu_engine = ClipInference(cpu_cfg, state, cpu_bank, device="cpu",
+                               fused_kernel=fused_kernel)
     clips, labels, rows, _ = requests[1]
     ref = cpu_engine.run([(clips[:2], labels[:2], rows[:2], 0)], first_rows)
     err = float(np.abs(scores[:2] - ref.scores).max())
@@ -265,12 +438,52 @@ def run_slice(torch, seed, card):
     # legitimately swap between bf16 and f32; every other argmax must agree.
     decided = margin > 2 * TOL
     agree = bool((res.preds[:2] == ref.preds)[decided].all())
-    print(f"slice: card vs CPU f32 probs max_abs_err {err:.4g} (limit {TOL}), "
+    print(f"{tag}: card vs CPU f32 probs max_abs_err {err:.4g} (limit {TOL}), "
           f"argmax card {res.preds[:2].tolist()} cpu {ref.preds.tolist()} "
           f"(top-2 margins {margin.round(4).tolist()}) "
           f"{'ok' if err <= TOL and agree else 'FAIL'}")
     ok &= err <= TOL and agree
-    return counts, frames / dt, ok
+    del engine
+    torch.cuda.empty_cache()
+    return counts, frames / dt, scores, ok
+
+
+def run_gate(torch, seed, card):
+    """Phase 5: the int8 gate at B = 128 over the four stages: the int8
+    bottleneck chain through the kernels against the same chain through the
+    plain versions (bit for bit), launch counts, and the gate's rows."""
+    from tmrnet_torch.experimental import int8_gate
+    from tmrnet_torch.kernels.build import LAUNCHES, reset_launches
+
+    dev = torch.device("cuda")
+    inputs = [int8_gate.make_inputs(st, GATE_BATCH, dev, seed)
+              for st in int8_gate.STAGES]
+    reset_launches()
+    outs = [int8_gate.bottleneck_int8(*int8_gate.int8_chain_args(d))
+            for d in inputs]
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    chains = len(int8_gate.STAGES)
+    want = {"int8_matmul": 2 * chains, "int8_conv3x3": chains}
+    ok = counts == want
+    print(f"gate: launches {counts} over {chains} chains (want {want}) "
+          f"{'ok' if ok else 'FAIL'}")
+    for st, d, out in zip(int8_gate.STAGES, inputs, outs):
+        plain = int8_gate.bottleneck_int8(*int8_gate.int8_chain_args(d),
+                                          plain=True)
+        same = bool(torch.equal(out, plain))
+        nonzero = int(torch.count_nonzero(out))
+        print(f"gate: {st[0]} int8 chain kernels vs plain bit-exact {same}, "
+              f"{nonzero} of {out.numel()} outputs nonzero "
+              f"{'ok' if same and nonzero else 'FAIL'}")
+        ok &= same and nonzero > 0
+    del inputs, outs
+    torch.cuda.empty_cache()
+    for st in int8_gate.STAGES:
+        row = int8_gate.measure_stage(st, GATE_BATCH, iters=10, seed=seed)
+        print("gate row: " + json.dumps(row))
+    print(f"gate: on {card}")
+    return counts, ok
 
 
 def main():
@@ -297,19 +510,44 @@ def main():
 
     print("kernels vs plain versions (bf16 kernel, f32 plain):")
     records, ok = check_kernels(torch, args.seed)
-    if not ok:
+    print("int8 kernels vs plain versions (bit for bit):")
+    int8_records, ok8 = check_int8_kernels(torch, args.seed)
+    records += int8_records
+    if not (ok and ok8):
         print("chip_smoke: a kernel disagrees with its plain version",
               file=sys.stderr)
         return 1
-    counts, fps, ok = run_slice(torch, args.seed, card)
+    setup = slice_setup(torch, args.seed)
+    by_path = {}
+    block_counts, _, block_scores, ok_block = run_slice(
+        torch, setup, card, "block",
+        {"fused_bottleneck": 12, "time_conv": 1, "nl_attention": 1})
+    by_path["block"] = block_counts
+    tiled_counts, _, tiled_scores, ok_tiled = run_slice(
+        torch, setup, card, "tiled",
+        {"fused_bottleneck_tiled": 10, "fused_bottleneck": 2, "time_conv": 1,
+         "nl_attention": 1})
+    by_path["tiled"] = tiled_counts
+    diff = float(np.abs(tiled_scores - block_scores).max())
+    ok_paths = bool(diff <= TOL)
+    print(f"tiled slice vs block slice: probs max_abs_diff {diff:.4g} over "
+          f"{len(tiled_scores)} clips (limit {TOL}) "
+          f"{'ok' if ok_paths else 'FAIL'}")
+    del setup
+    by_path["gate"], ok_gate = run_gate(torch, args.seed, card)
+    ok = ok_block and ok_tiled and ok_paths and ok_gate
     for rec in records:
-        rec["launches"] = counts.get(rec["name"], 0)
+        rec["launches_by_path"] = {p: c[rec["name"]] for p, c in by_path.items()
+                                   if rec["name"] in c}
+        rec["launches"] = sum(rec["launches_by_path"].values())
+        ok &= rec["launches"] > 0
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "launches_by_path")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}))
     print(card)
     if not ok:
-        print("chip_smoke: the slice failed", file=sys.stderr)
+        print("chip_smoke: a slice or the gate failed", file=sys.stderr)
         return 1
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
 """The port's Hopper kernels on the card, against their plain versions on
 the same inputs; wrapper checks and launch counts; and a small folded
-ResNet-50 TMRNet on the card against the same model in f32 on the CPU.
+ResNet-50 TMRNet on the card, on the block and the tiled fused path,
+against the same model in f32 on the CPU.
 
 Needs a CUDA card and skips without one. The card has no JAX, so this file
 imports none and runs without the repository's conftest:
@@ -10,6 +11,8 @@ imports none and runs without the repository's conftest:
 Tolerance: max |kernel - plain| <= 2e-2 * max |plain|. The kernels take
 bf16 inputs and round their output (and the fused bottleneck its y1 and y2)
 to bf16, 2^-8 relative each; the plain versions run in f32 (TF32 off).
+The int8 kernels are held to their plain versions bit for bit: both sum the
+integer products exactly and take the same f32 epilogue steps.
 """
 
 import numpy as np
@@ -20,8 +23,13 @@ from tmrnet_torch.experimental.fused_bottleneck import (
     fused_bottleneck_cuda,
     fused_bottleneck_plain,
 )
+from tmrnet_torch.experimental.fused_bottleneck_tiled import (
+    fused_bottleneck_tiled_cuda,
+)
+from tmrnet_torch.experimental.quant_conv import int8_conv3x3_cuda, int8_conv3x3_plain
 from tmrnet_torch.kernels.build import LAUNCHES, reset_launches
 from tmrnet_torch.ops.nl_attention import nl_attention_cuda, nl_attention_plain
+from tmrnet_torch.ops.quant import int8_matmul_cuda, int8_matmul_plain
 from tmrnet_torch.ops.time_conv import time_conv_cuda, time_conv_plain
 
 REL = 2e-2
@@ -128,7 +136,7 @@ def test_launch_counts(gen):
                               "fused_bottleneck": 1}
 
 
-def test_folded_resnet50_tmrnet_on_card_matches_cpu(gen):
+def _folded_resnet50_card_vs_cpu(fused_kernel):
     from tmrnet_torch.config import ModelConfig
     from tmrnet_torch.models.convert import from_jax_variables, random_variables
     from tmrnet_torch.models.fold_bn import fold_variables
@@ -137,9 +145,11 @@ def test_folded_resnet50_tmrnet_on_card_matches_cpu(gen):
     kw = dict(backbone="resnet50", hidden_dim=512, head="tmr", folded=True)
     state = fold_variables(from_jax_variables(random_variables(
         ModelConfig(**dict(kw, folded=False)), seed=1)))
-    card = build_model(ModelConfig(**kw, compute_dtype="bfloat16"))
+    card = build_model(ModelConfig(**kw, compute_dtype="bfloat16"),
+                       fused_kernel=fused_kernel)
     card.load_state_dict(state, strict=True)
-    cpu = build_model(ModelConfig(**kw, compute_dtype="float32"), device="cpu")
+    cpu = build_model(ModelConfig(**kw, compute_dtype="float32"), device="cpu",
+                      fused_kernel=fused_kernel)
     cpu.load_state_dict(state, strict=True)
     rng = np.random.default_rng(2)
     clips = torch.from_numpy(rng.standard_normal((2, 3, 64, 64, 3), np.float32))
@@ -148,6 +158,116 @@ def test_folded_resnet50_tmrnet_on_card_matches_cpu(gen):
     with torch.no_grad():
         got = torch.softmax(card(clips.cuda(), memory.cuda()).float(), -1)
         want = torch.softmax(cpu(clips, memory), -1)
-    assert dict(LAUNCHES) == {"fused_bottleneck": 12, "time_conv": 1,
-                              "nl_attention": 1}
+    counts = dict(LAUNCHES)
     assert (got.cpu() - want).abs().max().item() <= 2e-2
+    return counts
+
+
+def test_folded_resnet50_tmrnet_on_card_matches_cpu(gen):
+    assert _folded_resnet50_card_vs_cpu("block") == {
+        "fused_bottleneck": 12, "time_conv": 1, "nl_attention": 1}
+
+
+def test_folded_resnet50_tiled_path_on_card_matches_cpu(gen):
+    assert _folded_resnet50_card_vs_cpu("tiled") == {
+        "fused_bottleneck_tiled": 10, "fused_bottleneck": 2, "time_conv": 1,
+        "nl_attention": 1}
+
+
+# Stage shapes; a partial last H tile (57 and 29 rows at the 2-row tiles of
+# stages 1-2); small odd images.
+@pytest.mark.parametrize("n,h,w,c,p", [
+    (2, 56, 56, 256, 64), (2, 28, 28, 512, 128), (2, 14, 14, 1024, 256),
+    (2, 7, 7, 2048, 512), (1, 57, 56, 256, 64), (1, 29, 28, 512, 128),
+    (1, 5, 9, 256, 64), (3, 1, 1, 128, 64), (2, 13, 7, 64, 128)])
+def test_fused_bottleneck_tiled_kernel(gen, n, h, w, c, p):
+    args = _fb_args(gen, n, h, w, c, p)
+    _close(fused_bottleneck_tiled_cuda(*args),
+           fused_bottleneck_plain(*(t.float() for t in args)))
+
+
+def _i8(gen, shape):
+    return torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                         dtype=torch.int8)
+
+
+def _scales(gen, n):
+    return (torch.rand((), generator=gen, device="cuda") * 0.1,
+            torch.rand((n,), generator=gen, device="cuda") * 0.01)
+
+
+# M not a multiple of the 128-row tile, N not of the 128-column tile, K not
+# of the 64-byte chunk; a gate shape; K = 9 * 512 (sums past 2^24).
+@pytest.mark.parametrize("m,k,n", [(100, 64, 16), (1, 32, 48),
+                                   (777, 160, 144), (6272, 2048, 512),
+                                   (300, 4608, 64)])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_int8_matmul_kernel_equals_plain(gen, m, k, n, out_dtype):
+    a, b = _i8(gen, (m, k)), _i8(gen, (k, n))
+    a_scale, b_scale = _scales(gen, n)
+    got = int8_matmul_cuda(a, b, a_scale, b_scale, out_dtype)
+    assert got.dtype == out_dtype
+    assert torch.equal(got, int8_matmul_plain(a, b, a_scale, b_scale, out_dtype))
+
+
+# C = 64 at a 7x7 image; C = 16 at an odd image; a gate stage; one pixel.
+@pytest.mark.parametrize("n,h,w,c,co", [(2, 7, 7, 64, 64), (1, 5, 9, 16, 32),
+                                        (3, 14, 14, 256, 256),
+                                        (2, 56, 56, 64, 64), (1, 1, 1, 32, 16)])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_int8_conv3x3_kernel_equals_plain(gen, n, h, w, c, co, out_dtype):
+    x, wq = _i8(gen, (n, h, w, c)), _i8(gen, (3, 3, c, co))
+    x_scale, w_scale = _scales(gen, co)
+    got = int8_conv3x3_cuda(x, wq, x_scale, w_scale, out_dtype)
+    assert torch.equal(got, int8_conv3x3_plain(x, wq, x_scale, w_scale,
+                                               out_dtype))
+
+
+def test_new_wrappers_check_their_inputs(gen):
+    args = list(_fb_args(gen, 1, 4, 4, 256, 64))
+    nchw = args[0].permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    with pytest.raises(ValueError, match="NHWC-contiguous"):
+        fused_bottleneck_tiled_cuda(nchw, *args[1:])
+    with pytest.raises(ValueError, match="multiples of 64"):
+        fused_bottleneck_tiled_cuda(*_fb_args(gen, 1, 4, 4, 96, 64))
+    with pytest.raises(TypeError):
+        fused_bottleneck_tiled_cuda(args[0].float(), *args[1:])
+    with pytest.raises(ValueError, match="on cpu"):
+        fused_bottleneck_tiled_cuda(args[0], args[1], args[2].cpu(), *args[3:])
+
+    a, b = _i8(gen, (32, 64)), _i8(gen, (64, 32))
+    a_scale, b_scale = _scales(gen, 32)
+    with pytest.raises(TypeError):
+        int8_matmul_cuda(a.float(), b, a_scale, b_scale)
+    with pytest.raises(ValueError, match="K % 16"):
+        int8_matmul_cuda(_i8(gen, (32, 40)), _i8(gen, (40, 32)), a_scale, b_scale)
+    with pytest.raises(ValueError, match="contiguous"):
+        int8_matmul_cuda(a, b.t().contiguous().t(), a_scale, b_scale)
+    with pytest.raises(ValueError, match="on cpu"):
+        int8_matmul_cuda(a, b, a_scale.cpu(), b_scale)
+    with pytest.raises(TypeError):
+        int8_matmul_cuda(a, b, a_scale, b_scale, torch.float16)
+
+    x, wq = _i8(gen, (1, 4, 4, 32)), _i8(gen, (3, 3, 32, 32))
+    with pytest.raises(TypeError):
+        int8_conv3x3_cuda(x.float(), wq, a_scale, b_scale)
+    with pytest.raises(ValueError, match="C % 16"):
+        int8_conv3x3_cuda(_i8(gen, (1, 4, 4, 24)), _i8(gen, (3, 3, 24, 32)),
+                          a_scale, b_scale)
+    with pytest.raises(ValueError, match="contiguous"):
+        int8_conv3x3_cuda(x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1),
+                          wq, a_scale, b_scale)
+    with pytest.raises(ValueError, match="on cpu"):
+        int8_conv3x3_cuda(x, wq, a_scale, b_scale.cpu())
+
+
+def test_new_kernels_count_their_launches(gen):
+    reset_launches()
+    fused_bottleneck_tiled_cuda(*_fb_args(gen, 1, 4, 4, 256, 64))
+    a_scale, b_scale = _scales(gen, 32)
+    int8_matmul_cuda(_i8(gen, (32, 64)), _i8(gen, (64, 32)), a_scale, b_scale)
+    int8_matmul_cuda(_i8(gen, (32, 64)), _i8(gen, (64, 32)), a_scale, b_scale)
+    int8_conv3x3_cuda(_i8(gen, (1, 4, 4, 32)), _i8(gen, (3, 3, 32, 32)),
+                      a_scale, b_scale)
+    assert dict(LAUNCHES) == {"fused_bottleneck_tiled": 1, "int8_matmul": 2,
+                              "int8_conv3x3": 1}

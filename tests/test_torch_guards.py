@@ -42,7 +42,11 @@ def test_port_imports_nothing_of_jax(path):
 
 def test_importing_the_port_leaves_jax_out():
     code = ("import sys, tmrnet_torch, tmrnet_torch.eval.infer, "
-            "tmrnet_torch.models.convert, tmrnet_torch.memory.lfb; "
+            "tmrnet_torch.models.convert, tmrnet_torch.memory.lfb, "
+            "tmrnet_torch.ops, tmrnet_torch.ops.quant, "
+            "tmrnet_torch.experimental.fused_bottleneck_tiled, "
+            "tmrnet_torch.experimental.quant_conv, "
+            "tmrnet_torch.experimental.int8_gate; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -84,3 +88,12 @@ def test_engine_refuses_a_bank_on_another_device():
     state = build_model(CFG, device="cpu").state_dict()
     with pytest.raises(ValueError, match="bank on meta"):
         ClipInference(ExperimentConfig(model=CFG), state, bank, device="cpu")
+
+
+def test_int8_gate_needs_cuda(no_cuda):
+    from tmrnet_torch.experimental import int8_gate
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        int8_gate.main(["--stages", "stage4", "--batch", "1"])
+    with pytest.raises(ValueError, match="needs a CUDA device"):
+        int8_gate.measure_stage(int8_gate.STAGES[-1], 1, device="cpu")

@@ -50,11 +50,14 @@ class ClipInference:
 
     state_dict: the model's weights (folded when cfg.model.folded), e.g.
     from `models.convert.from_jax_variables`, loaded with strict=True.
+    fused_kernel: "block" or "tiled", the folded identity blocks' kernel
+    (`models/tmrnet.py::build_backbone`); the same state dict serves both.
     """
 
     def __init__(self, cfg: ExperimentConfig,
                  state_dict: Mapping[str, torch.Tensor],
-                 bank: Optional[FeatureBank] = None, device="cuda"):
+                 bank: Optional[FeatureBank] = None, device="cuda",
+                 fused_kernel: str = "block"):
         self.device = resolve_device(device)
         if memoryless_head(cfg.model.head):
             raise ValueError(f"head {cfg.model.head!r} is not ported "
@@ -67,7 +70,7 @@ class ClipInference:
                              f"{self.device}")
         self.cfg = cfg
         self.window = cfg.memory.window
-        self.model = build_model(cfg.model, self.device)
+        self.model = build_model(cfg.model, self.device, fused_kernel)
         self.model.load_state_dict(dict(state_dict), strict=True)
         self.prep = DevicePrep(cfg.data, cfg.model.compute_dtype, self.device)
         self.bank = bank

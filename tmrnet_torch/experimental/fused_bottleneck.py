@@ -41,72 +41,81 @@ def fused_bottleneck_plain(x, w1, b1, w2, b2, w3, b3):
     return torch.relu(y.reshape(n, h, w, c) + xf).to(x.dtype)
 
 
-def tile_rows(lib, h: int, w: int, c: int, p: int) -> int:
-    """Rows of the image one block owns. Model: tensor-core work counted in
-    64-row tiles (halo rows of y1 recomputed per block), halved when two
-    blocks fit on an SM; the tile must fit the block's shared memory."""
+def tile_rows(smem, h: int, row_w: int, c: int, p: int, what: str) -> int:
+    """Rows of the image one block owns. smem(th): a block's shared memory
+    at th rows; row_w: GEMM rows per image row (W, or W+2 for the tiled
+    kernel's wide rows). Model: tensor-core work counted in 64-row tiles
+    (halo rows of y1 recomputed per block), halved when two blocks fit on
+    an SM; the tile must fit the block's shared memory."""
     best = None
     for th in range(1, h + 1):
-        smem = lib.tmr_fused_bottleneck_smem(w, p, th)
-        if smem > _SMEM_BLOCK_MAX:
+        nbytes = smem(th)
+        if nbytes > _SMEM_BLOCK_MAX:
             break
-        rows1 = math.ceil((th + 2) * w / 64) * 64
-        rows2 = math.ceil(th * w / 64) * 64
+        rows1 = math.ceil((th + 2) * row_w / 64) * 64
+        rows2 = math.ceil(th * row_w / 64) * 64
         work = math.ceil(h / th) * (rows1 * c * p + rows2 * (9 * p * p + p * c))
-        per_sm = min(_SMEM_SM // (smem + 1024), 2)
+        per_sm = min(_SMEM_SM // (nbytes + 1024), 2)
         cost = work / per_sm
         if best is None or cost < best[0]:
             best = (cost, th)
     if best is None:
-        raise ValueError(f"fused_bottleneck: W={w}, P={p} does not fit "
-                         f"shared memory at one row per block")
+        raise ValueError(f"{what}: W={row_w}, P={p} does not fit shared "
+                         f"memory at one row per block")
     return best[1]
 
 
-def _check(name, t, device, dtype, shape):
+def _check(name, t, device, dtype, shape, what):
     if t.device != device:
-        raise ValueError(f"fused_bottleneck_cuda: {name} on {t.device}, "
-                         f"x on {device}")
+        raise ValueError(f"{what}: {name} on {t.device}, x on {device}")
     if t.dtype != dtype:
-        raise TypeError(f"fused_bottleneck_cuda: {name} dtype {t.dtype}, "
-                        f"want {dtype}")
+        raise TypeError(f"{what}: {name} dtype {t.dtype}, want {dtype}")
     if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"fused_bottleneck_cuda: {name} shape "
-                         f"{tuple(t.shape)}, want {tuple(shape)}")
+        raise ValueError(f"{what}: {name} shape {tuple(t.shape)}, "
+                         f"want {tuple(shape)}")
     if not t.is_contiguous():
-        raise ValueError(f"fused_bottleneck_cuda: {name} is not contiguous "
+        raise ValueError(f"{what}: {name} is not contiguous "
                          f"(x must be NHWC-contiguous)")
+
+
+def check_operands(what, x, w1, b1, w2, b2, w3, b3):
+    """The CUDA wrappers' checks of a bottleneck's operands: x (N, H, W, C)
+    bf16 NHWC-contiguous on CUDA; w1/w2/w3 bf16 contiguous; biases f32;
+    P and C multiples of 64. Returns (N, H, W, C, P)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: x is not on CUDA")
+    if x.dim() != 4 or w1.dim() != 2:
+        raise ValueError(f"{what}: x {tuple(x.shape)}, w1 {tuple(w1.shape)}")
+    n, h, w, c = x.shape
+    p = w1.shape[1]
+    if c % 64 or p % 64 or n * h * w == 0:
+        raise ValueError(f"{what}: needs C, P multiples of 64 and a nonempty "
+                         f"x, got C={c}, P={p}, x {tuple(x.shape)}")
+    if n > 65535:   # one grid row of blocks per image
+        raise ValueError(f"{what}: at most 65535 images, got {n}")
+    for name, t, dtype, shape in (
+            ("x", x, torch.bfloat16, (n, h, w, c)),
+            ("w1", w1, torch.bfloat16, (c, p)), ("b1", b1, torch.float32, (p,)),
+            ("w2", w2, torch.bfloat16, (3, 3, p, p)),
+            ("b2", b2, torch.float32, (p,)),
+            ("w3", w3, torch.bfloat16, (p, c)), ("b3", b3, torch.float32, (c,))):
+        _check(name, t, x.device, dtype, shape, what)
+    return n, h, w, c, p
 
 
 def fused_bottleneck_cuda(x, w1, b1, w2, b2, w3, b3):
     """Launch csrc/fused_bottleneck.cu. x (N, H, W, C) bf16 NHWC-contiguous;
     w1/w2/w3 bf16 contiguous; biases f32; P and C multiples of 64."""
-    if x.device.type != "cuda":
-        raise ValueError("fused_bottleneck_cuda: x is not on CUDA")
-    if x.dim() != 4 or w1.dim() != 2:
-        raise ValueError(f"fused_bottleneck_cuda: x {tuple(x.shape)}, "
-                         f"w1 {tuple(w1.shape)}")
-    n, h, w, c = x.shape
-    p = w1.shape[1]
-    if c % 64 or p % 64 or n * h * w == 0:
-        raise ValueError(f"fused_bottleneck_cuda: needs C, P multiples of 64 "
-                         f"and a nonempty x, got C={c}, P={p}, x {tuple(x.shape)}")
-    if n > 65535:   # one grid row of blocks per image
-        raise ValueError(f"fused_bottleneck_cuda: at most 65535 images, got {n}")
-    _check("x", x, x.device, torch.bfloat16, (n, h, w, c))
-    _check("w1", w1, x.device, torch.bfloat16, (c, p))
-    _check("b1", b1, x.device, torch.float32, (p,))
-    _check("w2", w2, x.device, torch.bfloat16, (3, 3, p, p))
-    _check("b2", b2, x.device, torch.float32, (p,))
-    _check("w3", w3, x.device, torch.bfloat16, (p, c))
-    _check("b3", b3, x.device, torch.float32, (c,))
+    n, h, w, c, p = check_operands("fused_bottleneck_cuda", x, w1, b1, w2, b2,
+                                   w3, b3)
     lib = build.library("fused_bottleneck")
     lib.tmr_fused_bottleneck_smem.argtypes = [ctypes.c_int] * 3
     lib.tmr_fused_bottleneck_smem.restype = ctypes.c_int
     fn = lib.tmr_fused_bottleneck
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    th = tile_rows(lib, h, w, c, p)
+    th = tile_rows(lambda t: lib.tmr_fused_bottleneck_smem(w, p, t), h, w, c, p,
+                   "fused_bottleneck")
     out = torch.empty_like(x)
     q = build.ptr
     err = fn(q(x), q(w1), q(b1), q(w2), q(b2), q(w3), q(b3), q(out),

@@ -4,11 +4,15 @@ Port of `tmrnet_tpu/models/resnet.py:21-99`. Frames come in as (N, H, W, 3)
 and activations stay in `channels_last` memory, so a block's input viewed as
 NHWC is contiguous. Unfolded, every conv is followed by BatchNorm in eval
 mode (eps 1e-5). Folded (BN pre-folded into the convs, `models/fold_bn.py`),
-every stride-1 identity block runs as one `fused_bottleneck` kernel, the
+every stride-1 identity block runs as one fused-bottleneck kernel, the
 role `tmrnet_tpu/experimental/fused_resnet.py::apply_fused_resnet` (:68-108)
 plays in JAX; the stem and the strided/projection blocks stay on
 `torch.nn.functional.conv2d`, as JAX leaves them to XLA. ResNet-50 has 12
-such identity blocks.
+such identity blocks. `kernel` picks the fused kernel as
+`apply_fused_resnet(kernel=...)` does (:87-105): "block" sends every
+identity block to `fused_bottleneck`; "tiled" sends those with C < 2048 to
+`fused_bottleneck_tiled` (10 in ResNet-50) and the others (stage 4's 2) to
+`fused_bottleneck`.
 
 Names follow the flax tree: `conv1`, `bn1`, `layer{l}_{i}.conv1..3`,
 `.bn1..3`, `.downsample_conv`, `.downsample_bn`.
@@ -23,9 +27,20 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from tmrnet_torch.experimental.fused_bottleneck import fused_bottleneck
+from tmrnet_torch.experimental.fused_bottleneck_tiled import fused_bottleneck_tiled
 
 EXPANSION = 4
 BN_EPS = 1e-5
+FUSED_KERNELS = ("block", "tiled")
+# Identity blocks this wide stay on the block kernel under kernel="tiled"
+# (fused_resnet.py:91: the TPU's VMEM could not hold stage 4's weights twice).
+TILED_MAX_C = 2048
+
+
+def check_fused_kernel(kernel: str) -> str:
+    if kernel not in FUSED_KERNELS:
+        raise ValueError(f"fused kernel {kernel!r}: want one of {FUSED_KERNELS}")
+    return kernel
 
 
 def conv(layer: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
@@ -44,11 +59,12 @@ def batch_norm(layer: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
 
 class Bottleneck(nn.Module):
     def __init__(self, in_feats: int, planes: int, strides: int = 1,
-                 folded: bool = False):
+                 folded: bool = False, kernel: str = "block"):
         super().__init__()
         out_feats = planes * EXPANSION
         self.strides = strides
         self.folded = folded
+        self.kernel = check_fused_kernel(kernel)
         mk = lambda i, o, k, s, p: nn.Conv2d(i, o, k, s, p, bias=folded)
         self.conv1 = mk(in_feats, planes, 1, 1, 0)
         self.conv2 = mk(planes, planes, 3, strides, 1)
@@ -76,7 +92,10 @@ class Bottleneck(nn.Module):
         """x: (N, C, H, W) in channels_last memory."""
         if self.folded and not self.projection:
             xh = x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
-            y = fused_bottleneck(xh, *self.fused_weights(x.dtype))
+            op = (fused_bottleneck_tiled
+                  if self.kernel == "tiled" and xh.shape[-1] < TILED_MAX_C
+                  else fused_bottleneck)
+            y = op(xh, *self.fused_weights(x.dtype))
             return y.permute(0, 3, 1, 2)
         bn = (lambda name, y: y) if self.folded else (
             lambda name, y: batch_norm(getattr(self, name), y))
@@ -92,7 +111,8 @@ class Bottleneck(nn.Module):
 class ResNet(nn.Module):
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
                  width: int = 64, folded: bool = False,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 kernel: str = "block"):
         super().__init__()
         self.stage_sizes = tuple(stage_sizes)
         self.folded = folded
@@ -106,7 +126,7 @@ class ResNet(nn.Module):
             for i in range(n_blocks):
                 strides = 2 if l > 0 and i == 0 else 1
                 self.add_module(f"layer{l + 1}_{i}", Bottleneck(
-                    in_feats, planes, strides, folded))
+                    in_feats, planes, strides, folded, kernel))
                 in_feats = planes * EXPANSION
         self.num_features = in_feats
 

@@ -67,23 +67,31 @@ class TMRNet(nn.Module):
         return dense(self.fc_c, y)
 
 
-def build_backbone(cfg: ModelConfig) -> ResNet:
+def build_backbone(cfg: ModelConfig, fused_kernel: str = "block") -> ResNet:
+    """fused_kernel: the folded identity blocks' kernel, "block" or "tiled"
+    (`models/resnet.py`; JAX's `fused_tmr_apply(kernel=...)`,
+    `tmrnet_tpu/experimental/fused_resnet.py:111-144`). A keyword, not a
+    config field: JAX's ModelConfig has none."""
     cdt = torch_dtype(cfg.compute_dtype)
     if cfg.backbone == "resnet50":
-        return ResNet(tuple(cfg.stage_sizes), cfg.width, cfg.folded, cdt)
+        return ResNet(tuple(cfg.stage_sizes), cfg.width, cfg.folded, cdt,
+                      fused_kernel)
     if cfg.backbone == "tiny":
-        return ResNet((1, 1), 8, cfg.folded, cdt)
+        return ResNet((1, 1), 8, cfg.folded, cdt, fused_kernel)
     raise ValueError(f"backbone {cfg.backbone!r} is not ported")
 
 
-def build_model(cfg: ModelConfig, device="cuda") -> TMRNet:
+def build_model(cfg: ModelConfig, device="cuda",
+                fused_kernel: str = "block") -> TMRNet:
     """ModelConfig -> TMRNet on `device`, its weights zero until loaded
-    (`load_state_dict`, e.g. from `models.convert.from_jax_variables`)."""
+    (`load_state_dict`, e.g. from `models.convert.from_jax_variables`);
+    fused_kernel as in `build_backbone`."""
     dev = resolve_device(device)
     if cfg.head not in ("tmr", "nl_only"):
         raise ValueError(f"head {cfg.head!r} is not ported (tmr, nl_only)")
     with torch.device("meta"):
-        model = TMRNet(build_backbone(cfg), cfg.num_classes, cfg.hidden_dim,
+        model = TMRNet(build_backbone(cfg, fused_kernel), cfg.num_classes,
+                       cfg.hidden_dim,
                        use_time_conv=(cfg.head == "tmr"),
                        compute_dtype=torch_dtype(cfg.compute_dtype))
     model = model.to_empty(device=dev)
