@@ -12,8 +12,12 @@ Phases, in order; any failure exits nonzero:
    chain for the same function: the bf16 kernels (nl_attention, time_conv,
    fused_bottleneck, fused_bottleneck_tiled) against the plain version in
    f32 (TF32 off) on the same inputs, max |kernel - plain| / max |plain|
-   <= 2e-2; the int8 kernels (int8_matmul, int8_conv3x3) at the int8 gate's
-   shapes (B = 128 frames) and a square 8192^3 product, bit for bit;
+   <= 2e-2; the two bottleneck kernels per ResNet-50 stage at N = 320
+   frames, with the achieved TFLOP/s and the kernel / cuDNN-chain ratio
+   beside the bound (their JSON records carry these per-stage numbers
+   under "stages"); the int8 kernels (int8_matmul, int8_conv3x3) at the
+   int8 gate's shapes (B = 128 frames) and a square 8192^3 product, bit for
+   bit;
 4. the block slice: full-width TMRNet (ResNet-50, BN folded, hidden 512,
    window 30, 7 classes, bf16) with seeded random weights through the
    weight bridge, a 4096x512 bf16 bank on the card, and ClipInference
@@ -176,6 +180,7 @@ def check_kernels(torch, seed):
     keys = ("ms", "plain_ms", "library_ms", "flops", "bytes")
     tot = {k: dict.fromkeys(keys, 0.0) for k in ("block", "tiled")}
     max_err = dict(block=0.0, tiled=0.0)
+    stages = dict(block=[], tiled=[])
     for h, cc, p, count in STAGES:
         xs = torch.relu(bf((n, h, h, cc)))
         w1 = bf((cc, p), (2.0 / cc) ** 0.5)
@@ -210,12 +215,17 @@ def check_kernels(torch, seed):
         library = time_ms(torch, chain, 5, 1)
         flops = 2.0 * n * h * h * (cc * p + 9 * p * p + p * cc)
         nbytes = 2.0 * (2 * n * h * h * cc + 2 * cc * p + 9 * p * p) + 4 * (2 * p + cc)
+        b_ms = bound(flops, nbytes, PEAK_BF16)[0]
         for path, kernel in kernels.items():
             ms = time_ms(torch, lambda: kernel(*args), 5, 1)
-            print(f"    {path} stage {h}x{h}: kernel {ms:.4f} ms, plain "
-                  f"{plain:.4f} ms, cuDNN chain {library:.4f} ms, bound "
-                  f"{bound(flops, nbytes, PEAK_BF16)[0]:.4f} ms, x{count} "
-                  f"per forward")
+            tflops = flops / ms / 1e9
+            print(f"    {path} stage {h}x{h}: kernel {ms:.4f} ms "
+                  f"({tflops:.1f} TFLOP/s), plain {plain:.4f} ms, cuDNN chain "
+                  f"{library:.4f} ms (kernel / cuDNN {ms / library:.3f}), "
+                  f"bound {b_ms:.4f} ms, x{count} per forward")
+            stages[path].append(dict(
+                stage=f"{h}x{h}x{cc} P={p}", per_forward=count, ms=ms,
+                tflops=tflops, library_ms=library, bound_ms=b_ms))
             for key, val in (("ms", ms), ("plain_ms", plain),
                              ("library_ms", library), ("flops", flops),
                              ("bytes", nbytes)):
@@ -232,7 +242,8 @@ def check_kernels(torch, seed):
         records.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             max_abs_err=max_err[path], ms=t["ms"], plain_ms=t["plain_ms"],
-            bound_ms=b_ms, bound_by=b_by, library_ms=t["library_ms"]))
+            bound_ms=b_ms, bound_by=b_by, library_ms=t["library_ms"],
+            stages=stages[path]))
     torch.cuda.empty_cache()
     return records, all_ok
 
@@ -543,8 +554,9 @@ def main():
         ok &= rec["launches"] > 0
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "launches_by_path")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}))
+            "launches_by_path", "stages")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
+                                  for r in records]}))
     print(card)
     if not ok:
         print("chip_smoke: a slice or the gate failed", file=sys.stderr)

@@ -81,10 +81,11 @@ def test_time_conv_kernel(gen, b, w, c):
            time_conv_plain(x.float(), *(t.float() for t in ws)))
 
 
-def _fb_args(gen, n, h, w, c, p):
+def _fb_args(gen, n, h, w, c, p, b1_shift=0.0):
     return (torch.relu(_randn(gen, (n, h, w, c))),
             _randn(gen, (c, p), (2.0 / c) ** 0.5),
-            _randn(gen, (p,), 0.05, torch.float32),
+            _randn(gen, (p,), 0.05, torch.float32).abs() * 20 + b1_shift
+            if b1_shift else _randn(gen, (p,), 0.05, torch.float32),
             _randn(gen, (3, 3, p, p), (2.0 / (9 * p)) ** 0.5),
             _randn(gen, (p,), 0.05, torch.float32),
             _randn(gen, (p, c), 0.25 * (2.0 / p) ** 0.5),
@@ -98,6 +99,48 @@ def test_fused_bottleneck_kernel(gen, n, h, w, c, p):
     args = _fb_args(gen, n, h, w, c, p)
     _close(fused_bottleneck_cuda(*args),
            fused_bottleneck_plain(*(t.float() for t in args)))
+
+
+# Cases the kernel's plan can get wrong (plan_bottleneck decides at each):
+# one image, at stage 3 (2 blocks) and stage 4 (a partial second tile);
+# a partial last row tile at stage 3's width, with y2 in its own region
+# and over y1; a W whose output rows cross the warps' 64-row tiles (30
+# columns; 13 columns, a 65-row tile); stage 1 at its main-path plan.
+@pytest.mark.parametrize("n,h,w,c,p", [
+    (1, 14, 14, 1024, 256), (1, 7, 7, 2048, 512), (4, 17, 14, 1024, 256),
+    (64, 17, 14, 1024, 256), (2, 5, 30, 512, 128), (3, 10, 13, 1024, 256),
+    (40, 56, 56, 256, 64)])
+def test_fused_bottleneck_kernel_plans(gen, n, h, w, c, p):
+    from tmrnet_torch.experimental.fused_bottleneck import plan_bottleneck
+
+    plan = plan_bottleneck(n, h, w, c, p)
+    if (n, h) in ((1, 7), (4, 17), (64, 17)):
+        assert h % plan.th, plan          # the last row tile is partial
+    args = _fb_args(gen, n, h, w, c, p)
+    _close(fused_bottleneck_cuda(*args),
+           fused_bottleneck_plain(*(t.float() for t in args)))
+
+
+# b1 large and positive: relu(b1) != 0 on the halo would show at every
+# image border.
+@pytest.mark.parametrize("n,h,w,c,p", [(2, 7, 7, 2048, 512), (1, 5, 9, 256, 64),
+                                       (4, 17, 14, 1024, 256)])
+def test_fused_bottleneck_kernel_zero_halo(gen, n, h, w, c, p):
+    args = _fb_args(gen, n, h, w, c, p, b1_shift=2.0)
+    _close(fused_bottleneck_cuda(*args),
+           fused_bottleneck_plain(*(t.float() for t in args)))
+
+
+# The same inputs twice give the same bits: a race on the cp.async ring or
+# on y2 over y1 would not.
+@pytest.mark.parametrize("n,h,w,c,p", [(64, 7, 7, 2048, 512),
+                                       (32, 14, 14, 1024, 256),
+                                       (16, 56, 56, 256, 64)])
+def test_fused_bottleneck_kernel_repeats_bit_for_bit(gen, n, h, w, c, p):
+    args = _fb_args(gen, n, h, w, c, p)
+    first = fused_bottleneck_cuda(*args)
+    for _ in range(3):
+        assert torch.equal(fused_bottleneck_cuda(*args), first)
 
 
 def test_wrappers_check_their_inputs(gen):

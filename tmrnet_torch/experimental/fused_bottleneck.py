@@ -7,12 +7,16 @@ header says what bounds it and how it is built.
 
 x (N, H, W, C); w1 (C, P), w2 (3, 3, P, P) HWIO, w3 (P, C); biases are the
 BN-folded shifts. `fused_bottleneck` takes the kernel for CUDA tensors and
-the plain version for CPU tensors; anything else raises.
+the plain version for CPU tensors; anything else raises. `plan_bottleneck`
+decides how the kernel cuts a call into blocks; `tile_rows` does that for
+the tiled kernel (`fused_bottleneck_tiled`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import math
 
 import torch
@@ -42,9 +46,9 @@ def fused_bottleneck_plain(x, w1, b1, w2, b2, w3, b3):
 
 
 def tile_rows(smem, h: int, row_w: int, c: int, p: int, what: str) -> int:
-    """Rows of the image one block owns. smem(th): a block's shared memory
-    at th rows; row_w: GEMM rows per image row (W, or W+2 for the tiled
-    kernel's wide rows). Model: tensor-core work counted in 64-row tiles
+    """Rows of the image one block of fused_bottleneck_tiled owns.
+    smem(th): a block's shared memory at th rows; row_w: GEMM rows per
+    image row (W + 2: the tiled kernel's wide rows). Model: tensor-core work counted in 64-row tiles
     (halo rows of y1 recomputed per block), halved when two blocks fit on
     an SM; the tile must fit the block's shared memory."""
     best = None
@@ -61,6 +65,107 @@ def tile_rows(smem, h: int, row_w: int, c: int, p: int, what: str) -> int:
             best = (cost, th)
     if best is None:
         raise ValueError(f"{what}: W={row_w}, P={p} does not fit shared "
+                         f"memory at one row per block")
+    return best[1]
+
+
+# fused_bottleneck.cu's block: 8 warps (two warpgroups) whose register
+# tiles make one bm x nb block tile of 8 x 64 x 64; K chunks of 32 through
+# the cp.async ring; one block per SM.
+_WARPS, _KC = 8, 32
+_SMS = 132          # an H100 SXM's SMs: blocks per wave
+
+
+@dataclasses.dataclass(frozen=True)
+class BottleneckPlan:
+    """How csrc/fused_bottleneck.cu cuts one call: `th` image rows per
+    block; `wn`: the block tile is `bm` = 64 * 8 / wn rows by `nb` = 64 *
+    wn columns (the kernel's template argument); `nstage` ring stages;
+    `overlay`: y2 over y1; `smem` bytes of shared memory a block takes."""
+    th: int
+    wn: int
+    nstage: int
+    overlay: bool
+    smem: int
+
+    @property
+    def bm(self) -> int:
+        return 64 * (_WARPS // self.wn)
+
+    @property
+    def nb(self) -> int:
+        return 64 * self.wn
+
+
+def layout_bytes(w: int, p: int, th: int, wn: int, nstage: int,
+                 overlay: bool) -> int:
+    """A block's shared memory, as `Layout` in csrc/fused_bottleneck.cu
+    computes it: the ring (each stage an A part of bm x 40 and a B part of
+    32 x nb bf16), y1 on the wide (th+2) x (w+2) grid of rows p + 8
+    wide, y2 (th * w rows, or over y1), phase 1's int row table, and 1 KB
+    of slack to align the ring."""
+    bm, nb, ldy = 64 * (_WARPS // wn), 64 * wn, p + 8
+    stage = bm * (_KC + 8) * 2 + _KC * nb * 2
+    y1 = (th + 2) * (w + 2) * ldy * 2
+    y2 = 0 if overlay else th * w * ldy * 2
+    return nstage * stage + y1 + y2 + (th + 2) * w * 4 + 1024   # + align
+
+
+def block_rows(h: int, th: int):
+    """Per block of an image: (h0, rows, lo, hi) -- output rows h0 ..
+    h0+rows-1 and y1's image rows lo .. hi-1 (the tile and its halo, cut
+    at the image), as the kernel computes them from blockIdx.x."""
+    out = []
+    for h0 in range(0, h, th):
+        rows = min(th, h - h0)
+        out.append((h0, rows, max(h0 - 1, 0), min(h0 + rows + 1, h)))
+    return out
+
+
+def block_chunks(h: int, w: int, c: int, p: int, th: int, wn: int):
+    """K chunks of 32 each block of an image streams (phase 1 row tiles x
+    passes x C/32, phase 2 x 9P/32, phase 3 x C/nb passes x P/32)."""
+    bm, nb = 64 * (_WARPS // wn), 64 * wn
+    out = []
+    for _, rows, lo, hi in block_rows(h, th):
+        t1 = -(-(hi - lo) * w // bm)
+        t2 = -(-rows * w // bm)
+        out.append(t1 * (p // nb) * (c // _KC) + t2 * (p // nb) * (9 * p // _KC)
+                   + t2 * (c // nb) * (p // _KC))
+    return out
+
+
+@functools.lru_cache(maxsize=256)   # ~0.1-0.4 ms of Python a call, 12 a forward
+def plan_bottleneck(n: int, h: int, w: int, c: int, p: int) -> BottleneckPlan:
+    """The plan of one call. wn: the most warps across N (8, 4, 2, 1) whose
+    64-wide column tiles divide P and C. th: the least modelled time --
+    waves of one block per SM times the chunks of the longest block; ties
+    go to more ring stages, then fewer chunks in all. Each th takes the
+    deepest ring (4, else 3) that fits 227 KB, with y2 over y1 only where
+    it must and may (phase 2 one tile, P = nb)."""
+    wn = next(k for k in (8, 4, 2, 1) if p % (64 * k) == 0 and c % (64 * k) == 0)
+    best = None
+    for th in range(1, h + 1):
+        choice = None
+        for nstage in (4, 3):
+            for overlay in (False, True):
+                if overlay and (th * w > 64 * (_WARPS // wn) or p != 64 * wn):
+                    continue
+                nbytes = layout_bytes(w, p, th, wn, nstage, overlay)
+                if nbytes <= _SMEM_BLOCK_MAX:
+                    choice = (nstage, overlay, nbytes)
+                    break
+            if choice:
+                break
+        if choice is None:
+            continue
+        chunks = block_chunks(h, w, c, p, th, wn)
+        waves = -(-n * len(chunks) // _SMS)
+        key = (waves * max(chunks), -choice[0], n * sum(chunks))
+        if best is None or key < best[0]:
+            best = (key, BottleneckPlan(th, wn, *choice))
+    if best is None:
+        raise ValueError(f"fused_bottleneck: W={w}, P={p} does not fit shared "
                          f"memory at one row per block")
     return best[1]
 
@@ -104,22 +209,27 @@ def check_operands(what, x, w1, b1, w2, b2, w3, b3):
 
 
 def fused_bottleneck_cuda(x, w1, b1, w2, b2, w3, b3):
-    """Launch csrc/fused_bottleneck.cu. x (N, H, W, C) bf16 NHWC-contiguous;
-    w1/w2/w3 bf16 contiguous; biases f32; P and C multiples of 64."""
+    """Launch csrc/fused_bottleneck.cu under `plan_bottleneck`. x (N, H, W,
+    C) bf16 NHWC-contiguous; w1/w2/w3 bf16 contiguous; biases f32; P and C
+    multiples of 64."""
     n, h, w, c, p = check_operands("fused_bottleneck_cuda", x, w1, b1, w2, b2,
                                    w3, b3)
+    plan = plan_bottleneck(n, h, w, c, p)
     lib = build.library("fused_bottleneck")
-    lib.tmr_fused_bottleneck_smem.argtypes = [ctypes.c_int] * 3
+    lib.tmr_fused_bottleneck_smem.argtypes = [ctypes.c_int] * 6
     lib.tmr_fused_bottleneck_smem.restype = ctypes.c_int
     fn = lib.tmr_fused_bottleneck
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    th = tile_rows(lambda t: lib.tmr_fused_bottleneck_smem(w, p, t), h, w, c, p,
-                   "fused_bottleneck")
+    args = (plan.th, plan.wn, plan.nstage, int(plan.overlay))
+    smem = lib.tmr_fused_bottleneck_smem(w, p, *args)
+    if smem != plan.smem:
+        raise RuntimeError(f"fused_bottleneck: the kernel lays out {smem} "
+                           f"bytes of shared memory, the plan {plan.smem}")
     out = torch.empty_like(x)
     q = build.ptr
     err = fn(q(x), q(w1), q(b1), q(w2), q(b2), q(w3), q(b3), q(out),
-             n, h, w, c, p, th, build.stream_ptr(x.device))
+             n, h, w, c, p, *args, build.stream_ptr(x.device))
     build.check(err, "fused_bottleneck")
     LAUNCHES["fused_bottleneck"] += 1
     return out
