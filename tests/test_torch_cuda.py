@@ -12,7 +12,9 @@ Tolerance: max |kernel - plain| <= 2e-2 * max |plain|. The kernels take
 bf16 inputs and round their output (and the fused bottleneck its y1 and y2)
 to bf16, 2^-8 relative each; the plain versions run in f32 (TF32 off).
 The int8 kernels are held to their plain versions bit for bit: both sum the
-integer products exactly and take the same f32 epilogue steps.
+integer products exactly and take the same f32 epilogue steps. The two
+bf16 bottleneck kernels are held to equal bits only against themselves, on
+a repeated call.
 """
 
 import numpy as np
@@ -227,6 +229,62 @@ def test_fused_bottleneck_tiled_kernel(gen, n, h, w, c, p):
     args = _fb_args(gen, n, h, w, c, p)
     _close(fused_bottleneck_tiled_cuda(*args),
            fused_bottleneck_plain(*(t.float() for t in args)))
+
+
+# Cases the tiled kernel's plan can get wrong (plan_bottleneck_tiled
+# decides at each): more (image, row tile) blocks than SMs; W not dividing
+# the block tile (13 into 128, 29 into 256); a wide row (W = 100: two
+# image rows a phase-1 box); P = 1024 (two column passes in phases 1-2, y2
+# in its own region); W = 256, a TMA box's widest.
+@pytest.mark.parametrize("n,h,w,c,p", [
+    (300, 14, 14, 1024, 256), (3, 10, 13, 1024, 256), (2, 5, 29, 512, 128),
+    (1, 6, 100, 512, 128), (1, 5, 7, 1024, 1024), (1, 3, 256, 128, 64)])
+def test_fused_bottleneck_tiled_kernel_plans(gen, n, h, w, c, p):
+    from tmrnet_torch.experimental.fused_bottleneck_tiled import (
+        plan_bottleneck_tiled)
+
+    plan = plan_bottleneck_tiled(n, h, w, c, p)
+    if n == 300:
+        assert n * -(-h // plan.th) > 132
+    args = _fb_args(gen, n, h, w, c, p)
+    _close(fused_bottleneck_tiled_cuda(*args),
+           fused_bottleneck_plain(*(t.float() for t in args)))
+
+
+# b1 large and positive: relu(b1) != 0 on the zero-filled halo and pad
+# columns would show at every image border.
+@pytest.mark.parametrize("n,h,w,c,p", [(2, 7, 7, 2048, 512), (1, 5, 9, 256, 64),
+                                       (4, 17, 14, 1024, 256),
+                                       (2, 56, 56, 256, 64)])
+def test_fused_bottleneck_tiled_kernel_zero_halo(gen, n, h, w, c, p):
+    args = _fb_args(gen, n, h, w, c, p, b1_shift=2.0)
+    _close(fused_bottleneck_tiled_cuda(*args),
+           fused_bottleneck_plain(*(t.float() for t in args)))
+
+
+# The same inputs twice give the same bits: a slot refilled before every
+# warp released it (a wrong mbarrier parity), or a race on y2 over y1 or on
+# the residual tile, would not.
+@pytest.mark.parametrize("n,h,w,c,p", [(32, 14, 14, 1024, 256),
+                                       (16, 56, 56, 256, 64),
+                                       (32, 28, 28, 512, 128)])
+def test_fused_bottleneck_tiled_kernel_repeats_bit_for_bit(gen, n, h, w, c, p):
+    args = _fb_args(gen, n, h, w, c, p)
+    first = fused_bottleneck_tiled_cuda(*args)
+    for _ in range(3):
+        assert torch.equal(fused_bottleneck_tiled_cuda(*args), first)
+
+
+def test_fused_bottleneck_tiled_refuses_what_tma_cannot_copy(gen):
+    # W > 256: x's boxes would be wider than a TMA box may be
+    with pytest.raises(ValueError, match="256"):
+        fused_bottleneck_tiled_cuda(*_fb_args(gen, 1, 2, 257, 64, 64))
+    # x 8 bytes off a 16-byte boundary
+    args = list(_fb_args(gen, 1, 4, 4, 256, 64))
+    flat = torch.empty(args[0].numel() + 4, dtype=torch.bfloat16, device="cuda")
+    args[0] = flat[4:].view(args[0].shape).copy_(args[0])
+    with pytest.raises(ValueError, match="16-byte"):
+        fused_bottleneck_tiled_cuda(*args)
 
 
 def _i8(gen, shape):

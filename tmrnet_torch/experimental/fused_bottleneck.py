@@ -8,8 +8,7 @@ header says what bounds it and how it is built.
 x (N, H, W, C); w1 (C, P), w2 (3, 3, P, P) HWIO, w3 (P, C); biases are the
 BN-folded shifts. `fused_bottleneck` takes the kernel for CUDA tensors and
 the plain version for CPU tensors; anything else raises. `plan_bottleneck`
-decides how the kernel cuts a call into blocks; `tile_rows` does that for
-the tiled kernel (`fused_bottleneck_tiled`).
+decides how the kernel cuts a call into blocks.
 """
 
 from __future__ import annotations
@@ -17,7 +16,6 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-import math
 
 import torch
 import torch.nn.functional as F
@@ -25,9 +23,8 @@ import torch.nn.functional as F
 from tmrnet_torch.kernels import build
 from tmrnet_torch.kernels.build import LAUNCHES
 
-# Shared memory a Hopper block may opt into, and an SM's total.
+# Shared memory a Hopper block may opt into.
 _SMEM_BLOCK_MAX = 232448
-_SMEM_SM = 233472
 
 
 def fused_bottleneck_plain(x, w1, b1, w2, b2, w3, b3):
@@ -43,30 +40,6 @@ def fused_bottleneck_plain(x, w1, b1, w2, b2, w3, b3):
     y = torch.relu(y).permute(0, 2, 3, 1).reshape(-1, p)
     y = y @ w3.float() + b3.float()
     return torch.relu(y.reshape(n, h, w, c) + xf).to(x.dtype)
-
-
-def tile_rows(smem, h: int, row_w: int, c: int, p: int, what: str) -> int:
-    """Rows of the image one block of fused_bottleneck_tiled owns.
-    smem(th): a block's shared memory at th rows; row_w: GEMM rows per
-    image row (W + 2: the tiled kernel's wide rows). Model: tensor-core work counted in 64-row tiles
-    (halo rows of y1 recomputed per block), halved when two blocks fit on
-    an SM; the tile must fit the block's shared memory."""
-    best = None
-    for th in range(1, h + 1):
-        nbytes = smem(th)
-        if nbytes > _SMEM_BLOCK_MAX:
-            break
-        rows1 = math.ceil((th + 2) * row_w / 64) * 64
-        rows2 = math.ceil(th * row_w / 64) * 64
-        work = math.ceil(h / th) * (rows1 * c * p + rows2 * (9 * p * p + p * c))
-        per_sm = min(_SMEM_SM // (nbytes + 1024), 2)
-        cost = work / per_sm
-        if best is None or cost < best[0]:
-            best = (cost, th)
-    if best is None:
-        raise ValueError(f"{what}: W={row_w}, P={p} does not fit shared "
-                         f"memory at one row per block")
-    return best[1]
 
 
 # fused_bottleneck.cu's block: 8 warps (two warpgroups) whose register

@@ -1,14 +1,17 @@
-"""Where csrc/fused_bottleneck.cu spends its time on the card, per stage.
+"""Where a fused-bottleneck kernel spends its time on the card, per stage.
 
     python -m tmrnet_torch.experimental.fused_bottleneck_probe [--batch 320]
-        [--iters 10] [--seed 0]
+        [--iters 10] [--seed 0] [--kernel block|tiled]
 
-Builds the kernel five ways -- the library build and the probes its header
-describes (without the weight copies, without the wgmma, without the
-epilogues, and with per-block %globaltimer stamps) -- and runs each at
-ResNet-50's four identity-block stages on the same seeded inputs under the
-wrapper's plan. Per stage it prints the ms of each build (CUDA events over
---iters launches) and, from the stamps, the mean microseconds a block
+Builds the kernel (`--kernel block`: csrc/fused_bottleneck.cu at
+ResNet-50's four identity-block stages; `--kernel tiled`:
+csrc/fused_bottleneck_tiled.cu at the three stages the tiled path gives it)
+five ways -- the library build and the probes its header describes
+(without the weight copies, without the wgmma, without the epilogues, and
+with per-block %globaltimer stamps) -- and runs each on the same seeded
+inputs under the wrapper's plan. Per stage it prints the ms of each build
+(CUDA events over --iters launches) and, from the stamps, the mean
+microseconds a block
 spends in its prologue, until its first chunk, in each of the three
 phases, and in all; then one JSON line with all of it, and the card's name
 and power limit. A probe's output is wrong by design (it skips work); the
@@ -19,6 +22,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import json
 import os
 import subprocess
@@ -26,6 +30,7 @@ import subprocess
 import torch
 
 from tmrnet_torch.experimental.fused_bottleneck import plan_bottleneck
+from tmrnet_torch.experimental.fused_bottleneck_tiled import plan_bottleneck_tiled
 from tmrnet_torch.kernels import build
 
 # ResNet-50's stride-1 identity blocks per stage at 224x224: (H, C, P).
@@ -35,15 +40,25 @@ VARIANTS = {"full": (), "no_b": ("-DTMR_PROBE_NO_B",),
             "no_epilogue": ("-DTMR_PROBE_NO_EPILOGUE",),
             "trace": ("-DTMR_PROBE_TRACE",)}
 SPANS = ("prologue", "to_first_chunk", "phase1", "phase2", "phase3")
+# Per kernel: its source (C entry tmr_<source>), its plan, the plan's fields
+# the C entry takes after (N, H, W, C, P), the stages it runs at.
+KERNELS = {
+    "block": ("fused_bottleneck", plan_bottleneck,
+              ("th", "wn", "nstage", "overlay"), STAGES),
+    "tiled": ("fused_bottleneck_tiled", plan_bottleneck_tiled,
+              ("th", "wn", "r", "nstage", "nres", "overlay"), STAGES[:3]),
+}
 
 
-def build_variants():
-    """One nvcc per variant, all at once; returns {name: CDLL}."""
+def build_variants(kernel):
+    """One nvcc per variant of `kernel`'s source, all at once; returns
+    {name: CDLL}."""
+    source, _, fields, _ = KERNELS[kernel]
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    src = build.CSRC / "fused_bottleneck.cu"
+    src = build.CSRC / f"{source}.cu"
     procs = {}
     for name, flags in VARIANTS.items():
-        out = build.BUILD_DIR / f"probe_fused_bottleneck_{name}_{os.getpid()}.so"
+        out = build.BUILD_DIR / f"probe_{source}_{name}_{os.getpid()}.so"
         cmd = [build._nvcc(), *build.NVCC_FLAGS, *flags, "-I", str(build.CSRC),
                "-o", str(out), str(src)]
         procs[name] = (out, subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -55,9 +70,10 @@ def build_variants():
             raise RuntimeError(f"nvcc failed for probe {name}:\n{log}")
         lib = ctypes.CDLL(str(out))
         out.unlink()  # loaded; a probe build is not kept
-        lib.tmr_fused_bottleneck.argtypes = ([ctypes.c_void_p] * 8 +
-                                             [ctypes.c_int] * 9 + [ctypes.c_void_p])
-        lib.tmr_fused_bottleneck.restype = ctypes.c_int
+        fn = getattr(lib, f"tmr_{source}")
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * (5 + len(fields))
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
         libs[name] = lib
     return libs
 
@@ -75,7 +91,7 @@ def time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def probe_stage(libs, n, h, c, p, iters, gen):
+def probe_stage(kernel, libs, n, h, c, p, iters, gen):
     dev = torch.device("cuda")
     r = lambda shape, s=1.0: torch.randn(shape, generator=gen, device=dev) * s
     x = torch.relu(r((n, h, h, c))).to(torch.bfloat16)
@@ -84,18 +100,18 @@ def probe_stage(libs, n, h, c, p, iters, gen):
           r((p,), 0.05), r((p, c), 0.25 * (2.0 / p) ** 0.5).to(torch.bfloat16),
           r((c,), 0.05))
     out = torch.empty_like(x)
-    plan = plan_bottleneck(n, h, h, c, p)
+    source, plan_fn, fields, _ = KERNELS[kernel]
+    plan = plan_fn(n, h, h, c, p)
+    plan_args = [int(getattr(plan, f)) for f in fields]
     ptrs = [build.ptr(t) for t in (x, *ws, out)]
     stream = build.stream_ptr(dev)
 
     def call(lib):
-        build.check(lib.tmr_fused_bottleneck(
-            *ptrs, n, h, h, c, p, plan.th, plan.wn, plan.nstage,
-            int(plan.overlay), stream), "fused_bottleneck probe")
+        build.check(getattr(lib, f"tmr_{source}")(
+            *ptrs, n, h, h, c, p, *plan_args, stream), f"{source} probe")
 
-    row = {"stage": f"{h}x{h}x{c} P={p}", "batch": n, "plan": {
-        "th": plan.th, "wn": plan.wn, "nstage": plan.nstage,
-        "overlay": plan.overlay, "smem": plan.smem}}
+    row = {"kernel": source, "stage": f"{h}x{h}x{c} P={p}", "batch": n,
+           "plan": dataclasses.asdict(plan)}
     for name, lib in libs.items():
         if name != "trace":
             row[f"{name}_ms"] = time_ms(lambda: call(lib), iters)
@@ -120,21 +136,23 @@ def main():
     parser.add_argument("--batch", type=int, default=320)
     parser.add_argument("--iters", type=int, default=10)
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--kernel", choices=sorted(KERNELS), default="block")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("fused_bottleneck_probe: no CUDA device")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    libs = build_variants()
+    libs = build_variants(args.kernel)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     rows = []
-    for h, c, p in STAGES:
-        row = probe_stage(libs, args.batch, h, c, p, args.iters, gen)
+    for h, c, p in KERNELS[args.kernel][3]:
+        row = probe_stage(args.kernel, libs, args.batch, h, c, p, args.iters, gen)
         rows.append(row)
         us = row["block_us"]
-        print(f"stage {row['stage']}: full {row['full_ms']:.4f} ms, no weight "
-              f"copies {row['no_b_ms']:.4f}, no wgmma {row['no_mma_ms']:.4f}, "
+        print(f"{row['kernel']} stage {row['stage']}: full "
+              f"{row['full_ms']:.4f} ms, no weight copies "
+              f"{row['no_b_ms']:.4f}, no wgmma {row['no_mma_ms']:.4f}, "
               f"no epilogues {row['no_epilogue_ms']:.4f}; per block (us, "
               f"{row['blocks']} blocks): " +
               ", ".join(f"{k} {v:.2f}" for k, v in us.items()) +
