@@ -9,9 +9,13 @@ Phases, in order; any failure exits nonzero:
    tmrnet_torch/csrc, one nvcc per source in parallel;
 3. each kernel against its plain PyTorch version at its path's shapes, with
    times of the kernel, the plain version and one PyTorch library call or
-   chain for the same function: the bf16 kernels (nl_attention, time_conv,
-   fused_bottleneck, fused_bottleneck_tiled) against the plain version in
-   f32 (TF32 off) on the same inputs, max |kernel - plain| / max |plain|
+   chain for the same function (for nl_attention and time_conv, kernels of
+   a few to tens of microseconds, also the card's own time, `device_ms`:
+   launches captured in a CUDA graph and replayed, beside `ms`, back-to-back
+   eager calls, which at that size time the host's launch path): the bf16
+   kernels (nl_attention, time_conv, fused_bottleneck,
+   fused_bottleneck_tiled) against the plain version in f32 (TF32 off) on
+   the same inputs, max |kernel - plain| / max |plain|
    <= 2e-2; the two bottleneck kernels per ResNet-50 stage at N = 320
    frames, with the achieved TFLOP/s and the kernel / cuDNN-chain ratio
    beside the bound (their JSON records carry these per-stage numbers
@@ -102,6 +106,12 @@ def compare(torch, name, got, want):
     return err, ok
 
 
+def print_head(rec):
+    print(f"    device {rec['device_ms']:.5f} ms, eager {rec['ms']:.5f} ms, "
+          f"plain {rec['plain_ms']:.5f} ms, library {rec['library_ms']:.5f} "
+          f"ms, bound {rec['bound_ms']:.5f} ms ({rec['bound_by']})")
+
+
 def check_kernels(torch, seed):
     """Phase 3: each kernel against its plain version; returns records."""
     import torch.nn.functional as F
@@ -110,6 +120,7 @@ def check_kernels(torch, seed):
         fused_bottleneck_cuda, fused_bottleneck_plain)
     from tmrnet_torch.experimental.fused_bottleneck_tiled import (
         fused_bottleneck_tiled_cuda)
+    from tmrnet_torch.experimental.head_timing import graph_ms
     from tmrnet_torch.ops.nl_attention import nl_attention_cuda, nl_attention_plain
     from tmrnet_torch.ops.time_conv import time_conv_cuda, time_conv_plain
 
@@ -135,12 +146,14 @@ def check_kernels(torch, seed):
                        2 * (CLIPS * HIDDEN * 2 + 2 * CLIPS * WINDOW * HIDDEN),
                        PEAK_F32)
     records.append(dict(
-        name="nl_attention", route="triton",
-        source="tmrnet_torch/ops/nl_attention.py",
+        name="nl_attention", route="cuda",
+        source="tmrnet_torch/csrc/nl_attention.cu",
         replaces="tmrnet_tpu/ops/nl_attention.py:39", max_abs_err=err,
         ms=time_ms(torch, lambda: nl_attention_cuda(q, k, v), 50),
+        device_ms=graph_ms(torch, lambda: nl_attention_cuda(q, k, v)),
         plain_ms=time_ms(torch, lambda: nl_attention_plain(qf, kf, vf), 50),
         bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(torch, lib, 50)))
+    print_head(records[-1])
 
     # 2. time_conv: x (B, W, C), weights (k, C, C).
     c = HIDDEN
@@ -169,8 +182,10 @@ def check_kernels(torch, seed):
         name="time_conv", route="cuda", source="tmrnet_torch/csrc/time_conv.cu",
         replaces="tmrnet_tpu/ops/time_conv.py:76", max_abs_err=err,
         ms=time_ms(torch, lambda: time_conv_cuda(x, *ws), 20),
+        device_ms=graph_ms(torch, lambda: time_conv_cuda(x, *ws)),
         plain_ms=time_ms(torch, lambda: time_conv_plain(x.float(), *wsf), 20),
         bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(torch, tc_lib, 20)))
+    print_head(records[-1])
 
     # 3 and 4. fused_bottleneck at each stage, and fused_bottleneck_tiled at
     # the stages the tiled path gives it (C < 2048), on the same inputs,
@@ -553,7 +568,7 @@ def main():
         rec["launches"] = sum(rec["launches_by_path"].values())
         ok &= rec["launches"] > 0
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launches_by_path", "stages")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in records]}))

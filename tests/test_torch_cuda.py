@@ -83,6 +83,63 @@ def test_time_conv_kernel(gen, b, w, c):
            time_conv_plain(x.float(), *(t.float() for t in ws)))
 
 
+# Cases the kernel's plan can get wrong: window 40 (the JAX configs'
+# largest); 96 clips (bench.py's batch); C = 1024 (x staged whole, 224 KB
+# of shared memory); C = 2048 (x in four channel chunks through two
+# buffers); C = 192 (K chunks of 64) and 1152 (of 128, x in three chunks);
+# a W that does not divide the 64-row tile, and a sequence longer than one
+# (W = 70).
+@pytest.mark.parametrize("b,w,c", [(32, 40, 512), (96, 30, 512), (4, 30, 1024),
+                                   (2, 17, 2048), (3, 11, 192), (2, 9, 1152),
+                                   (3, 37, 128), (2, 70, 256)])
+def test_time_conv_kernel_plans(gen, b, w, c):
+    x = _randn(gen, (b, w, c))
+    ws = _tc_weights(gen, c)
+    _close(time_conv_cuda(x, *ws),
+           time_conv_plain(x.float(), *(t.float() for t in ws)))
+
+
+# The same inputs twice give the same bits: a race on the ring or on the
+# staged x buffers would not.
+@pytest.mark.parametrize("b,w,c", [(32, 30, 512), (2, 17, 2048), (3, 11, 192)])
+def test_time_conv_kernel_repeats_bit_for_bit(gen, b, w, c):
+    x = _randn(gen, (b, w, c))
+    ws = _tc_weights(gen, c)
+    first = time_conv_cuda(x, *ws)
+    for _ in range(3):
+        assert torch.equal(time_conv_cuda(x, *ws), first)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_nl_attention_kernel_repeats_bit_for_bit(gen, dtype):
+    q, k, v = (_randn(gen, s, dtype=dtype)
+               for s in ((32, 512), (32, 30, 512), (32, 30, 512)))
+    first = nl_attention_cuda(q, k, v)
+    for _ in range(3):
+        assert torch.equal(nl_attention_cuda(q, k, v), first)
+
+
+def test_head_kernels_refuse_what_they_cannot_take(gen):
+    # a row of 60 bf16 is 120 bytes, not a multiple of the copies' 16
+    q, k = _randn(gen, (2, 60)), _randn(gen, (2, 3, 60))
+    with pytest.raises(ValueError, match="16 bytes"):
+        nl_attention_cuda(q, k, k)
+    # k and v of 120 x 512 bf16 (240 KB) exceed a block's shared memory
+    q, k = _randn(gen, (2, 512)), _randn(gen, (2, 120, 512))
+    with pytest.raises(ValueError, match="shared memory"):
+        nl_attention_cuda(q, k, k)
+    # k 8 bytes off a 16-byte boundary
+    k = _randn(gen, (2, 3, 64))
+    flat = torch.empty(k.numel() + 4, dtype=torch.bfloat16, device="cuda")
+    k_off = flat[4:].view(k.shape).copy_(k)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        nl_attention_cuda(_randn(gen, (2, 64)), k_off, k)
+    # B*W*C past 32-bit offsets (refused before any operand is read)
+    x = _randn(gen, (1, 64, 512)).expand(65536, 64, 512)
+    with pytest.raises(ValueError, match="32-bit"):
+        time_conv_cuda(x, *_tc_weights(gen, 512))
+
+
 def _fb_args(gen, n, h, w, c, p, b1_shift=0.0):
     return (torch.relu(_randn(gen, (n, h, w, c))),
             _randn(gen, (c, p), (2.0 / c) ** 0.5),

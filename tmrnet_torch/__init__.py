@@ -2,6 +2,6 @@
 
 The JAX package `tmrnet_tpu` is the reference; this package imports nothing
 of it. Every Pallas kernel on a ported path has a hand-written Hopper kernel
-here (CUDA C++ under `csrc/`, or Triton), with a plain PyTorch version beside
-it that CPU tensors take.
+here (CUDA C++ under `csrc/`), with a plain PyTorch version beside it that
+CPU tensors take.
 """

@@ -1,6 +1,7 @@
 // cp.async copies (global -> shared, 16 bytes a thread, completion tracked
-// in commit groups), used by fused_bottleneck's chunk ring: while chunk k is
-// multiplied, the copies of the next chunks are in flight.
+// in commit groups), used by the chunk rings of fused_bottleneck and
+// time_conv: while chunk k is multiplied, the copies of the next chunks are
+// in flight.
 #pragma once
 
 #include "block_gemm.cuh"

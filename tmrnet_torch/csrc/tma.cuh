@@ -1,5 +1,5 @@
 // Tensor Memory Accelerator (TMA) copies and mbarriers on Hopper, for
-// fused_bottleneck_tiled.
+// fused_bottleneck_tiled (tensor boxes) and nl_attention (1-D bulk copies).
 //
 // Device side: one thread issues a cp.async.bulk.tensor load of a whole box
 // (up to 5-D) from device memory into shared memory; the copy engine
@@ -76,6 +76,18 @@ __device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
 
 __device__ __forceinline__ uint64_t map_addr(const CUtensorMap& m) {
   return reinterpret_cast<uint64_t>(&m);
+}
+
+// A 1-D bulk copy of `bytes` contiguous bytes (a multiple of 16; src and
+// dst 16-byte aligned) from device memory into shared memory, reported to
+// the mbarrier like a tensor box.
+__device__ __forceinline__ void load_1d(unsigned dst, const void* src,
+                                        unsigned bytes, unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 __device__ __forceinline__ void load_3d(unsigned dst, const CUtensorMap& m,

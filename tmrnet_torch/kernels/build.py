@@ -28,8 +28,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tmrnet_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("time_conv", "fused_bottleneck", "fused_bottleneck_tiled",
-           "int8_matmul", "int8_conv3x3")
+SOURCES = ("nl_attention", "time_conv", "fused_bottleneck",
+           "fused_bottleneck_tiled", "int8_matmul", "int8_conv3x3")
 
 LAUNCHES: collections.Counter = collections.Counter()
 

@@ -61,7 +61,10 @@ class NLBlock(nn.Module):
 class TimeConv(nn.Module):
     """Elementwise max of Conv1d k=3/5/7 (SAME), a causal 2-max and the
     identity over the window. Always runs through `ops.time_conv`; the
-    weights are handed over in the flax layout (k, Cin, Cout)."""
+    weights are handed over in the flax layout (k, Cin, Cout), in the
+    compute dtype, as copies made once and made again only when a parameter
+    changed (a `load_state_dict` or another in-place edit, a `.to()`). The
+    copies carry no gradient: the module is for inference."""
 
     def __init__(self, feature_dim: int = 512,
                  compute_dtype: torch.dtype = torch.float32):
@@ -71,12 +74,32 @@ class TimeConv(nn.Module):
         self.conv_k3 = nn.Conv1d(f, f, 3, padding=1)
         self.conv_k5 = nn.Conv1d(f, f, 5, padding=2)
         self.conv_k7 = nn.Conv1d(f, f, 7, padding=3)
+        self._prepared = None   # (parameters, their versions, kernel args)
+
+    def kernel_args(self):
+        """(w3, b3, w5, b5, w7, b7) as `ops.time_conv` takes them. A
+        parameter counts as changed when its storage or its version counter
+        (bumped by every in-place write) moved; the cache holds the
+        parameters it was made from, so their storage is not reused while
+        it is compared against."""
+        params = [p for conv in (self.conv_k3, self.conv_k5, self.conv_k7)
+                  for p in (conv.weight, conv.bias)]
+        if self._prepared is not None:
+            held, versions, args = self._prepared
+            if all(p.data_ptr() == h.data_ptr() and p._version == v
+                   for p, h, v in zip(params, held, versions)):
+                return args
+        with torch.no_grad():
+            args = []
+            for weight, bias in zip(params[::2], params[1::2]):
+                args.append(weight.permute(2, 1, 0).to(self.compute_dtype)
+                            .contiguous())
+                args.append(bias.float().contiguous())
+        self._prepared = ([p.detach() for p in params],
+                          [p._version for p in params], tuple(args))
+        return self._prepared[2]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, W, F) -> (B, W, F)."""
         cdt = self.compute_dtype
-        args = []
-        for conv in (self.conv_k3, self.conv_k5, self.conv_k7):
-            args.append(conv.weight.permute(2, 1, 0).to(cdt).contiguous())
-            args.append(conv.bias.float().contiguous())
-        return time_conv(x.to(cdt).contiguous(), *args).to(x.dtype)
+        return time_conv(x.to(cdt).contiguous(), *self.kernel_args()).to(x.dtype)

@@ -1,6 +1,6 @@
 """Hand-written Hopper kernels outside the backbone, each with its plain
-PyTorch version: `nl_attention` (Triton), `time_conv` and `int8_matmul`
-(CUDA C++), and the int8 quantizers."""
+PyTorch version: `nl_attention`, `time_conv` and `int8_matmul` (CUDA C++),
+and the int8 quantizers."""
 
 from tmrnet_torch.ops.nl_attention import nl_attention  # noqa: F401
 from tmrnet_torch.ops.quant import (  # noqa: F401

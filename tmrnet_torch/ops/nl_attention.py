@@ -1,16 +1,10 @@
 """Non-local memory read: out[b] = softmax(q[b] . k[b]^T / sqrt(F)) . v[b].
 
 Port of the Pallas TPU kernel `tmrnet_tpu/ops/nl_attention.py::nl_attention`
-(:39-64, pallas_call at :50) as a Triton kernel for Hopper.
-
-Bound on the H100: bytes. One query per row means 2*W*F multiply-adds for
-(2W+1)*F loaded values: at B=32, W=30, F=512 it is ~2 MB of bf16 for
-~2 MFLOP, a few FLOP per byte, far below the card's ridge. There is no
-tensor-core work in it. Design: one program per row streams k and v once
-in (W padded to a power of two) x 128 tiles, keeps the W logits in
-registers, masks the padded window slots to -inf, and writes the (F,) row;
-the (B, W) attention matrix never reaches device memory. Math in f32,
-output in q's dtype.
+(:39-64, pallas_call at :50); the CUDA kernel is `csrc/nl_attention.cu`,
+whose header says what bounds it and how it is built: one block per row,
+k and v brought into shared memory by two bulk copies, math in f32, output
+in q's dtype.
 
 `nl_attention` takes the kernel for CUDA tensors and the plain version for
 CPU tensors; anything else raises.
@@ -18,12 +12,16 @@ CPU tensors; anything else raises.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
+from tmrnet_torch.kernels import build
 from tmrnet_torch.kernels.build import LAUNCHES
 
-_kernel_cache = {}
-_BLOCK_F = 128
+# Shared memory a Hopper block may opt into.
+_SMEM_BLOCK_MAX = 232448
 
 
 def nl_attention_plain(q: torch.Tensor, k: torch.Tensor,
@@ -37,52 +35,47 @@ def nl_attention_plain(q: torch.Tensor, k: torch.Tensor,
     return torch.einsum("bw,bwf->bf", attn, v.float()).to(q.dtype)
 
 
-def _triton_kernel():
-    if "k" in _kernel_cache:
-        return _kernel_cache["k"]
-    import triton
-    import triton.language as tl
+def nl_attention_smem_bytes(w: int, f: int, itemsize: int) -> int:
+    """A block's shared memory, as `Layout` in csrc/nl_attention.cu
+    computes it: k and v (w * f elements each), q as f32, the w logits as
+    f32 (rounded up to 4), two mbarriers."""
+    return 2 * w * f * itemsize + 4 * f + 4 * (-(-w // 4) * 4) + 16
 
-    @triton.jit
-    def _nl_attention_kernel(q_ptr, k_ptr, v_ptr, o_ptr, W, F, scale,
-                             BLOCK_W: tl.constexpr, BLOCK_F: tl.constexpr):
-        row = tl.program_id(0).to(tl.int64)
-        offs_w = tl.arange(0, BLOCK_W)
-        offs_f = tl.arange(0, BLOCK_F)
-        wmask = offs_w < W
-        kv_base = row * W * F
-        logits = tl.zeros((BLOCK_W,), dtype=tl.float32)
-        for f0 in range(0, F, BLOCK_F):
-            fmask = (f0 + offs_f) < F
-            q = tl.load(q_ptr + row * F + f0 + offs_f, mask=fmask,
-                        other=0.0).to(tl.float32)
-            kt = tl.load(k_ptr + kv_base + offs_w[:, None] * F + f0
-                         + offs_f[None, :],
-                         mask=wmask[:, None] & fmask[None, :],
-                         other=0.0).to(tl.float32)
-            logits += tl.sum(kt * q[None, :], axis=1)
-        logits = tl.where(wmask, logits * scale, float("-inf"))
-        e = tl.exp(logits - tl.max(logits, axis=0))
-        e = tl.where(wmask, e, 0.0)
-        attn = e / tl.sum(e, axis=0)
-        for f0 in range(0, F, BLOCK_F):
-            fmask = (f0 + offs_f) < F
-            vt = tl.load(v_ptr + kv_base + offs_w[:, None] * F + f0
-                         + offs_f[None, :],
-                         mask=wmask[:, None] & fmask[None, :],
-                         other=0.0).to(tl.float32)
-            out = tl.sum(attn[:, None] * vt, axis=0)
-            tl.store(o_ptr + row * F + f0 + offs_f,
-                     out.to(o_ptr.dtype.element_ty), mask=fmask)
 
-    _kernel_cache["k"] = (triton, _nl_attention_kernel)
-    return _kernel_cache["k"]
+def check_nl_attention_shape(w: int, f: int, itemsize: int) -> int:
+    """Raise ValueError where the kernel cannot take a window of w rows of f
+    elements of `itemsize` bytes; else return its shared-memory bytes."""
+    if w < 1 or f < 1:
+        raise ValueError(f"nl_attention_cuda: empty window or row (W={w}, "
+                         f"F={f})")
+    if (f * itemsize) % 16:
+        raise ValueError(f"nl_attention_cuda: a row of F={f} elements of "
+                         f"{itemsize} bytes is not a multiple of 16 bytes, "
+                         f"which the bulk copies need")
+    smem = nl_attention_smem_bytes(w, f, itemsize)
+    if smem > _SMEM_BLOCK_MAX:
+        raise ValueError(f"nl_attention_cuda: k and v of W={w} x F={f} "
+                         f"elements of {itemsize} bytes take {smem} bytes of "
+                         f"shared memory, a block has {_SMEM_BLOCK_MAX}")
+    return smem
+
+
+@functools.lru_cache(maxsize=None)
+def _entries():
+    """The library's two C entries, their argument types set once."""
+    lib = build.library("nl_attention")
+    run, smem = lib.tmr_nl_attention, lib.tmr_nl_attention_smem
+    run.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    run.restype = ctypes.c_int
+    smem.argtypes = [ctypes.c_int] * 3
+    smem.restype = ctypes.c_int
+    return run, smem
 
 
 def nl_attention_cuda(q: torch.Tensor, k: torch.Tensor,
                       v: torch.Tensor) -> torch.Tensor:
-    """Launch the Triton kernel. q (B, F); k, v (B, W, F); all contiguous
-    CUDA tensors of one dtype (bf16 or f32)."""
+    """Launch csrc/nl_attention.cu. q (B, F); k, v (B, W, F); all
+    contiguous, 16-byte aligned CUDA tensors of one dtype (bf16 or f32)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
             raise ValueError(f"nl_attention_cuda: {name} is not on CUDA")
@@ -90,6 +83,9 @@ def nl_attention_cuda(q: torch.Tensor, k: torch.Tensor,
             raise TypeError(f"nl_attention_cuda: {name} dtype {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"nl_attention_cuda: {name} is not contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"nl_attention_cuda: {name} is not 16-byte "
+                             f"aligned, which the bulk copies need")
     if q.dim() != 2 or k.dim() != 3 or k.shape != v.shape \
             or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[1]:
         raise ValueError(f"nl_attention_cuda: shapes q {tuple(q.shape)}, "
@@ -98,14 +94,19 @@ def nl_attention_cuda(q: torch.Tensor, k: torch.Tensor,
         raise ValueError("nl_attention_cuda: tensors on different devices")
     b, f = q.shape
     w = k.shape[1]
-    if b == 0 or w == 0:
-        raise ValueError("nl_attention_cuda: empty batch or window")
-    triton, kern = _triton_kernel()
+    if b == 0:
+        raise ValueError("nl_attention_cuda: empty batch")
+    want = check_nl_attention_shape(w, f, q.element_size())
+    run, smem_of = _entries()
+    smem = smem_of(w, f, q.element_size())
+    if smem != want:
+        raise RuntimeError(f"nl_attention: the kernel lays out {smem} bytes of "
+                           f"shared memory, the wrapper {want}")
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        kern[(b,)](q, k, v, out, w, f, (1.0 / f) ** 0.5,
-                   BLOCK_W=max(16, triton.next_power_of_2(w)),
-                   BLOCK_F=_BLOCK_F, num_warps=4)
+    p = build.ptr
+    err = run(p(q), p(k), p(v), p(out), b, w, f,
+              int(q.dtype == torch.float32), build.stream_ptr(q.device))
+    build.check(err, "nl_attention")
     LAUNCHES["nl_attention"] += 1
     return out
 
