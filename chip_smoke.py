@@ -10,9 +10,10 @@ Phases, in order; any failure exits nonzero:
 3. each kernel against its plain PyTorch version at its path's shapes, with
    times of the kernel, the plain version and one PyTorch library call or
    chain for the same function (for nl_attention and time_conv, kernels of
-   a few to tens of microseconds, also the card's own time, `device_ms`:
-   launches captured in a CUDA graph and replayed, beside `ms`, back-to-back
-   eager calls, which at that size time the host's launch path): the bf16
+   a few to tens of microseconds, and for int8_conv3x3 per gate stage, also
+   the card's own time, `device_ms`: launches captured in a CUDA graph and
+   replayed, beside `ms`, back-to-back eager calls, which at that size time
+   the host's launch path): the bf16
    kernels (nl_attention, time_conv, fused_bottleneck,
    fused_bottleneck_tiled) against the plain version in f32 (TF32 off) on
    the same inputs, max |kernel - plain| / max |plain|
@@ -21,7 +22,9 @@ Phases, in order; any failure exits nonzero:
    beside the bound (their JSON records carry these per-stage numbers
    under "stages"); the int8 kernels (int8_matmul, int8_conv3x3) at the
    int8 gate's shapes (B = 128 frames) and a square 8192^3 product, bit for
-   bit;
+   bit; int8_conv3x3's record carries per stage its plan, device ms, TOP/s,
+   bound, torch._int_mm on a prebuilt im2col and a bf16 cuDNN conv3x3
+   under "stages";
 4. the block slice: full-width TMRNet (ResNet-50, BN folded, hidden 512,
    window 30, 7 classes, bf16) with seeded random weights through the
    weight bridge, a 4096x512 bf16 bank on the card, and ClipInference
@@ -120,7 +123,7 @@ def check_kernels(torch, seed):
         fused_bottleneck_cuda, fused_bottleneck_plain)
     from tmrnet_torch.experimental.fused_bottleneck_tiled import (
         fused_bottleneck_tiled_cuda)
-    from tmrnet_torch.experimental.head_timing import graph_ms
+    from tmrnet_torch.experimental.kernel_timing import graph_ms
     from tmrnet_torch.ops.nl_attention import nl_attention_cuda, nl_attention_plain
     from tmrnet_torch.ops.time_conv import time_conv_cuda, time_conv_plain
 
@@ -281,12 +284,15 @@ def check_int8_kernels(torch, seed):
     versions, bit for bit, at the int8 gate's shapes (B = 128 frames per
     stage) and for int8_matmul also a square 8192^3 product. Each record
     sums one bottleneck chain per stage: two 1x1 products (C -> P, P -> C)
-    and one 3x3 conv (P -> P), f32 output."""
+    and one 3x3 conv (P -> P), f32 output; int8_conv3x3's also its
+    per-stage numbers, with the card's own time (CUDA-graph replays, the
+    weight's prepared copy made before the capture)."""
     import torch.nn.functional as F
 
+    from tmrnet_torch.experimental.kernel_timing import graph_ms
     from tmrnet_torch.experimental.int8_gate import STAGES as GATE_STAGES
     from tmrnet_torch.experimental.quant_conv import (
-        im2col3x3, int8_conv3x3_cuda, int8_conv3x3_plain)
+        im2col3x3, int8_conv3x3_cuda, int8_conv3x3_plain, plan_int8_conv3x3)
     from tmrnet_torch.ops.quant import int8_matmul_cuda, int8_matmul_plain
 
     dev = torch.device("cuda")
@@ -300,6 +306,7 @@ def check_int8_kernels(torch, seed):
            for k in ("mm", "conv")}
     library_ok = dict(mm=True, conv=True)
     max_err = dict(mm=0.0, conv=0.0)
+    conv_stages = []
 
     def exact(name, got, want):
         same = bool(torch.equal(got, want))
@@ -345,7 +352,9 @@ def check_int8_kernels(torch, seed):
                         int8_conv3x3_plain(x, w, x_s, w_s))
         all_ok &= ok
         max_err["conv"] = max(max_err["conv"], err)
-        ms = time_ms(torch, lambda: int8_conv3x3_cuda(x, w, x_s, w_s), 10, 2)
+        conv = lambda: int8_conv3x3_cuda(x, w, x_s, w_s)
+        ms = time_ms(torch, conv, 10, 2)
+        device = graph_ms(torch, conv)
         plain = time_ms(torch, lambda: int8_conv3x3_plain(x, w, x_s, w_s), 3, 1)
         col, w2d = im2col3x3(x), w.reshape(9 * p, p)
         library = int_mm_ms(torch, col, w2d, x_s * w_s, 10)
@@ -358,10 +367,18 @@ def check_int8_kernels(torch, seed):
         ops = 2.0 * m * 9 * p * p
         nbytes = m * p + 9.0 * p * p + 4.0 * m * p
         lib_s = "n/a" if library is None else f"{library:.4f}"
-        print(f"    kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} TOP/s), plain "
-              f"{plain:.4f} ms, torch._int_mm on an int8 im2col {lib_s} ms, "
-              f"bf16 cuDNN conv3x3 {cudnn:.4f} ms, bound "
-              f"{bound(ops, nbytes, PEAK_I8)[0]:.4f} ms")
+        b_ms, b_by = bound(ops, nbytes, PEAK_I8)
+        plan = plan_int8_conv3x3(GATE_BATCH, h, h, p, p)
+        print(f"    kernel device {device:.5f} ms ({ops / device / 1e9:.1f} "
+              f"TOP/s), eager {ms:.4f} ms, plain {plain:.4f} ms, "
+              f"torch._int_mm on an int8 im2col {lib_s} ms, bf16 cuDNN "
+              f"conv3x3 {cudnn:.4f} ms, bound {b_ms:.5f} ms ({b_by}), plan "
+              f"{plan}")
+        conv_stages.append(dict(
+            stage=f"{GATE_BATCH}x{h}x{h}x{p} P={p}",
+            plan=[plan.bm, plan.bn, plan.nstage], device_ms=device, ms=ms,
+            tops=ops / device / 1e9, bound_ms=b_ms, bound_by=b_by,
+            library_ms=library, cudnn_bf16_ms=cudnn, plain_ms=plain))
         for key, val in (("ms", ms), ("plain_ms", plain), ("ops", ops),
                          ("bytes", nbytes)):
             tot["conv"][key] += val
@@ -384,6 +401,8 @@ def check_int8_kernels(torch, seed):
             max_abs_err=max_err[key], ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=b_ms, bound_by=b_by,
             library_ms=t["library_ms"] if library_ok[key] else None))
+    records[-1].update(device_ms=sum(st["device_ms"] for st in conv_stages),
+                       stages=conv_stages)
     return records, all_ok
 
 

@@ -28,7 +28,13 @@ from tmrnet_torch.experimental.fused_bottleneck import (
 from tmrnet_torch.experimental.fused_bottleneck_tiled import (
     fused_bottleneck_tiled_cuda,
 )
-from tmrnet_torch.experimental.quant_conv import int8_conv3x3_cuda, int8_conv3x3_plain
+from tmrnet_torch.experimental.quant_conv import (
+    PLANS,
+    Int8ConvPlan,
+    int8_conv3x3_cuda,
+    int8_conv3x3_plain,
+    wgmma_s8_tile_cuda,
+)
 from tmrnet_torch.kernels.build import LAUNCHES, reset_launches
 from tmrnet_torch.ops.nl_attention import nl_attention_cuda, nl_attention_plain
 from tmrnet_torch.ops.quant import int8_matmul_cuda, int8_matmul_plain
@@ -379,6 +385,60 @@ def test_int8_conv3x3_kernel_equals_plain(gen, n, h, w, c, co, out_dtype):
     got = int8_conv3x3_cuda(x, wq, x_scale, w_scale, out_dtype)
     assert torch.equal(got, int8_conv3x3_plain(x, wq, x_scale, w_scale,
                                                out_dtype))
+
+
+# csrc/wgmma_s8.cuh alone: one 64 x 128 @ 128 x N chunk through its copies,
+# descriptors and k32 steps, against integer products on the host.
+@pytest.mark.parametrize("n", [64, 128, 256])
+def test_wgmma_s8_tile_equals_integer_products(gen, n):
+    a, b = _i8(gen, (64, 128)), _i8(gen, (n, 128))
+    got = wgmma_s8_tile_cuda(a, b)
+    want = (a.cpu().long() @ b.cpu().long().t()).int()
+    assert torch.equal(got.cpu(), want)
+
+
+# Every tile width and ring depth the kernel is built for, forced past the
+# plan: two row tiles, Co = 256 over one to four column tiles, K = 432 (not
+# a multiple of the 128-byte chunk).
+@pytest.mark.parametrize("bn,nstage", PLANS)
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_int8_conv3x3_kernel_forced_plans(gen, bn, nstage, out_dtype):
+    x, wq = _i8(gen, (2, 9, 11, 48)), _i8(gen, (3, 3, 48, 256))
+    x_scale, w_scale = _scales(gen, 256)
+    got = int8_conv3x3_cuda(x, wq, x_scale, w_scale, out_dtype,
+                            plan=Int8ConvPlan(bn, nstage))
+    assert torch.equal(got, int8_conv3x3_plain(x, wq, x_scale, w_scale,
+                                               out_dtype))
+
+
+# An image side past 2^15 (the kernel keeps no packed coordinates).
+@pytest.mark.parametrize("n,h,w", [(1, 40000, 1), (1, 1, 40000), (2, 3, 33000)])
+def test_int8_conv3x3_kernel_takes_any_image_side(gen, n, h, w):
+    x, wq = _i8(gen, (n, h, w, 16)), _i8(gen, (3, 3, 16, 32))
+    x_scale, w_scale = _scales(gen, 32)
+    got = int8_conv3x3_cuda(x, wq, x_scale, w_scale)
+    assert torch.equal(got, int8_conv3x3_plain(x, wq, x_scale, w_scale))
+
+
+@pytest.mark.parametrize("n,h,w,c,co", [(16, 28, 28, 128, 128),
+                                        (8, 7, 7, 512, 512)])
+def test_int8_conv3x3_kernel_repeats_bit_for_bit(gen, n, h, w, c, co):
+    x, wq = _i8(gen, (n, h, w, c)), _i8(gen, (3, 3, c, co))
+    x_scale, w_scale = _scales(gen, co)
+    first = int8_conv3x3_cuda(x, wq, x_scale, w_scale)
+    assert torch.equal(int8_conv3x3_cuda(x, wq, x_scale, w_scale), first)
+
+
+def test_int8_conv3x3_weight_copy_follows_in_place_edits(gen):
+    x = _i8(gen, (2, 6, 7, 32))
+    wq = torch.randint(-100, 100, (3, 3, 32, 64), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    x_scale, w_scale = _scales(gen, 64)
+    before = int8_conv3x3_cuda(x, wq, x_scale, w_scale)
+    wq.add_(1)
+    after = int8_conv3x3_cuda(x, wq, x_scale, w_scale)
+    assert torch.equal(after, int8_conv3x3_plain(x, wq, x_scale, w_scale))
+    assert not torch.equal(after, before)
 
 
 def test_new_wrappers_check_their_inputs(gen):

@@ -2,8 +2,9 @@
 // NHWC:
 //   out[n, h, w, o] = f32(sum over (dy, dx, ci) of xpad[n, h+dy, w+dx, ci]
 //                     * w_q[dy, dx, ci, o], in int32) * (x_scale * w_scale[o])
-// in f32 or bf16. Quantization is symmetric with no zero point, so the
-// padding is int8 0.
+// in f32 or bf16, the scale product taken in f32 first (the order of the
+// TPU kernel), so the result equals the plain version's bit for bit.
+// Quantization is symmetric with no zero point, so the padding is int8 0.
 //
 // Replaces the Pallas TPU kernel
 // tmrnet_tpu/experimental/quant_conv.py::int8_conv3x3 (:47-73, pallas_call
@@ -12,49 +13,294 @@
 //
 // Bound on the H100: 2 M 9C Co operations (M = N H W) over about
 // M (C + 4 Co) bytes with f32 output, ~3.6 C operations per byte at C = Co
-// against the int8 ridge of ~590: bytes at the gate's C = 64 and 128,
-// operations at 256 and 512. Design: an implicit GEMM on the int8 tile of
-// int8_gemm.cuh with M = N H W, K = 9C in the (dy, dx, ci) order of the
-// HWIO weight and N = Co.
-// Each 16-byte piece of an A row is one tap's 16 channels (C % 16 == 0, so a
-// piece never straddles two taps), copied from the input by cp.async, or
-// zero-filled where the tap falls off the image: no im2col in device memory.
-#include "int8_gemm.cuh"
+// against the int8 ridge of ~590: bytes at the gate's C = 64 and 128 (the
+// f32 output), operations at 256 and 512.
+//
+// Design: an implicit GEMM on int8 wgmma (wgmma_s8.cuh) with M = N H W,
+// K = 9C in the (dy, dx, ci) order of the HWIO weight and N = Co.
+// - Both operands K-major, as the integer wgmma requires: A's rows are
+//   pixels, B's rows output channels; the wrapper hands over the weight as
+//   (Co, 9C) (w_kmajor, made once per weight version).
+// - K chunks of BK = 128 bytes, one swizzle atom wide (4 k32 steps), through
+//   a ring of NSTAGE stages in shared memory, filled by cp.async. Each
+//   16-byte piece of an A row is one tap's 16 channels (C % 16 == 0, so a
+//   piece never straddles two taps), copied from x or zero-filled where the
+//   tap leaves the image or k >= K: no im2col in device memory. B rows past
+//   Co and pieces past K are zero-filled too.
+// - 256 threads, two warpgroups, each owning one m64 tile of a BM = 128 x
+//   BN output tile; BN in {64, 128, 256} per shape, so a narrow Co does not
+//   pay for a wide tile. The plan (experimental/quant_conv.py::
+//   plan_int8_conv3x3) picks BN and NSTAGE. (Tiles of BM = 256, two m64
+//   tiles a warpgroup, were slower at every gate stage on the H100.)
+// - The accumulators start as the first k32 step's product (scale_d = 0),
+//   not as zeros written by other instructions: ptxas serializes wgmma
+//   where non-wgmma instructions define accumulator registers (C7515).
+// - One wgmma group in flight: chunk kc's products are committed, the
+//   copies of chunk kc + NSTAGE - 2 are issued into the stage chunk kc - 2
+//   read (every warpgroup retired it before the block barrier), then the
+//   group of chunk kc - 1 is retired.
+// - The epilogue goes from registers to device memory: a quad of lanes
+//   writes 8 consecutive columns of a row (32 bytes in f32).
+//
+// wgmma_s8_tile_kernel below is the header's own check: one 64 x 128 @
+// 128 x N chunk, s32 out, through the same copies and descriptors.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
 
-namespace tmr8 {
+#include "block_gemm_async.cuh"
+#include "tma.cuh"
+#include "wgmma_s8.cuh"
 
-__global__ void __launch_bounds__(NT)
-int8_conv3x3_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                    const float* __restrict__ x_scale,
-                    const float* __restrict__ w_scale, void* __restrict__ out,
-                    int NB, int H, int W, int C, int CO, int out_bf16) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int HW = H * W, M = NB * HW, K = 9 * C;
-  auto a_row = [=](int m, int k) -> const int8_t* {
-    if (m >= M || k >= K) return nullptr;
-    const int tap = k / C, ci = k - tap * C;
-    const int dy = tap / 3, dx = tap - dy * 3;
-    const int n = m / HW, rem = m - n * HW;
-    const int h = rem / W + dy - 1, ww = rem % W + dx - 1;
-    if (h < 0 || h >= H || ww < 0 || ww >= W) return nullptr;
-    return x + (((size_t)n * H + h) * W + ww) * C + ci;
-  };
-  int8_gemm_tile(M, CO, K, a_row, w, x_scale, w_scale, out, out_bf16 != 0,
-                 *reinterpret_cast<Smem*>(smem));
+namespace tmr {
+namespace i8c {
+
+constexpr int THREADS = 256, BM = 128, BK = 128;
+
+__host__ __device__ constexpr int stage_bytes(int bn) { return (BM + bn) * BK; }
+
+// Dynamic shared memory of a block: the ring, + 1 KB of slack to align it.
+__host__ __device__ constexpr int smem_bytes(int bn, int nstage) {
+  return nstage * stage_bytes(bn) + 1024;
 }
 
-}  // namespace tmr8
+// Blocks an SM must hold by registers (the plan's blocks_per_sm): 3 at BN =
+// 64 (at most 85 registers a thread), 2 at 128, 1 at 256.
+template <int BN, int NSTAGE>
+__global__ void __launch_bounds__(THREADS, BN == 64 ? 3 : BN == 128 ? 2 : 1)
+int8_conv3x3_kernel(const int8_t* __restrict__ x,
+                    const int8_t* __restrict__ wk,
+                    const float* __restrict__ x_scale,
+                    const float* __restrict__ w_scale, void* __restrict__ out,
+                    int H, int W, int C, int CO, int M, int out_bf16) {
+  using namespace wgmma;
+  constexpr int LEAD = NSTAGE - 2;  // chunks in flight ahead of the one multiplied
+  constexpr int AROWS = BM / 32, BROWS = BN / 32;  // rows a thread copies
+  constexpr int SB = stage_bytes(BN);
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  // the swizzle atoms must be 1 KB aligned in the shared window
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const int tid = threadIdx.x;
+  const int K = 9 * C, nk = (K + BK - 1) / BK;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  // This thread copies piece `piece` of rows row0 + 32 i.
+  const int piece = tid & 7, row0 = tid >> 3;
 
-// x: (N, H, W, C) int8 NHWC-contiguous; w: (3, 3, C, Co) int8 contiguous;
-// x_scale: one f32; w_scale: (Co,) f32; out: (N, H, W, Co) f32, or bf16 when
-// out_bf16; all on the device. C % 16 == 0, Co % 16 == 0, N H W < 2^31.
-// Returns cudaGetLastError().
-extern "C" int tmr_int8_conv3x3(const void* x, const void* w,
+  // Bit t of taps[i]: tap t (dy = t / 3 - 1, dx = t % 3 - 1) of this
+  // thread's A row i lies in the image; no bit for a row past M.
+  int taps[AROWS];
+#pragma unroll
+  for (int i = 0; i < AROWS; ++i) {
+    const int m = m0 + row0 + 32 * i;
+    taps[i] = 0;
+    if (m < M) {
+      const int rem = m % (H * W), h = rem / W, w = rem - h * W;
+#pragma unroll
+      for (int t = 0; t < 9; ++t)
+        taps[i] |= ((unsigned)(h + t / 3 - 1) < (unsigned)H &&
+                    (unsigned)(w + t % 3 - 1) < (unsigned)W) << t;
+    }
+  }
+
+  // This thread's copies of chunk kc into ring stage st.
+  auto load = [&](int kc, int st) {
+    const int k = kc * BK + 16 * piece;
+    const int tap = k / C, ci = k - tap * C;  // tap >= 9 where k >= K
+    const int dy = tap / 3 - 1, dx = tap % 3 - 1;
+    const bool kin = k < K;
+    unsigned char* sa = smem + st * SB;
+#pragma unroll
+    for (int i = 0; i < AROWS; ++i) {
+      const int r = row0 + 32 * i;
+      const bool ok = kin && (taps[i] >> tap & 1);
+      const int8_t* src =
+          ok ? x + (size_t)(m0 + r + dy * W + dx) * C + ci : x;
+      cp_async16(sa + kmajor_offset(r, 16 * piece), src, ok);
+    }
+    unsigned char* sb = sa + BM * BK;
+#pragma unroll
+    for (int i = 0; i < BROWS; ++i) {
+      const int r = row0 + 32 * i;
+      const bool ok = kin && n0 + r < CO;
+      const int8_t* src = ok ? wk + (size_t)(n0 + r) * K + k : wk;
+      cp_async16(sb + kmajor_offset(r, 16 * piece), src, ok);
+    }
+  };
+
+  const int wg = tid >> 7;
+  int acc[BN / 2];  // written first by chunk 0's first k32 step
+
+#pragma unroll
+  for (int s = 0; s < LEAD; ++s) {
+    if (s < nk) load(s, s);
+    cp_async_commit();
+  }
+  for (int kc = 0; kc < nk; ++kc) {
+    cp_async_wait<LEAD - 1>();  // chunk kc landed (this thread's copies)
+    tma::fence_async_shared();
+    __syncthreads();  // ... everyone's; every warpgroup retired chunk kc - 2
+    const int st = kc % NSTAGE;
+    const unsigned a0 = smem_addr(smem + st * SB) + wg * 64 * BK;
+    const unsigned b0 = smem_addr(smem + st * SB + BM * BK);
+    fence_operand(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 32; ++kk)
+      wgmma_ss_s8<BN>(acc, kmajor_desc(a0 + 32 * kk), kmajor_desc(b0 + 32 * kk),
+                      kc > 0 || kk > 0);
+    wgmma_commit();
+    if (kc + LEAD < nk) load(kc + LEAD, (kc + LEAD) % NSTAGE);
+    cp_async_commit();  // an empty group keeps the count uniform
+    wgmma_wait<1>();    // chunk kc - 1 retired
+    fence_operand(acc);
+  }
+  wgmma_wait<0>();
+  fence_operand(acc);
+  cp_async_wait<0>();
+
+  // Epilogue: rows 16 warp + lane / 4 (+ 8), column pairs 8 j + 2 (lane % 4).
+  const float as = x_scale[0];
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int m = m0 + wg * 64 + 16 * warp + (lane >> 2) + 8 * hf;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int n = n0 + 8 * j + 2 * (lane & 3);
+      if (n >= CO) break;  // Co % 16 == 0: both columns or neither
+      const float2 s = __ldg(reinterpret_cast<const float2*>(w_scale + n));
+      const float o0 =
+          __fmul_rn(__int2float_rn(acc[4 * j + 2 * hf]), __fmul_rn(as, s.x));
+      const float o1 =
+          __fmul_rn(__int2float_rn(acc[4 * j + 2 * hf + 1]), __fmul_rn(as, s.y));
+      const size_t at = (size_t)m * CO + n;
+      if (out_bf16)
+        *reinterpret_cast<__nv_bfloat162*>(
+            reinterpret_cast<__nv_bfloat16*>(out) + at) =
+            __floats2bfloat162_rn(o0, o1);
+      else
+        *reinterpret_cast<float2*>(reinterpret_cast<float*>(out) + at) =
+            make_float2(o0, o1);
+    }
+  }
+}
+
+template <int BN, int NSTAGE>
+int launch(const int8_t* x, const int8_t* wk, const float* xs, const float* ws,
+           void* out, int H, int W, int C, int CO, int M, int out_bf16,
+           cudaStream_t stream) {
+  auto kernel = int8_conv3x3_kernel<BN, NSTAGE>;
+  const int smem = smem_bytes(BN, NSTAGE);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((M + BM - 1) / BM, (CO + BN - 1) / BN);
+  kernel<<<grid, THREADS, smem, stream>>>(x, wk, xs, ws, out, H, W, C, CO, M,
+                                          out_bf16);
+  return (int)cudaGetLastError();
+}
+
+// One warpgroup: out (64 x N, s32) = a (64 x 128) @ b (N x 128)^T, both
+// int8 K-major, copied by cp.async into the swizzled layout; the first k32
+// step with scale_d = 0 over accumulators that start nonzero.
+template <int N>
+__global__ void __launch_bounds__(128)
+wgmma_s8_tile_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
+                     int* __restrict__ out) {
+  using namespace wgmma;
+  __shared__ __align__(1024) unsigned char s[(64 + N) * BK];
+  const int tid = threadIdx.x, piece = tid & 7;
+  for (int r = tid >> 3; r < 64 + N; r += 16) {
+    const int8_t* src = r < 64 ? a + r * BK : b + (r - 64) * BK;
+    cp_async16(s + kmajor_offset(r, 16 * piece), src + 16 * piece, true);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  tma::fence_async_shared();
+  __syncthreads();
+  int acc[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 12345;
+  const unsigned a0 = smem_addr(s), b0 = a0 + 64 * BK;
+  fence_operand(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BK / 32; ++kk)
+    wgmma_ss_s8<N>(acc, kmajor_desc(a0 + 32 * kk), kmajor_desc(b0 + 32 * kk),
+                   kk > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_operand(acc);
+  const int warp = tid >> 5, lane = tid & 31;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      out[(16 * warp + (lane >> 2) + 8 * (e >> 1)) * N + 8 * j + 2 * (lane & 3) +
+          (e & 1)] = acc[4 * j + e];
+}
+
+}  // namespace i8c
+}  // namespace tmr
+
+// The (BN, NSTAGE) plans the kernel is built for.
+// (At BN = 256 a block holds the SM alone whatever the ring's depth, so
+// the plan would never pick a shallower ring there.)
+#define TMR_I8C_PLANS(X) X(64, 3) X(64, 4) X(128, 3) X(128, 4) X(256, 4)
+
+// Shared memory of a block under a plan, or -1 for a plan the kernel is not
+// built for.
+extern "C" int tmr_int8_conv3x3_smem(int BN, int NSTAGE) {
+#define TMR_I8C_SMEM(bn, ns) \
+  if (BN == bn && NSTAGE == ns) return tmr::i8c::smem_bytes(bn, ns);
+  TMR_I8C_PLANS(TMR_I8C_SMEM)
+#undef TMR_I8C_SMEM
+  return -1;
+}
+
+// x: (N, H, W, C) int8 NHWC-contiguous; w_kmajor: (Co, 9C) int8, row o the
+// HWIO weight's column o in (dy, dx, ci) order; x_scale: one f32; w_scale:
+// (Co,) f32; out: (N, H, W, Co) f32, or bf16 when out_bf16; all on the
+// device. C % 16 == 0, Co % 16 == 0, N H W below 2^31; (BN, NSTAGE) one
+// of TMR_I8C_PLANS. Returns
+// cudaErrorInvalidValue outside those, else cudaGetLastError().
+extern "C" int tmr_int8_conv3x3(const void* x, const void* w_kmajor,
                                 const void* x_scale, const void* w_scale,
                                 void* out, int N, int H, int W, int C, int CO,
-                                int out_bf16, void* stream) {
-  using namespace tmr8;
-  return launch(int8_conv3x3_kernel, N * H * W, CO, stream, (const int8_t*)x,
-                (const int8_t*)w, (const float*)x_scale,
-                (const float*)w_scale, out, N, H, W, C, CO, out_bf16);
+                                int out_bf16, int BN, int NSTAGE,
+                                void* stream) {
+  const long long M = (long long)N * H * W;
+  if (C < 16 || C % 16 || CO < 16 || CO % 16 || M < 1 || M > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+#define TMR_I8C_LAUNCH(bn, ns)                                              \
+  if (BN == bn && NSTAGE == ns)                                             \
+    return tmr::i8c::launch<bn, ns>(                                        \
+        (const int8_t*)x, (const int8_t*)w_kmajor, (const float*)x_scale,   \
+        (const float*)w_scale, out, H, W, C, CO, (int)M, out_bf16,          \
+        (cudaStream_t)stream);
+  TMR_I8C_PLANS(TMR_I8C_LAUNCH)
+#undef TMR_I8C_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
+// a: (64, 128) int8; b: (N, 128) int8; out: (64, N) int32, all contiguous
+// on the device; N in {64, 128, 256}. Returns cudaErrorInvalidValue for
+// another N, else cudaGetLastError().
+extern "C" int tmr_wgmma_s8_tile(const void* a, const void* b, void* out,
+                                 int N, void* stream) {
+  using namespace tmr::i8c;
+  const int8_t* pa = (const int8_t*)a;
+  const int8_t* pb = (const int8_t*)b;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (N == 64)
+    wgmma_s8_tile_kernel<64><<<1, 128, 0, s>>>(pa, pb, (int*)out);
+  else if (N == 128)
+    wgmma_s8_tile_kernel<128><<<1, 128, 0, s>>>(pa, pb, (int*)out);
+  else if (N == 256)
+    wgmma_s8_tile_kernel<256><<<1, 128, 0, s>>>(pa, pb, (int*)out);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
 }

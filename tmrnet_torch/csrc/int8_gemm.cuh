@@ -1,5 +1,6 @@
 // Block-wide int8 GEMM tile on the tensor cores with a dequantizing
-// epilogue, shared by int8_matmul and int8_conv3x3:
+// epilogue. Its only user is int8_matmul (int8_conv3x3 runs on int8 wgmma,
+// wgmma_s8.cuh):
 //   out[m, n] = float(sum_k A[m, k] * B[k, n]) * (a_scale * b_scale[n])
 // with the int32 sum exact (|A|, |B| <= 127 and K below 2^31 / 127^2) and
 // the scale product taken in f32 first, in the order of the TPU kernels
@@ -12,11 +13,11 @@
 // across K. K is walked in chunks of BK = 64 bytes through a 3-stage cp.async
 // ring in shared memory: the copies of the next two chunks are in flight
 // while the tensor cores run on this one. A rows come through a row
-// functor (a plain matrix, or an implicit im2col view), with 16-byte pieces
-// that fall outside the data (rows past M, k past K, taps off the image)
-// zero-filled by the copy itself; B (K x N) is row-major int8. The epilogue
-// goes through a 16x16 int32 scratch per warp, so nothing but the int8
-// operands and the result touch device memory.
+// functor (for int8_matmul a plain matrix), with 16-byte pieces that fall
+// outside the data (rows past M, k past K) zero-filled by the copy itself;
+// B (K x N) is row-major int8. The epilogue goes through a 16x16 int32
+// scratch per warp, so nothing but the int8 operands and the result touch
+// device memory.
 //
 // Needs K % 16 == 0, N % 16 == 0 and 16-byte-aligned rows; the wrappers
 // check that.

@@ -1,5 +1,6 @@
 // Tensor Memory Accelerator (TMA) copies and mbarriers on Hopper, for
-// fused_bottleneck_tiled (tensor boxes) and nl_attention (1-D bulk copies).
+// fused_bottleneck_tiled (tensor boxes) and nl_attention (1-D bulk copies);
+// int8_conv3x3 takes only its proxy fence.
 //
 // Device side: one thread issues a cp.async.bulk.tensor load of a whole box
 // (up to 5-D) from device memory into shared memory; the copy engine
@@ -127,8 +128,9 @@ __device__ __forceinline__ void store_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
-// Orders this thread's ordinary shared-memory writes before later copies of
-// the copy engine (the async proxy) that read them.
+// Orders this thread's ordinary shared-memory writes (st.shared, cp.async)
+// before later reads of the async proxy: the copy engine's stores, and
+// wgmma's operands in shared memory (wgmma_s8.cuh).
 __device__ __forceinline__ void fence_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }

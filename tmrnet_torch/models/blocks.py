@@ -14,6 +14,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from tmrnet_torch.kernels.prepared import Prepared
 from tmrnet_torch.ops.nl_attention import nl_attention
 from tmrnet_torch.ops.time_conv import time_conv
 
@@ -74,30 +75,23 @@ class TimeConv(nn.Module):
         self.conv_k3 = nn.Conv1d(f, f, 3, padding=1)
         self.conv_k5 = nn.Conv1d(f, f, 5, padding=2)
         self.conv_k7 = nn.Conv1d(f, f, 7, padding=3)
-        self._prepared = None   # (parameters, their versions, kernel args)
+        self._prepared = Prepared()
 
     def kernel_args(self):
-        """(w3, b3, w5, b5, w7, b7) as `ops.time_conv` takes them. A
-        parameter counts as changed when its storage or its version counter
-        (bumped by every in-place write) moved; the cache holds the
-        parameters it was made from, so their storage is not reused while
-        it is compared against."""
+        """(w3, b3, w5, b5, w7, b7) as `ops.time_conv` takes them, prepared
+        (`kernels.prepared`) from the six parameters."""
         params = [p for conv in (self.conv_k3, self.conv_k5, self.conv_k7)
                   for p in (conv.weight, conv.bias)]
-        if self._prepared is not None:
-            held, versions, args = self._prepared
-            if all(p.data_ptr() == h.data_ptr() and p._version == v
-                   for p, h, v in zip(params, held, versions)):
-                return args
-        with torch.no_grad():
+
+        def make(*params):
             args = []
             for weight, bias in zip(params[::2], params[1::2]):
                 args.append(weight.permute(2, 1, 0).to(self.compute_dtype)
                             .contiguous())
                 args.append(bias.float().contiguous())
-        self._prepared = ([p.detach() for p in params],
-                          [p._version for p in params], tuple(args))
-        return self._prepared[2]
+            return tuple(args)
+
+        return self._prepared.get(params, make)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, W, F) -> (B, W, F)."""
