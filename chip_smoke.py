@@ -10,10 +10,10 @@ Phases, in order; any failure exits nonzero:
 3. each kernel against its plain PyTorch version at its path's shapes, with
    times of the kernel, the plain version and one PyTorch library call or
    chain for the same function (for nl_attention and time_conv, kernels of
-   a few to tens of microseconds, and for int8_conv3x3 per gate stage, also
-   the card's own time, `device_ms`: launches captured in a CUDA graph and
-   replayed, beside `ms`, back-to-back eager calls, which at that size time
-   the host's launch path): the bf16
+   a few to tens of microseconds, and for the int8 kernels per gate shape,
+   also the card's own time, `device_ms`: launches captured in a CUDA graph
+   and replayed, beside `ms`, back-to-back eager calls, which at that size
+   time the host's launch path): the bf16
    kernels (nl_attention, time_conv, fused_bottleneck,
    fused_bottleneck_tiled) against the plain version in f32 (TF32 off) on
    the same inputs, max |kernel - plain| / max |plain|
@@ -22,9 +22,11 @@ Phases, in order; any failure exits nonzero:
    beside the bound (their JSON records carry these per-stage numbers
    under "stages"); the int8 kernels (int8_matmul, int8_conv3x3) at the
    int8 gate's shapes (B = 128 frames) and a square 8192^3 product, bit for
-   bit; int8_conv3x3's record carries per stage its plan, device ms, TOP/s,
-   bound, torch._int_mm on a prebuilt im2col and a bf16 cuDNN conv3x3
-   under "stages";
+   bit; int8_matmul's record carries per product its plan, device ms,
+   eager ms, TOP/s, bound and torch._int_mm under "shapes" (its device_ms
+   sums the chain's 8), int8_conv3x3's per stage its plan, device ms,
+   TOP/s, bound, torch._int_mm on a prebuilt im2col and a bf16 cuDNN
+   conv3x3 under "stages";
 4. the block slice: full-width TMRNet (ResNet-50, BN folded, hidden 512,
    window 30, 7 classes, bf16) with seeded random weights through the
    weight bridge, a 4096x512 bf16 bank on the card, and ClipInference
@@ -284,16 +286,19 @@ def check_int8_kernels(torch, seed):
     versions, bit for bit, at the int8 gate's shapes (B = 128 frames per
     stage) and for int8_matmul also a square 8192^3 product. Each record
     sums one bottleneck chain per stage: two 1x1 products (C -> P, P -> C)
-    and one 3x3 conv (P -> P), f32 output; int8_conv3x3's also its
-    per-stage numbers, with the card's own time (CUDA-graph replays, the
-    weight's prepared copy made before the capture)."""
+    and one 3x3 conv (P -> P), f32 output; int8_matmul's also its numbers
+    per product (the gate's P -> P "mm" row and the square one beside the
+    chain's) and int8_conv3x3's per stage, with the card's own time
+    (CUDA-graph replays, the weight's prepared copy made before the
+    capture)."""
     import torch.nn.functional as F
 
     from tmrnet_torch.experimental.kernel_timing import graph_ms
     from tmrnet_torch.experimental.int8_gate import STAGES as GATE_STAGES
     from tmrnet_torch.experimental.quant_conv import (
         im2col3x3, int8_conv3x3_cuda, int8_conv3x3_plain, plan_int8_conv3x3)
-    from tmrnet_torch.ops.quant import int8_matmul_cuda, int8_matmul_plain
+    from tmrnet_torch.ops.quant import (
+        int8_matmul_cuda, int8_matmul_plain, plan_int8_matmul)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed + 2)
@@ -306,7 +311,7 @@ def check_int8_kernels(torch, seed):
            for k in ("mm", "conv")}
     library_ok = dict(mm=True, conv=True)
     max_err = dict(mm=0.0, conv=0.0)
-    conv_stages = []
+    mm_shapes, conv_stages = [], []
 
     def exact(name, got, want):
         same = bool(torch.equal(got, want))
@@ -315,23 +320,33 @@ def check_int8_kernels(torch, seed):
               f"{'ok' if same else 'FAIL'}")
         return same, diff
 
-    def matmul(m, k, n, chain, iters=10):
+    def matmul(name, m, k, n, chain, iters=10):
         nonlocal all_ok
         a, b = i8(m, k), i8(k, n)
         a_s, b_s = scales(n)
-        ok, err = exact(f"int8_matmul {m}x{k}x{n}",
+        ok, err = exact(f"int8_matmul {name} {m}x{k}x{n}",
                         int8_matmul_cuda(a, b, a_s, b_s),
                         int8_matmul_plain(a, b, a_s, b_s))
         all_ok &= ok
         max_err["mm"] = max(max_err["mm"], err)
-        ms = time_ms(torch, lambda: int8_matmul_cuda(a, b, a_s, b_s), iters, 2)
+        kernel = lambda: int8_matmul_cuda(a, b, a_s, b_s)
+        ms = time_ms(torch, kernel, iters, 2)
+        device = graph_ms(torch, kernel)
         plain = time_ms(torch, lambda: int8_matmul_plain(a, b, a_s, b_s), 3, 1)
         library = int_mm_ms(torch, a, b, a_s * b_s, iters)
         ops, nbytes = 2.0 * m * k * n, m * k + k * n + 4.0 * m * n
+        b_ms, b_by = bound(ops, nbytes, PEAK_I8)
+        plan = plan_int8_matmul(m, k, n)
         lib_s = "n/a" if library is None else f"{library:.4f}"
-        print(f"    kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} TOP/s), plain "
-              f"{plain:.4f} ms, torch._int_mm {lib_s} ms, bound "
-              f"{bound(ops, nbytes, PEAK_I8)[0]:.4f} ms")
+        print(f"    kernel device {device:.5f} ms ({ops / device / 1e9:.1f} "
+              f"TOP/s), eager {ms:.4f} ms, plain {plain:.4f} ms, "
+              f"torch._int_mm {lib_s} ms, bound {b_ms:.5f} ms ({b_by}), plan "
+              f"{plan}")
+        mm_shapes.append(dict(
+            shape=name, mkn=[m, k, n], chain=chain,
+            plan=[plan.bm, plan.bn, plan.nstage], device_ms=device, ms=ms,
+            tops=ops / device / 1e9, bound_ms=b_ms, bound_by=b_by,
+            library_ms=library, plain_ms=plain))
         if chain:
             for key, val in (("ms", ms), ("plain_ms", plain), ("ops", ops),
                              ("bytes", nbytes)):
@@ -339,11 +354,11 @@ def check_int8_kernels(torch, seed):
             library_ok["mm"] &= library is not None
             tot["mm"]["library_ms"] += library or 0.0
 
-    for _, h, c, p in GATE_STAGES:
+    for stage, h, c, p in GATE_STAGES:
         m = GATE_BATCH * h * h
-        matmul(m, c, p, True)
-        matmul(m, p, c, True)
-        matmul(m, p, p, False)          # the gate's mm row
+        matmul(f"{stage} C->P", m, c, p, True)
+        matmul(f"{stage} P->C", m, p, c, True)
+        matmul(f"{stage} P->P", m, p, p, False)     # the gate's mm row
         # the 3x3 conv, P -> P
         x, w = i8(GATE_BATCH, h, h, p), i8(3, 3, p, p)
         x_s, w_s = scales(p)
@@ -385,7 +400,7 @@ def check_int8_kernels(torch, seed):
         library_ok["conv"] &= library is not None
         tot["conv"]["library_ms"] += library or 0.0
         del x, xc
-    matmul(SQUARE, SQUARE, SQUARE, False, iters=5)
+    matmul("square", SQUARE, SQUARE, SQUARE, False, iters=5)
     torch.cuda.empty_cache()
 
     records = []
@@ -401,8 +416,10 @@ def check_int8_kernels(torch, seed):
             max_abs_err=max_err[key], ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=b_ms, bound_by=b_by,
             library_ms=t["library_ms"] if library_ok[key] else None))
-    records[-1].update(device_ms=sum(st["device_ms"] for st in conv_stages),
-                       stages=conv_stages)
+    records[0].update(device_ms=sum(r["device_ms"] for r in mm_shapes
+                                    if r["chain"]), shapes=mm_shapes)
+    records[1].update(device_ms=sum(st["device_ms"] for st in conv_stages),
+                      stages=conv_stages)
     return records, all_ok
 
 
@@ -588,7 +605,7 @@ def main():
         ok &= rec["launches"] > 0
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "launches_by_path", "stages")
+            "launches_by_path", "stages", "shapes")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in records]}))
     print(card)

@@ -30,14 +30,18 @@ from tmrnet_torch.experimental.fused_bottleneck_tiled import (
 )
 from tmrnet_torch.experimental.quant_conv import (
     PLANS,
-    Int8ConvPlan,
     int8_conv3x3_cuda,
     int8_conv3x3_plain,
     wgmma_s8_tile_cuda,
 )
 from tmrnet_torch.kernels.build import LAUNCHES, reset_launches
 from tmrnet_torch.ops.nl_attention import nl_attention_cuda, nl_attention_plain
-from tmrnet_torch.ops.quant import int8_matmul_cuda, int8_matmul_plain
+from tmrnet_torch.ops.quant import (
+    MATMUL_PLANS,
+    Int8Plan,
+    int8_matmul_cuda,
+    int8_matmul_plain,
+)
 from tmrnet_torch.ops.time_conv import time_conv_cuda, time_conv_plain
 
 REL = 2e-2
@@ -374,6 +378,60 @@ def test_int8_matmul_kernel_equals_plain(gen, m, k, n, out_dtype):
     assert torch.equal(got, int8_matmul_plain(a, b, a_scale, b_scale, out_dtype))
 
 
+# Every tile width and ring depth the kernel is built for, forced past the
+# plan: three row tiles (the last of 44 rows), N = 272 over two to five
+# column tiles (the last of 16 columns), K = 400 (four chunks, the last of
+# 16 bytes).
+@pytest.mark.parametrize("bn,nstage", MATMUL_PLANS)
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_int8_matmul_kernel_forced_plans(gen, bn, nstage, out_dtype):
+    a, b = _i8(gen, (300, 400)), _i8(gen, (400, 272))
+    a_scale, b_scale = _scales(gen, 272)
+    got = int8_matmul_cuda(a, b, a_scale, b_scale, out_dtype,
+                           plan=Int8Plan(bn, nstage))
+    assert torch.equal(got, int8_matmul_plain(a, b, a_scale, b_scale, out_dtype))
+
+
+# The gate's stage-1 P -> C product: K = 64, half of one chunk.
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_int8_matmul_kernel_gate_k64(gen, out_dtype):
+    a, b = _i8(gen, (401408, 64)), _i8(gen, (64, 256))
+    a_scale, b_scale = _scales(gen, 256)
+    got = int8_matmul_cuda(a, b, a_scale, b_scale, out_dtype)
+    assert torch.equal(got, int8_matmul_plain(a, b, a_scale, b_scale, out_dtype))
+
+
+@pytest.mark.parametrize("m,k,n", [(4096, 512, 512), (25088, 256, 1024)])
+def test_int8_matmul_kernel_repeats_bit_for_bit(gen, m, k, n):
+    a, b = _i8(gen, (m, k)), _i8(gen, (k, n))
+    a_scale, b_scale = _scales(gen, n)
+    first = int8_matmul_cuda(a, b, a_scale, b_scale)
+    assert torch.equal(int8_matmul_cuda(a, b, a_scale, b_scale), first)
+
+
+def test_int8_matmul_b_copy_follows_in_place_edits(gen):
+    a = _i8(gen, (200, 96))
+    b = torch.randint(-100, 100, (96, 48), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    a_scale, b_scale = _scales(gen, 48)
+    before = int8_matmul_cuda(a, b, a_scale, b_scale)
+    b.add_(1)
+    after = int8_matmul_cuda(a, b, a_scale, b_scale)
+    assert torch.equal(after, int8_matmul_plain(a, b, a_scale, b_scale))
+    assert not torch.equal(after, before)
+
+
+def test_int8_matmul_counts_its_launches(gen):
+    a, b = _i8(gen, (256, 128)), _i8(gen, (128, 64))
+    a_scale, b_scale = _scales(gen, 64)
+    int8_matmul_cuda(a, b, a_scale, b_scale)    # the B copy made before
+    reset_launches()
+    for bn, nstage in MATMUL_PLANS:
+        int8_matmul_cuda(a, b, a_scale, b_scale, plan=Int8Plan(bn, nstage))
+    int8_matmul_cuda(a, b, a_scale, b_scale, torch.bfloat16)
+    assert dict(LAUNCHES) == {"int8_matmul": len(MATMUL_PLANS) + 1}
+
+
 # C = 64 at a 7x7 image; C = 16 at an odd image; a gate stage; one pixel.
 @pytest.mark.parametrize("n,h,w,c,co", [(2, 7, 7, 64, 64), (1, 5, 9, 16, 32),
                                         (3, 14, 14, 256, 256),
@@ -406,7 +464,7 @@ def test_int8_conv3x3_kernel_forced_plans(gen, bn, nstage, out_dtype):
     x, wq = _i8(gen, (2, 9, 11, 48)), _i8(gen, (3, 3, 48, 256))
     x_scale, w_scale = _scales(gen, 256)
     got = int8_conv3x3_cuda(x, wq, x_scale, w_scale, out_dtype,
-                            plan=Int8ConvPlan(bn, nstage))
+                            plan=Int8Plan(bn, nstage))
     assert torch.equal(got, int8_conv3x3_plain(x, wq, x_scale, w_scale,
                                                out_dtype))
 

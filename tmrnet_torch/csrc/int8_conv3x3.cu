@@ -16,53 +16,30 @@
 // against the int8 ridge of ~590: bytes at the gate's C = 64 and 128 (the
 // f32 output), operations at 256 and 512.
 //
-// Design: an implicit GEMM on int8 wgmma (wgmma_s8.cuh) with M = N H W,
+// Design: an implicit GEMM on the int8 wgmma block of wgmma_s8_gemm.cuh
+// (shared with int8_matmul: ring, k32 steps, epilogue) with M = N H W,
 // K = 9C in the (dy, dx, ci) order of the HWIO weight and N = Co.
 // - Both operands K-major, as the integer wgmma requires: A's rows are
 //   pixels, B's rows output channels; the wrapper hands over the weight as
 //   (Co, 9C) (w_kmajor, made once per weight version).
-// - K chunks of BK = 128 bytes, one swizzle atom wide (4 k32 steps), through
-//   a ring of NSTAGE stages in shared memory, filled by cp.async. Each
-//   16-byte piece of an A row is one tap's 16 channels (C % 16 == 0, so a
-//   piece never straddles two taps), copied from x or zero-filled where the
-//   tap leaves the image or k >= K: no im2col in device memory. B rows past
-//   Co and pieces past K are zero-filled too.
-// - 256 threads, two warpgroups, each owning one m64 tile of a BM = 128 x
-//   BN output tile; BN in {64, 128, 256} per shape, so a narrow Co does not
-//   pay for a wide tile. The plan (experimental/quant_conv.py::
-//   plan_int8_conv3x3) picks BN and NSTAGE. (Tiles of BM = 256, two m64
-//   tiles a warpgroup, were slower at every gate stage on the H100.)
-// - The accumulators start as the first k32 step's product (scale_d = 0),
-//   not as zeros written by other instructions: ptxas serializes wgmma
-//   where non-wgmma instructions define accumulator registers (C7515).
-// - One wgmma group in flight: chunk kc's products are committed, the
-//   copies of chunk kc + NSTAGE - 2 are issued into the stage chunk kc - 2
-//   read (every warpgroup retired it before the block barrier), then the
-//   group of chunk kc - 1 is retired.
-// - The epilogue goes from registers to device memory: a quad of lanes
-//   writes 8 consecutive columns of a row (32 bytes in f32).
+// - This file's part is A's loader: each 16-byte piece of an A row is one
+//   tap's 16 channels (C % 16 == 0, so a piece never straddles two taps),
+//   copied from x, or zero where the tap leaves the image or k >= K: no
+//   im2col in device memory. A 9-bit mask of in-image taps per row, made
+//   once per block, so any H and W work.
+// - The plan (experimental/quant_conv.py::plan_int8_conv3x3) picks BN and
+//   NSTAGE. (Tiles of BM = 256, two m64 tiles a warpgroup, were slower at
+//   every gate stage on the H100.)
 //
 // wgmma_s8_tile_kernel below is the header's own check: one 64 x 128 @
 // 128 x N chunk, s32 out, through the same copies and descriptors.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "block_gemm_async.cuh"
-#include "tma.cuh"
-#include "wgmma_s8.cuh"
+#include "wgmma_s8_gemm.cuh"
 
 namespace tmr {
-namespace i8c {
-
-constexpr int THREADS = 256, BM = 128, BK = 128;
-
-__host__ __device__ constexpr int stage_bytes(int bn) { return (BM + bn) * BK; }
-
-// Dynamic shared memory of a block: the ring, + 1 KB of slack to align it.
-__host__ __device__ constexpr int smem_bytes(int bn, int nstage) {
-  return nstage * stage_bytes(bn) + 1024;
-}
+namespace i8 {
 
 // Blocks an SM must hold by registers (the plan's blocks_per_sm): 3 at BN =
 // 64 (at most 85 registers a thread), 2 at 128, 1 at 256.
@@ -73,19 +50,9 @@ int8_conv3x3_kernel(const int8_t* __restrict__ x,
                     const float* __restrict__ x_scale,
                     const float* __restrict__ w_scale, void* __restrict__ out,
                     int H, int W, int C, int CO, int M, int out_bf16) {
-  using namespace wgmma;
-  constexpr int LEAD = NSTAGE - 2;  // chunks in flight ahead of the one multiplied
-  constexpr int AROWS = BM / 32, BROWS = BN / 32;  // rows a thread copies
-  constexpr int SB = stage_bytes(BN);
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  // the swizzle atoms must be 1 KB aligned in the shared window
-  unsigned char* smem =
-      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  const int tid = threadIdx.x;
-  const int K = 9 * C, nk = (K + BK - 1) / BK;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  // This thread copies piece `piece` of rows row0 + 32 i.
-  const int piece = tid & 7, row0 = tid >> 3;
+  const int K = 9 * C;
+  const Tile tile = block_tile<BN, Order::kColumns>(CO);
+  const int m0 = tile.m0, piece = threadIdx.x & 7, row0 = threadIdx.x >> 3;
 
   // Bit t of taps[i]: tap t (dy = t / 3 - 1, dx = t % 3 - 1) of this
   // thread's A row i lies in the image; no bit for a row past M.
@@ -103,103 +70,21 @@ int8_conv3x3_kernel(const int8_t* __restrict__ x,
     }
   }
 
-  // This thread's copies of chunk kc into ring stage st.
-  auto load = [&](int kc, int st) {
-    const int k = kc * BK + 16 * piece;
+  auto load_a = [&](unsigned char* sa, int k) {
     const int tap = k / C, ci = k - tap * C;  // tap >= 9 where k >= K
     const int dy = tap / 3 - 1, dx = tap % 3 - 1;
     const bool kin = k < K;
-    unsigned char* sa = smem + st * SB;
 #pragma unroll
     for (int i = 0; i < AROWS; ++i) {
       const int r = row0 + 32 * i;
       const bool ok = kin && (taps[i] >> tap & 1);
       const int8_t* src =
           ok ? x + (size_t)(m0 + r + dy * W + dx) * C + ci : x;
-      cp_async16(sa + kmajor_offset(r, 16 * piece), src, ok);
-    }
-    unsigned char* sb = sa + BM * BK;
-#pragma unroll
-    for (int i = 0; i < BROWS; ++i) {
-      const int r = row0 + 32 * i;
-      const bool ok = kin && n0 + r < CO;
-      const int8_t* src = ok ? wk + (size_t)(n0 + r) * K + k : wk;
-      cp_async16(sb + kmajor_offset(r, 16 * piece), src, ok);
+      cp_async16(sa + wgmma::kmajor_offset(r, 16 * piece), src, ok);
     }
   };
-
-  const int wg = tid >> 7;
-  int acc[BN / 2];  // written first by chunk 0's first k32 step
-
-#pragma unroll
-  for (int s = 0; s < LEAD; ++s) {
-    if (s < nk) load(s, s);
-    cp_async_commit();
-  }
-  for (int kc = 0; kc < nk; ++kc) {
-    cp_async_wait<LEAD - 1>();  // chunk kc landed (this thread's copies)
-    tma::fence_async_shared();
-    __syncthreads();  // ... everyone's; every warpgroup retired chunk kc - 2
-    const int st = kc % NSTAGE;
-    const unsigned a0 = smem_addr(smem + st * SB) + wg * 64 * BK;
-    const unsigned b0 = smem_addr(smem + st * SB + BM * BK);
-    fence_operand(acc);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < BK / 32; ++kk)
-      wgmma_ss_s8<BN>(acc, kmajor_desc(a0 + 32 * kk), kmajor_desc(b0 + 32 * kk),
-                      kc > 0 || kk > 0);
-    wgmma_commit();
-    if (kc + LEAD < nk) load(kc + LEAD, (kc + LEAD) % NSTAGE);
-    cp_async_commit();  // an empty group keeps the count uniform
-    wgmma_wait<1>();    // chunk kc - 1 retired
-    fence_operand(acc);
-  }
-  wgmma_wait<0>();
-  fence_operand(acc);
-  cp_async_wait<0>();
-
-  // Epilogue: rows 16 warp + lane / 4 (+ 8), column pairs 8 j + 2 (lane % 4).
-  const float as = x_scale[0];
-  const int warp = (tid >> 5) & 3, lane = tid & 31;
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int m = m0 + wg * 64 + 16 * warp + (lane >> 2) + 8 * hf;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const int n = n0 + 8 * j + 2 * (lane & 3);
-      if (n >= CO) break;  // Co % 16 == 0: both columns or neither
-      const float2 s = __ldg(reinterpret_cast<const float2*>(w_scale + n));
-      const float o0 =
-          __fmul_rn(__int2float_rn(acc[4 * j + 2 * hf]), __fmul_rn(as, s.x));
-      const float o1 =
-          __fmul_rn(__int2float_rn(acc[4 * j + 2 * hf + 1]), __fmul_rn(as, s.y));
-      const size_t at = (size_t)m * CO + n;
-      if (out_bf16)
-        *reinterpret_cast<__nv_bfloat162*>(
-            reinterpret_cast<__nv_bfloat16*>(out) + at) =
-            __floats2bfloat162_rn(o0, o1);
-      else
-        *reinterpret_cast<float2*>(reinterpret_cast<float*>(out) + at) =
-            make_float2(o0, o1);
-    }
-  }
-}
-
-template <int BN, int NSTAGE>
-int launch(const int8_t* x, const int8_t* wk, const float* xs, const float* ws,
-           void* out, int H, int W, int C, int CO, int M, int out_bf16,
-           cudaStream_t stream) {
-  auto kernel = int8_conv3x3_kernel<BN, NSTAGE>;
-  const int smem = smem_bytes(BN, NSTAGE);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((M + BM - 1) / BM, (CO + BN - 1) / BN);
-  kernel<<<grid, THREADS, smem, stream>>>(x, wk, xs, ws, out, H, W, C, CO, M,
-                                          out_bf16);
-  return (int)cudaGetLastError();
+  gemm_block<BN, NSTAGE>(tile, load_a, wk, x_scale, w_scale, out, M, CO, K,
+                         out_bf16);
 }
 
 // One warpgroup: out (64 x N, s32) = a (64 x 128) @ b (N x 128)^T, both
@@ -242,7 +127,7 @@ wgmma_s8_tile_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
           (e & 1)] = acc[4 * j + e];
 }
 
-}  // namespace i8c
+}  // namespace i8
 }  // namespace tmr
 
 // The (BN, NSTAGE) plans the kernel is built for.
@@ -254,7 +139,7 @@ wgmma_s8_tile_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
 // built for.
 extern "C" int tmr_int8_conv3x3_smem(int BN, int NSTAGE) {
 #define TMR_I8C_SMEM(bn, ns) \
-  if (BN == bn && NSTAGE == ns) return tmr::i8c::smem_bytes(bn, ns);
+  if (BN == bn && NSTAGE == ns) return tmr::i8::smem_bytes(bn, ns);
   TMR_I8C_PLANS(TMR_I8C_SMEM)
 #undef TMR_I8C_SMEM
   return -1;
@@ -274,12 +159,13 @@ extern "C" int tmr_int8_conv3x3(const void* x, const void* w_kmajor,
   const long long M = (long long)N * H * W;
   if (C < 16 || C % 16 || CO < 16 || CO % 16 || M < 1 || M > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-#define TMR_I8C_LAUNCH(bn, ns)                                              \
-  if (BN == bn && NSTAGE == ns)                                             \
-    return tmr::i8c::launch<bn, ns>(                                        \
-        (const int8_t*)x, (const int8_t*)w_kmajor, (const float*)x_scale,   \
-        (const float*)w_scale, out, H, W, C, CO, (int)M, out_bf16,          \
-        (cudaStream_t)stream);
+#define TMR_I8C_LAUNCH(bn, ns)                                          \
+  if (BN == bn && NSTAGE == ns)                                         \
+    return tmr::i8::launch<bn, ns, tmr::i8::Order::kColumns>(           \
+        tmr::i8::int8_conv3x3_kernel<bn, ns>, (int)M, CO,               \
+        (cudaStream_t)stream, (const int8_t*)x, (const int8_t*)w_kmajor, \
+        (const float*)x_scale, (const float*)w_scale, out, H, W, C, CO, \
+        (int)M, out_bf16);
   TMR_I8C_PLANS(TMR_I8C_LAUNCH)
 #undef TMR_I8C_LAUNCH
   return (int)cudaErrorInvalidValue;
@@ -290,7 +176,7 @@ extern "C" int tmr_int8_conv3x3(const void* x, const void* w_kmajor,
 // another N, else cudaGetLastError().
 extern "C" int tmr_wgmma_s8_tile(const void* a, const void* b, void* out,
                                  int N, void* stream) {
-  using namespace tmr::i8c;
+  using namespace tmr::i8;
   const int8_t* pa = (const int8_t*)a;
   const int8_t* pb = (const int8_t*)b;
   cudaStream_t s = (cudaStream_t)stream;

@@ -1,7 +1,9 @@
 """The card's own time of the port's kernels: the head's `nl_attention` and
-`time_conv` at the main path's shapes (32 clips, window 30, width 512), and
+`time_conv` at the main path's shapes (32 clips, window 30, width 512),
 `int8_conv3x3` at the int8 gate's four 3x3 convs (B frames of H x H, P ->
-P channels; B = 128 by default).
+P channels; B = 128 by default), and `int8_matmul` at the gate's products
+(per stage C -> P and P -> C, the chain's two 1x1s, and P -> P, its "mm"
+row; M = B H W) and a square 8192^3 product.
 
     python3 tmrnet_torch/experimental/kernel_timing.py [--root DIR]
         [--batch 128] [--all-plans] [--out FILE]
@@ -13,12 +15,14 @@ then `tmrnet_torch` is imported from the root given. Every time is
 `graph_ms`, 20 launches in a CUDA graph, replayed, so the host's launch path
 is out of it (`chip_smoke.py` records the same `device_ms` beside `ms`,
 back-to-back eager calls, which for a kernel of a few microseconds time the
-host). `int8_conv3x3` is held to `int8_conv3x3_plain` bit for bit at each
-stage, its weight's prepared copy made before the capture, with TOP/s from
-the device time; `--all-plans` (a tree with `plan_int8_conv3x3`) also times
-every plan the kernel is built for, each checked the same way, beside the
-plan's choice. Prints one JSON line (and writes it to `--out`) with the
-card's name and power limit; exits 1 if a check failed.
+host). The int8 kernels are held to their plain versions bit for bit at
+each shape, their weights' prepared copies made before the capture, with
+TOP/s from the device time; `--all-plans` also times every plan each kernel
+is built for, each checked the same way, beside the plan's choice (in a tree
+whose kernel has plans: `plan_int8_conv3x3`, `plan_int8_matmul`).
+`int8_matmul`'s `device_ms_chain` sums the gate chain's 8 products. Prints
+one JSON line (and writes it to `--out`) with the card's name and power
+limit; exits 1 if a check failed.
 
 Needs a CUDA card.
 """
@@ -35,6 +39,7 @@ CLIPS, WINDOW, HIDDEN = 32, 30, 512
 # The int8 gate's stages (tmrnet_torch/experimental/int8_gate.py): H = W, P.
 GATE_STAGES = (("stage1", 56, 64), ("stage2", 28, 128), ("stage3", 14, 256),
                ("stage4", 7, 512))
+SQUARE = 8192
 
 
 def graph_ms(torch, fn, launches=20, replays=10):
@@ -94,8 +99,8 @@ def time_int8_conv(torch, dev, gen, batch, all_plans):
         plans = {"default": None}
         if all_plans:
             plans["default"] = quant_conv.plan_int8_conv3x3(batch, h, h, p, p)
-            for bn, ns in quant_conv.PLANS:
-                plans[f"bn{bn}x{ns}"] = quant_conv.Int8ConvPlan(bn, ns)
+            for bn, ns in quant_conv.PLANS:     # in the plan's own class
+                plans[f"bn{bn}x{ns}"] = type(plans["default"])(bn, ns)
         row = {"stage": name, "shape": [batch, h, h, p, p]}
         for key, plan in plans.items():
             kw = {} if plan is None else {"plan": plan}
@@ -111,6 +116,57 @@ def time_int8_conv(torch, dev, gen, batch, all_plans):
         del x, want
         torch.cuda.empty_cache()
     rec["device_ms_sum"] = sum(r["default"]["device_ms"] for r in rec["stages"])
+    return rec, ok
+
+
+def gate_products(batch):
+    """(name, M, K, N, in the chain) of the int8 gate's products at B =
+    batch frames, and the square one."""
+    out = []
+    for name, h, p in GATE_STAGES:
+        m, c = batch * h * h, 4 * p
+        out += [(f"{name} C->P", m, c, p, True), (f"{name} P->C", m, p, c, True),
+                (f"{name} P->P", m, p, p, False)]
+    return out + [("square", SQUARE, SQUARE, SQUARE, False)]
+
+
+def time_int8_matmul(torch, dev, gen, batch, all_plans):
+    """(record, all bit-exact) of `int8_matmul` at the gate's products."""
+    from tmrnet_torch.ops import quant
+
+    # a tree from before the kernel had plans has no plan_int8_matmul
+    plan_of = getattr(quant, "plan_int8_matmul", None)
+    rec, ok = {"batch": batch, "shapes": []}, True
+    for name, m, k, n, chain in gate_products(batch):
+        a = torch.randint(-127, 128, (m, k), generator=gen, device=dev,
+                          dtype=torch.int8)
+        b = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
+                          dtype=torch.int8)
+        a_s = torch.rand((), generator=gen, device=dev) * 0.1
+        b_s = torch.rand((n,), generator=gen, device=dev) * 0.01
+        want = quant.int8_matmul_plain(a, b, a_s, b_s)
+        plans = {"default": None}
+        if all_plans and plan_of is not None:
+            plans["default"] = plan_of(m, k, n)
+            for bn, ns in quant.MATMUL_PLANS:
+                plans[f"bn{bn}x{ns}"] = quant.Int8Plan(bn, ns)
+        row = {"shape": name, "mkn": [m, k, n], "chain": chain}
+        for key, plan in plans.items():
+            kw = {} if plan is None else {"plan": plan}
+            fn = lambda: quant.int8_matmul_cuda(a, b, a_s, b_s, **kw)
+            same = bool(torch.equal(fn(), want))
+            ok &= same
+            dms = graph_ms(torch, fn)
+            entry = {"device_ms": dms, "tops": 2.0 * m * k * n / dms / 1e9,
+                     "bit_exact": same}
+            if plan is not None:
+                entry["plan"] = [plan.bn, plan.nstage]
+            row[key] = entry
+        rec["shapes"].append(row)
+        del a, b, want
+        torch.cuda.empty_cache()
+    rec["device_ms_chain"] = sum(r["default"]["device_ms"]
+                                 for r in rec["shapes"] if r["chain"])
     return rec, ok
 
 
@@ -135,6 +191,9 @@ def main():
     rec = {"root": args.root, **time_head(torch, dev, gen)}
     rec["int8_conv3x3"], ok = time_int8_conv(torch, dev, gen, args.batch,
                                              args.all_plans)
+    rec["int8_matmul"], ok_mm = time_int8_matmul(torch, dev, gen, args.batch,
+                                                 args.all_plans)
+    ok &= ok_mm
     rec["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]

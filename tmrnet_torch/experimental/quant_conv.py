@@ -3,7 +3,8 @@
 Port of the Pallas TPU kernel
 `tmrnet_tpu/experimental/quant_conv.py::int8_conv3x3` (:47-73, pallas_call
 at :57); the CUDA kernel is `csrc/int8_conv3x3.cu`, an implicit GEMM on int8
-wgmma (`csrc/wgmma_s8.cuh`), whose header says what bounds it.
+wgmma (`csrc/wgmma_s8_gemm.cuh`, shared with `int8_matmul`), whose header
+says what bounds it.
 
 x_q (N, H, W, C) int8, w_q (3, 3, C, Co) int8 HWIO, x_scale one value,
 w_scale (Co,) -> (N, H, W, Co):
@@ -17,32 +18,29 @@ the weight that the kernel reads.
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 import functools
 
 import torch
 import torch.nn.functional as F
-from torch.utils.weak import WeakIdKeyDictionary
 
 from tmrnet_torch.kernels import build
 from tmrnet_torch.kernels.build import LAUNCHES
-from tmrnet_torch.kernels.prepared import Prepared
+from tmrnet_torch.kernels.prepared import copy_beside
 from tmrnet_torch.ops.quant import (
+    BK,
+    BM,
     OUT_DTYPES,
+    SMS,
+    Int8Plan,
     check_operand,
     check_scales,
     dequantize,
 )
 
-_SMEM_SM = 233472          # an SM's shared memory, 1 KB of it per block reserved
-_SMS = 132                 # an H100 SXM's SMs: blocks per wave
-BM, BK = 128, 128          # rows of a tile (two warpgroups of 64); bytes of K a chunk
 # The (tile width, ring depth) pairs csrc/int8_conv3x3.cu is built for
-# (TMR_I8C_PLANS), and the blocks an SM holds by registers at each width
-# (the kernel's launch bounds). At BN = 256 a block holds the SM alone at
-# any ring depth, so the deeper ring is the only one worth building.
+# (TMR_I8C_PLANS). At BN = 256 a block holds the SM alone at any ring depth,
+# so the deeper ring is the only one worth building.
 PLANS = ((64, 3), (64, 4), (128, 3), (128, 4), (256, 4))
-_BLOCKS_BY_REGS = {64: 3, 128: 2, 256: 1}
 
 
 def im2col3x3(x: torch.Tensor) -> torch.Tensor:
@@ -66,28 +64,6 @@ def int8_conv3x3_plain(x_q, w_q, x_scale, w_scale, out_dtype=torch.float32):
     return dequantize(acc, x_scale, w_scale, out_dtype).reshape(n, h, w, co)
 
 
-@dataclasses.dataclass(frozen=True)
-class Int8ConvPlan:
-    """How csrc/int8_conv3x3.cu cuts one call: output tiles of BM = 128
-    pixels by bn output channels, K chunks through a ring of `nstage`
-    stages."""
-    bn: int
-    nstage: int
-    bm = BM
-
-    @property
-    def smem(self) -> int:
-        """A block's shared memory, as `smem_bytes` in the kernel computes
-        it: the ring of BM + bn rows of 128 bytes a stage, + 1 KB of slack
-        to align it."""
-        return self.nstage * (BM + self.bn) * BK + 1024
-
-    @property
-    def blocks_per_sm(self) -> int:
-        """As many as the registers allow and the rings fit an SM."""
-        return min(_BLOCKS_BY_REGS[self.bn], _SMEM_SM // (self.smem + 1024))
-
-
 def check_conv_shape(n: int, h: int, w: int, c: int, co: int) -> None:
     """What the kernel takes: C and Co multiples of 16, a nonempty x, N H W
     below 2^31."""
@@ -100,7 +76,7 @@ def check_conv_shape(n: int, h: int, w: int, c: int, co: int) -> None:
                          f"large (N*H*W < 2^31)")
 
 
-def plan_cost(plan: Int8ConvPlan, m: int, co: int, nk: int):
+def plan_cost(plan: Int8Plan, m: int, co: int, nk: int):
     """The plan's sort key. First the modelled time of an SM: waves of
     `blocks_per_sm` blocks over 132 SMs, times the blocks it holds, times a
     block's nk chunks at BM bn / 32 cycles of int8 tensor work (4,096
@@ -111,23 +87,19 @@ def plan_cost(plan: Int8ConvPlan, m: int, co: int, nk: int):
     experimental/kernel_timing.py --all-plans)."""
     tiles = -(-m // BM) * -(-co // plan.bn)
     blocks = plan.blocks_per_sm
-    waves = -(-tiles // (_SMS * blocks))
+    waves = -(-tiles // (SMS * blocks))
     chunk = BM * plan.bn / 32 + 2 * (BM + plan.bn)
     return waves * blocks * nk * chunk, -blocks, -plan.nstage
 
 
 @functools.lru_cache(maxsize=256)
-def plan_int8_conv3x3(n: int, h: int, w: int, c: int, co: int) -> Int8ConvPlan:
+def plan_int8_conv3x3(n: int, h: int, w: int, c: int, co: int) -> Int8Plan:
     """The plan of one call: of the plans the kernel is built for, the one
     of least `plan_cost`."""
     check_conv_shape(n, h, w, c, co)
     m, nk = n * h * w, -(-9 * c // BK)
-    plans = (Int8ConvPlan(bn, s) for bn, s in PLANS)
+    plans = (Int8Plan(bn, s) for bn, s in PLANS)
     return min(plans, key=lambda p: plan_cost(p, m, co, nk))
-
-
-# Each weight's prepared (Co, 9C) copy, for as long as the weight lives.
-_KMAJOR = WeakIdKeyDictionary()
 
 
 def _kmajor(w_q: torch.Tensor) -> torch.Tensor:
@@ -137,12 +109,9 @@ def _kmajor(w_q: torch.Tensor) -> torch.Tensor:
 def kmajor_weight(w_q: torch.Tensor) -> torch.Tensor:
     """The HWIO weight (3, 3, C, Co) as the kernel reads it: (Co, 9C)
     contiguous, row o holding column o in (dy, dx, ci) order (K-major, as
-    the integer wgmma requires of B). Prepared (`kernels.prepared`) once
-    per change of w_q and kept beside w_q, for as long as w_q lives."""
-    prepared = _KMAJOR.get(w_q)
-    if prepared is None:
-        prepared = _KMAJOR[w_q] = Prepared()
-    return prepared.get((w_q,), _kmajor)
+    the integer wgmma requires of B). Made once per change of w_q and kept
+    beside w_q for as long as w_q lives (`kernels.prepared.copy_beside`)."""
+    return copy_beside(w_q, _kmajor)
 
 
 @functools.lru_cache(maxsize=None)
@@ -161,7 +130,7 @@ def _entries():
 
 
 def int8_conv3x3_cuda(x_q, w_q, x_scale, w_scale, out_dtype=torch.float32,
-                      plan: Int8ConvPlan = None):
+                      plan: Int8Plan = None):
     """Launch csrc/int8_conv3x3.cu under `plan` (default
     `plan_int8_conv3x3`). x_q (N, H, W, C) int8 NHWC-contiguous, w_q (3, 3,
     C, Co) int8 contiguous, x_scale one f32, w_scale (Co,) f32, all on one

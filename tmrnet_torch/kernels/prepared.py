@@ -5,6 +5,9 @@ A parameter counts as changed when its storage or its version counter
 (bumped by every in-place write: `load_state_dict`, `add_`, indexing) moved.
 A `Prepared` holds the tensors it was made from, so their storage is not
 reused while it is compared against. The copies carry no gradient.
+
+A module keeps its `Prepared` beside its parameters; a function handed bare
+tensors keeps its copies beside them through `copy_beside`.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from __future__ import annotations
 from typing import Callable, Sequence
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 
 class Prepared:
@@ -35,3 +39,20 @@ class Prepared:
         self._held = ([s.detach() for s in sources],
                       [s._version for s in sources], out)
         return out
+
+
+# Each tensor's copies by the function that makes them, for as long as the
+# tensor lives.
+_BESIDE = WeakIdKeyDictionary()
+
+
+def copy_beside(t: torch.Tensor, make: Callable):
+    """make(t), made once per change of t and kept beside t for as long as t
+    lives."""
+    by_make = _BESIDE.get(t)
+    if by_make is None:
+        by_make = _BESIDE[t] = {}
+    prepared = by_make.get(make)
+    if prepared is None:
+        prepared = by_make[make] = Prepared()
+    return prepared.get((t,), make)
