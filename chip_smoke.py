@@ -39,6 +39,26 @@ Phases, in order; any failure exits nonzero:
    fused_bottleneck, 1 time_conv and 1 nl_attention launches per forward;
    the same CPU check on the first 2 clips, and its softmax within 2e-2 of
    the block slice's on all 96 clips;
+4c. the video slice: VideoInference at the same width (device_normalize,
+   10-frame clips, window 30) with two seeded weight sets, the TMR model
+   and the LFB extractor; run_video on one 1,500-frame uint8 224x224 video
+   (block path) and run_corpus over videos of 1,500, 1,100 and 9 frames
+   (tiled path; the 9-frame video gives empty outputs), launch counts from
+   the chunk plan (the identity blocks' kernels per trunk chunk x 2
+   trunks, time_conv and nl_attention per head call); the corpus's first
+   video against run_video within 2e-2 and the argmax rule of the clip
+   slices; bank_features against the extractor run clip-wise on the card
+   at 64 positions (0, 1 and the last among them) within 2e-2 of max
+   |feature|; ClipInference over those positions, reading a bank built by
+   build_lfb_video, against run_video within 2e-2; a 14-frame video on the
+   card against the engine in f32 on the CPU within 2e-2; frames/s of
+   run_video and run_corpus and the auto trunk chunk;
+4d. the stream slice: StreamingInference, 16 streams x 48 steps of uint8
+   224x224 frames, stream 3 inactive at steps 20-24, stream 5 reset at step
+   30; 24 fused_bottleneck, 1 time_conv and 1 nl_attention launches every
+   step; inactive slots frozen bit for bit; every stream's valid outputs
+   against run_video over the frames it took (split at the reset) within
+   2e-2; step p50 and p99 ms after 4 warm-up steps and stream-frames/s;
 5. the int8 gate (tmrnet_torch.experimental.int8_gate) at B = 128 over the
    four stages: the int8 bottleneck chain through the kernels equal to the
    same chain through the plain versions, 2 int8_matmul and 1 int8_conv3x3
@@ -51,6 +71,7 @@ It needs a CUDA card and the rest of the repository beside it.
 """
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -72,6 +93,10 @@ STAGES = ((56, 256, 64, 2), (28, 512, 128, 3), (14, 1024, 256, 5),
           (7, 2048, 512, 2))
 TILED_MAX_C = 2048      # wider identity blocks stay on fused_bottleneck
 GATE_BATCH = 128        # frames per int8 gate stage
+# Videos of the video slice: a short Cholec80 test video at 1 fps, another,
+# and one shorter than a clip; streams and steps of the stream slice.
+VIDEO_LENGTHS = (1500, 1100, 9)
+STREAMS, STREAM_STEPS = 16, 48
 SQUARE = 8192           # the square int8 product
 
 
@@ -266,6 +291,72 @@ def check_kernels(torch, seed):
             stages=stages[path]))
     torch.cuda.empty_cache()
     return records, all_ok
+
+
+def check_engine_shapes(torch, seed, records):
+    """Phase 3, the engines' shapes: the bf16 kernels against their plain
+    versions (f32) at the shapes the video and stream slices give them --
+    the head kernels at the corpus's head call (the clip positions of the
+    slice's videos that share a bucket), at a head group of 8 videos of
+    5,500 clips (44,000 rows) and at a stream step (16 rows); the
+    bottleneck kernels at each stage at a stream step (16 frames) and at a
+    full auto trunk chunk (2,048 frames at 224x224). Each record's
+    max_abs_err becomes the largest over its shapes; the errors and eager
+    ms per shape go under "engine_shapes"."""
+    from tmrnet_torch.experimental.fused_bottleneck import (
+        fused_bottleneck_cuda, fused_bottleneck_plain)
+    from tmrnet_torch.experimental.fused_bottleneck_tiled import (
+        fused_bottleneck_tiled_cuda)
+    from tmrnet_torch.ops.nl_attention import nl_attention_cuda, nl_attention_plain
+    from tmrnet_torch.ops.time_conv import time_conv_cuda, time_conv_plain
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    bf = lambda shape, s=1.0: (torch.randn(shape, generator=gen, device=dev)
+                               * s).to(torch.bfloat16)
+    by_name = {r["name"]: r for r in records}
+    all_ok = True
+
+    def check(name, shape, kernel, plain, args):
+        nonlocal all_ok
+        err, ok = compare(torch, f"{name} {shape}", kernel(*args),
+                          plain(*(t.float() for t in args)))
+        all_ok &= ok
+        ms = time_ms(torch, lambda: kernel(*args), 5, 1)
+        rec = by_name[name]
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        rec.setdefault("engine_shapes", []).append(
+            dict(shape=shape, max_abs_err=err, ms=ms))
+        print(f"    eager {ms:.4f} ms")
+
+    corpus_rows = sum(n - SEQ + 1 for n in VIDEO_LENGTHS[:2])
+    for b in (corpus_rows, 8 * 5500, STREAMS):
+        check("nl_attention", f"B={b}", nl_attention_cuda, nl_attention_plain,
+              (bf((b, HIDDEN)), bf((b, WINDOW, HIDDEN)),
+               bf((b, WINDOW, HIDDEN))))
+        ws = []
+        for ksz in (3, 5, 7):
+            ws += [bf((ksz, HIDDEN, HIDDEN), (1.0 / (ksz * HIDDEN)) ** 0.5),
+                   bf((HIDDEN,), 0.02).float()]
+        check("time_conv", f"B={b}", time_conv_cuda, time_conv_plain,
+              (bf((b, WINDOW, HIDDEN)), *ws))
+    for n in (STREAMS, 2048):
+        for h, cc, p, _ in STAGES:
+            args = (torch.relu(bf((n, h, h, cc))), bf((cc, p), (2.0 / cc) ** 0.5),
+                    bf((p,), 0.05).float(),
+                    bf((3, 3, p, p), (2.0 / (9 * p)) ** 0.5),
+                    bf((p,), 0.05).float(),
+                    bf((p, cc), 0.25 * (2.0 / p) ** 0.5), bf((cc,), 0.05).float())
+            kernels = [("fused_bottleneck", fused_bottleneck_cuda)]
+            if cc < TILED_MAX_C:
+                kernels.append(("fused_bottleneck_tiled",
+                                fused_bottleneck_tiled_cuda))
+            for name, kernel in kernels:
+                check(name, f"N={n} {h}x{h}x{cc} P={p}", kernel,
+                      fused_bottleneck_plain, args)
+            del args
+            torch.cuda.empty_cache()
+    return all_ok
 
 
 def int_mm_ms(torch, a, b, scale, iters):
@@ -510,6 +601,247 @@ def run_slice(torch, setup, card, fused_kernel, want_per_forward):
     return counts, frames / dt, scores, ok
 
 
+def engine_setup(seed):
+    """The engines' config (the slices' model, device_normalize, 10-frame
+    clips, window 30) and two independently seeded folded weight sets:
+    the TMR model (head tmr) and the extractor (head lfb)."""
+    from tmrnet_torch.config import DataConfig, ExperimentConfig, MemoryConfig, ModelConfig
+    from tmrnet_torch.models.convert import from_jax_variables, random_variables
+    from tmrnet_torch.models.fold_bn import fold_variables
+
+    cfg = ModelConfig(backbone="resnet50", head="tmr", hidden_dim=HIDDEN,
+                      num_classes=CLASSES, compute_dtype="bfloat16", folded=True)
+    ecfg = ExperimentConfig(data=DataConfig(device_normalize=True,
+                                            sequence_length=SEQ),
+                            model=cfg, memory=MemoryConfig(window=WINDOW))
+    weights = [fold_variables(from_jax_variables(random_variables(
+        dataclasses.replace(cfg, head=head, compute_dtype="float32",
+                            folded=False), seed + k)))
+        for k, head in ((0, "tmr"), (100, "lfb"))]
+    return ecfg, weights
+
+
+def argmax_agrees(name, preds, want_preds, want_probs):
+    """The slices' argmax rule: where the reference's two best classes lie
+    more than twice the tolerance apart, the argmax must agree."""
+    top2 = np.sort(want_probs, axis=-1)[:, -2:]
+    decided = top2[:, 1] - top2[:, 0] > 2 * TOL
+    agree = bool((preds == want_preds)[decided].all())
+    print(f"  {name}: argmax agrees on {int(decided.sum())} decided of "
+          f"{len(preds)} {'ok' if agree else 'FAIL'}")
+    return agree
+
+
+def probs_close(name, got, want):
+    """The slices' probability check: max |got - want| within TOL."""
+    err = float(np.abs(np.asarray(got, np.float32) - want).max())
+    ok = bool(np.isfinite(err)) and err <= TOL
+    print(f"  {name}: max_abs_err {err:.4g} (limit {TOL}) "
+          f"{'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def video_counts(trunk_chunks, head_calls, fused_kernel):
+    """Launches of a video-engine call: the identity blocks' kernels per
+    trunk chunk of each of the two trunks, #1 and #2 per head call."""
+    per_trunk = ({"fused_bottleneck": 12} if fused_kernel == "block" else
+                 {"fused_bottleneck_tiled": 10, "fused_bottleneck": 2})
+    want = {k: v * 2 * trunk_chunks for k, v in per_trunk.items()}
+    want.update(time_conv=head_calls, nl_attention=head_calls)
+    return want
+
+
+def run_video_slice(torch, seed, card):
+    """Phase 4c: whole videos at full width. run_video on one 1,500-frame
+    video (block path) and run_corpus over videos of 1,500, 1,100 and 9
+    frames (tiled path), launch counts from the chunk plan; the corpus's
+    first video against run_video; bank_features against the extractor run
+    clip-wise at 64 positions; ClipInference over a bank built by
+    build_lfb_video against run_video at those positions; a 14-frame video
+    against the engine in f32 on the CPU. Returns (counts by path, the
+    block engine, ok)."""
+    from tmrnet_torch.eval.infer import ClipInference, VideoInference
+    from tmrnet_torch.kernels.build import LAUNCHES, reset_launches
+    from tmrnet_torch.train.loop import build_lfb_video
+
+    ecfg, weights = engine_setup(seed)
+    rng = np.random.default_rng(seed + 3)
+    lengths = VIDEO_LENGTHS
+    videos = [rng.integers(0, 256, (n, IMG, IMG, 3), dtype=np.uint8)
+              for n in lengths]
+    block = VideoInference(ecfg, *weights, fused_kernel="block")
+    tiled = VideoInference(ecfg, *weights, fused_kernel="tiled")
+    for engine in (block, tiled):                 # warm-up, not counted
+        engine.run_corpus([videos[0][:64], videos[2]], chunk=64)
+    torch.cuda.synchronize()
+    counts, ok = {}, True
+
+    chunk = block.trunk_chunk(lengths[0], (IMG, IMG))
+    reset_launches()
+    t0 = time.perf_counter()
+    preds, probs = block.run_video(videos[0])
+    dt = time.perf_counter() - t0
+    counts["video"] = dict(LAUNCHES)
+    want = video_counts(-(-lengths[0] // chunk), 1, "block")
+    ok_n = counts["video"] == want
+    print(f"video slice: run_video {lengths[0]} frames in {dt:.4f} s = "
+          f"{lengths[0] / dt:.1f} frames/s, trunk chunk {chunk} (auto) on "
+          f"{card}; launches {counts['video']} (want {want}) "
+          f"{'ok' if ok_n else 'FAIL'}")
+    k = lengths[0] - SEQ + 1
+    ok &= ok_n and probs.shape == (k, CLASSES) and bool(np.isfinite(probs).all())
+    # Where run_video's time goes (outside the counted run): the frames'
+    # copy to the card, both trunks, both LSTMs and the head.
+    t0 = time.perf_counter()
+    staged = torch.from_numpy(videos[0]).to(block.device)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    fe, ft = block.corpus_features([staged])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    block.corpus_heads(fe, ft, [lengths[0]])
+    t3 = time.perf_counter()
+    print(f"video slice: run_video split: copy to the card "
+          f"{(t1 - t0) * 1e3:.1f} ms, both trunks {(t2 - t1) * 1e3:.1f} ms, "
+          f"LSTMs + head + copy back {(t3 - t2) * 1e3:.1f} ms")
+    del staged, fe, ft
+
+    total = sum(lengths)
+    corpus_chunk = min(2048, total)               # run_corpus's own cut
+    blocks = -(-total // corpus_chunk)
+    per_block = -(-corpus_chunk // tiled.trunk_chunk(corpus_chunk, (IMG, IMG)))
+    groups = {}
+    for n in lengths:
+        if n >= SEQ:
+            groups[tiled.bucket_frames(n)] = groups.get(tiled.bucket_frames(n), 0) + 1
+    head_calls = sum(-(-g // 8) for g in groups.values())
+    reset_launches()
+    t0 = time.perf_counter()
+    corpus = tiled.run_corpus(videos, chunk=corpus_chunk)
+    dt = time.perf_counter() - t0
+    counts["corpus"] = dict(LAUNCHES)
+    want = video_counts(blocks * per_block, head_calls, "tiled")
+    ok_n = counts["corpus"] == want
+    print(f"video slice: run_corpus {lengths} ({total} frames, {blocks} "
+          f"blocks of {corpus_chunk}) in {dt:.4f} s = {total / dt:.1f} "
+          f"frames/s on {card}; launches {counts['corpus']} (want {want}) "
+          f"{'ok' if ok_n else 'FAIL'}")
+    ok &= ok_n
+    short = corpus[2][0].shape == (0,) and corpus[2][1].shape == (0, CLASSES)
+    print(f"  the {lengths[2]}-frame video gives empty outputs "
+          f"{'ok' if short else 'FAIL'}")
+    ok &= short and all(c[1].shape == (n - SEQ + 1, CLASSES)
+                        for c, n in zip(corpus[:2], lengths))
+    ok &= probs_close("run_corpus (tiled) vs run_video (block), video 0 probs",
+                corpus[0][1], probs)
+    ok &= argmax_agrees("run_corpus vs run_video", corpus[0][0], preds, probs)
+
+    positions = np.unique(np.concatenate([[0, 1, k - 1], rng.choice(
+        np.arange(2, k - 1), min(61, k - 3), replace=False)]))
+    clips = np.stack([videos[0][p:p + SEQ] for p in positions])
+    feats = block.bank_features(videos[0])
+    with torch.inference_mode():
+        clipwise = block.extractor(block.prep(
+            torch.from_numpy(clips).to(block.device)))
+    ok &= compare(torch, f"bank_features vs LFBExtractor clip-wise at "
+                  f"{len(positions)} positions",
+                  feats[torch.from_numpy(positions).to(block.device)],
+                  clipwise)[1]
+    bank = build_lfb_video(ecfg, weights[1], videos[:1], fused_kernel="block")
+    clip_engine = ClipInference(ecfg, weights[0], bank, fused_kernel="block")
+    res = clip_engine.run([(clips, np.zeros(len(positions)), positions, 0)],
+                          bank.first_rows)
+    ok &= probs_close("ClipInference over build_lfb_video's bank vs run_video",
+                res.scores, probs[positions])
+    ok &= argmax_agrees("ClipInference vs run_video", res.preds,
+                        preds[positions], probs[positions])
+
+    cpu_cfg = ecfg.replace(model=dataclasses.replace(ecfg.model,
+                                                     compute_dtype="float32"))
+    cpu = VideoInference(cpu_cfg, *weights, device="cpu")
+    p_cpu, pr_cpu = cpu.run_video(videos[0][:14])
+    p_card, pr_card = block.run_video(videos[0][:14])
+    ok &= probs_close("14-frame video, card vs CPU f32", pr_card, pr_cpu)
+    ok &= argmax_agrees("card vs CPU f32", p_card, p_cpu, pr_cpu)
+    del tiled, clip_engine, bank, videos
+    torch.cuda.empty_cache()
+    return counts, block, ok
+
+
+def run_stream_slice(torch, seed, card, video_engine):
+    """Phase 4d: 16 streams, 48 steps of uint8 224x224 frames; stream 3
+    inactive at steps 20-24, stream 5 reset at step 30. Each stream's valid
+    outputs against run_video over the frames it took (split at the
+    reset), inactive slots frozen bit for bit, launches per step; step
+    p50 / p99 ms and stream-frames/s. Returns (counts, ok)."""
+    from tmrnet_torch.eval.stream import StreamingInference
+    from tmrnet_torch.kernels.build import LAUNCHES, reset_launches
+
+    streams, steps, warm = STREAMS, STREAM_STEPS, 4
+    inactive, reset = (3, range(20, 25)), (5, 30)
+    ecfg, weights = engine_setup(seed)
+    frames = np.random.default_rng(seed + 4).integers(
+        0, 256, (steps, streams, IMG, IMG, 3), dtype=np.uint8)
+    engine = StreamingInference(ecfg, *weights, fused_kernel="block")
+    state = engine.init_state(streams)
+    lives = [[[]] for _ in range(streams)]        # frames taken, per life
+    outs = [[[]] for _ in range(streams)]         # valid probs, per life
+    per_step = {"fused_bottleneck": 24, "time_conv": 1, "nl_attention": 1}
+    ok, times, taken = True, [], 0
+    torch.cuda.synchronize()
+    reset_launches()
+    for t in range(steps):
+        if t == reset[1]:
+            state = engine.reset_streams(state, np.arange(streams) == reset[0])
+            lives[reset[0]].append([])
+            outs[reset[0]].append([])
+        active = np.ones(streams, bool)
+        if t in inactive[1]:
+            active[inactive[0]] = False
+        before = dict(LAUNCHES)
+        old = state
+        t0 = time.perf_counter()
+        state, preds, probs, valid = engine.step(
+            state, frames[t], None if active.all() else active)
+        probs, valid = probs.cpu().numpy(), valid.cpu().numpy()
+        dt = time.perf_counter() - t0
+        if t >= warm:
+            times.append(dt)
+            taken += int(active.sum())
+        step_counts = {k: v - before.get(k, 0) for k, v in LAUNCHES.items()}
+        ok &= step_counts == per_step
+        for s in np.flatnonzero(~active):
+            ok &= not valid[s] and all(bool(torch.equal(a[s], b[s])) for a, b in (
+                (state.ext_ring, old.ext_ring), (state.tmr_ring, old.tmr_ring),
+                (state.bank_ring, old.bank_ring), (state.count, old.count)))
+        for s in np.flatnonzero(active):
+            lives[s][-1].append(frames[t, s])
+            ok &= bool(valid[s]) == (len(lives[s][-1]) >= SEQ)
+            if valid[s]:
+                outs[s][-1].append(probs[s])
+    counts = dict(LAUNCHES)
+    want = {k: v * steps for k, v in per_step.items()}
+    ok &= counts == want
+    ms = np.array(times) * 1e3
+    print(f"stream slice: {streams} streams x {steps} steps, launches {counts} "
+          f"(want {want}, each step {per_step}); inactive slots frozen; "
+          f"{'ok' if ok else 'FAIL'}")
+    print(f"stream slice: step p50 {np.percentile(ms, 50):.3f} ms, p99 "
+          f"{np.percentile(ms, 99):.3f} ms over {len(ms)} steps after {warm} "
+          f"warm-up, {taken / sum(times):.1f} stream-frames/s on {card}")
+    flat = [(np.stack(f), o) for s in range(streams)
+            for f, o in zip(lives[s], outs[s])]
+    offline = video_engine.run_videos([f for f, _ in flat])
+    for (f, o), (_, want_probs) in zip(flat, offline):
+        ok &= len(o) == len(want_probs) == len(f) - SEQ + 1
+    ok &= probs_close(f"{len(flat)} stream lives vs run_video on the frames each "
+                f"took", np.concatenate([np.stack(o) for _, o in flat if o]),
+                np.concatenate([w for _, w in offline]))
+    del engine, state, frames
+    torch.cuda.empty_cache()
+    return counts, ok
+
+
 def run_gate(torch, seed, card):
     """Phase 5: the int8 gate at B = 128 over the four stages: the int8
     bottleneck chain through the kernels against the same chain through the
@@ -572,6 +904,8 @@ def main():
 
     print("kernels vs plain versions (bf16 kernel, f32 plain):")
     records, ok = check_kernels(torch, args.seed)
+    print("kernels vs plain versions at the engines' shapes:")
+    ok &= check_engine_shapes(torch, args.seed, records)
     print("int8 kernels vs plain versions (bit for bit):")
     int8_records, ok8 = check_int8_kernels(torch, args.seed)
     records += int8_records
@@ -596,8 +930,16 @@ def main():
           f"{len(tiled_scores)} clips (limit {TOL}) "
           f"{'ok' if ok_paths else 'FAIL'}")
     del setup
+    torch.cuda.empty_cache()
+    video_counts_, video_engine, ok_video = run_video_slice(torch, args.seed, card)
+    by_path.update(video_counts_)
+    by_path["stream"], ok_stream = run_stream_slice(torch, args.seed, card,
+                                                    video_engine)
+    del video_engine
+    torch.cuda.empty_cache()
     by_path["gate"], ok_gate = run_gate(torch, args.seed, card)
-    ok = ok_block and ok_tiled and ok_paths and ok_gate
+    ok = (ok_block and ok_tiled and ok_paths and ok_video and ok_stream
+          and ok_gate)
     for rec in records:
         rec["launches_by_path"] = {p: c[rec["name"]] for p, c in by_path.items()
                                    if rec["name"] in c}
@@ -605,12 +947,13 @@ def main():
         ok &= rec["launches"] > 0
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "launches_by_path", "stages", "shapes")
+            "launches_by_path", "stages", "shapes", "engine_shapes")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in records]}))
     print(card)
     if not ok:
-        print("chip_smoke: a slice or the gate failed", file=sys.stderr)
+        print("chip_smoke: a slice, an engine or the gate failed",
+              file=sys.stderr)
         return 1
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

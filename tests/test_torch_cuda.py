@@ -1,7 +1,8 @@
 """The port's Hopper kernels on the card, against their plain versions on
-the same inputs; wrapper checks and launch counts; and a small folded
+the same inputs; wrapper checks and launch counts; a small folded
 ResNet-50 TMRNet on the card, on the block and the tiled fused path,
-against the same model in f32 on the CPU.
+against the same model in f32 on the CPU; and the video and stream engines
+on the card against the video engine in f32 on the CPU.
 
 Needs a CUDA card and skips without one. The card has no JAX, so this file
 imports none and runs without the repository's conftest:
@@ -284,6 +285,54 @@ def test_folded_resnet50_tiled_path_on_card_matches_cpu(gen):
     assert _folded_resnet50_card_vs_cpu("tiled") == {
         "fused_bottleneck_tiled": 10, "fused_bottleneck": 2, "time_conv": 1,
         "nl_attention": 1}
+
+
+def test_video_and_stream_engines_on_card_match_cpu(gen):
+    """VideoInference (unchunked, and in trunk chunks of 5 frames) and
+    StreamingInference on the card against VideoInference in f32 on the
+    CPU, at ResNet-50's widths with one identity block (stage 1's second);
+    launch counts: one fused_bottleneck a trunk chunk a trunk, one
+    time_conv and one nl_attention a head call or a stream step."""
+    from tmrnet_torch.config import (DataConfig, ExperimentConfig,
+                                     MemoryConfig, ModelConfig)
+    from tmrnet_torch.eval.infer import VideoInference
+    from tmrnet_torch.eval.stream import StreamingInference
+    from tmrnet_torch.models.convert import from_jax_variables, random_variables
+    from tmrnet_torch.models.fold_bn import fold_variables
+
+    kw = dict(backbone="resnet50", stage_sizes=(2, 1, 1, 1), hidden_dim=512,
+              head="tmr")
+    weights = [fold_variables(from_jax_variables(random_variables(
+        ModelConfig(**dict(kw, head=head)), seed))) for head, seed in
+        (("tmr", 1), ("lfb", 2))]
+    cfg = lambda cdt: ExperimentConfig(
+        data=DataConfig(device_normalize=True),
+        model=ModelConfig(**kw, folded=True, compute_dtype=cdt),
+        memory=MemoryConfig(window=30))
+    rng = np.random.default_rng(3)
+    videos = [rng.integers(0, 256, (14, 64, 64, 3), dtype=np.uint8)
+              for _ in range(2)]
+    cpu = VideoInference(cfg("float32"), *weights, device="cpu")
+    want = [cpu.run_video(v)[1] for v in videos]
+    for chunk, trunk_chunks in ((0, 1), (5, 3)):
+        card = VideoInference(cfg("bfloat16"), *weights, backbone_chunk=chunk)
+        reset_launches()
+        _, got = card.run_video(videos[0])
+        assert dict(LAUNCHES) == {"fused_bottleneck": 2 * trunk_chunks,
+                                  "time_conv": 1, "nl_attention": 1}
+        assert np.abs(got - want[0]).max() <= REL
+    stream = StreamingInference(cfg("bfloat16"), *weights)
+    state, outs = stream.init_state(2), []
+    for t in range(14):
+        reset_launches()
+        state, _, probs, valid = stream.step(
+            state, torch.from_numpy(np.stack([v[t] for v in videos])).cuda())
+        assert dict(LAUNCHES) == {"fused_bottleneck": 2, "time_conv": 1,
+                                  "nl_attention": 1}
+        assert bool(valid.all()) == (t >= 9)
+        outs.append(probs.cpu().numpy())
+    got = np.stack(outs[9:], axis=1)                  # (streams, clips, C)
+    assert np.abs(got - np.stack(want)).max() <= REL
 
 
 # Stage shapes; a partial last H tile (57 and 29 rows at the 2-row tiles of

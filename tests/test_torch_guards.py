@@ -2,6 +2,7 @@
 its entry points refuse to run without CUDA unless asked for the CPU."""
 
 import ast
+import dataclasses
 import pathlib
 import subprocess
 import sys
@@ -10,10 +11,12 @@ import numpy as np
 import pytest
 import torch
 
-from tmrnet_torch.config import ExperimentConfig, ModelConfig
-from tmrnet_torch.eval.infer import ClipInference
+from tmrnet_torch.config import DataConfig, ExperimentConfig, ModelConfig
+from tmrnet_torch.eval.infer import ClipInference, VideoInference
+from tmrnet_torch.eval.stream import StreamingInference
 from tmrnet_torch.memory.lfb import FeatureBank, load_bank
 from tmrnet_torch.models.tmrnet import build_model
+from tmrnet_torch.train.loop import build_lfb_video
 
 torch.set_num_threads(2)
 
@@ -42,6 +45,7 @@ def test_port_imports_nothing_of_jax(path):
 
 def test_importing_the_port_leaves_jax_out():
     code = ("import sys, tmrnet_torch, tmrnet_torch.eval.infer, "
+            "tmrnet_torch.eval.stream, tmrnet_torch.train.loop, "
             "tmrnet_torch.models.convert, tmrnet_torch.memory.lfb, "
             "tmrnet_torch.ops, tmrnet_torch.ops.quant, "
             "tmrnet_torch.experimental.fused_bottleneck_tiled, "
@@ -80,6 +84,21 @@ def test_entry_points_need_cuda_unless_cpu(no_cuda, tmp_path):
     res = engine.run([(np.zeros((1, 2, 32, 32, 3), np.uint8), np.zeros(1),
                        np.array([3]), 0)], bank.first_rows)
     assert res.scores.shape == (1, 7)
+
+    cfg = ExperimentConfig(model=CFG, data=DataConfig(sequence_length=2))
+    ext = build_model(dataclasses.replace(CFG, head="lfb"), device="cpu").state_dict()
+    video = np.zeros((3, 32, 32, 3), np.uint8)
+    for make in (lambda **kw: VideoInference(cfg, state, ext, **kw),
+                 lambda **kw: StreamingInference(cfg, state, ext, **kw),
+                 lambda **kw: build_lfb_video(cfg, ext, [video], **kw)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+        make(device="cpu")
+    preds, probs = VideoInference(cfg, state, ext, device="cpu").run_video(video)
+    assert preds.shape == (2,) and probs.shape == (2, 7)
+    stream = StreamingInference(cfg, state, ext, device="cpu")
+    out = stream.step(stream.init_state(2), video[:2])
+    assert all(t.device.type == "cpu" for t in out[1:])
 
 
 def test_engine_refuses_a_bank_on_another_device():

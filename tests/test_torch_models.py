@@ -1,8 +1,9 @@
 """The port's modules against the flax modules of the JAX package, with the
 flax variables moved across by `from_jax_variables`: NLBlock, TimeConv,
 LSTM, ResNet (unfolded and folded, the folded identity blocks through the
-fused-bottleneck op), TMRNet heads tmr and nl_only; the port's BN folding
-against JAX's; and the seeded random variables against the flax tree.
+fused-bottleneck op), TMRNet heads tmr and nl_only, the stage-1 head and
+the LFB extractor; the port's BN folding against JAX's; and the seeded
+random variables against the flax tree.
 
 All in f32 on the CPU. Tolerance 1e-4 (rtol and atol): the same math with
 sums taken in another order by XLA and by PyTorch's CPU kernels."""
@@ -94,16 +95,25 @@ def test_timeconv_matches_flax(window):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-def test_lstm_matches_flax():
+@pytest.mark.parametrize("initial", [False, True])
+def test_lstm_matches_flax(initial):
+    """Outputs and the final (h, c), from zeros or from a given state."""
     rng = np.random.RandomState(2)
     x = jnp.asarray(rng.randn(2, T, 24), jnp.float32)
+    state = (tuple(jnp.asarray(rng.randn(2, HID), jnp.float32)
+                   for _ in range(2)) if initial else None)
     lstm = JaxLSTM(hidden_dim=HID)
     variables = perturb(lstm.init(jax.random.PRNGKey(2), x), 3)
-    want, _ = lstm.apply(variables, x)
+    want, (want_h, want_c) = lstm.apply(variables, x, state)
     port = load(LSTM(24, HID), variables)
     with torch.no_grad():
-        got = port(t(x))
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+        got, (h, c) = port(t(x), None if state is None
+                           else tuple(t(s) for s in state))
+    tol = dict(rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol)
+    np.testing.assert_allclose(h.numpy(), np.asarray(want_h), **tol)
+    np.testing.assert_allclose(c.numpy(), np.asarray(want_c), **tol)
+    np.testing.assert_array_equal(h.numpy(), got[:, -1].numpy())
 
 
 # (2, 1) x width 8 has one stride-1 identity block (layer1_1), so the folded
@@ -164,12 +174,38 @@ def test_tmrnet_matches_flax(head):
     np.testing.assert_allclose(got, want_folded, **TOL)
 
 
-def test_fold_variables_matches_jax():
+def _init(head, key, clips, memory):
+    """The flax variables of head `head` (the memory heads take a memory
+    window, stage1 and lfb the clips alone)."""
+    model = jax_build_model(JaxModelConfig(**_tiny(head)))
+    args = (clips, memory) if head in ("tmr", "nl_only") else (clips,)
+    return model.init(jax.random.PRNGKey(key), *args)
+
+
+@pytest.mark.parametrize("head", ["stage1", "lfb"])
+def test_stage1_and_lfb_heads_match_flax(head):
+    """stage1: (B, T, classes) logits; lfb: (B, hidden) features; unfolded
+    and folded, the weights carried by from_jax_variables and folded by
+    each package's fold_variables."""
+    rng = np.random.RandomState(6)
+    clips = jnp.asarray(rng.randn(2, T, HW, HW, 3), jnp.float32)
+    variables = perturb(_init(head, 6, clips, None), 7)
+    for folded, tree in ((False, variables), (True, jax_fold_variables(variables))):
+        want = np.asarray(jax_build_model(JaxModelConfig(
+            **_tiny(head, folded))).apply(tree, clips, train=False))
+        assert want.shape == ((2, T, 7) if head == "stage1" else (2, HID))
+        port = build_model(ModelConfig(**_tiny(head, folded)), device="cpu")
+        load(port, tree)
+        with torch.no_grad():
+            np.testing.assert_allclose(port(t(clips)).numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("head", ["tmr", "stage1", "lfb"])
+def test_fold_variables_matches_jax(head):
     rng = np.random.RandomState(5)
     clips = jnp.asarray(rng.randn(1, 2, HW, HW, 3), jnp.float32)
     memory = jnp.asarray(rng.randn(1, WIN, HID), jnp.float32)
-    model = jax_build_model(JaxModelConfig(**_tiny("tmr")))
-    variables = perturb(model.init(jax.random.PRNGKey(5), clips, memory), 6)
+    variables = perturb(_init(head, 5, clips, memory), 6)
     want = from_jax_variables(to_np(jax_fold_variables(variables)))
     got = fold_variables(from_jax_variables(to_np(variables)))
     assert sorted(got) == sorted(want)
@@ -189,15 +225,17 @@ def _shapes(tree, prefix=""):
 
 
 @pytest.mark.parametrize("backbone,head", [("resnet50", "tmr"),
-                                           ("tiny", "nl_only")])
+                                           ("tiny", "nl_only"),
+                                           ("tiny", "stage1"),
+                                           ("resnet50", "lfb")])
 def test_random_variables_have_the_flax_tree(backbone, head):
     kw = dict(backbone=backbone, hidden_dim=32, head=head,
               compute_dtype="float32")
     model = jax_build_model(JaxModelConfig(**kw))
     clips = jnp.zeros((1, 2, 32, 32, 3), jnp.float32)
     memory = jnp.zeros((1, 4, 32), jnp.float32)
-    init = jax.eval_shape(lambda: model.init(jax.random.PRNGKey(0), clips,
-                                             memory))
+    args = (clips, memory) if head in ("tmr", "nl_only") else (clips,)
+    init = jax.eval_shape(lambda: model.init(jax.random.PRNGKey(0), *args))
     ours = random_variables(ModelConfig(**kw), seed=0)
     for coll in ("params", "batch_stats"):
         assert _shapes(ours[coll]) == _shapes(init[coll]), coll

@@ -1,10 +1,12 @@
 """Configuration for the PyTorch port: the fields of the JAX package's
-`ModelConfig`, `MemoryConfig` and `DataConfig` that clip inference reads.
+`ModelConfig`, `MemoryConfig`, `DataConfig` and `EvalConfig` that the
+inference engines read.
 
 Own copy of those fields (names, defaults, meaning) of
 `tmrnet_tpu/config.py` (ModelConfig :97-123, MemoryConfig :200-210,
-DataConfig mean/std/device_normalize :81-92), so the port never imports the
-JAX package. Later slices add the fields they read.
+DataConfig sequence_length :61 and mean/std/device_normalize :81-92,
+EvalConfig backbone_chunk :214-236), so the port never imports the JAX
+package. Later slices add the fields they read.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ class DataConfig:
     """Input normalization: uint8 frames are cast to the compute dtype and,
     under `device_normalize`, become (x - mean*255) / (std*255) on the card."""
 
+    # Frames per clip: the reference runs 10-frame 1-fps clips.
+    sequence_length: int = 10
     mean: Tuple[float, float, float] = CHOLEC80_MEAN
     std: Tuple[float, float, float] = CHOLEC80_STD
     device_normalize: bool = False
@@ -38,7 +42,9 @@ class ModelConfig:
     width: int = 64
     hidden_dim: int = 512  # LSTM hidden size
     num_classes: int = 7
-    # 'tmr' (TimeConv + NLBlock memory head) or 'nl_only' (NLBlock alone).
+    # 'stage1' (trunk + LSTM + fc on every step), 'lfb' (trunk + LSTM, the
+    # last step's features), 'tmr' (TimeConv + NLBlock memory head) or
+    # 'nl_only' (NLBlock alone).
     head: str = "tmr"
     compute_dtype: str = "bfloat16"  # bfloat16 on the card; float32 for parity
     # Inference-only: BatchNorm pre-folded into conv weights (models/fold_bn).
@@ -53,12 +59,23 @@ class MemoryConfig:
 
 
 @dataclass(frozen=True)
+class EvalConfig:
+    """Inference settings."""
+
+    # The video engines run the backbone over frame chunks of this many
+    # frames: 0 = auto (`eval/infer.py::plan_trunk_chunk`), -1 = never
+    # (all frames of a call at once), > 0 = that many.
+    backbone_chunk: int = 0
+
+
+@dataclass(frozen=True)
 class ExperimentConfig:
-    """The sections of the JAX ExperimentConfig that clip inference reads."""
+    """The sections of the JAX ExperimentConfig that the engines read."""
 
     data: DataConfig = field(default_factory=DataConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     memory: MemoryConfig = field(default_factory=MemoryConfig)
+    eval: EvalConfig = field(default_factory=EvalConfig)
 
     def replace(self, **kw) -> "ExperimentConfig":
         return dataclasses.replace(self, **kw)

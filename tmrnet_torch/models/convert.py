@@ -66,10 +66,13 @@ def from_jax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
 
 def random_variables(cfg: ModelConfig, seed: int = 0) -> Dict[str, Any]:
-    """Unfolded flax-layout variables for `cfg` (heads tmr / nl_only), f32,
-    drawn from numpy's generator at `seed`. Scales keep activations O(1)
-    through a deep trunk: He-normal convs, the last BatchNorm of each
-    residual branch scaled by 0.25, Xavier LSTM and dense kernels."""
+    """Unfolded flax-layout variables for `cfg`, f32, drawn from numpy's
+    generator at `seed`: the backbone and `encoder.lstm` for every head,
+    plus `fc` (head stage1), or the memory head (tmr: `time_conv`,
+    `nl_block`, `fc_h_c`, `fc_c`; nl_only the same without `time_conv`);
+    head lfb has nothing more. Scales keep activations O(1) through a deep
+    trunk: He-normal convs, the last BatchNorm of each residual branch
+    scaled by 0.25, Xavier LSTM and dense kernels."""
     rng = np.random.default_rng(seed)
     f32 = lambda a: np.asarray(a, np.float32)
     normal = lambda shape, std: f32(rng.normal(0.0, std, shape))
@@ -124,13 +127,18 @@ def random_variables(cfg: ModelConfig, seed: int = 0) -> Dict[str, Any]:
                              "weight_hh": xavier(4 * h, h),
                              "bias_ih": normal((4 * h,), 0.02),
                              "bias_hh": normal((4 * h,), 0.02)}},
-        "nl_block": {"query": dense(h, h), "key": dense(h, h),
-                     "value": dense(h, h), "out": dense(h, h),
-                     "layer_norm": {"scale": uniform((h,), 0.8, 1.2),
-                                    "bias": normal((h,), 0.05)}},
-        "fc_h_c": dense(2 * h, h),
-        "fc_c": dense(h, cfg.num_classes),
     }
+    if cfg.head == "stage1":
+        params["fc"] = dense(h, cfg.num_classes)
+    elif cfg.head in ("tmr", "nl_only"):
+        params.update(
+            nl_block={"query": dense(h, h), "key": dense(h, h),
+                      "value": dense(h, h), "out": dense(h, h),
+                      "layer_norm": {"scale": uniform((h,), 0.8, 1.2),
+                                     "bias": normal((h,), 0.05)}},
+            fc_h_c=dense(2 * h, h), fc_c=dense(h, cfg.num_classes))
+    elif cfg.head != "lfb":
+        raise ValueError(f"unknown head {cfg.head!r}")
     if cfg.head == "tmr":
         params["time_conv"] = {
             f"conv_k{k}": {"kernel": normal((k, h, h), np.sqrt(1.0 / (k * h))),

@@ -130,6 +130,20 @@ class ResNet(nn.Module):
                 in_feats = planes * EXPANSION
         self.num_features = in_feats
 
+    def activation_elements(self, h: int, w: int) -> int:
+        """Elements of the largest activation one h x w frame makes: the
+        stem's conv output or a stage's output (each stride 2 rounds up)."""
+        half = lambda n: -(-n // 2)
+        h, w = half(h), half(w)
+        most = h * w * self.conv1.out_channels
+        h, w = half(h), half(w)                       # the max-pool
+        for l in range(len(self.stage_sizes)):
+            if l:
+                h, w = half(h), half(w)
+            most = max(most, h * w * self.conv1.out_channels * 2 ** l
+                       * EXPANSION)
+        return most
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (N, H, W, 3) -> (N, num_features)."""
         x = x.to(self.compute_dtype).permute(0, 3, 1, 2)

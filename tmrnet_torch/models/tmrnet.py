@@ -1,10 +1,12 @@
-"""TMRNet memory-relation head over (clip, LFB window), for inference.
+"""TMRNet model heads, for inference.
 
-Port of `tmrnet_tpu/models/tmrnet.py` (ClipEncoder :32-47, TMRNet :86-124,
-build_model :145-159) for the heads `tmr` (TimeConv + NLBlock) and
+Port of `tmrnet_tpu/models/tmrnet.py` (ClipEncoder :32-47, MemoryBankModel
+:50-68, LFBExtractor :71-83, TMRNet :86-124, build_model :145-159): the
+stage-1 head `stage1` (an fc over every LSTM step), the LFB extractor `lfb`
+(the last LSTM step) and the memory heads `tmr` (TimeConv + NLBlock) and
 `nl_only` (NLBlock alone). The module tree follows the flax parameter tree:
-the backbone sits at the top level (`backbone.*`) and the clip encoder holds
-only the LSTM (`encoder.lstm.*`). Inference only: the dropouts are
+the backbone sits at the top level (`backbone.*`) and the clip encoder
+holds only the LSTM (`encoder.lstm.*`). Inference only: the dropouts are
 identities.
 """
 
@@ -18,6 +20,8 @@ from tmrnet_torch.device import resolve_device, torch_dtype
 from tmrnet_torch.models.blocks import NLBlock, TimeConv, dense
 from tmrnet_torch.models.lstm import LSTM
 from tmrnet_torch.models.resnet import ResNet
+
+HEADS = ("stage1", "lfb", "tmr", "nl_only")
 
 
 class ClipEncoder(nn.Module):
@@ -33,7 +37,38 @@ class ClipEncoder(nn.Module):
         """clips (B, T, H, W, 3) -> (B, T, hidden)."""
         b, t = clips.shape[:2]
         feats = backbone(clips.reshape((b * t,) + tuple(clips.shape[2:])))
-        return self.lstm(feats.reshape(b, t, -1))
+        return self.lstm(feats.reshape(b, t, -1))[0]
+
+
+class MemoryBankModel(nn.Module):
+    """Stage-1 model: logits for every step, (B, T, classes)."""
+
+    def __init__(self, backbone: ResNet, num_classes: int = 7,
+                 hidden_dim: int = 512,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.backbone = backbone
+        self.encoder = ClipEncoder(backbone.num_features, hidden_dim,
+                                   compute_dtype)
+        self.fc = nn.Linear(hidden_dim, num_classes)
+
+    def forward(self, clips: torch.Tensor) -> torch.Tensor:
+        return dense(self.fc, self.encoder(self.backbone, clips))
+
+
+class LFBExtractor(nn.Module):
+    """Clip-feature extractor for the LFB build: the last LSTM step,
+    (B, hidden)."""
+
+    def __init__(self, backbone: ResNet, hidden_dim: int = 512,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.backbone = backbone
+        self.encoder = ClipEncoder(backbone.num_features, hidden_dim,
+                                   compute_dtype)
+
+    def forward(self, clips: torch.Tensor) -> torch.Tensor:
+        return self.encoder(self.backbone, clips)[:, -1, :]
 
 
 class TMRNet(nn.Module):
@@ -51,20 +86,24 @@ class TMRNet(nn.Module):
         self.fc_h_c = nn.Linear(2 * hidden_dim, hidden_dim)
         self.fc_c = nn.Linear(hidden_dim, num_classes)
 
+    def head(self, st: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
+        """The memory head: clip embeddings St (B, hidden) and their memory
+        windows (B, window, hidden) -> logits (B, classes) in St's dtype.
+        The clip, video and stream engines all score through it."""
+        lt = memory.to(st.dtype)
+        if self.time_conv is not None:
+            lt = self.time_conv(lt)
+        y = torch.cat([st, self.nl_block(st, lt)], dim=-1)
+        # Reference order: fc_h_c -> dropout -> relu -> fc_c.
+        y = torch.relu(dense(self.fc_h_c, y))
+        return dense(self.fc_c, y)
+
     def forward(self, clips: torch.Tensor,
                 long_feature: torch.Tensor) -> torch.Tensor:
         """clips (B, T, H, W, 3); long_feature (B, window, hidden)
         -> logits (B, classes) in the compute dtype."""
         ys = self.encoder(self.backbone, clips)
-        y = ys[:, -1, :]                                     # St (B, hidden)
-        lt = long_feature.to(y.dtype)
-        if self.time_conv is not None:
-            lt = self.time_conv(lt)
-        y1 = self.nl_block(y, lt)
-        y = torch.cat([y, y1], dim=-1)
-        # Reference order: fc_h_c -> dropout -> relu -> fc_c.
-        y = torch.relu(dense(self.fc_h_c, y))
-        return dense(self.fc_c, y)
+        return self.head(ys[:, -1, :], long_feature)
 
 
 def build_backbone(cfg: ModelConfig, fused_kernel: str = "block") -> ResNet:
@@ -82,18 +121,25 @@ def build_backbone(cfg: ModelConfig, fused_kernel: str = "block") -> ResNet:
 
 
 def build_model(cfg: ModelConfig, device="cuda",
-                fused_kernel: str = "block") -> TMRNet:
-    """ModelConfig -> TMRNet on `device`, its weights zero until loaded
-    (`load_state_dict`, e.g. from `models.convert.from_jax_variables`);
+                fused_kernel: str = "block") -> nn.Module:
+    """ModelConfig -> the head's model on `device`, its weights zero until
+    loaded (`load_state_dict`, e.g. from `models.convert.from_jax_variables`);
     fused_kernel as in `build_backbone`."""
     dev = resolve_device(device)
-    if cfg.head not in ("tmr", "nl_only"):
-        raise ValueError(f"head {cfg.head!r} is not ported (tmr, nl_only)")
+    if cfg.head not in HEADS:
+        raise ValueError(f"unknown head {cfg.head!r} (want one of {HEADS})")
+    cdt = torch_dtype(cfg.compute_dtype)
     with torch.device("meta"):
-        model = TMRNet(build_backbone(cfg, fused_kernel), cfg.num_classes,
-                       cfg.hidden_dim,
-                       use_time_conv=(cfg.head == "tmr"),
-                       compute_dtype=torch_dtype(cfg.compute_dtype))
+        backbone = build_backbone(cfg, fused_kernel)
+        if cfg.head == "stage1":
+            model = MemoryBankModel(backbone, cfg.num_classes, cfg.hidden_dim,
+                                    cdt)
+        elif cfg.head == "lfb":
+            model = LFBExtractor(backbone, cfg.hidden_dim, cdt)
+        else:
+            model = TMRNet(backbone, cfg.num_classes, cfg.hidden_dim,
+                           use_time_conv=(cfg.head == "tmr"),
+                           compute_dtype=cdt)
     model = model.to_empty(device=dev)
     with torch.no_grad():
         for t in model.state_dict().values():
