@@ -26,7 +26,11 @@ Phases, in order; any failure exits nonzero:
    eager ms, TOP/s, bound and torch._int_mm under "shapes" (its device_ms
    sums the chain's 8), int8_conv3x3's per stage its plan, device ms,
    TOP/s, bound, torch._int_mm on a prebuilt im2col and a bf16 cuDNN
-   conv3x3 under "stages";
+   conv3x3 under "stages"; the bf16 kernels again at the shapes the
+   engines and the daemon give them (head B = 2,582 / 44,000 / 16 / 4,
+   bottlenecks N = 16 / 4 / 2,048); and time_conv at B = 139,811, W = 30, C = 512,
+   one row past one launch's 32-bit limit: 2 launches, the rows at the
+   split and 256 seeded others against the plain version;
 4. the block slice: full-width TMRNet (ResNet-50, BN folded, hidden 512,
    window 30, 7 classes, bf16) with seeded random weights through the
    weight bridge, a 4096x512 bf16 bank on the card, and ClipInference
@@ -59,6 +63,25 @@ Phases, in order; any failure exits nonzero:
    step; inactive slots frozen bit for bit; every stream's valid outputs
    against run_video over the frames it took (split at the reset) within
    2e-2; step p50 and p99 ms after 4 warm-up steps and stream-frames/s;
+4e. the serving slice: the same width (BN folded at load, device_normalize,
+   test crop 1) with two seeded weight sets written as reference-format
+   .pth files by the port's export and read back only through its import,
+   and 6 packed videos of 40 uint8 250x250 frames (`<file>.npy#<t>`).
+   Part A: serve_loop with probabilities over a JsonlTcpServer in a thread,
+   4 slots, two clients, 34 ticks: joins at different ticks, an end and a
+   new stream in its slot, a stream frozen 3 ticks, a join that finds no
+   free slot, a client that disconnects with a frame pending; every row
+   and error row as planned, each stream life against run_video over the
+   frames it took within 2e-2 and the argmax rule (fc_c's seeded weights
+   scaled by SERVE_LOGIT_SCALE, so that the classes spread and the rule
+   decides rows), 24 fused_bottleneck,
+   1 time_conv and 1 nl_attention launches on every tick (the warm-up's
+   too) and none in a slot reset; latency_ms and step_ms p50/p95. Part B:
+   `python -m tmrnet_torch serve --listen 127.0.0.1:0 --state-dir ...` as
+   a subprocess, 2 streams for 12 ticks, SIGTERM (exit 0, state.npz
+   left), a restart and 8 more ticks whose rows go on from frame 12 and
+   equal an uninterrupted in-process run within 1e-6 (same card, code and
+   dtype: a ring restored wrong shows); seconds to ready;
 5. the int8 gate (tmrnet_torch.experimental.int8_gate) at B = 128 over the
    four stages: the int8 bottleneck chain through the kernels equal to the
    same chain through the plain versions, 2 int8_matmul and 1 int8_conv3x3
@@ -74,8 +97,13 @@ import argparse
 import dataclasses
 import json
 import os
+import queue
+import signal
+import socket
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -98,6 +126,13 @@ GATE_BATCH = 128        # frames per int8 gate stage
 VIDEO_LENGTHS = (1500, 1100, 9)
 STREAMS, STREAM_STEPS = 16, 48
 SQUARE = 8192           # the square int8 product
+# The serving slice: packed videos and their frames; how long a daemon may
+# take to print {"ready": true}; its slots (the N and B its kernels see);
+# the factor on fc_c's seeded weights (random weights leave the 7-class
+# softmax near uniform); a resumed daemon against an uninterrupted run.
+SERVE_VIDEOS, SERVE_FRAMES, SERVE_READY_TIMEOUT = 6, 40, 300
+SERVE_SLOTS, SERVE_LOGIT_SCALE, RESUME_TOL = 4, 4.0, 1e-6
+ROOT_TMP = os.path.join(ROOT, "build")
 
 
 def card_line():
@@ -298,9 +333,10 @@ def check_engine_shapes(torch, seed, records):
     versions (f32) at the shapes the video and stream slices give them --
     the head kernels at the corpus's head call (the clip positions of the
     slice's videos that share a bucket), at a head group of 8 videos of
-    5,500 clips (44,000 rows) and at a stream step (16 rows); the
-    bottleneck kernels at each stage at a stream step (16 frames) and at a
-    full auto trunk chunk (2,048 frames at 224x224). Each record's
+    5,500 clips (44,000 rows), at a stream step (16 rows) and at a
+    daemon's tick (SERVE_SLOTS rows); the bottleneck kernels at each stage
+    at a stream step (16 frames), a daemon's tick (SERVE_SLOTS frames) and
+    a full auto trunk chunk (2,048 frames at 224x224). Each record's
     max_abs_err becomes the largest over its shapes; the errors and eager
     ms per shape go under "engine_shapes"."""
     from tmrnet_torch.experimental.fused_bottleneck import (
@@ -330,7 +366,7 @@ def check_engine_shapes(torch, seed, records):
         print(f"    eager {ms:.4f} ms")
 
     corpus_rows = sum(n - SEQ + 1 for n in VIDEO_LENGTHS[:2])
-    for b in (corpus_rows, 8 * 5500, STREAMS):
+    for b in (corpus_rows, 8 * 5500, STREAMS, SERVE_SLOTS):
         check("nl_attention", f"B={b}", nl_attention_cuda, nl_attention_plain,
               (bf((b, HIDDEN)), bf((b, WINDOW, HIDDEN)),
                bf((b, WINDOW, HIDDEN))))
@@ -340,7 +376,7 @@ def check_engine_shapes(torch, seed, records):
                    bf((HIDDEN,), 0.02).float()]
         check("time_conv", f"B={b}", time_conv_cuda, time_conv_plain,
               (bf((b, WINDOW, HIDDEN)), *ws))
-    for n in (STREAMS, 2048):
+    for n in (STREAMS, SERVE_SLOTS, 2048):
         for h, cc, p, _ in STAGES:
             args = (torch.relu(bf((n, h, h, cc))), bf((cc, p), (2.0 / cc) ** 0.5),
                     bf((p,), 0.05).float(),
@@ -357,6 +393,49 @@ def check_engine_shapes(torch, seed, records):
             del args
             torch.cuda.empty_cache()
     return all_ok
+
+
+def check_time_conv_split(torch, seed, records):
+    """Phase 3, the split: time_conv at B = 139,811, W = 30, C = 512 (~4.3
+    GB of bf16), one row past one launch's 32-bit limit. It must launch
+    twice; the rows at the split and 256 seeded others against the plain
+    version in f32. Goes under time_conv's "engine_shapes", with its eager
+    ms and launches."""
+    from tmrnet_torch.kernels.build import LAUNCHES
+    from tmrnet_torch.ops.time_conv import (
+        time_conv_cuda, time_conv_max_rows, time_conv_plain)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 6)
+    limit = time_conv_max_rows(WINDOW, HIDDEN)
+    b = limit + 1
+    x = torch.randn((b, WINDOW, HIDDEN), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    ws = []
+    for ksz in (3, 5, 7):
+        ws += [(torch.randn((ksz, HIDDEN, HIDDEN), generator=gen, device=dev)
+                * (1.0 / (ksz * HIDDEN)) ** 0.5).to(torch.bfloat16),
+               torch.randn((HIDDEN,), generator=gen, device=dev) * 0.02]
+    before = LAUNCHES["time_conv"]
+    out = time_conv_cuda(x, *ws)
+    launches = LAUNCHES["time_conv"] - before
+    rows = torch.cat([torch.arange(limit - 2, b, device=dev),
+                      torch.randint(0, b, (256,), generator=gen, device=dev)])
+    err, ok = compare(torch, f"time_conv B={b} (split at {limit}), "
+                      f"{len(rows)} rows", out[rows],
+                      time_conv_plain(x[rows].float(), *(t.float() for t in ws)))
+    del out
+    ms = time_ms(torch, lambda: time_conv_cuda(x, *ws), 3, 1)
+    ok_n = launches == 2
+    print(f"    launches {launches} (want 2) {'ok' if ok_n else 'FAIL'}, "
+          f"eager {ms:.4f} ms")
+    rec = {r["name"]: r for r in records}["time_conv"]
+    rec["max_abs_err"] = max(rec["max_abs_err"], err)
+    rec["engine_shapes"].append(dict(shape=f"B={b}", max_abs_err=err, ms=ms,
+                                     launches=launches))
+    del x
+    torch.cuda.empty_cache()
+    return ok and ok_n
 
 
 def int_mm_ms(torch, a, b, scale, iters):
@@ -621,22 +700,28 @@ def engine_setup(seed):
     return ecfg, weights
 
 
-def argmax_agrees(name, preds, want_preds, want_probs):
+def argmax_agrees(name, preds, want_preds, want_probs, tol=TOL,
+                  min_decided=0):
     """The slices' argmax rule: where the reference's two best classes lie
-    more than twice the tolerance apart, the argmax must agree."""
+    more than twice the tolerance apart, the argmax must agree; and it must
+    decide at least `min_decided` rows. Prints the top-2 margins."""
     top2 = np.sort(want_probs, axis=-1)[:, -2:]
-    decided = top2[:, 1] - top2[:, 0] > 2 * TOL
+    margin = top2[:, 1] - top2[:, 0]
+    decided = margin > 2 * tol
     agree = bool((preds == want_preds)[decided].all())
+    agree &= int(decided.sum()) >= min_decided
     print(f"  {name}: argmax agrees on {int(decided.sum())} decided of "
-          f"{len(preds)} {'ok' if agree else 'FAIL'}")
+          f"{len(preds)} (want >= {min_decided}; top-2 margin median "
+          f"{float(np.median(margin)):.4g}, max {float(margin.max()):.4g}) "
+          f"{'ok' if agree else 'FAIL'}")
     return agree
 
 
-def probs_close(name, got, want):
-    """The slices' probability check: max |got - want| within TOL."""
+def probs_close(name, got, want, tol=TOL):
+    """The slices' probability check: max |got - want| within tol."""
     err = float(np.abs(np.asarray(got, np.float32) - want).max())
-    ok = bool(np.isfinite(err)) and err <= TOL
-    print(f"  {name}: max_abs_err {err:.4g} (limit {TOL}) "
+    ok = bool(np.isfinite(err)) and err <= tol
+    print(f"  {name}: max_abs_err {err:.4g} (limit {tol}) "
           f"{'ok' if ok else 'FAIL'}")
     return ok
 
@@ -842,6 +927,369 @@ def run_stream_slice(torch, seed, card, video_engine):
     return counts, ok
 
 
+class Client:
+    """One JSONL connection to a serving daemon."""
+
+    def __init__(self, port):
+        self.sock = socket.create_connection(("127.0.0.1", port), timeout=120)
+        self.f = self.sock.makefile("r")
+
+    def send(self, *objs):
+        self.sock.sendall("".join(json.dumps(o) + "\n" for o in objs).encode())
+
+    def recv(self):
+        line = self.f.readline()
+        if not line:
+            raise RuntimeError("connection closed while expecting a row")
+        return json.loads(line)
+
+    def close(self):
+        try:
+            self.sock.shutdown(socket.SHUT_RDWR)
+        except OSError:             # the daemon closed it first
+            pass
+        self.f.close()
+        self.sock.close()
+
+
+def serve_setup(seed, tmp):
+    """Phase 4e's config, its two seeded weight sets written as reference
+    `.pth` files by the port's export (the TMR model, head tmr, with fc_c
+    scaled by SERVE_LOGIT_SCALE, and the extractor, head lfb), the config
+    JSON, and SERVE_VIDEOS packed videos of SERVE_FRAMES 250x250 uint8
+    frames."""
+    import torch
+
+    from tmrnet_torch.config import DataConfig, ExperimentConfig, MemoryConfig, ModelConfig
+    from tmrnet_torch.models.convert import from_jax_variables, random_variables
+    from tmrnet_torch.models.torch_import import export_reference_checkpoint
+
+    model = ModelConfig(backbone="resnet50", head="tmr", hidden_dim=HIDDEN,
+                        num_classes=CLASSES, compute_dtype="bfloat16",
+                        folded=True)
+    cfg = ExperimentConfig(
+        data=DataConfig(device_normalize=True, test_crop_type=1,
+                        sequence_length=SEQ),
+        model=model, memory=MemoryConfig(window=WINDOW))
+    paths = {}
+    for k, head in ((200, "tmr"), (300, "lfb")):
+        state = from_jax_variables(random_variables(dataclasses.replace(
+            model, head=head, compute_dtype="float32", folded=False),
+            seed + k))
+        if head == "tmr":
+            for key in ("fc_c.weight", "fc_c.bias"):
+                state[key] = state[key] * SERVE_LOGIT_SCALE
+        paths[head] = os.path.join(tmp, f"{head}.pth")
+        torch.save(export_reference_checkpoint(state, head, model.stage_sizes),
+                   paths[head])
+    paths["config"] = os.path.join(tmp, "cfg.json")
+    with open(paths["config"], "w") as f:
+        f.write(cfg.to_json())
+    rng = np.random.default_rng(seed + 7)
+    videos = []
+    for i in range(SERVE_VIDEOS):
+        videos.append(rng.integers(0, 256, (SERVE_FRAMES, 250, 250, 3),
+                                   dtype=np.uint8))
+        np.save(os.path.join(tmp, f"v{i}.npy"), videos[-1])
+    return cfg, paths, videos
+
+
+def serve_engines(cfg, paths):
+    """StreamingInference and VideoInference on the card from the `.pth`
+    files, read back only through the port's import and folded, as
+    `python -m tmrnet_torch serve` does."""
+    from tmrnet_torch import cli
+    from tmrnet_torch.eval.infer import VideoInference
+    from tmrnet_torch.eval.stream import StreamingInference
+    from tmrnet_torch.models.fold_bn import fold_variables
+
+    state = cli.restore_state(cfg, "tmr", paths["tmr"])
+    ext = cli.extractor_state(cfg, state, paths["lfb"])
+    state, ext = fold_variables(state), fold_variables(ext)
+    return (StreamingInference(cfg, state, ext, fused_kernel="block"),
+            VideoInference(cfg, state, ext, fused_kernel="block"))
+
+
+# Phase 4e, part A: stream -> (client, video, ticks it sends a frame in).
+# A ends at tick 14 and E takes its slot; B sends nothing at ticks 8-10; E
+# first finds the 4 slots full (tick 4); client 2 disconnects at tick 20
+# with C's frame pending, and F takes a freed slot.
+SERVE_TICKS = 34
+SERVE_PLAN = {
+    "A": (1, 0, range(0, 14)),
+    "B": (1, 1, [t for t in range(2, SERVE_TICKS) if t not in (8, 9, 10)]),
+    "C": (2, 2, range(0, 20)),
+    "D": (2, 3, range(3, 20)),
+    "E": (1, 4, range(14, SERVE_TICKS)),
+    "F": (1, 5, range(20, SERVE_TICKS)),
+}
+SERVE_DISCONNECT, SERVE_FULL, SERVE_END = 20, 4, 14
+
+
+def serve_part_a(torch, cfg, tmp, videos, engine, video_engine):
+    """Phase 4e, part A: serve_loop (probabilities on) over a
+    JsonlTcpServer in a thread, SERVE_SLOTS slots, two clients, the plan
+    above. Each
+    tick client 2 sends its frames and a probe ({"id": "sync", "end":
+    true}) whose error row says its lines were taken; client 1 then sends
+    its lines and the step. Checks every row against the plan (frame
+    numbers continue over a frozen stream), the error rows, each stream
+    life's probabilities against run_video over the frames it took, and
+    24 + 1 + 1 launches on every tick (the warm-up's too), none in a slot
+    reset. Returns (counts, summary, ok)."""
+    from tmrnet_torch import cli
+    from tmrnet_torch.data.transforms import EvalTransform
+    from tmrnet_torch.eval.serve import serve_loop
+    from tmrnet_torch.eval.serve_net import JsonlTcpServer
+    from tmrnet_torch.kernels.build import LAUNCHES, reset_launches
+
+    ticks, resets = [], []
+    step, reset = engine.step, engine.reset_streams
+
+    def counted(fn, log):
+        def call(*a, **kw):
+            before = dict(LAUNCHES)
+            out = fn(*a, **kw)
+            log.append({k: v - before.get(k, 0) for k, v in LAUNCHES.items()
+                        if v != before.get(k, 0)})
+            return out
+        return call
+
+    engine.step, engine.reset_streams = counted(step, ticks), counted(reset, resets)
+    server = JsonlTcpServer("127.0.0.1", 0)
+    res = {}
+
+    def go():
+        res["summary"] = serve_loop(
+            engine, SERVE_SLOTS, server.lines(), server, cli.frame_loader(cfg),
+            emit_probs=True, warmup_shape=(224, 224, 3),
+            warmup_dtype=np.uint8)
+
+    torch.cuda.synchronize()
+    reset_launches()
+    th = threading.Thread(target=go, name="serve-loop")
+    th.start()
+    ok, errors, sent, rows = True, [], {k: 0 for k in SERVE_PLAN}, {}
+    clients = {1: Client(server.port), 2: Client(server.port)}
+
+    def frame(sid):
+        client, video, _ = SERVE_PLAN[sid]
+        path = os.path.join(tmp, f"v{video}.npy#{sent[sid]}")
+        sent[sid] += 1
+        return {"id": sid, "image": path}
+
+    def expect_error(c, sid, text):
+        nonlocal ok
+        row = c.recv()
+        errors.append(row)
+        good = row == {"id": sid, "error": text}
+        ok &= good
+        if not good:
+            print(f"  unexpected row {row}, want error {text!r} for {sid}")
+        return row
+
+    def take(c, sids):
+        nonlocal ok
+        for sid in sorted(sids):
+            row = c.recv()
+            t = len(rows.setdefault(sid, []))
+            want = {"id": sid, "frame": t, "valid": t >= SEQ - 1}
+            good = {k: row.get(k) for k in want} == want and \
+                (row["pred"] is None) == (not want["valid"])
+            if not good:
+                print(f"  unexpected row {row}, want {want}")
+            ok &= good
+            rows[sid].append(row)
+
+    try:
+        for t in range(SERVE_TICKS):
+            live = {c: [s for s, (cl, _, ts) in SERVE_PLAN.items()
+                        if cl == c and t in ts] for c in (1, 2)}
+            if t < SERVE_DISCONNECT:
+                clients[2].send(*[frame(s) for s in live[2]],
+                                {"id": "sync", "end": True})
+                expect_error(clients[2], "sync", "unknown stream")
+            elif t == SERVE_DISCONNECT:
+                clients[2].send(frame("C"))          # left pending
+                clients[2].close()
+                deadline = time.monotonic() + 60
+                while True:                          # the disconnect lands
+                    clients[1].send({"id": "C", "end": True})
+                    row = clients[1].recv()
+                    errors.append(row)
+                    if row == {"id": "C", "error": "unknown stream"}:
+                        break
+                    ok &= row == {"id": "C",
+                                  "error": "stream owned by another client"}
+                    if time.monotonic() > deadline:
+                        raise RuntimeError("the disconnect never landed")
+                    time.sleep(0.02)
+            c1 = []
+            if t == SERVE_FULL:
+                c1.append({"id": "E", "image": "unused"})
+            if t == SERVE_END:
+                c1.append({"id": "A", "end": True})
+            clients[1].send(*c1, *[frame(s) for s in live[1]], {"step": True})
+            if t == SERVE_FULL:
+                expect_error(clients[1], "E", "no free slot")
+            take(clients[1], live[1])
+            if t < SERVE_DISCONNECT:
+                take(clients[2], live[2])
+    finally:
+        server.stop()
+        th.join(timeout=120)
+        clients[1].close()
+        engine.step, engine.reset_streams = step, reset
+    counts = dict(LAUNCHES)
+    summary = res["summary"]
+    per_tick = {"fused_bottleneck": 24, "time_conv": 1, "nl_attention": 1}
+    ok_n = (len(ticks) == SERVE_TICKS + 1 and all(c == per_tick for c in ticks)
+            and len(resets) > 0 and all(not c for c in resets))
+    n_rows = sum(len(r) for r in rows.values())
+    print(f"serve slice A: {SERVE_TICKS} ticks + warm-up, {n_rows} rows, "
+          f"{len(errors)} error rows ({sum('sync' == e['id'] for e in errors)} "
+          f"probes, the rest provoked); launches {counts} ({len(ticks)} steps "
+          f"each {per_tick}, {len(resets)} slot resets with none) "
+          f"{'ok' if ok and ok_n else 'FAIL'}")
+    ok &= ok_n and summary["rows"] == n_rows and summary["ticks"] == SERVE_TICKS
+    ok &= sorted(rows) == sorted(SERVE_PLAN) and all(
+        len(rows[s]) == len(SERVE_PLAN[s][2]) for s in SERVE_PLAN)
+    # each life against run_video over the frames it took, cropped as served
+    crop = EvalTransform(normalize=False)
+    lives = [crop(videos[SERVE_PLAN[s][1]][:len(rows[s])]) for s in sorted(rows)]
+    offline = video_engine.run_videos(lives)
+    got = np.concatenate([[r["probs"] for r in rows[s] if r["valid"]]
+                          for s in sorted(rows)])
+    preds = np.concatenate([[r["pred"] for r in rows[s] if r["valid"]]
+                            for s in sorted(rows)])
+    want_p = np.concatenate([p for p, _ in offline])
+    want = np.concatenate([w for _, w in offline])
+    ok &= probs_close(f"{len(lives)} served lives vs run_video", got, want)
+    ok &= argmax_agrees("served lives vs run_video", preds, want_p, want,
+                        min_decided=1)
+    print(f"serve slice A: latency_ms {summary['latency_ms']}, step_ms "
+          f"{summary['step_ms']}")
+    return counts, summary, ok
+
+
+def serve_part_b(cfg, paths, tmp, engine):
+    """Phase 4e, part B: `python -m tmrnet_torch serve` as a subprocess,
+    2 streams for 12 ticks over TCP, SIGTERM (exit 0, state.npz left), a
+    restart on the same state directory and 8 more ticks. The rows go on
+    from frame 12 and equal an uninterrupted in-process run within
+    RESUME_TOL. Returns
+    (startup seconds to ready, ok)."""
+    import io
+
+    from tmrnet_torch import cli
+    from tmrnet_torch.eval.serve import serve_loop
+
+    state_dir = os.path.join(tmp, "state")
+    cmd = [sys.executable, "-m", "tmrnet_torch", "serve",
+           "--torch-ckpt", paths["tmr"], "--extractor-torch-ckpt",
+           paths["lfb"], "--config", paths["config"], "--slots", str(SERVE_SLOTS),
+           "--listen", "127.0.0.1:0", "--state-dir", state_dir,
+           "--checkpoint-every", "4", "--probs"]
+    frame = lambda sid, t: {"id": sid, "image": os.path.join(
+        tmp, f"v{'PQ'.index(sid)}.npy#{t}")}
+
+    def daemon(ticks):
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdin=subprocess.DEVNULL,
+                                stdout=subprocess.DEVNULL,
+                                stderr=subprocess.PIPE, text=True)
+        lines = queue.Queue()
+
+        def read():
+            for line in proc.stderr:
+                lines.put(line)
+            lines.put(None)
+
+        threading.Thread(target=read, daemon=True).start()
+        port, startup, rows = None, None, []
+        try:
+            while startup is None:
+                line = lines.get(timeout=SERVE_READY_TIMEOUT)
+                if line is None:
+                    raise RuntimeError(f"the daemon exited before it was "
+                                       f"ready: {proc.wait()}")
+                if line.startswith("{"):
+                    obj = json.loads(line)
+                    port = obj.get("listening", {}).get("port", port)
+                    if obj.get("ready"):
+                        startup = time.perf_counter() - t0
+                else:
+                    print(f"  daemon: {line.rstrip()}")
+            c = Client(port)
+            for t in ticks:
+                c.send(frame("P", t), frame("Q", t), {"step": True})
+                rows += [c.recv(), c.recv()]
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=120)
+            c.close()
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        return rows, rc, startup
+
+    rows1, rc1, start1 = daemon(range(12))
+    saved = os.path.exists(os.path.join(state_dir, "state.npz"))
+    rows2, rc2, start2 = daemon(range(12, 20))
+    print(f"serve slice B: daemon exit codes {rc1}, {rc2} (want 0), "
+          f"state.npz left {saved}; startup to ready {start1:.2f} s and "
+          f"{start2:.2f} s (restart)")
+    ok = rc1 == 0 and rc2 == 0 and saved
+    text = "".join(json.dumps(o) + "\n" for t in range(20) for o in
+                   (frame("P", t), frame("Q", t), {"step": True}))
+    out = io.StringIO()
+    serve_loop(engine, SERVE_SLOTS, io.StringIO(text), out, cli.frame_loader(cfg),
+               emit_probs=True)
+    want = [json.loads(l) for l in out.getvalue().splitlines()]
+    got = rows1 + rows2
+    same = [{k: r.get(k) for k in ("id", "frame", "valid")} for r in got] == \
+        [{k: r[k] for k in ("id", "frame", "valid")} for r in want]
+    print(f"  resumed rows continue at frame "
+          f"{[r.get('frame') for r in rows2[:2]]}, ids/frames/valid equal to "
+          f"an uninterrupted run {'ok' if same else 'FAIL'}")
+    ok &= same and len(got) == len(want) == 40
+    if ok:
+        valid = [(g, w) for g, w in zip(got, want) if w["valid"]]
+        ok &= probs_close("daemon (restarted) vs in-process rows",
+                          [g["probs"] for g, _ in valid],
+                          np.array([w["probs"] for _, w in valid]),
+                          RESUME_TOL)
+        ok &= argmax_agrees("daemon vs in-process", np.array(
+            [g["pred"] for g, _ in valid]), np.array(
+            [w["pred"] for _, w in valid]), np.array(
+            [w["probs"] for _, w in valid]), RESUME_TOL, min_decided=1)
+    return (start1, start2), ok
+
+
+def run_serve_slice(torch, seed, card):
+    """Phase 4e: the serving slice at full width (parts A and B). Returns
+    (counts of part A, ok)."""
+    os.makedirs(ROOT_TMP, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="serve-", dir=ROOT_TMP) as tmp:
+        t0 = time.perf_counter()
+        cfg, paths, videos = serve_setup(seed, tmp)
+        engine, video_engine = serve_engines(cfg, paths)
+        print(f"serve slice: weights written and read back as reference "
+              f".pth ({os.path.getsize(paths['tmr']) / 1e6:.1f} + "
+              f"{os.path.getsize(paths['lfb']) / 1e6:.1f} MB), "
+              f"{SERVE_VIDEOS} packed videos, engines built in "
+              f"{time.perf_counter() - t0:.2f} s")
+        counts, summary, ok_a = serve_part_a(torch, cfg, tmp, videos, engine,
+                                             video_engine)
+        del video_engine
+        torch.cuda.empty_cache()
+        _, ok_b = serve_part_b(cfg, paths, tmp, engine)
+        print(f"serve slice: on {card} {'ok' if ok_a and ok_b else 'FAIL'}")
+        del engine
+        torch.cuda.empty_cache()
+    return counts, ok_a and ok_b
+
+
 def run_gate(torch, seed, card):
     """Phase 5: the int8 gate at B = 128 over the four stages: the int8
     bottleneck chain through the kernels against the same chain through the
@@ -906,6 +1354,7 @@ def main():
     records, ok = check_kernels(torch, args.seed)
     print("kernels vs plain versions at the engines' shapes:")
     ok &= check_engine_shapes(torch, args.seed, records)
+    ok &= check_time_conv_split(torch, args.seed, records)
     print("int8 kernels vs plain versions (bit for bit):")
     int8_records, ok8 = check_int8_kernels(torch, args.seed)
     records += int8_records
@@ -937,9 +1386,10 @@ def main():
                                                     video_engine)
     del video_engine
     torch.cuda.empty_cache()
+    by_path["serve"], ok_serve = run_serve_slice(torch, args.seed, card)
     by_path["gate"], ok_gate = run_gate(torch, args.seed, card)
     ok = (ok_block and ok_tiled and ok_paths and ok_video and ok_stream
-          and ok_gate)
+          and ok_serve and ok_gate)
     for rec in records:
         rec["launches_by_path"] = {p: c[rec["name"]] for p, c in by_path.items()
                                    if rec["name"] in c}

@@ -43,7 +43,12 @@ from tmrnet_torch.ops.quant import (
     int8_matmul_cuda,
     int8_matmul_plain,
 )
-from tmrnet_torch.ops.time_conv import time_conv_cuda, time_conv_plain
+from tmrnet_torch.ops.time_conv import (
+    plan_time_conv,
+    time_conv_cuda,
+    time_conv_max_rows,
+    time_conv_plain,
+)
 
 REL = 2e-2
 
@@ -145,10 +150,32 @@ def test_head_kernels_refuse_what_they_cannot_take(gen):
     k_off = flat[4:].view(k.shape).copy_(k)
     with pytest.raises(ValueError, match="16-byte aligned"):
         nl_attention_cuda(_randn(gen, (2, 64)), k_off, k)
-    # B*W*C past 32-bit offsets (refused before any operand is read)
-    x = _randn(gen, (1, 64, 512)).expand(65536, 64, 512)
+    # B*W*C past 32-bit offsets: one launch is refused (the wrapper splits
+    # such a call, test_time_conv_past_the_limit_splits)
     with pytest.raises(ValueError, match="32-bit"):
-        time_conv_cuda(x, *_tc_weights(gen, 512))
+        plan_time_conv(65536, 64, 512)
+    # and a row that alone passes them
+    x = _randn(gen, (1, 1, 64)).expand(1, 33554432, 64)
+    with pytest.raises(ValueError, match="32-bit"):
+        time_conv_cuda(x, *_tc_weights(gen, 64))
+
+
+def test_time_conv_past_the_limit_splits(gen):
+    """B = 139,811 at W = 30, C = 512 (~4.3 GB of bf16), one row past one
+    launch's 32-bit limit: two launches, and the rows at the split and 256
+    seeded others match the plain version."""
+    b, w, c = time_conv_max_rows(30, 512) + 1, 30, 512
+    x = torch.randn((b, w, c), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    ws = _tc_weights(gen, c)
+    reset_launches()
+    out = time_conv_cuda(x, *ws)
+    assert dict(LAUNCHES) == {"time_conv": 2}
+    rows = torch.cat([torch.arange(b - 3, b, device="cuda"),
+                      torch.randint(0, b, (256,), generator=gen,
+                                    device="cuda")])
+    _close(out[rows], time_conv_plain(x[rows].float(),
+                                      *(t.float() for t in ws)))
 
 
 def _fb_args(gen, n, h, w, c, p, b1_shift=0.0):
@@ -333,6 +360,79 @@ def test_video_and_stream_engines_on_card_match_cpu(gen):
         outs.append(probs.cpu().numpy())
     got = np.stack(outs[9:], axis=1)                  # (streams, clips, C)
     assert np.abs(got - np.stack(want)).max() <= REL
+
+
+def test_serve_loop_on_card_matches_cpu(gen):
+    """serve_loop over StreamingInference on the card (bf16, folded,
+    ResNet-50 widths with one identity block) against the same loop over
+    the engine in f32 on the CPU: 3 streams through 2 slots with a join,
+    an end and a recycle, a no-free-slot error and a dropped tick. Same
+    rows but for probabilities (within 2e-2) and preds where the CPU's two
+    best lie within 4e-2; one fused_bottleneck a trunk, one time_conv and
+    one nl_attention a tick, the warm-up tick included."""
+    import io
+    import json
+
+    from tmrnet_torch.config import (DataConfig, ExperimentConfig,
+                                     MemoryConfig, ModelConfig)
+    from tmrnet_torch.eval.serve import serve_loop
+    from tmrnet_torch.eval.stream import StreamingInference
+    from tmrnet_torch.models.convert import from_jax_variables, random_variables
+    from tmrnet_torch.models.fold_bn import fold_variables
+
+    kw = dict(backbone="resnet50", stage_sizes=(2, 1, 1, 1), hidden_dim=512,
+              head="tmr")
+    weights = [fold_variables(from_jax_variables(random_variables(
+        ModelConfig(**dict(kw, head=head)), seed))) for head, seed in
+        (("tmr", 5), ("lfb", 6))]
+    cfg = lambda cdt: ExperimentConfig(
+        data=DataConfig(device_normalize=True),
+        model=ModelConfig(**kw, folded=True, compute_dtype=cdt),
+        memory=MemoryConfig(window=30))
+    rng = np.random.default_rng(7)
+    frames = {f"{k}{t}": rng.integers(0, 256, (64, 64, 3), dtype=np.uint8)
+              for k in "abc" for t in range(14)}
+    lines = []
+    for t in range(14):
+        if t != 6:                                   # a drops tick 6
+            lines.append({"id": "a", "image": f"a{t}"})
+        if t < 11:
+            lines.append({"id": "b", "image": f"b{t}"})
+        if t == 2:
+            lines.append({"id": "c", "image": "c0"})  # no free slot
+        if t == 11:
+            lines.append({"id": "b", "end": True})
+        if t >= 11:
+            lines.append({"id": "c", "image": f"c{t - 11}"})
+        lines.append({"step": True})
+    text = "".join(json.dumps(o) + "\n" for o in lines)
+    outs = []
+    for device, cdt in (("cuda", "bfloat16"), ("cpu", "float32")):
+        engine = StreamingInference(cfg(cdt), *weights, device=device)
+        out = io.StringIO()
+        reset_launches()
+        serve_loop(engine, 2, io.StringIO(text), out, frames.__getitem__,
+                   emit_probs=True, warmup_shape=(64, 64, 3),
+                   warmup_dtype=np.uint8)
+        if device == "cuda":
+            ticks = 1 + 14                           # the warm-up tick too
+            assert dict(LAUNCHES) == {"fused_bottleneck": 2 * ticks,
+                                      "time_conv": ticks,
+                                      "nl_attention": ticks}
+        outs.append([json.loads(line) for line in out.getvalue().splitlines()])
+    got, want = outs
+    assert len(got) == len(want)
+    assert sum(r.get("valid", False) for r in want) == 4 + 2   # a, b
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys()
+        for k, v in w.items():
+            if k == "probs":
+                assert np.abs(np.subtract(g[k], v)).max() <= REL
+            elif k == "pred" and v is not None and g[k] != v:
+                top2 = np.sort(w["probs"])[-2:]
+                assert top2[1] - top2[0] <= 2 * REL
+            else:
+                assert g[k] == v
 
 
 # Stage shapes; a partial last H tile (57 and 29 rows at the 2-row tiles of

@@ -50,7 +50,11 @@ def test_importing_the_port_leaves_jax_out():
             "tmrnet_torch.ops, tmrnet_torch.ops.quant, "
             "tmrnet_torch.experimental.fused_bottleneck_tiled, "
             "tmrnet_torch.experimental.quant_conv, "
-            "tmrnet_torch.experimental.int8_gate; "
+            "tmrnet_torch.experimental.int8_gate, tmrnet_torch.cli, "
+            "tmrnet_torch.config, tmrnet_torch.eval.serve, "
+            "tmrnet_torch.eval.serve_net, tmrnet_torch.models.torch_import, "
+            "tmrnet_torch.data.packed, tmrnet_torch.data.pipeline, "
+            "tmrnet_torch.data.transforms; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -99,6 +103,37 @@ def test_entry_points_need_cuda_unless_cpu(no_cuda, tmp_path):
     stream = StreamingInference(cfg, state, ext, device="cpu")
     out = stream.step(stream.init_state(2), video[:2])
     assert all(t.device.type == "cpu" for t in out[1:])
+
+    # the reference .pkl bank, and the serve CLI and the engine its restore
+    # builds, from a reference .pth
+    import pickle
+
+    from tmrnet_torch import cli
+    from tmrnet_torch.models.torch_import import export_reference_checkpoint
+
+    with open(tmp_path / "b.pkl", "wb") as f:
+        pickle.dump(np.zeros((4, 16), np.float32), f)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_bank(str(tmp_path / "b.pkl"))
+    assert load_bank(str(tmp_path / "b.pkl"), device="cpu").num_rows == 4
+    tmr_cfg = dataclasses.replace(CFG, head="tmr", stage_sizes=(1, 1))
+    torch.save(export_reference_checkpoint(
+        build_model(tmr_cfg, device="cpu").state_dict(), "tmr", (1, 1)),
+        tmp_path / "m.pth")
+    cfg = ExperimentConfig(model=tmr_cfg, data=DataConfig(sequence_length=2))
+    (tmp_path / "cfg.json").write_text(cfg.to_json())
+    (tmp_path / "in.jsonl").write_text("")
+    argv = ["serve", "--config", str(tmp_path / "cfg.json"), "--torch-ckpt",
+            str(tmp_path / "m.pth"), "--input", str(tmp_path / "in.jsonl"),
+            "--no-warmup"]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(argv)
+    assert cli.main(argv + ["--device", "cpu"]) == 0
+    restored = cli.restore_state(cfg, "tmr", str(tmp_path / "m.pth"))
+    ext = cli.extractor_state(cfg, restored, None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        StreamingInference(cfg, restored, ext)
+    StreamingInference(cfg, restored, ext, device="cpu")
 
 
 def test_engine_refuses_a_bank_on_another_device():

@@ -36,7 +36,9 @@ from tmrnet_torch.ops.time_conv import (
     NSTAGE,
     TimeConvPlan,
     plan_time_conv,
+    run_in_pieces,
     time_conv_grid,
+    time_conv_max_rows,
     time_conv_layout_bytes,
     time_conv_plain,
 )
@@ -85,6 +87,43 @@ def test_time_conv_plan_refuses_what_the_kernel_cannot_take():
         plan_time_conv(0, 3, 64)
     with pytest.raises(ValueError, match="32-bit"):
         plan_time_conv(65536, 64, 512)
+
+
+def test_time_conv_limit_is_one_launch():
+    """The single-launch limit at window 30, hidden 512 (the video engines'
+    head call): 139,810 clip positions take one launch, one more is
+    refused by the plan and split by the wrapper."""
+    assert time_conv_max_rows(30, 512) == 139810
+    plan_time_conv(139810, 30, 512)
+    with pytest.raises(ValueError, match="32-bit"):
+        plan_time_conv(139811, 30, 512)
+    assert time_conv_max_rows(40, 512) == 104857
+
+
+@pytest.mark.parametrize("rows", [1, 3, 7, 11])
+def test_time_conv_split_equals_the_whole_call(rows):
+    """The wrapper's split with the limit passed in small: each piece of
+    at most `rows` rows of B computed alone (by the plain version, as the
+    kernel computes a launch) gives the whole call's output, in
+    ceil(B / rows) pieces. Within 1e-5: the CPU's conv1d may sum in another
+    order at another batch size."""
+    gen = torch.Generator().manual_seed(rows)
+    x = torch.randn(11, 6, 64, generator=gen)
+    ws = []
+    for k in (3, 5, 7):
+        ws += [torch.randn(k, 64, 64, generator=gen) * 0.1,
+               torch.randn(64, generator=gen) * 0.02]
+    pieces = []
+
+    def launch(xp, out):
+        pieces.append(xp.shape[0])
+        out.copy_(time_conv_plain(xp, *ws))
+
+    got = run_in_pieces(launch, x, rows)
+    torch.testing.assert_close(got, time_conv_plain(x, *ws), rtol=1e-5,
+                               atol=1e-5)
+    assert len(pieces) == -(-11 // rows) and max(pieces) <= rows
+    assert sum(pieces) == 11
 
 
 def rehearse(x, ws, bs, plan):

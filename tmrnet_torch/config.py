@@ -4,16 +4,25 @@ inference engines read.
 
 Own copy of those fields (names, defaults, meaning) of
 `tmrnet_tpu/config.py` (ModelConfig :97-123, MemoryConfig :200-210,
-DataConfig sequence_length :61 and mean/std/device_normalize :81-92,
-EvalConfig backbone_chunk :214-236), so the port never imports the JAX
-package. Later slices add the fields they read.
+DataConfig sequence_length :61, resize/crop_size :65-66, test_crop_type
+:80 and mean/std/device_normalize :81-92, EvalConfig backbone_chunk
+:214-236), and of `ExperimentConfig.from_json` (:283-300) and
+`apply_override` (:395-428), so the port never imports the JAX package.
+Later slices add the fields they read.
+
+`from_json` skips keys the port's dataclasses lack, so a JSON written by
+either package's `to_json` loads here; `ignored_fields` names those of
+them that set, to another value than JAX's default, a field that changes
+what JAX computes. `apply_override` on a field the port lacks raises, as
+JAX's does on one it lacks.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Any, Dict, Tuple
 
 # Cholec80 normalization constants (reference `meanStd.py:27-63`).
 CHOLEC80_MEAN: Tuple[float, float, float] = (0.41757566, 0.26098573, 0.25888634)
@@ -22,11 +31,18 @@ CHOLEC80_STD: Tuple[float, float, float] = (0.21938758, 0.1983, 0.19342837)
 
 @dataclass(frozen=True)
 class DataConfig:
-    """Input normalization: uint8 frames are cast to the compute dtype and,
-    under `device_normalize`, become (x - mean*255) / (std*255) on the card."""
+    """Frame geometry and input normalization: uint8 frames are cast to the
+    compute dtype and, under `device_normalize`, become (x - mean*255) /
+    (std*255) on the card."""
 
     # Frames per clip: the reference runs 10-frame 1-fps clips.
     sequence_length: int = 10
+    # Image geometry: decode -> resize 250 -> crop 224.
+    resize: int = 250
+    crop_size: int = 224
+    # Test-time crop type (the reference's --crop): 0 random / 1 center /
+    # 2 or 3 resize-only / 5 five-crop / 10 ten-crop (data/transforms.py).
+    test_crop_type: int = 1
     mean: Tuple[float, float, float] = CHOLEC80_MEAN
     std: Tuple[float, float, float] = CHOLEC80_STD
     device_normalize: bool = False
@@ -79,3 +95,91 @@ class ExperimentConfig:
 
     def replace(self, **kw) -> "ExperimentConfig":
         return dataclasses.replace(self, **kw)
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
+
+    @staticmethod
+    def from_json(text: str) -> "ExperimentConfig":
+        """The config of a JSON object; keys (sections or fields) the port
+        lacks are skipped, lists become tuples."""
+
+        def build(cls, d):
+            kwargs = {}
+            for f in dataclasses.fields(cls):
+                if f.name not in d:
+                    continue
+                v = d[f.name]
+                if f.name in _SECTIONS and cls is ExperimentConfig:
+                    v = build(_SECTIONS[f.name], v)
+                elif isinstance(v, list):
+                    v = tuple(v)
+                kwargs[f.name] = v
+            return cls(**kwargs)
+
+        return build(ExperimentConfig, json.loads(text))
+
+
+_SECTIONS = {"data": DataConfig, "model": ModelConfig, "memory": MemoryConfig,
+             "eval": EvalConfig}
+
+# Fields of JAX's config that the port lacks and that change what JAX
+# computes, at JAX's defaults (`tmrnet_tpu/config.py` :62-63, :83, :104,
+# :116-118, :204, :210): frame sampling, class and feature widths, the
+# parameter dtype, the kernel switch and the cross-video memory quirk.
+JAX_ONLY_DEFAULTS: Dict[str, Any] = {
+    "data.fps": 1,
+    "data.source_fps": 25,
+    "data.num_classes": 7,
+    "memory.compat_cross_video": False,
+    "memory.feature_dim": 512,
+    "model.feature_dim": 2048,
+    "model.param_dtype": "float32",
+    "model.use_pallas": False,
+}
+
+
+def ignored_fields(text: str) -> Dict[str, Any]:
+    """The fields of JAX_ONLY_DEFAULTS that a config JSON sets to another
+    value than JAX's default: what `from_json` skips but JAX would honour."""
+    d = json.loads(text)
+    out = {}
+    for dotted, default in JAX_ONLY_DEFAULTS.items():
+        section, name = dotted.split(".")
+        value = (d.get(section) or {}).get(name, default)
+        if value != default:
+            out[dotted] = value
+    return out
+
+
+def _coerce(value: str, current: Any) -> Any:
+    if isinstance(current, bool):
+        return value.lower() in ("1", "true", "yes")
+    if isinstance(current, int):
+        return int(value)
+    if isinstance(current, float):
+        return float(value)
+    if isinstance(current, tuple):
+        parts = [p for p in value.split(",") if p]
+        elem = current[0] if current else value
+        return tuple(_coerce(p, elem) for p in parts)
+    return value
+
+
+def apply_override(cfg: ExperimentConfig, dotted: str) -> ExperimentConfig:
+    """A dotted `--set` override: apply_override(cfg, "model.folded=true").
+    Values coerce to the field's current type (bools accept 1/true/yes,
+    tuples split on commas); a field the port lacks raises."""
+    key, eq, value = dotted.partition("=")
+    if not eq:
+        raise ValueError(f"override {dotted!r}: expected KEY=VALUE")
+    parts = key.strip().split(".")
+
+    def rec(node, path):
+        if len(path) == 1:
+            return dataclasses.replace(
+                node, **{path[0]: _coerce(value, getattr(node, path[0]))})
+        child = getattr(node, path[0])
+        return dataclasses.replace(node, **{path[0]: rec(child, path[1:])})
+
+    return rec(cfg, parts)

@@ -92,6 +92,7 @@ nl_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   extern __shared__ __align__(128) unsigned char smem[];
   const Layout L(W, F, sizeof(T));
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // 64-bit, so that row * W * F and row * F pass 2^31 (B W F > 2^31)
   const size_t row = blockIdx.x;
   const unsigned bar_k = (unsigned)__cvta_generic_to_shared(smem + L.bars);
   const unsigned bar_v = bar_k + 8;

@@ -1,1 +1,2 @@
-"""Host-to-card input conventions."""
+"""Frames: loading (packed `.npy` or image files), the test-time
+transforms, and the host-to-card convention."""

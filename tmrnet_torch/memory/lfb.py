@@ -1,7 +1,8 @@
 """Long-term Feature Bank (LFB) on the card.
 
 Port of `tmrnet_tpu/memory/lfb.py` (FeatureBank :36-74, update_bank :77-81,
-gather_memory_windows :84-96, save_bank/load_bank :133-186 for `.npz`) and
+gather_memory_windows :84-96, save_bank/load_bank :133-186, the `.npz`
+of either package and the reference's g_LFB `.pkl`) and
 of `memory_window_rows` (`tmrnet_tpu/data/indexing.py:77-91`). The bank is
 a `(num_rows, feature_dim)` tensor written in place; a clip's memory window
 is gathered on the device:
@@ -12,9 +13,12 @@ is gathered on the device:
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import io
 import os
-from typing import Sequence
+import pickle
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -100,27 +104,95 @@ def gather_memory_windows(features: torch.Tensor, rows: torch.Tensor,
     return features[idx]
 
 
+def _is_pickle(path: str) -> bool:
+    return path.endswith((".pkl", ".pickle"))
+
+
+def _tensor_from_bytes(b: bytes):
+    """A pickled tensor's storage, read under torch's weights-only rules."""
+    return torch.load(io.BytesIO(b), weights_only=True)
+
+
+# What a pickled float array or tensor refers to, and nothing else; numpy
+# 1 and 2 name the array's rebuild by different modules.
+_NP_RECONSTRUCT = np.ndarray.__reduce__(np.zeros(0))[0]
+_BANK_GLOBALS = {
+    ("numpy._core.multiarray", "_reconstruct"): _NP_RECONSTRUCT,
+    ("numpy.core.multiarray", "_reconstruct"): _NP_RECONSTRUCT,
+    ("numpy", "ndarray"): np.ndarray,
+    ("numpy", "dtype"): np.dtype,
+    ("torch._utils", "_rebuild_tensor_v2"): torch._utils._rebuild_tensor_v2,
+    ("torch.storage", "_load_from_bytes"): _tensor_from_bytes,
+    ("collections", "OrderedDict"): collections.OrderedDict,
+}
+
+
+class _BankUnpickler(pickle.Unpickler):
+    """Reads a pickled numpy array or torch tensor; refuses any other
+    global, so a bank file cannot run code."""
+
+    def find_class(self, module, name):
+        try:
+            return _BANK_GLOBALS[(module, name)]
+        except KeyError:
+            raise pickle.UnpicklingError(
+                f"a bank pickle holds an array or a tensor, not "
+                f"{module}.{name}") from None
+
+
 def save_bank(path: str, bank: FeatureBank) -> None:
     """Write the bank as `.npz` (features + first_rows), the file the JAX
-    package writes. A bf16 bank is written as float32 (numpy has no bf16)."""
-    if path.endswith((".pkl", ".pickle")):
-        raise ValueError("the reference .pkl bank format is not ported")
+    package writes; a `.pkl`/`.pickle` path writes the reference's g_LFB
+    format instead, a pickled float32 numpy array of the features
+    (reference `train_non-local_mutiConv_resnet.py:752-756`). A bf16 bank is
+    written as float32 (numpy has no bf16)."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    feats = bank.features.detach().cpu()
-    if feats.dtype == torch.bfloat16:
-        feats = feats.float()
-    np.savez_compressed(path, features=feats.numpy(),
+    feats = bank.features.detach().cpu().float().numpy()
+    if _is_pickle(path):
+        with open(path, "wb") as f:
+            pickle.dump(feats, f)
+        return
+    np.savez_compressed(path, features=feats,
                         first_rows=bank.first_rows.detach().cpu().numpy()
                         .astype(np.int32))
 
 
-def load_bank(path: str, dtype=torch.float32, device="cuda") -> FeatureBank:
-    """Read an `.npz` bank written by either package."""
-    if path.endswith((".pkl", ".pickle")):
-        raise ValueError("the reference .pkl bank format is not ported")
+def load_bank(path: str, dtype=torch.float32, device="cuda",
+              seq_len: Optional[int] = None,
+              video_lengths: Optional[Sequence[int]] = None) -> FeatureBank:
+    """Read an `.npz` bank written by either package, or the reference's
+    g_LFB `.pkl` (a pickled (num_rows, F) numpy array or torch tensor,
+    reference `train_non-local_mutiConv_resnet.py:752-765`), read under an
+    allowlist that refuses any other object. A pickle holds no first rows: given seq_len and video_lengths they are rebuilt and the
+    row count checked, else they are zeros (the engines take first rows
+    from the clip positions, not from the bank)."""
     dev = resolve_device(device)
-    with np.load(path) as z:
-        feats = torch.from_numpy(np.asarray(z["features"], np.float32))
-        firsts = torch.from_numpy(np.asarray(z["first_rows"], np.int32))
+    if _is_pickle(path):
+        with open(path, "rb") as f:
+            arr = _BankUnpickler(f).load()
+        if isinstance(arr, torch.Tensor):
+            arr = arr.detach().cpu().float().numpy()
+        arr = np.asarray(arr, np.float32)
+        if arr.ndim != 2:
+            raise ValueError(f"{path}: expected a 2-D feature array, "
+                             f"got shape {arr.shape}")
+        if seq_len is not None and video_lengths is not None:
+            cpv = clips_per_video(seq_len, video_lengths)
+            want = int(cpv.sum())
+            if want != arr.shape[0]:
+                raise ValueError(
+                    f"{path}: {arr.shape[0]} rows but the videos imply "
+                    f"{want} clip positions (sum of len+1-seq per video): "
+                    f"a bank of another dataset or seq_len")
+            firsts = np.repeat(video_first_rows(seq_len, video_lengths),
+                               cpv)[:want]
+        else:
+            firsts = np.zeros((arr.shape[0],), np.int64)
+        feats = torch.from_numpy(arr)
+        firsts = torch.from_numpy(firsts.astype(np.int32))
+    else:
+        with np.load(path) as z:
+            feats = torch.from_numpy(np.asarray(z["features"], np.float32))
+            firsts = torch.from_numpy(np.asarray(z["first_rows"], np.int32))
     return FeatureBank(features=feats.to(device=dev, dtype=dtype),
                        first_rows=firsts.to(dev))

@@ -120,26 +120,34 @@ def build_backbone(cfg: ModelConfig, fused_kernel: str = "block") -> ResNet:
     raise ValueError(f"backbone {cfg.backbone!r} is not ported")
 
 
-def build_model(cfg: ModelConfig, device="cuda",
-                fused_kernel: str = "block") -> nn.Module:
-    """ModelConfig -> the head's model on `device`, its weights zero until
-    loaded (`load_state_dict`, e.g. from `models.convert.from_jax_variables`);
-    fused_kernel as in `build_backbone`."""
-    dev = resolve_device(device)
+def _build_on_meta(cfg: ModelConfig, fused_kernel: str = "block") -> nn.Module:
     if cfg.head not in HEADS:
         raise ValueError(f"unknown head {cfg.head!r} (want one of {HEADS})")
     cdt = torch_dtype(cfg.compute_dtype)
     with torch.device("meta"):
         backbone = build_backbone(cfg, fused_kernel)
         if cfg.head == "stage1":
-            model = MemoryBankModel(backbone, cfg.num_classes, cfg.hidden_dim,
-                                    cdt)
-        elif cfg.head == "lfb":
-            model = LFBExtractor(backbone, cfg.hidden_dim, cdt)
-        else:
-            model = TMRNet(backbone, cfg.num_classes, cfg.hidden_dim,
-                           use_time_conv=(cfg.head == "tmr"),
-                           compute_dtype=cdt)
+            return MemoryBankModel(backbone, cfg.num_classes, cfg.hidden_dim,
+                                   cdt)
+        if cfg.head == "lfb":
+            return LFBExtractor(backbone, cfg.hidden_dim, cdt)
+        return TMRNet(backbone, cfg.num_classes, cfg.hidden_dim,
+                      use_time_conv=(cfg.head == "tmr"), compute_dtype=cdt)
+
+
+def state_shapes(cfg: ModelConfig) -> dict:
+    """The state dict's names and shapes of the model of `cfg`."""
+    return {k: tuple(v.shape)
+            for k, v in _build_on_meta(cfg).state_dict().items()}
+
+
+def build_model(cfg: ModelConfig, device="cuda",
+                fused_kernel: str = "block") -> nn.Module:
+    """ModelConfig -> the head's model on `device`, its weights zero until
+    loaded (`load_state_dict`, e.g. from `models.convert.from_jax_variables`);
+    fused_kernel as in `build_backbone`."""
+    dev = resolve_device(device)
+    model = _build_on_meta(cfg, fused_kernel)
     model = model.to_empty(device=dev)
     with torch.no_grad():
         for t in model.state_dict().values():

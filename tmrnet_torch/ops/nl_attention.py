@@ -7,7 +7,8 @@ k and v brought into shared memory by two bulk copies, math in f32, output
 in q's dtype.
 
 `nl_attention` takes the kernel for CUDA tensors and the plain version for
-CPU tensors; anything else raises.
+CPU tensors; anything else raises. One launch takes any B: the kernel's row
+offsets are 64-bit.
 """
 
 from __future__ import annotations

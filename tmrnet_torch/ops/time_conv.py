@@ -7,7 +7,10 @@ header says what bounds it and how it is built.
 x (B, W, C); weights in the flax layout (k, Cin, Cout); biases (C,).
 `time_conv` takes the kernel for CUDA tensors and the plain version for CPU
 tensors; anything else raises. `plan_time_conv` decides how the kernel cuts
-a call into blocks.
+a launch into blocks. The kernel's offsets are 32-bit, so one launch takes
+at most `time_conv_max_rows(W, C)` rows of B; a call past that launches
+once per piece of at most that many rows (rows are independent along B, so
+the output is the same).
 """
 
 from __future__ import annotations
@@ -80,16 +83,22 @@ def time_conv_grid(b: int, w: int, plan: TimeConvPlan):
     return -(-b * w // BM), plan.c // BN
 
 
+def time_conv_max_rows(w: int, c: int) -> int:
+    """The most rows of B one launch takes: B*W*C elements within the
+    kernel's 32-bit offsets."""
+    return (2**31 - 1) // (w * c)
+
+
 @functools.lru_cache(maxsize=64)
 def plan_time_conv(b: int, w: int, c: int) -> TimeConvPlan:
-    """The plan of one call: K chunks of 128 input channels where C allows
+    """The plan of one launch: K chunks of 128 input channels where C allows
     (half the chunks of 64, each chunk's fixed steps paid half as often),
     and the widest channel chunk (a multiple of kc dividing C, C itself
     where it fits) that fits a block's shared memory."""
     if c % 64 or b < 1 or w < 1:
         raise ValueError(f"time_conv_cuda: needs C % 64 == 0 and a nonempty "
                          f"batch, got B={b}, W={w}, C={c}")
-    if b * w * c > 2**31 - 1:
+    if b > time_conv_max_rows(w, c):
         raise ValueError(f"time_conv_cuda: B*W*C = {b * w * c} elements, "
                          f"more than 32-bit offsets reach")
     kc = 128 if c % 128 == 0 else 64
@@ -125,16 +134,32 @@ def _entries():
     return run, smem
 
 
+def run_in_pieces(launch, x: torch.Tensor, rows: int) -> torch.Tensor:
+    """`launch(x_piece, out_piece)` over pieces of at most `rows` rows of
+    x's first axis, each writing its rows of one output like x; one call
+    where x fits."""
+    out = torch.empty_like(x)
+    for start in range(0, x.shape[0], rows):
+        launch(x[start:start + rows], out[start:start + rows])
+    return out
+
+
 def time_conv_cuda(x, w3, b3, w5, b5, w7, b7):
-    """Launch csrc/time_conv.cu under `plan_time_conv`. x (B, W, C) bf16;
-    w_k (k, C, C) bf16; b_k (C,) f32; C a multiple of 64; all contiguous on
-    one CUDA device."""
+    """Launch csrc/time_conv.cu under `plan_time_conv`, once per piece of at
+    most `time_conv_max_rows` rows of B. x (B, W, C) bf16; w_k (k, C, C)
+    bf16; b_k (C,) f32; C a multiple of 64; all contiguous on one CUDA
+    device."""
     if x.device.type != "cuda":
         raise ValueError("time_conv_cuda: x is not on CUDA")
     if x.dim() != 3:
         raise ValueError(f"time_conv_cuda: x shape {tuple(x.shape)}")
     b, w, c = x.shape
-    plan = plan_time_conv(b, w, c)
+    rows = time_conv_max_rows(w, c)
+    if rows < 1:
+        raise ValueError(f"time_conv_cuda: one row of W*C = {w * c} elements "
+                         f"passes 32-bit offsets")
+    # the plan depends on C alone: one for every piece
+    plan = plan_time_conv(min(b, rows), w, c)
     _check("x", x, x.device, torch.bfloat16, x.shape)
     for k, wk, bk in ((3, w3, b3), (5, w5, b5), (7, w7, b7)):
         _check(f"w{k}", wk, x.device, torch.bfloat16, (k, c, c))
@@ -142,15 +167,18 @@ def time_conv_cuda(x, w3, b3, w5, b5, w7, b7):
     run, smem_of = _entries()
     smem = smem_of(c, plan.kc, plan.ck)
     if smem != plan.smem:
-        raise RuntimeError(f"time_conv: the kernel lays out {smem} bytes of "
-                           f"shared memory, the plan {plan.smem}")
-    out = torch.empty_like(x)
+        raise RuntimeError(f"time_conv: the kernel lays out {smem} bytes "
+                           f"of shared memory, the plan {plan.smem}")
     p = build.ptr
-    err = run(p(x), p(w3), p(w5), p(w7), p(b3), p(b5), p(b7), p(out), b, w, c,
-              plan.kc, plan.ck, build.stream_ptr(x.device))
-    build.check(err, "time_conv")
-    LAUNCHES["time_conv"] += 1
-    return out
+
+    def launch(xp, out):
+        err = run(p(xp), p(w3), p(w5), p(w7), p(b3), p(b5), p(b7), p(out),
+                  xp.shape[0], w, c, plan.kc, plan.ck,
+                  build.stream_ptr(x.device))
+        build.check(err, "time_conv")
+        LAUNCHES["time_conv"] += 1
+
+    return run_in_pieces(launch, x, rows)
 
 
 def time_conv(x, w3, b3, w5, b5, w7, b7):
