@@ -27,8 +27,9 @@ Phases, in order; any failure exits nonzero:
    sums the chain's 8), int8_conv3x3's per stage its plan, device ms,
    TOP/s, bound, torch._int_mm on a prebuilt im2col and a bf16 cuDNN
    conv3x3 under "stages"; the bf16 kernels again at the shapes the
-   engines and the daemon give them (head B = 2,582 / 44,000 / 16 / 4,
-   bottlenecks N = 16 / 4 / 2,048); and time_conv at B = 139,811, W = 30, C = 512,
+   engines, the daemon and `test` give them (head B = 2,582 / 44,000 / 16
+   / 4 / 64, bottlenecks N = 16 / 4 / 2,048 / 400 / 640); and time_conv
+   at B = 139,811, W = 30, C = 512,
    one row past one launch's 32-bit limit: 2 launches, the rows at the
    split and 256 seeded others against the plain version;
 4. the block slice: full-width TMRNet (ResNet-50, BN folded, hidden 512,
@@ -82,6 +83,22 @@ Phases, in order; any failure exits nonzero:
    left), a restart and 8 more ticks whose rows go on from frame 12 and
    equal an uninterrupted in-process run within 1e-6 (same card, code and
    dtype: a ring restored wrong shows); seconds to ready;
+4f. the test slice: `python -m tmrnet_torch manifest`, `build-lfb`
+   (clip and video engines) and `test` (clip engine over the clip bank,
+   `--lfb`; video; corpus) through `tmrnet_torch.cli.main` in this
+   process, at the width of 4e (`--set model.folded=true`), over 4 packed
+   videos of 300, 200, 45 and 9 uint8 250x250 frames with phase
+   annotations (518 clip positions) and two seeded reference `.pth`;
+   exact launch counts per command (the clip engines 12 fused_bottleneck a
+   batch of 40 or 64 clips, `test`'s also 1 time_conv and 1 nl_attention;
+   the video engines by the chunk plan); the two banks within 2e-2 of max
+   |feature|; the three engines' softmax within 2e-2 of each other and the
+   argmax rule; 8 clips of the clip engine against the CPU in f32;
+   build_lfb(fused_kernel="tiled") against the block build; each clip
+   accuracy equal to the mean of preds == labels; then `python -m
+   tmrnet_torch test` as a subprocess, equal to the in-process corpus
+   run; clips/s of `test` and frames/s of `build-lfb` per engine, and the
+   loader's share (host clock around each next() of ClipLoader);
 5. the int8 gate (tmrnet_torch.experimental.int8_gate) at B = 128 over the
    four stages: the int8 bottleneck chain through the kernels equal to the
    same chain through the plain versions, 2 int8_matmul and 1 int8_conv3x3
@@ -133,6 +150,13 @@ SQUARE = 8192           # the square int8 product
 SERVE_VIDEOS, SERVE_FRAMES, SERVE_READY_TIMEOUT = 6, 40, 300
 SERVE_SLOTS, SERVE_LOGIT_SCALE, RESUME_TOL = 4, 4.0, 1e-6
 ROOT_TMP = os.path.join(ROOT, "build")
+# The test slice (4f): packed videos of 250x250 frames (291 + 191 + 36 + 0
+# = 518 clip positions), the clips a batch of the clip engines (the
+# defaults of data.batch_clips and eval.batch_clips), and how long
+# `python -m tmrnet_torch test` may take as a subprocess.
+TEST_LENGTHS = (300, 200, 45, 9)
+LFB_BATCH, TEST_BATCH = 40, 64
+TEST_TIMEOUT = 600
 
 
 def card_line():
@@ -330,13 +354,15 @@ def check_kernels(torch, seed):
 
 def check_engine_shapes(torch, seed, records):
     """Phase 3, the engines' shapes: the bf16 kernels against their plain
-    versions (f32) at the shapes the video and stream slices give them --
-    the head kernels at the corpus's head call (the clip positions of the
-    slice's videos that share a bucket), at a head group of 8 videos of
-    5,500 clips (44,000 rows), at a stream step (16 rows) and at a
-    daemon's tick (SERVE_SLOTS rows); the bottleneck kernels at each stage
-    at a stream step (16 frames), a daemon's tick (SERVE_SLOTS frames) and
-    a full auto trunk chunk (2,048 frames at 224x224). Each record's
+    versions (f32) at the shapes the video, stream, serving and test
+    slices give them -- the head kernels at the corpus's head call (the
+    clip positions of the slice's videos that share a bucket), at a head
+    group of 8 videos of 5,500 clips (44,000 rows), at a stream step (16
+    rows), at a daemon's tick (SERVE_SLOTS rows) and at a `test` clip batch
+    (TEST_BATCH rows); the bottleneck kernels at each stage at a stream step
+    (16 frames), a daemon's tick (SERVE_SLOTS frames), a full auto trunk
+    chunk (2,048 frames at 224x224), a clip batch of the LFB build
+    (LFB_BATCH x 10 frames) and of `test` (TEST_BATCH x 10). Each record's
     max_abs_err becomes the largest over its shapes; the errors and eager
     ms per shape go under "engine_shapes"."""
     from tmrnet_torch.experimental.fused_bottleneck import (
@@ -366,7 +392,7 @@ def check_engine_shapes(torch, seed, records):
         print(f"    eager {ms:.4f} ms")
 
     corpus_rows = sum(n - SEQ + 1 for n in VIDEO_LENGTHS[:2])
-    for b in (corpus_rows, 8 * 5500, STREAMS, SERVE_SLOTS):
+    for b in (corpus_rows, 8 * 5500, STREAMS, SERVE_SLOTS, TEST_BATCH):
         check("nl_attention", f"B={b}", nl_attention_cuda, nl_attention_plain,
               (bf((b, HIDDEN)), bf((b, WINDOW, HIDDEN)),
                bf((b, WINDOW, HIDDEN))))
@@ -376,7 +402,7 @@ def check_engine_shapes(torch, seed, records):
                    bf((HIDDEN,), 0.02).float()]
         check("time_conv", f"B={b}", time_conv_cuda, time_conv_plain,
               (bf((b, WINDOW, HIDDEN)), *ws))
-    for n in (STREAMS, SERVE_SLOTS, 2048):
+    for n in (STREAMS, SERVE_SLOTS, 2048, LFB_BATCH * SEQ, TEST_BATCH * SEQ):
         for h, cc, p, _ in STAGES:
             args = (torch.relu(bf((n, h, h, cc))), bf((cc, p), (2.0 / cc) ** 0.5),
                     bf((p,), 0.05).float(),
@@ -637,11 +663,11 @@ def run_slice(torch, setup, card, fused_kernel, want_per_forward):
     tag = f"{fused_kernel} slice"
     engine = ClipInference(ecfg, state, bank, device="cuda",
                            fused_kernel=fused_kernel)
-    engine.run(requests[:1], first_rows)          # warm-up, not counted
+    engine.run_batches(requests[:1], first_rows)  # warm-up, not counted
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
-    res = engine.run(requests[1:], first_rows)
+    res = engine.run_batches(requests[1:], first_rows)
     dt = time.perf_counter() - t0
     counts = dict(LAUNCHES)
     frames = REQUESTS * CLIPS * SEQ
@@ -662,7 +688,8 @@ def run_slice(torch, setup, card, fused_kernel, want_per_forward):
     cpu_engine = ClipInference(cpu_cfg, state, cpu_bank, device="cpu",
                                fused_kernel=fused_kernel)
     clips, labels, rows, _ = requests[1]
-    ref = cpu_engine.run([(clips[:2], labels[:2], rows[:2], 0)], first_rows)
+    ref = cpu_engine.run_batches([(clips[:2], labels[:2], rows[:2], 0)],
+                                 first_rows)
     err = float(np.abs(scores[:2] - ref.scores).max())
     top2 = np.sort(ref.scores, axis=-1)[:, -2:]
     margin = top2[:, 1] - top2[:, 0]
@@ -834,8 +861,8 @@ def run_video_slice(torch, seed, card):
                   clipwise)[1]
     bank = build_lfb_video(ecfg, weights[1], videos[:1], fused_kernel="block")
     clip_engine = ClipInference(ecfg, weights[0], bank, fused_kernel="block")
-    res = clip_engine.run([(clips, np.zeros(len(positions)), positions, 0)],
-                          bank.first_rows)
+    res = clip_engine.run_batches(
+        [(clips, np.zeros(len(positions)), positions, 0)], bank.first_rows)
     ok &= probs_close("ClipInference over build_lfb_video's bank vs run_video",
                 res.scores, probs[positions])
     ok &= argmax_agrees("ClipInference vs run_video", res.preds,
@@ -952,39 +979,55 @@ class Client:
         self.sock.close()
 
 
-def serve_setup(seed, tmp):
-    """Phase 4e's config, its two seeded weight sets written as reference
-    `.pth` files by the port's export (the TMR model, head tmr, with fc_c
-    scaled by SERVE_LOGIT_SCALE, and the extractor, head lfb), the config
-    JSON, and SERVE_VIDEOS packed videos of SERVE_FRAMES 250x250 uint8
-    frames."""
-    import torch
-
+def full_width_config(folded=True):
+    """The full-width config of phases 4e and 4f: ResNet-50, hidden 512,
+    window 30, 7 classes, bf16, device_normalize, test crop 1, 10-frame
+    clips; BN folded at load where `folded`."""
     from tmrnet_torch.config import DataConfig, ExperimentConfig, MemoryConfig, ModelConfig
-    from tmrnet_torch.models.convert import from_jax_variables, random_variables
-    from tmrnet_torch.models.torch_import import export_reference_checkpoint
 
     model = ModelConfig(backbone="resnet50", head="tmr", hidden_dim=HIDDEN,
                         num_classes=CLASSES, compute_dtype="bfloat16",
-                        folded=True)
-    cfg = ExperimentConfig(
+                        folded=folded)
+    return ExperimentConfig(
         data=DataConfig(device_normalize=True, test_crop_type=1,
                         sequence_length=SEQ),
         model=model, memory=MemoryConfig(window=WINDOW))
+
+
+def write_reference_weights(seed, tmp, cfg):
+    """Two seeded weight sets written as reference `.pth` files by the
+    port's export: the TMR model (head tmr, fc_c scaled by
+    SERVE_LOGIT_SCALE, so that the 7-class softmax spreads) and the
+    extractor (head lfb); and the config JSON. Returns their paths."""
+    import torch
+
+    from tmrnet_torch.models.convert import from_jax_variables, random_variables
+    from tmrnet_torch.models.torch_import import export_reference_checkpoint
+
     paths = {}
     for k, head in ((200, "tmr"), (300, "lfb")):
         state = from_jax_variables(random_variables(dataclasses.replace(
-            model, head=head, compute_dtype="float32", folded=False),
+            cfg.model, head=head, compute_dtype="float32", folded=False),
             seed + k))
         if head == "tmr":
             for key in ("fc_c.weight", "fc_c.bias"):
                 state[key] = state[key] * SERVE_LOGIT_SCALE
         paths[head] = os.path.join(tmp, f"{head}.pth")
-        torch.save(export_reference_checkpoint(state, head, model.stage_sizes),
+        torch.save(export_reference_checkpoint(state, head,
+                                               cfg.model.stage_sizes),
                    paths[head])
     paths["config"] = os.path.join(tmp, "cfg.json")
     with open(paths["config"], "w") as f:
         f.write(cfg.to_json())
+    return paths
+
+
+def serve_setup(seed, tmp):
+    """Phase 4e's config, its two seeded weight sets written as reference
+    `.pth` files (`write_reference_weights`), the config JSON, and
+    SERVE_VIDEOS packed videos of SERVE_FRAMES 250x250 uint8 frames."""
+    cfg = full_width_config()
+    paths = write_reference_weights(seed, tmp, cfg)
     rng = np.random.default_rng(seed + 7)
     videos = []
     for i in range(SERVE_VIDEOS):
@@ -1290,6 +1333,279 @@ def run_serve_slice(torch, seed, card):
     return counts, ok_a and ok_b
 
 
+class LoaderClock:
+    """Host clock around every next() of `ClipLoader.epoch` while inside:
+    the time the consumer is blocked on the loader."""
+
+    def __enter__(self):
+        from tmrnet_torch.data.pipeline import ClipLoader
+
+        self.seconds, self.batches = 0.0, 0
+        self.orig = orig = ClipLoader.epoch
+
+        def epoch(loader, e=0):
+            it = orig(loader, e)
+            try:
+                while True:
+                    t0 = time.perf_counter()
+                    try:
+                        batch = next(it)
+                    except StopIteration:
+                        return
+                    finally:
+                        self.seconds += time.perf_counter() - t0
+                    self.batches += 1
+                    yield batch
+            finally:
+                it.close()
+
+        ClipLoader.epoch = epoch
+        return self
+
+    def __exit__(self, *exc):
+        from tmrnet_torch.data.pipeline import ClipLoader
+
+        ClipLoader.epoch = self.orig
+
+
+def write_test_videos(seed, tmp):
+    """Phase 4f's frames: TEST_LENGTHS packed uint8 250x250 videos under
+    tmp/frames and their phase annotations (`<video>-phase.txt`, a row
+    every 25 source frames) under tmp/ann."""
+    from tmrnet_torch.config import CHOLEC80_PHASES
+
+    rng = np.random.default_rng(seed + 8)
+    os.makedirs(os.path.join(tmp, "frames"))
+    os.makedirs(os.path.join(tmp, "ann"))
+    for v, n in enumerate(TEST_LENGTHS):
+        vid = f"video{v + 1:02d}"
+        np.save(os.path.join(tmp, "frames", f"{vid}.npy"),
+                rng.integers(0, 256, (n, 250, 250, 3), dtype=np.uint8))
+        with open(os.path.join(tmp, "ann", f"{vid}-phase.txt"), "w") as f:
+            f.write("Frame\tPhase\n")
+            for k in range(n):
+                f.write(f"{25 * k}\t{CHOLEC80_PHASES[(k // 40 + v) % 7]}\n")
+
+
+def run_cli(argv):
+    """`tmrnet_torch.cli.main(argv)` in this process, its stdout captured
+    and echoed; returns (stdout lines, launches by kernel, seconds)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from tmrnet_torch import cli
+    from tmrnet_torch.kernels.build import LAUNCHES, reset_launches
+
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    dt = time.perf_counter() - t0
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        print(f"    {line}")
+    if rc != 0:
+        raise RuntimeError(f"{argv[0]} exited {rc}")
+    return lines, dict(LAUNCHES), dt
+
+
+def run_test_slice(torch, seed, card):
+    """Phase 4f: `manifest`, `build-lfb` (clip and video engines) and
+    `test` (clip engine over the clip bank, video and corpus engines)
+    through `tmrnet_torch.cli.main` at full width (BN folded by --set),
+    then `python -m tmrnet_torch test` as a subprocess. Checks the launch
+    counts, the banks against each other, the engines' softmax against
+    each other, 8 clips against the CPU in f32, the tiled build against
+    the block build and each accuracy against the predictions; prints
+    clips/s, frames/s and the loader's share. Returns (counts by path,
+    ok)."""
+    from tmrnet_torch import cli
+    from tmrnet_torch.eval.infer import (ClipInference, VideoInference,
+                                         plan_trunk_chunk)
+    from tmrnet_torch.kernels.build import LAUNCHES, reset_launches
+    from tmrnet_torch.memory.lfb import load_bank
+    from tmrnet_torch.models.resnet import ResNet
+    from tmrnet_torch.train.loop import build_lfb
+
+    os.makedirs(ROOT_TMP, exist_ok=True)
+    counts, ok = {}, True
+    clips = sum(max(0, n - SEQ + 1) for n in TEST_LENGTHS)
+    with_clips = [n for n in TEST_LENGTHS if n >= SEQ]
+    # The video engines' trunk chunk, as plan_trunk_chunk gives it now.
+    free, _ = torch.cuda.mem_get_info()
+    chunk = plan_trunk_chunk(
+        ResNet((3, 4, 6, 3), 64).activation_elements(IMG, IMG), 2,
+        free + torch.cuda.memory_reserved() - torch.cuda.memory_allocated())
+    groups = {}
+    for n in with_clips:                    # corpus_heads' bucket groups
+        b = VideoInference.bucket_frames(n)
+        groups[b] = groups.get(b, 0) + 1
+    corpus_heads = sum(-(-g // 8) for g in groups.values())
+    corpus_chunk = min(4096, sum(TEST_LENGTHS))
+    want = {
+        "lfb-clip": {"fused_bottleneck": 12 * -(-clips // LFB_BATCH)},
+        "lfb-video": {"fused_bottleneck": 12 * sum(-(-n // chunk)
+                                                   for n in with_clips)},
+        "test-clip": {k: v * -(-clips // TEST_BATCH) for k, v in
+                      {"fused_bottleneck": 12, "time_conv": 1,
+                       "nl_attention": 1}.items()},
+        "test-video": video_counts(sum(-(-n // chunk) for n in TEST_LENGTHS),
+                                   len(with_clips), "block"),
+        "test-corpus": video_counts(
+            -(-sum(TEST_LENGTHS) // corpus_chunk) * -(-corpus_chunk // chunk),
+            corpus_heads, "block"),
+        "lfb-tiled": {k: v * sum(-(-n // chunk) for n in with_clips)
+                      for k, v in (("fused_bottleneck_tiled", 10),
+                                   ("fused_bottleneck", 2))},
+    }
+    with tempfile.TemporaryDirectory(prefix="test-", dir=ROOT_TMP) as tmp:
+        t0 = time.perf_counter()
+        cfg = full_width_config(folded=False)
+        paths = write_reference_weights(seed + 1000, tmp, cfg)
+        write_test_videos(seed, tmp)
+        print(f"test slice: {len(TEST_LENGTHS)} packed videos of "
+              f"{TEST_LENGTHS} 250x250 frames ({clips} clip positions) and "
+              f"two reference .pth written in {time.perf_counter() - t0:.2f} "
+              f"s; trunk chunk {chunk}")
+        m = os.path.join(tmp, "m.pkl")
+        common = ["--config", paths["config"], "--set", "model.folded=true",
+                  "--manifest", m]
+        out = lambda name: os.path.join(tmp, name)
+        run_cli(["manifest", "--config", paths["config"], "--frames",
+                 out("frames"), "--annotations", out("ann"), "--out", m])
+
+        rates = {}
+        for engine, frames in (("clip", SEQ * clips), ("video", clips)):
+            with LoaderClock() as clock:
+                _, counts[f"lfb-{engine}"], dt = run_cli(
+                    ["build-lfb", *common, "--torch-ckpt", paths["lfb"],
+                     "--engine", engine, "--out", out(f"bank_{engine}.npz")])
+            share = f", loader share {clock.seconds / dt:.4f} " \
+                f"({clock.seconds:.3f} s over {clock.batches} batches)" \
+                if clock.batches else ""
+            rates[f"build-lfb {engine}"] = frames / dt
+            print(f"test slice: build-lfb --engine {engine}: {frames} frames "
+                  f"in {dt:.3f} s = {frames / dt:.1f} frames/s{share} on "
+                  f"{card}")
+        summaries, scores, preds = {}, {}, {}
+        for engine in ("clip", "video", "corpus"):
+            extra = (["--lfb", out("bank_clip.npz")] if engine == "clip"
+                     else [])
+            with LoaderClock() as clock:
+                lines, counts[f"test-{engine}"], dt = run_cli(
+                    ["test", *common, "--torch-ckpt", paths["tmr"],
+                     "--extractor-torch-ckpt", paths["lfb"], "--engine",
+                     engine, *extra, "--out", out(f"{engine}.npz")])
+            summaries[engine] = json.loads(lines[-1])
+            with np.load(out(f"{engine}.npz")) as z:
+                scores[engine], preds[engine] = z["scores"], z["preds"]
+            share = f", loader share {clock.seconds / dt:.4f} " \
+                f"({clock.seconds:.3f} s over {clock.batches} batches)" \
+                if clock.batches else ""
+            rates[f"test {engine}"] = clips / dt
+            print(f"test slice: test --engine {engine}: {clips} clips in "
+                  f"{dt:.3f} s = {clips / dt:.1f} clips/s{share} on {card}")
+        for path, got in counts.items():
+            good = got == want[path]
+            print(f"  {path}: launches {got} (want {want[path]}) "
+                  f"{'ok' if good else 'FAIL'}")
+            ok &= good
+
+        banks = {e: load_bank(out(f"bank_{e}.npz")) for e in ("clip", "video")}
+        ok &= compare(torch, "bank, video engine vs clip engine",
+                      banks["video"].features, banks["clip"].features)[1]
+        labels = cli.clip_labels(cli.load_manifest(m), SEQ)
+        for engine in scores:
+            good = (scores[engine].shape == (clips, CLASSES)
+                    and bool(np.isfinite(scores[engine]).all())
+                    and summaries[engine]["num_clips"] == clips
+                    and summaries[engine]["clip_accuracy"]
+                    == float((preds[engine] == labels).mean()))
+            print(f"  {engine}: clip accuracy "
+                  f"{summaries[engine]['clip_accuracy']:.4f} equal to the "
+                  f"mean of preds == labels {'ok' if good else 'FAIL'}")
+            ok &= good
+        for a, b in (("video", "clip"), ("corpus", "clip"),
+                     ("corpus", "video")):
+            ok &= probs_close(f"test {a} vs {b} softmax", scores[a], scores[b])
+            ok &= argmax_agrees(f"test {a} vs {b}", preds[a], preds[b],
+                                scores[b], min_decided=1)
+
+        # 8 clips of the clip engine in f32 on the CPU, over the same bank
+        cpu_cfg = cfg.replace(model=dataclasses.replace(
+            cfg.model, compute_dtype="float32", folded=True))
+        state, = cli.folded_weights(cpu_cfg, cli.restore_state(
+            cfg, "tmr", paths["tmr"]))
+        ds = cli.dataset(cfg, cli.load_manifest(m))
+        # 8 rows: the first two, the last, each video's first and the row
+        # before it, and the second video's second
+        starts = np.cumsum([0] + [n - SEQ + 1 for n in with_clips])[1:-1]
+        rows = np.array(sorted({0, 1, clips - 1, starts[0] + 1, *starts,
+                                *(starts - 1)}))
+        batch = np.stack([ds.get_clip(int(r))[0] for r in rows])
+        cpu = ClipInference(cpu_cfg, state, load_bank(
+            out("bank_clip.npz"), device="cpu"), device="cpu").run_batches(
+            [(batch, labels[rows], rows, 0)], ds.first_rows)
+        ok &= probs_close(f"test clip engine vs CPU f32 at rows "
+                          f"{rows.tolist()}", scores["clip"][rows], cpu.scores)
+        ok &= argmax_agrees("clip engine vs CPU f32", preds["clip"][rows],
+                            cpu.preds, cpu.scores)
+        del state
+
+        # the tiled build against the block build (video engine)
+        fold_cfg = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                         folded=True))
+        ext, = cli.folded_weights(fold_cfg, cli.extractor_state(
+            cfg, cli.restore_state(cfg, "lfb", paths["lfb"]), None))
+        torch.cuda.synchronize()
+        reset_launches()
+        tiled = build_lfb(fold_cfg, ext, ds, cache_path=out("tiled.npz"),
+                          force=True, engine="video", fused_kernel="tiled")
+        counts["lfb-tiled"] = dict(LAUNCHES)
+        good = counts["lfb-tiled"] == want["lfb-tiled"]
+        print(f"  lfb-tiled: launches {counts['lfb-tiled']} (want "
+              f"{want['lfb-tiled']}) {'ok' if good else 'FAIL'}")
+        ok &= good and compare(torch, "bank, tiled vs block (video engine)",
+                               tiled.features, banks["video"].features)[1]
+        del tiled, ext, banks
+
+        # the entry point, as a user runs it
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "tmrnet_torch", "test", *common,
+             "--torch-ckpt", paths["tmr"], "--extractor-torch-ckpt",
+             paths["lfb"], "--out", out("sub.npz"), "--ref-pickle",
+             out("sub.pkl")], cwd=ROOT, capture_output=True, text=True,
+            timeout=TEST_TIMEOUT)
+        dt = time.perf_counter() - t0
+        good = proc.returncode == 0
+        if good:
+            summary = json.loads(proc.stdout.strip().splitlines()[-1])
+            with np.load(out("sub.npz")) as z:
+                good = (np.array_equal(z["preds"], preds["corpus"])
+                        and summary == dict(summaries["corpus"],
+                                            out=out("sub.npz"))
+                        and os.path.exists(out("sub.pkl.score.pkl")))
+                err = float(np.abs(z["scores"] - scores["corpus"]).max())
+            good &= err <= RESUME_TOL
+            print(f"  python -m tmrnet_torch test (corpus, the default) as a "
+                  f"subprocess: exit 0 in {dt:.2f} s, predictions equal to "
+                  f"the in-process run, softmax max_abs_err {err:.3g} "
+                  f"(limit {RESUME_TOL}) {'ok' if good else 'FAIL'}")
+        else:
+            print(f"  python -m tmrnet_torch test exited {proc.returncode}: "
+                  f"{proc.stderr[-2000:]} FAIL")
+        ok &= good
+    print(f"test slice: rates {json.dumps(rates)} on {card} "
+          f"{'ok' if ok else 'FAIL'}")
+    torch.cuda.empty_cache()
+    return counts, ok
+
+
 def run_gate(torch, seed, card):
     """Phase 5: the int8 gate at B = 128 over the four stages: the int8
     bottleneck chain through the kernels against the same chain through the
@@ -1387,9 +1703,11 @@ def main():
     del video_engine
     torch.cuda.empty_cache()
     by_path["serve"], ok_serve = run_serve_slice(torch, args.seed, card)
+    test_counts, ok_test = run_test_slice(torch, args.seed, card)
+    by_path.update(test_counts)
     by_path["gate"], ok_gate = run_gate(torch, args.seed, card)
     ok = (ok_block and ok_tiled and ok_paths and ok_video and ok_stream
-          and ok_serve and ok_gate)
+          and ok_serve and ok_test and ok_gate)
     for rec in records:
         rec["launches_by_path"] = {p: c[rec["name"]] for p, c in by_path.items()
                                    if rec["name"] in c}

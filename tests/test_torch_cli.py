@@ -198,10 +198,11 @@ def test_port_config_names_what_it_ignores(tmp_path, capsys):
     assert capsys.readouterr().err == ""
     changed = tmp_path / "changed.json"
     changed.write_text(ExperimentConfig(
-        memory=MemoryConfig(window=4, compat_cross_video=True),
+        memory=MemoryConfig(window=4, compat_cross_video=True, feature_dim=32),
         model=ModelConfig(**MODEL, use_pallas=True)).to_json())
     cfg = cli.load_config(args(changed))
     assert cfg.memory.window == 4 and cfg.model.hidden_dim == 16
+    assert cfg.memory.compat_cross_video       # read by the port, not ignored
     err = [json.loads(line) for line in capsys.readouterr().err.splitlines()]
-    assert err == [{"config_ignored": {"memory.compat_cross_video": True,
+    assert err == [{"config_ignored": {"memory.feature_dim": 32,
                                        "model.use_pallas": True}}]

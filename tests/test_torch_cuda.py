@@ -696,3 +696,126 @@ def test_new_kernels_count_their_launches(gen):
                       a_scale, b_scale)
     assert dict(LAUNCHES) == {"fused_bottleneck_tiled": 1, "int8_matmul": 2,
                               "int8_conv3x3": 1}
+
+
+def test_device_prefetch_on_card(gen):
+    """12 batches through 3 staging slots: every array arrives on the card
+    equal to its host batch, non-array items pass through, the host arrays
+    may be overwritten once staged, and bf16 CPU tensors keep their dtype."""
+    from tmrnet_torch.data.device_feed import device_prefetch
+
+    rng = np.random.default_rng(0)
+    host = [rng.integers(0, 256, (64, 10, 56, 56, 3), dtype=np.uint8)
+            for _ in range(12)]
+    want = [h.copy() for h in host]
+
+    def batches():
+        for k, h in enumerate(host):
+            yield h, torch.full((4,), k, dtype=torch.bfloat16), np.arange(k), k
+            h[...] = 0                # the loader reuses its memory
+
+    got = []
+    for x, b, rows, k in device_prefetch(batches(), buffer_size=2):
+        assert x.is_cuda and b.is_cuda and b.dtype == torch.bfloat16
+        assert rows.is_cuda and len(rows) == k
+        for _ in range(3):            # keep the compute stream busy
+            x = (x.float() * 1.0).to(torch.uint8)
+        got.append(x.cpu().numpy())
+        assert torch.equal(b.cpu(), torch.full((4,), k, dtype=torch.bfloat16))
+    assert len(got) == 12
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    with pytest.raises(TypeError, match="bare array"):
+        next(device_prefetch([host[0]]))
+
+
+def _packed_dataset(tmp_path, lengths, hw, seq, transform=None, seed=0):
+    from tmrnet_torch.data.manifests import Manifest, VideoRecord
+    from tmrnet_torch.data.pipeline import ClipDataset
+
+    rng = np.random.default_rng(seed)
+    videos = []
+    for v, n in enumerate(lengths):
+        path = tmp_path / f"v{v}.npy"
+        np.save(path, rng.integers(0, 256, (n, hw, hw, 3), dtype=np.uint8))
+        videos.append(VideoRecord(f"v{v}", [f"{path}#{j}" for j in range(n)],
+                                  (np.arange(n) % 7).astype(np.int64)))
+    return ClipDataset(Manifest(videos), seq, transform=transform)
+
+
+def test_clip_loader_processes_after_cuda_init(gen, tmp_path):
+    """With the card initialised and the packed files' handles open in
+    this process, forked loader workers give the same batches as threads,
+    and the batches reach the card through device_prefetch intact."""
+    from tmrnet_torch.data.device_feed import device_prefetch
+    from tmrnet_torch.data.pipeline import ClipLoader
+
+    torch.zeros(1, device="cuda").sum().item()
+    ds = _packed_dataset(tmp_path, (30, 4, 17), 48, 10)
+    ds.get_clip(0)
+    threads = list(ClipLoader(ds, 8, num_workers=2).epoch(0))
+    procs = list(ClipLoader(ds, 8, num_workers=3, use_processes=True,
+                            shuffle=True).epoch(1))
+    order = np.argsort(np.concatenate([b[2] for b in procs])[:ds.num_clips])
+    flat = np.concatenate([b[0] for b in procs])[:ds.num_clips][order]
+    np.testing.assert_array_equal(
+        flat, np.concatenate([b[0] for b in threads])[:ds.num_clips])
+    assert len(threads) == 4 and threads[-1][3] == 8 * 4 - 29
+    loader = ClipLoader(ds, 8, num_workers=2, use_processes=True)
+    for (clips, labels, rows, pad), want in zip(
+            device_prefetch(loader.epoch(0), array_indices=(0,)), threads):
+        assert clips.is_cuda
+        np.testing.assert_array_equal(clips.cpu().numpy(), want[0])
+        np.testing.assert_array_equal(labels, want[1])
+
+
+def test_dataset_engines_on_card_match_cpu(gen, tmp_path):
+    """build_lfb (clip and video engines) and ClipInference.run(ds) on the
+    card (bf16, folded, ResNet-50 widths with one identity block) against
+    the same in f32 on the CPU, over a packed dataset with a padded last
+    batch: banks within 2e-2 of max |feature|, softmax within 2e-2; one
+    fused_bottleneck a clip batch, a trunk chunk of the video engine."""
+    from tmrnet_torch.config import (DataConfig, EvalConfig, ExperimentConfig,
+                                     MemoryConfig, ModelConfig)
+    from tmrnet_torch.data.transforms import EvalTransform
+    from tmrnet_torch.eval.infer import ClipInference
+    from tmrnet_torch.models.convert import from_jax_variables, random_variables
+    from tmrnet_torch.models.fold_bn import fold_variables
+    from tmrnet_torch.train.loop import build_lfb
+
+    kw = dict(backbone="resnet50", stage_sizes=(2, 1, 1, 1), hidden_dim=512,
+              head="tmr")
+    weights = [fold_variables(from_jax_variables(random_variables(
+        ModelConfig(**dict(kw, head=head)), seed))) for head, seed in
+        (("tmr", 8), ("lfb", 9))]
+    cfg = lambda cdt: ExperimentConfig(
+        data=DataConfig(device_normalize=True, resize=64, crop_size=64,
+                        batch_clips=8, num_workers=2),
+        model=ModelConfig(**kw, folded=True, compute_dtype=cdt),
+        memory=MemoryConfig(window=30), eval=EvalConfig(batch_clips=8))
+    ds = _packed_dataset(tmp_path, (24, 9, 12), 64, 10,
+                         EvalTransform(64, 64, 1, normalize=False), seed=4)
+    banks = {}
+    for device, cdt in (("cpu", "float32"), ("cuda", "bfloat16")):
+        for engine in ("clip", "video"):
+            reset_launches()
+            banks[device, engine] = build_lfb(
+                cfg(cdt), weights[1], ds, engine=engine, device=device,
+                cache_path=str(tmp_path / f"{device}_{engine}.npz"))
+            if device == "cuda":
+                # two videos with clip positions; 18 clips in batches of 8
+                chunks = 2 if engine == "video" else 3
+                assert dict(LAUNCHES) == {"fused_bottleneck": chunks}
+    want = banks["cpu", "clip"].features
+    for key, bank in banks.items():
+        _close(bank.features.cpu(), want)
+    cpu = ClipInference(cfg("float32"), weights[0], banks["cpu", "clip"],
+                        device="cpu").run(ds)
+    reset_launches()
+    card = ClipInference(cfg("bfloat16"), weights[0], banks["cuda", "clip"]
+                         ).run(ds)
+    assert dict(LAUNCHES) == {"fused_bottleneck": 3, "time_conv": 3,
+                              "nl_attention": 3}
+    assert card.scores.shape == cpu.scores.shape == (18, 7)
+    assert np.abs(card.scores - cpu.scores).max() <= REL
+    np.testing.assert_array_equal(card.rows, np.arange(18))

@@ -16,7 +16,7 @@ from tmrnet_torch.eval.infer import ClipInference, VideoInference
 from tmrnet_torch.eval.stream import StreamingInference
 from tmrnet_torch.memory.lfb import FeatureBank, load_bank
 from tmrnet_torch.models.tmrnet import build_model
-from tmrnet_torch.train.loop import build_lfb_video
+from tmrnet_torch.train.loop import build_lfb, build_lfb_video
 
 torch.set_num_threads(2)
 
@@ -54,7 +54,9 @@ def test_importing_the_port_leaves_jax_out():
             "tmrnet_torch.config, tmrnet_torch.eval.serve, "
             "tmrnet_torch.eval.serve_net, tmrnet_torch.models.torch_import, "
             "tmrnet_torch.data.packed, tmrnet_torch.data.pipeline, "
-            "tmrnet_torch.data.transforms; "
+            "tmrnet_torch.data.transforms, tmrnet_torch.data.indexing, "
+            "tmrnet_torch.data.manifests, tmrnet_torch.data.device_feed, "
+            "tmrnet_torch.eval.metrics; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -85,8 +87,9 @@ def test_entry_points_need_cuda_unless_cpu(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ClipInference(ExperimentConfig(model=CFG), state, bank)
     engine = ClipInference(ExperimentConfig(model=CFG), state, bank, device="cpu")
-    res = engine.run([(np.zeros((1, 2, 32, 32, 3), np.uint8), np.zeros(1),
-                       np.array([3]), 0)], bank.first_rows)
+    res = engine.run_batches([(np.zeros((1, 2, 32, 32, 3), np.uint8),
+                               np.zeros(1), np.array([3]), 0)],
+                             bank.first_rows)
     assert res.scores.shape == (1, 7)
 
     cfg = ExperimentConfig(model=CFG, data=DataConfig(sequence_length=2))
@@ -98,6 +101,27 @@ def test_entry_points_need_cuda_unless_cpu(no_cuda, tmp_path):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
         make(device="cpu")
+    # the dataset-taking paths: build_lfb (both engines), run(ds) and
+    # device_prefetch
+    from tmrnet_torch.data.device_feed import device_prefetch
+    from tmrnet_torch.data.manifests import Manifest, VideoRecord
+    from tmrnet_torch.data.pipeline import ClipDataset, array_frame_loader
+
+    frames = {f"f{i}": video[i] for i in range(3)}
+    ds = ClipDataset(Manifest([VideoRecord("v", list(frames), np.zeros(3, int))]),
+                     2, frame_loader=array_frame_loader(frames))
+    for engine in ("clip", "video"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build_lfb(cfg, ext, ds, cache_path=str(tmp_path / "x.npz"),
+                      engine=engine)
+        built = build_lfb(cfg, ext, ds, engine=engine, device="cpu",
+                          cache_path=str(tmp_path / f"{engine}.npz"))
+        assert built.num_rows == 2 and built.features.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        next(device_prefetch([(video,)]))
+    assert next(device_prefetch([(video,)], device="cpu"))[0].device.type == "cpu"
+    res = ClipInference(cfg, state, built, device="cpu").run(ds)
+    assert res.scores.shape == (2, 7)
     preds, probs = VideoInference(cfg, state, ext, device="cpu").run_video(video)
     assert preds.shape == (2,) and probs.shape == (2, 7)
     stream = StreamingInference(cfg, state, ext, device="cpu")
@@ -129,6 +153,11 @@ def test_entry_points_need_cuda_unless_cpu(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(argv)
     assert cli.main(argv + ["--device", "cpu"]) == 0
+    # build-lfb and test refuse before reading anything
+    for command in ("build-lfb", "test"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cli.main([command, "--manifest", "m.pkl", "--torch-ckpt", "m.pth",
+                      "--out", str(tmp_path / "o.npz")])
     restored = cli.restore_state(cfg, "tmr", str(tmp_path / "m.pth"))
     ext = cli.extractor_state(cfg, restored, None)
     with pytest.raises(RuntimeError, match="device='cpu'"):

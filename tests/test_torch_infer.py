@@ -61,7 +61,7 @@ def test_clip_inference_matches_jax_per_batch(head):
     idx = jax_window_rows(rows, firsts[rows], WIN).astype(np.int32)
     want_pred, want_probs = jeng._infer(jeng.variables, jeng._features,
                                         jnp.asarray(clips), jnp.asarray(idx))
-    res = teng.run([(clips, np.zeros(4, np.int64), rows, 0)], firsts)
+    res = teng.run_batches([(clips, np.zeros(4, np.int64), rows, 0)], firsts)
     np.testing.assert_allclose(res.scores, np.asarray(want_probs), atol=1e-4,
                                rtol=0)
     np.testing.assert_array_equal(res.preds, np.asarray(want_pred))
@@ -73,7 +73,7 @@ def test_multicrop_and_padding():
     crops = rng.randint(0, 256, (3, 2, SEQ, HW, HW, 3)).astype(np.uint8)
     rows = np.array([5, 30, 30])
     labels = np.array([1, 2, 0])
-    res = teng.run([(crops, labels, rows, 1)], firsts)
+    res = teng.run_batches([(crops, labels, rows, 1)], firsts)
     assert res.scores.shape == (2, 7) and res.preds.shape == (2,)
     flat = crops.reshape((-1,) + crops.shape[2:])
     idx = teng.window_rows(np.repeat(rows, 2), firsts)

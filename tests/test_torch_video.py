@@ -203,7 +203,7 @@ def test_video_engine_matches_clip_engine(setup):
             continue
         clips = np.stack([video[i:i + SEQ] for i in range(k)])
         rows = np.arange(row, row + k)
-        res = clip.run([(clips, np.zeros(k), rows, 0)], firsts)
+        res = clip.run_batches([(clips, np.zeros(k), rows, 0)], firsts)
         np.testing.assert_allclose(res.scores, probs, **TOL)
         np.testing.assert_array_equal(res.preds, preds)
         row += k
@@ -220,7 +220,7 @@ def test_clip_inference_stage1_matches_jax():
                                         jnp.asarray(clips),
                                         jnp.zeros((3, 1), jnp.int32))
     port = ClipInference(tcfg, from_jax_variables(variables), device="cpu")
-    res = port.run([(clips, np.zeros(3), np.arange(3), 1)])
+    res = port.run_batches([(clips, np.zeros(3), np.arange(3), 1)])
     np.testing.assert_allclose(res.scores, np.asarray(want_probs)[:2], **TOL)
     np.testing.assert_array_equal(res.preds, np.asarray(want_pred)[:2])
 

@@ -1,14 +1,15 @@
 """Configuration for the PyTorch port: the fields of the JAX package's
 `ModelConfig`, `MemoryConfig`, `DataConfig` and `EvalConfig` that the
-inference engines read.
+inference engines, the data layer and the CLI read.
 
 Own copy of those fields (names, defaults, meaning) of
-`tmrnet_tpu/config.py` (ModelConfig :97-123, MemoryConfig :200-210,
-DataConfig sequence_length :61, resize/crop_size :65-66, test_crop_type
-:80 and mean/std/device_normalize :81-92, EvalConfig backbone_chunk
-:214-236), and of `ExperimentConfig.from_json` (:283-300) and
-`apply_override` (:395-428), so the port never imports the JAX package.
-Later slices add the fields they read.
+`tmrnet_tpu/config.py` (the phase names :22-43, DataConfig :50-93 but for
+the training augmentation and manifest_path, ModelConfig :97-123,
+MemoryConfig :200-210 but for feature_dim, EvalConfig batch_clips,
+video_batch, backbone_chunk, corpus and corpus_chunk :214-245), and of
+`ExperimentConfig.from_json` (:283-300) and `apply_override` (:395-428),
+so the port never imports the JAX package. Later slices add the fields
+they read.
 
 `from_json` skips keys the port's dataclasses lack, so a JSON written by
 either package's `to_json` loads here; `ignored_fields` names those of
@@ -28,15 +29,32 @@ from typing import Any, Dict, Tuple
 CHOLEC80_MEAN: Tuple[float, float, float] = (0.41757566, 0.26098573, 0.25888634)
 CHOLEC80_STD: Tuple[float, float, float] = (0.21938758, 0.1983, 0.19342837)
 
+# Phase names; their order defines the label ids (reference
+# `get_paths_labels.py:49-54`; M2CAI16 adds TrocarPlacement first).
+CHOLEC80_PHASES: Tuple[str, ...] = (
+    "Preparation", "CalotTriangleDissection", "ClippingCutting",
+    "GallbladderDissection", "GallbladderPackaging", "CleaningCoagulation",
+    "GallbladderRetraction")
+M2CAI_PHASES: Tuple[str, ...] = ("TrocarPlacement",) + CHOLEC80_PHASES
+
 
 @dataclass(frozen=True)
 class DataConfig:
-    """Frame geometry and input normalization: uint8 frames are cast to the
-    compute dtype and, under `device_normalize`, become (x - mean*255) /
-    (std*255) on the card."""
+    """Frames, manifests, the host pipeline, frame geometry and input
+    normalization: uint8 frames are cast to the compute dtype and, under
+    `device_normalize`, become (x - mean*255) / (std*255) on the card."""
 
+    # Frames dir (one subdir or packed .npy per video) and the phase
+    # annotations, the `manifest` command's defaults.
+    data_root: str = "./data/frames"
+    annotation_root: str = "./data/phase_annotations"
+    # 'pickle' (the reference's 3/6-list) or 'csv' (frame,class,id): the
+    # format of an extension-less `manifest --out`.
+    manifest_format: str = "pickle"
     # Frames per clip: the reference runs 10-frame 1-fps clips.
     sequence_length: int = 10
+    fps: int = 1
+    source_fps: int = 25  # raw video fps; keep every (source_fps // fps)-th
     # Image geometry: decode -> resize 250 -> crop 224.
     resize: int = 250
     crop_size: int = 224
@@ -45,6 +63,14 @@ class DataConfig:
     test_crop_type: int = 1
     mean: Tuple[float, float, float] = CHOLEC80_MEAN
     std: Tuple[float, float, float] = CHOLEC80_STD
+    phase_names: Tuple[str, ...] = CHOLEC80_PHASES
+    # The host pipeline (data/pipeline.py::ClipLoader): clips per batch of
+    # the LFB build, batches assembled ahead, decode workers, and forked
+    # processes instead of threads.
+    batch_clips: int = 40
+    prefetch: int = 2
+    num_workers: int = 8
+    use_process_workers: bool = False
     device_normalize: bool = False
 
 
@@ -72,16 +98,33 @@ class MemoryConfig:
     """Long-term Feature Bank settings."""
 
     window: int = 30
+    # The bank's `.npz` cache, read instead of a build under load_cached.
+    cache_path: str = "./LFB/lfb.npz"
+    load_cached: bool = True
+    # The reference's window walk crosses video boundaries
+    # (`train_non-local_mutiConv_resnet.py:315-322`); True replicates it in
+    # the clip engine (data/indexing.py::quirk_window_table), False clamps
+    # at the video's first row (the paper's intent).
+    compat_cross_video: bool = False
 
 
 @dataclass(frozen=True)
 class EvalConfig:
     """Inference settings."""
 
+    # Clips per batch of the clip engine.
+    batch_clips: int = 64
+    # `test --engine video`: videos of one length bucket scored together
+    # (VideoInference.run_videos).
+    video_batch: int = 1
     # The video engines run the backbone over frame chunks of this many
     # frames: 0 = auto (`eval/infer.py::plan_trunk_chunk`), -1 = never
     # (all frames of a call at once), > 0 = that many.
     backbone_chunk: int = 0
+    # `test --engine video` over the whole set as one flat frame stream in
+    # blocks of corpus_chunk frames (VideoInference.run_corpus).
+    corpus: bool = False
+    corpus_chunk: int = 4096
 
 
 @dataclass(frozen=True)
@@ -124,14 +167,11 @@ _SECTIONS = {"data": DataConfig, "model": ModelConfig, "memory": MemoryConfig,
              "eval": EvalConfig}
 
 # Fields of JAX's config that the port lacks and that change what JAX
-# computes, at JAX's defaults (`tmrnet_tpu/config.py` :62-63, :83, :104,
-# :116-118, :204, :210): frame sampling, class and feature widths, the
-# parameter dtype, the kernel switch and the cross-video memory quirk.
+# computes, at JAX's defaults (`tmrnet_tpu/config.py` :83, :104, :116-118,
+# :204): class and feature widths, the parameter dtype and the kernel
+# switch.
 JAX_ONLY_DEFAULTS: Dict[str, Any] = {
-    "data.fps": 1,
-    "data.source_fps": 25,
     "data.num_classes": 7,
-    "memory.compat_cross_video": False,
     "memory.feature_dim": 512,
     "model.feature_dim": 2048,
     "model.param_dtype": "float32",

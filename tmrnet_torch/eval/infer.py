@@ -6,10 +6,12 @@ Port of `tmrnet_tpu/eval/infer.py` (`memoryless_head` :41-52,
 `ClipInference`: each batch runs prep -> memory-window gather -> forward ->
 f32 softmax -> argmax on the card, with softmax averaging over crops for
 multi-crop batches; head `stage1` scores the clip's last step with no bank.
-`run()` takes an iterable of host batches `(clips_uint8, labels, rows,
-pad)` and the per-row first-row table (`FeatureBank.first_rows`); the
-window rows are computed on the host as in JAX (:146-154). The dataset and
-loader come in a later slice.
+`run(ds)` scores a `ClipDataset` through a `ClipLoader` and
+`device_prefetch`, as JAX's does; `run_batches` takes an iterable of host
+batches `(clips, labels, rows, pad)` and the per-row first-row table
+(`FeatureBank.first_rows`). The window rows are computed on the host as in
+JAX (:146-154), clamped or, under `memory.compat_cross_video`, the
+reference's cross-video table.
 
 `VideoInference`: whole videos with the backbone once per frame (the clip
 engine runs it `sequence_length` times per frame), the LSTM over every
@@ -30,9 +32,11 @@ import numpy as np
 import torch
 
 from tmrnet_torch.config import ExperimentConfig
-from tmrnet_torch.data.device_feed import DevicePrep
+from tmrnet_torch.data.device_feed import DevicePrep, device_prefetch
+from tmrnet_torch.data.indexing import memory_window_rows, quirk_window_table
+from tmrnet_torch.data.pipeline import ClipDataset, ClipLoader
 from tmrnet_torch.device import resolve_device, torch_dtype
-from tmrnet_torch.memory.lfb import FeatureBank, memory_window_rows
+from tmrnet_torch.memory.lfb import FeatureBank
 from tmrnet_torch.models.tmrnet import TMRNet, build_model
 
 
@@ -113,7 +117,31 @@ class ClipInference:
     def window_rows(self, rows: np.ndarray, first_rows: np.ndarray) -> np.ndarray:
         return memory_window_rows(rows, first_rows[rows], self.window)
 
-    def run(self, batches: Iterable, first_rows=None) -> InferenceResult:
+    def run(self, ds: ClipDataset) -> InferenceResult:
+        """Score every clip of a dataset: a ClipLoader over
+        `eval.batch_clips` clips (`data.num_workers`, `data.prefetch`,
+        `data.use_process_workers`), the memory windows clamped at each
+        video's first row or, under `memory.compat_cross_video`, the
+        reference's cross-video table, the batches copied ahead to the card
+        (`device_prefetch`). Accuracy over the clips that are not
+        padding."""
+        d = self.cfg.data
+        loader = ClipLoader(ds, self.cfg.eval.batch_clips, shuffle=False,
+                            num_workers=d.num_workers, prefetch=d.prefetch,
+                            use_processes=d.use_process_workers)
+        if self.cfg.memory.compat_cross_video:
+            table = quirk_window_table(ds.seq_len, ds.manifest.video_lengths,
+                                       self.window)
+            window_idx = lambda r: table[r]
+        else:
+            first_rows = ds.first_rows
+            window_idx = lambda r: self.window_rows(r, first_rows)
+        return self._score(self._host_batch(clips, labels, rows, pad,
+                                            window_idx)
+                           for clips, labels, rows, pad in loader.epoch(0))
+
+    def run_batches(self, batches: Iterable, first_rows=None
+                    ) -> InferenceResult:
         """batches: (clips, labels, rows, pad) host batches; clips uint8
         (B, T, H, W, 3), or (B, ncrops, T, H, W, 3) for multi-crop; the last
         `pad` entries are padding. first_rows: per-row first-row table (the
@@ -122,19 +150,33 @@ class ClipInference:
             if isinstance(first_rows, torch.Tensor):
                 first_rows = first_rows.cpu().numpy()
             first_rows = np.asarray(first_rows, np.int64)
+        window_idx = lambda r: self.window_rows(r, first_rows)
+        return self._score(self._host_batch(clips, labels, rows, pad,
+                                            window_idx)
+                           for clips, labels, rows, pad in batches)
+
+    def _host_batch(self, clips, labels, rows, pad, window_idx):
+        """One host batch for the wire: crops flattened into the batch,
+        non-uint8 clips cast to the compute dtype (uint8 ships as it is),
+        and the window rows of every crop (None for a memoryless head)."""
+        rows = np.asarray(rows, np.int64)
+        ncrops = 1
+        if clips.ndim == 6:
+            ncrops = clips.shape[1]
+            clips = clips.reshape((-1,) + clips.shape[2:])
+        if clips.dtype != np.uint8:
+            clips = torch.as_tensor(np.ascontiguousarray(clips)).to(self.prep.cdt)
+        idx = None if self.memoryless else window_idx(np.repeat(rows, ncrops))
+        return clips, idx, np.asarray(labels), rows, pad, ncrops
+
+    def _score(self, host_batches) -> InferenceResult:
+        """Forward the batches of `_host_batch`, copied to the engine's
+        device ahead of use; softmax averaged over crops; predictions,
+        scores, rows and labels of the rows that are not padding."""
         preds_all, scores_all, rows_all, labels_all = [], [], [], []
-        for clips, labels, rows, pad in batches:
-            rows = np.asarray(rows, np.int64)
-            ncrops = 1
-            if clips.ndim == 6:
-                ncrops = clips.shape[1]
-                clips = clips.reshape((-1,) + clips.shape[2:])
-            idx = None
-            if not self.memoryless:
-                idx = torch.from_numpy(self.window_rows(
-                    np.repeat(rows, ncrops), first_rows)).to(self.device)
-            clips_d = torch.from_numpy(np.ascontiguousarray(clips)).to(self.device)
-            _, probs = self.infer(clips_d, idx)
+        for clips, idx, labels, rows, pad, ncrops in device_prefetch(
+                host_batches, device=self.device, array_indices=(0, 1)):
+            _, probs = self.infer(clips, idx)
             probs = probs.cpu().numpy()
             if ncrops > 1:
                 probs = probs.reshape(len(rows), ncrops, -1).mean(axis=1)
@@ -142,7 +184,7 @@ class ClipInference:
             preds_all.append(np.argmax(probs[:b], axis=-1))
             scores_all.append(probs[:b])
             rows_all.append(rows[:b])
-            labels_all.append(np.asarray(labels)[:b])
+            labels_all.append(labels[:b])
         preds = np.concatenate(preds_all)
         labels = np.concatenate(labels_all)
         return InferenceResult(
@@ -243,7 +285,8 @@ class VideoInference:
         self.prep = DevicePrep(cfg.data, self.cdt, self.device)
         self._chunks = {}
 
-    def bucket_frames(self, n: int) -> int:
+    @staticmethod
+    def bucket_frames(n: int) -> int:
         """JAX's padded length for an n-frame video: pow-2 up to PAD_FRAMES,
         then the next multiple of BUCKET_STEP. The port pads nothing; it
         groups videos by bucket in `corpus_heads`, as JAX does."""

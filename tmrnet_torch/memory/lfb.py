@@ -2,8 +2,8 @@
 
 Port of `tmrnet_tpu/memory/lfb.py` (FeatureBank :36-74, update_bank :77-81,
 gather_memory_windows :84-96, save_bank/load_bank :133-186, the `.npz`
-of either package and the reference's g_LFB `.pkl`) and
-of `memory_window_rows` (`tmrnet_tpu/data/indexing.py:77-91`). The bank is
+of either package and the reference's g_LFB `.pkl`), with the row algebra
+of `data/indexing.py` (`memory_window_rows`). The bank is
 a `(num_rows, feature_dim)` tensor written in place; a clip's memory window
 is gathered on the device:
 
@@ -23,34 +23,9 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from tmrnet_torch.data.indexing import (clips_per_video, memory_window_rows,
+                                       video_first_rows)
 from tmrnet_torch.device import resolve_device
-
-
-def clips_per_video(seq_len: int, video_lengths: Sequence[int]) -> np.ndarray:
-    """Number of clip positions (= bank rows) per video."""
-    lengths = np.asarray(video_lengths, dtype=np.int64)
-    return np.maximum(lengths + 1 - seq_len, 0)
-
-
-def video_first_rows(seq_len: int, video_lengths: Sequence[int]) -> np.ndarray:
-    """First bank row of each video (exclusive cumsum of clips_per_video)."""
-    cpv = clips_per_video(seq_len, video_lengths)
-    if cpv.size == 0:
-        return np.zeros(0, dtype=np.int64)
-    return np.concatenate([[0], np.cumsum(cpv)[:-1]]).astype(np.int64)
-
-
-def memory_window_rows(rows, first_rows, window: int):
-    """Clamped memory window rows, shape rows.shape + (window,), ordered
-    k = 1..window (most recent first), never before the video's first row.
-    Takes numpy arrays or torch tensors and returns the same kind."""
-    rows = rows[..., None]
-    first = first_rows[..., None]
-    if isinstance(rows, torch.Tensor):
-        ks = torch.arange(1, window + 1, dtype=rows.dtype, device=rows.device)
-        return torch.maximum(rows - ks, first.to(rows.dtype))
-    ks = np.arange(1, window + 1, dtype=rows.dtype)
-    return np.maximum(rows - ks, first)
 
 
 @dataclasses.dataclass
