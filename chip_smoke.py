@@ -157,6 +157,22 @@ ROOT_TMP = os.path.join(ROOT, "build")
 TEST_LENGTHS = (300, 200, 45, 9)
 LFB_BATCH, TEST_BATCH = 40, 64
 TEST_TIMEOUT = 600
+# Phase 4g, the training slice: clips of a train step (A, B) and of the
+# benchmark (E, data.batch_clips), the Adam steps of B, the warm-up and
+# timed steps of E, the workflow's epochs (C), how long a training
+# subprocess may take (D); the card-vs-CPU step's limits (A: the bf16
+# step's loss, the f32 step's loss and statistics, the aggregates of the
+# bf16 step's deltas); the best checkpoint's val loss against its val pass
+# re-run (C). The aggregates' limits come from the full-width readings
+# in PERF.md: at ResNet-50's depth the bf16 backbone step lands at
+# 1 - cosine 0.87 from the f32 one on the CPU too, so the trunk's limit
+# only refuses a delta unrelated to the f32 step (1 - cosine ~1 over 23M
+# values); the f32 step holds the backbone per tensor.
+TRAIN_CLIPS, LEARN_STEPS, TRAIN_BATCH = 8, 20, 40
+BENCH_WARMUP, BENCH_STEPS = 3, 10
+BANK_EPOCHS, TMR_EPOCHS, TRAIN_TIMEOUT = 1, 2, 600
+STEP_LOSS_TOL, STEP_F32_TOL, VAL_LOSS_TOL = 2e-2, 1e-3, 1e-5
+STEP_AGG_LIMITS = {"trunk": 0.95, "head": 0.15}
 
 
 def card_line():
@@ -392,7 +408,8 @@ def check_engine_shapes(torch, seed, records):
         print(f"    eager {ms:.4f} ms")
 
     corpus_rows = sum(n - SEQ + 1 for n in VIDEO_LENGTHS[:2])
-    for b in (corpus_rows, 8 * 5500, STREAMS, SERVE_SLOTS, TEST_BATCH):
+    for b in (corpus_rows, 8 * 5500, STREAMS, SERVE_SLOTS, TEST_BATCH,
+              TRAIN_BATCH):
         check("nl_attention", f"B={b}", nl_attention_cuda, nl_attention_plain,
               (bf((b, HIDDEN)), bf((b, WINDOW, HIDDEN)),
                bf((b, WINDOW, HIDDEN))))
@@ -1606,6 +1623,527 @@ def run_test_slice(torch, seed, card):
     return counts, ok
 
 
+def train_model_config(head, device, dtype=None):
+    """The full-width model of the training slice: bf16 on the card, f32
+    on the CPU unless `dtype` says otherwise, unfolded, dropout 0."""
+    from tmrnet_torch.config import ModelConfig
+
+    return ModelConfig(backbone="resnet50", head=head, hidden_dim=HIDDEN,
+                       num_classes=CLASSES, folded=False,
+                       compute_dtype=dtype or ("bfloat16" if device == "cuda"
+                                               else "float32"),
+                       dropout_stage1=0.0, dropout_head=0.0, dropout_nl=0.0)
+
+
+def train_state(torch, head, weights, device, optimizer="sgd", lr=0.05,
+                dtype=None):
+    """A TrainState of the full-width model on `device` from `weights`,
+    and its train step (uint8 clips prepared on the device)."""
+    from tmrnet_torch.config import DataConfig, TrainConfig
+    from tmrnet_torch.data.device_feed import DevicePrep
+    from tmrnet_torch.device import resolve_device
+    from tmrnet_torch.models.tmrnet import build_model
+    from tmrnet_torch.train.optim import make_optimizer, slow_modules_for_head
+    from tmrnet_torch.train.state import TrainState
+    from tmrnet_torch.train.steps import make_stage1_steps, make_stage2_steps
+
+    cfg = train_model_config(head, device, dtype)
+    device = resolve_device(device)
+    model = build_model(cfg, device=device)
+    model.load_state_dict(weights)
+    state = TrainState(model, make_optimizer(
+        TrainConfig(optimizer=optimizer, lr=lr, momentum=0.9,
+                    weight_decay=5e-4), model, slow_modules_for_head(head)))
+    make = make_stage1_steps if head == "stage1" else make_stage2_steps
+    step, _ = make(prep=DevicePrep(DataConfig(device_normalize=True),
+                                   cfg.compute_dtype, device))
+    return state, step
+
+
+def train_batch(torch, seed, clips):
+    """`clips` uint8 224x224 clips of SEQ frames, a WINDOW-row memory per
+    clip and labels, on the CPU, from a seed."""
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy(rng.integers(0, 256, (clips, SEQ, IMG, IMG, 3),
+                                          dtype=np.uint8)),
+            torch.from_numpy(rng.standard_normal((clips, WINDOW, HIDDEN),
+                                                 dtype=np.float32)),
+            torch.from_numpy(rng.integers(0, CLASSES, clips)))
+
+
+def one_step(torch, head, weights, batch, device, dtype=None):
+    """One SGD step (momentum 0.9, weight decay 5e-4) of `head` on
+    `device`: (loss, parameter deltas, running statistics, launches)."""
+    from tmrnet_torch.kernels.build import LAUNCHES, reset_launches
+
+    state, step = train_state(torch, head, weights, device, dtype=dtype)
+    before = {k: v.detach().clone() for k, v in
+              state.model.named_parameters()}
+    clips, memory, labels = (t.to(device) for t in batch)
+    args = (clips,) if head == "stage1" else (clips, memory)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    reset_launches()
+    m = step(state, *args, labels, torch.Generator(device=device)
+             .manual_seed(0))
+    loss = float(m["loss"])
+    counts = dict(LAUNCHES)
+    deltas = {k: (v.detach() - before[k]).float().cpu()
+              for k, v in state.model.named_parameters()}
+    stats = {k: v.float().cpu() for k, v in state.model.state_dict().items()
+             if "running" in k}
+    del state, before
+    return loss, deltas, stats, counts
+
+
+def check_step_vs_cpu(torch, seed, card):
+    """Phase 4g A: one SGD step of the full-width model on TRAIN_CLIPS
+    uint8 clips on the card against the same step in f32 on the CPU
+    through the plain versions (`train/step_check.py` says how deltas are
+    compared). In bf16 (heads tmr and stage1), beside the same step in
+    bf16 on the CPU: the loss within STEP_LOSS_TOL relative, the running
+    statistics within TOL of max |cpu|, one time_conv and one
+    nl_attention launch in the stage-2 step and none in stage 1 (so none
+    in a backward), the backbone's and the head's and LSTM's deltas laid
+    end to end within STEP_AGG_LIMITS, and each tensor that the CPU's
+    bf16 step resolves within 5e-2 or twice that step's distance. In f32
+    (heads stage1 and nl_only; time_conv's kernel takes bf16 only): the
+    loss and the running statistics within STEP_F32_TOL, each tensor's
+    delta within 5e-2 (cosine 0.95 for the backbone), the nl_attention
+    kernel launched once in nl_only's step; beside it, the spread of the
+    CPU's own f32 step between two thread counts. Returns (the card
+    stage-2 bf16 step's launches, ok)."""
+    from tmrnet_torch.models.convert import from_jax_variables, random_variables
+    from tmrnet_torch.train.step_check import (TENSOR_LIMIT, aggregate,
+                                               distance, verdicts,
+                                               worst_by_group)
+
+    ok, counts = True, {}
+    batch = train_batch(torch, seed + 20, TRAIN_CLIPS)
+    stat_err = lambda got, want: max(
+        float((got[k] - w).abs().max() / max(float(w.abs().max()), 1e-12))
+        for k, w in want.items())
+    for head in ("tmr", "stage1", "nl_only"):
+        weights = from_jax_variables(random_variables(
+            train_model_config(head, "cpu"), seed + 21))
+        t0 = time.perf_counter()
+        cpu = one_step(torch, head, weights, batch, "cpu")
+        print(f"train step {head}: CPU f32 step {time.perf_counter() - t0:.1f}"
+              f" s, loss {cpu[0]:.6g}")
+        if head != "nl_only":
+            t0 = time.perf_counter()
+            ref = one_step(torch, head, weights, batch, "cpu", "bfloat16")
+            t1 = time.perf_counter()
+            gpu = one_step(torch, head, weights, batch, "cuda")
+            torch.cuda.empty_cache()
+            if head == "tmr":
+                counts = gpu[3]
+            rel = abs(gpu[0] - cpu[0]) / abs(cpu[0])
+            agg, agg_ref = aggregate(gpu[1], cpu[1]), aggregate(ref[1], cpu[1])
+            judged = verdicts(gpu[1], ref[1], cpu[1])
+            tally = {v: 0 for v in ("limit", "bf16", "unresolved", "FAIL")}
+            for k, (v, d, r) in judged.items():
+                tally[v] += 1
+                if v == "FAIL":
+                    print(f"    {k}: card {d:.5g}, cpu bf16 {r:.5g} FAIL")
+            unresolved = [k for k, (v, _, _) in judged.items()
+                          if v == "unresolved"]
+            sterr = stat_err(gpu[2], cpu[2])
+            want = {"time_conv": 1, "nl_attention": 1} if head == "tmr" else {}
+            good = (rel <= STEP_LOSS_TOL and sterr <= TOL and gpu[3] == want
+                    and tally["FAIL"] == 0
+                    and all(agg[g] <= STEP_AGG_LIMITS[g] for g in agg))
+            print(f"  {head} bf16: loss card {gpu[0]:.6g} cpu bf16 "
+                  f"{ref[0]:.6g}, card rel {rel:.3g} (limit {STEP_LOSS_TOL});"
+                  f" running stats worst /max|cpu| {sterr:.4g} (limit {TOL});"
+                  f" launches {gpu[3]} (want {want}: the forward launches "
+                  f"each once, the backward none) (CPU bf16 step "
+                  f"{t1 - t0:.1f} s)")
+            print(f"  {head} bf16: aggregates card "
+                  f"{json.dumps(agg)} cpu bf16 {json.dumps(agg_ref)} "
+                  f"(1 - cosine of the backbone's deltas, relative error of "
+                  f"the head's and LSTM's; limits "
+                  f"{json.dumps(STEP_AGG_LIMITS)})")
+            print(f"  {head} bf16: {len(judged)} parameter deltas {tally} "
+                  f"(within 5e-2, within twice the cpu bf16 step's "
+                  f"distance, not resolved by the cpu bf16 step, failed); "
+                  f"unresolved outside the backbone "
+                  f"{[k for k in unresolved if not k.startswith('backbone.')]} "
+                  f"{'ok' if good else 'FAIL'}")
+            ok &= good
+        if head != "tmr":
+            g32 = one_step(torch, head, weights, batch, "cuda", "float32")
+            torch.cuda.empty_cache()
+            rel = abs(g32[0] - cpu[0]) / abs(cpu[0])
+            dist = {k: distance(k, g32[1][k], w) for k, w in cpu[1].items()}
+            sterr = stat_err(g32[2], cpu[2])
+            want = {"nl_attention": 1} if head == "nl_only" else {}
+            good = (rel <= STEP_F32_TOL and sterr <= STEP_F32_TOL
+                    and all(d <= TENSOR_LIMIT for d in dist.values())
+                    and g32[3] == want)
+            print(f"  {head} f32: loss card {g32[0]:.8g} rel {rel:.3g}, "
+                  f"running stats {sterr:.4g} (limit {STEP_F32_TOL} each); "
+                  f"{len(dist)} deltas, worst {worst_by_group(dist)} "
+                  f"(limit {TENSOR_LIMIT} each); aggregates "
+                  f"{json.dumps(aggregate(g32[1], cpu[1]))}; launches "
+                  f"{g32[3]} (want {want}) {'ok' if good else 'FAIL'}")
+            ok &= good
+        if head == "stage1":
+            # the f32 step's own spread: the same CPU step with half the
+            # threads sums in another order
+            n = torch.get_num_threads()
+            torch.set_num_threads(max(1, n // 2))
+            try:
+                half = one_step(torch, head, weights, batch, "cpu")
+            finally:
+                torch.set_num_threads(n)
+            dist = {k: distance(k, half[1][k], w) for k, w in cpu[1].items()}
+            print(f"  {head} f32 on the CPU with {max(1, n // 2)} threads "
+                  f"against {n}: worst {worst_by_group(dist)}; aggregates "
+                  f"{json.dumps(aggregate(half[1], cpu[1]))}")
+    print(f"train step vs CPU on {card} {'ok' if ok else 'FAIL'}")
+    return counts, ok
+
+
+def check_learns(torch, seed, card):
+    """Phase 4g B: LEARN_STEPS Adam steps of the full-width stage-2 model
+    on one repeated batch of TRAIN_CLIPS clips; the last loss must be below
+    half the first. Returns (launches, ok)."""
+    from tmrnet_torch.kernels.build import LAUNCHES, reset_launches
+    from tmrnet_torch.models.convert import from_jax_variables, random_variables
+
+    weights = from_jax_variables(random_variables(
+        train_model_config("tmr", "cpu"), seed + 22))
+    state, step = train_state(torch, "tmr", weights, "cuda", "adam", 1e-3)
+    clips, memory, labels = (t.cuda() for t in train_batch(
+        torch, seed + 23, TRAIN_CLIPS))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    reset_launches()
+    losses = [float(step(state, clips, memory, labels, gen)["loss"])
+              for _ in range(LEARN_STEPS)]
+    counts = dict(LAUNCHES)
+    want = {"time_conv": LEARN_STEPS, "nl_attention": LEARN_STEPS}
+    ok = counts == want and losses[-1] < 0.5 * losses[0] and all(
+        np.isfinite(losses))
+    print(f"train learns: {LEARN_STEPS} Adam steps on one batch of "
+          f"{TRAIN_CLIPS} clips, loss {losses[0]:.4g} -> {losses[-1]:.4g} "
+          f"(want below half the first); launches {counts} (want {want}) "
+          f"on {card} {'ok' if ok else 'FAIL'}")
+    del state
+    torch.cuda.empty_cache()
+    return counts, ok
+
+
+def bench_steps(torch, seed, card):
+    """Phase 4g E: the train step of each stage at TRAIN_BATCH clips
+    (TRAIN_BATCH * SEQ frames of 224x224, bf16) on a batch already on the
+    card: p50 ms after BENCH_WARMUP steps, frames/s and peak memory.
+    Returns (the stage-2 timed steps' launches, numbers, ok)."""
+    from tmrnet_torch.kernels.build import LAUNCHES, reset_launches
+    from tmrnet_torch.models.convert import from_jax_variables, random_variables
+
+    ok, numbers, counts = True, {}, {}
+    batch = [t.cuda() for t in train_batch(torch, seed + 24, TRAIN_BATCH)]
+    for head in ("stage1", "tmr"):
+        weights = from_jax_variables(random_variables(
+            train_model_config(head, "cpu"), seed + 25))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state, step = train_state(torch, head, weights, "cuda", lr=1e-4)
+        args = (batch[0],) if head == "stage1" else tuple(batch[:2])
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        for _ in range(BENCH_WARMUP):
+            step(state, *args, batch[2], gen)
+        torch.cuda.synchronize()
+        reset_launches()
+        times, losses = [], []
+        for _ in range(BENCH_STEPS):
+            t0 = time.perf_counter()
+            m = step(state, *args, batch[2], gen)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+        if head == "tmr":
+            counts = dict(LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        p50 = float(np.median(times))
+        frames = TRAIN_BATCH * SEQ
+        numbers[head] = dict(step_ms_p50=p50, step_ms_min=min(times),
+                             step_ms_max=max(times),
+                             frames_per_s=frames / p50 * 1e3,
+                             peak_gib=peak)
+        good = all(np.isfinite(losses))
+        print(f"train bench {head}: {TRAIN_BATCH} clips ({frames} frames "
+              f"224x224 bf16) step p50 {p50:.2f} ms (min {min(times):.2f}, "
+              f"max {max(times):.2f}, {BENCH_STEPS} steps after "
+              f"{BENCH_WARMUP}) = {frames / p50 * 1e3:.1f} frames/s, peak "
+              f"max_memory_allocated {peak:.2f} GiB on {card} "
+              f"{'ok' if good else 'FAIL'}")
+        ok &= good
+        del state, step
+    want = {"time_conv": BENCH_STEPS, "nl_attention": BENCH_STEPS}
+    good = counts == want
+    print(f"train bench: stage-2 launches {counts} (want {want}) "
+          f"{'ok' if good else 'FAIL'}")
+    torch.cuda.empty_cache()
+    return counts, numbers, ok and good
+
+
+def write_train_config(tmp):
+    """The workflow's config JSON: phase 4f's width, unfolded, crop and
+    flip only (the card's machine has no cv2 for the rotation and the
+    hue), data.batch_clips clips a batch, log lines every 2 steps."""
+    from tmrnet_torch.config import TrainConfig
+
+    cfg = full_width_config(folded=False)
+    cfg = cfg.replace(
+        data=dataclasses.replace(cfg.data, use_flip=False,
+                                 batch_clips=TRAIN_BATCH),
+        train=TrainConfig(log_every=2))
+    path = os.path.join(tmp, "train_cfg.json")
+    with open(path, "w") as f:
+        f.write(cfg.to_json())
+    return path
+
+
+def preemption_run(torch, tmp, argv, card):
+    """Phase 4g D: `python -m tmrnet_torch train-tmr` (argv) as a
+    subprocess, SIGTERM in epoch 1 after its first log line, then the same
+    command again. Returns ok."""
+    import threading
+
+    ck = os.path.join(tmp, "ck_pre")
+    cmd = [sys.executable, "-u", "-m", "tmrnet_torch", "train-tmr", *argv,
+           "--set", f"train.checkpoint_dir={ck}", "--log-dir",
+           os.path.join(tmp, "log_pre")]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    lines, sent = [], {"at": None}
+    timer = threading.Timer(TRAIN_TIMEOUT, proc.kill)
+    timer.start()
+    try:
+        for line in proc.stdout:
+            lines.append(line.rstrip("\n"))
+            # epoch 0's summary line, then a train/loss line of epoch 1
+            done0 = any(x.startswith("[step 0] epoch/train_loss")
+                        for x in lines)
+            if (sent["at"] is None and done0
+                    and "train/loss" in line):
+                proc.send_signal(signal.SIGTERM)
+                sent["at"] = line.strip()
+        rc = proc.wait()
+        err = proc.stderr.read()
+    finally:
+        timer.cancel()
+    t1 = time.perf_counter()
+    meta = latest_metrics(ck)
+    good1 = (rc == 0 and sent["at"] is not None
+             and meta.get("preempted") is True and meta.get("epoch") == 0)
+    print(f"  train-tmr subprocess: SIGTERM after {sent['at']!r}, exit {rc} "
+          f"in {t1 - t0:.1f} s, replay checkpoint {meta} "
+          f"{'ok' if good1 else 'FAIL'}")
+    if rc != 0:
+        print(err[-2000:])
+    proc2 = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                           timeout=TRAIN_TIMEOUT)
+    t2 = time.perf_counter()
+    epochs = [int(x.split("]")[0].split()[1]) for x in
+              proc2.stdout.splitlines() if "epoch/train_loss" in x]
+    last = latest_metrics(ck)
+    good2 = (proc2.returncode == 0 and epochs == list(range(1, TMR_EPOCHS))
+             and last.get("epoch") == TMR_EPOCHS - 1
+             and not last.get("preempted"))
+    print(f"  train-tmr rerun: exit {proc2.returncode} in {t2 - t1:.1f} s, "
+          f"epochs {epochs} (want {list(range(1, TMR_EPOCHS))}: the "
+          f"interrupted epoch on), last checkpoint {last} on {card} "
+          f"{'ok' if good2 else 'FAIL'}")
+    if proc2.returncode != 0:
+        print(proc2.stderr[-2000:])
+    return good1 and good2
+
+
+def latest_metrics(ck):
+    """The metrics of a checkpoint dir's latest step."""
+    from tmrnet_torch.utils.checkpoint import CheckpointManager
+
+    m = CheckpointManager(ck)
+    return m.metadata(m.latest_step()).get("metrics", {})
+
+
+def val_pass(torch, cfg_path, manifests, bank_path, ck):
+    """The trainer's val pass (`train/loop.py::_run_epoch_eval`: the
+    unfolded model, the stage-2 eval step with the train split's class
+    weights, the memory gather) over the val manifest on the card, with a
+    checkpoint directory's weights: (mean loss, accuracy, preds, f32
+    probs)."""
+    from tmrnet_torch import cli
+    from tmrnet_torch.config import ExperimentConfig
+    from tmrnet_torch.data.device_feed import DevicePrep
+    from tmrnet_torch.data.pipeline import ClipLoader
+    from tmrnet_torch.device import resolve_device
+    from tmrnet_torch.eval.infer import load_weights
+    from tmrnet_torch.memory.lfb import load_bank
+    from tmrnet_torch.train import loop
+    from tmrnet_torch.train.losses import balanced_class_weights
+    from tmrnet_torch.train.optim import make_optimizer, slow_modules_for_head
+    from tmrnet_torch.train.state import TrainState
+    from tmrnet_torch.train.steps import make_stage2_steps
+
+    with open(cfg_path) as f:
+        cfg = ExperimentConfig.from_json(f.read())
+    dev, d = resolve_device("cuda"), cfg.data
+    model = load_weights(dataclasses.replace(cfg.model, head="tmr"),
+                         cli.checkpoint_weights(ck), dev, "block")
+    state = TrainState(model, make_optimizer(cfg.train, model,
+                                             slow_modules_for_head("tmr")))
+    weights = (balanced_class_weights(cli.load_manifest(
+        manifests["train"]).flat_labels(), cfg.model.num_classes)
+        if cfg.train.class_weighting else None)
+    _, eval_step = make_stage2_steps(
+        weights, "sum", label_smoothing=cfg.train.label_smoothing,
+        prep=DevicePrep(d, cfg.model.compute_dtype, dev)
+        if d.device_normalize else None)
+    probs = []
+
+    def recording(*args):
+        m = eval_step(*args)
+        probs.append(m["probs"])
+        return m
+
+    ds = cli.dataset(cfg, cli.load_manifest(manifests["val"], "val"))
+    loader = ClipLoader(ds, d.batch_clips, shuffle=False,
+                        num_workers=d.num_workers, prefetch=d.prefetch,
+                        use_processes=d.use_process_workers)
+    memory_fn = loop._make_memory_fn(cfg, ds, load_bank(bank_path, device=dev),
+                                     cfg.memory.window)
+    loss, acc, preds, _, _ = loop._run_epoch_eval(recording, state, loader,
+                                                  dev, memory_fn)
+    # only the last batch is padded: its repeats are the rows past preds
+    return loss, acc, preds, torch.cat(probs)[:len(preds)].cpu().numpy()
+
+
+def run_train_slice(torch, seed, card):
+    """Phase 4g: the training slice. A: a stage-2 and a stage-1 step on the
+    card against the CPU; B: the head learns; C: `manifest` (train and val
+    splits of 4f's videos), `train-bank`, `build-lfb --ckpt` (both splits,
+    folded, clip engine), `train-tmr --stage1-ckpt` and `test --ckpt`
+    through `tmrnet_torch.cli.main`, exact launch counts per command, the
+    best checkpoint's val_acc against the trainer's val pass re-run on its
+    weights, and `test`'s softmax and argmax against that pass's; D:
+    preemption and resume of `train-tmr` as a subprocess; E: train step
+    times, frames/s and peak memory per stage. Returns (counts by path,
+    numbers, ok)."""
+    counts, numbers = {}, {}
+    counts["train-step"], ok_a = check_step_vs_cpu(torch, seed, card)
+    counts["train-learn"], ok_b = check_learns(torch, seed, card)
+    counts["train-bench"], numbers["steps"], ok_e = bench_steps(torch, seed,
+                                                                card)
+    ok = ok_a and ok_b and ok_e
+    os.makedirs(ROOT_TMP, exist_ok=True)
+    split = {"train": (0, 1), "val": (2, 3)}          # videos of TEST_LENGTHS
+    clips = {s: sum(max(0, TEST_LENGTHS[v] - SEQ + 1) for v in vs)
+             for s, vs in split.items()}
+    steps = clips["train"] // TRAIN_BATCH             # drop_remainder
+    val_batches = -(-clips["val"] // TRAIN_BATCH)
+    want = {
+        "train-bank": {},
+        "lfb-ckpt": {"fused_bottleneck": 12 * sum(
+            -(-c // LFB_BATCH) for c in clips.values())},
+        "train-tmr": {k: TMR_EPOCHS * (steps + val_batches)
+                      for k in ("time_conv", "nl_attention")},
+        "test-ckpt": {k: v * -(-clips["val"] // TEST_BATCH) for k, v in
+                      {"fused_bottleneck": 12, "time_conv": 1,
+                       "nl_attention": 1}.items()},
+    }
+    seconds = {}
+    with tempfile.TemporaryDirectory(prefix="train-", dir=ROOT_TMP) as tmp:
+        write_test_videos(seed, tmp)
+        out = lambda name: os.path.join(tmp, name)
+        for s, vs in split.items():
+            os.makedirs(out(f"frames_{s}"))
+            for v in vs:
+                os.rename(out(f"frames/video{v + 1:02d}.npy"),
+                          out(f"frames_{s}/video{v + 1:02d}.npy"))
+        cfg_path = write_train_config(tmp)
+        c = ["--config", cfg_path]
+        for s in split:
+            run_cli(["manifest", *c, "--frames", out(f"frames_{s}"),
+                     "--annotations", out("ann"), "--out", out(f"{s}.pkl")])
+        manifests = ["--train-manifest", out("train.pkl"), "--val-manifest",
+                     out("val.pkl")]
+        _, counts["train-bank"], seconds["train-bank"] = run_cli(
+            ["train-bank", *c, *manifests, "--log-dir", out("log1"),
+             "--set", f"train.epochs={BANK_EPOCHS}",
+             "--set", f"train.checkpoint_dir={out('ck1')}"])
+        lfb = {}
+        for s in split:
+            _, lfb[s], seconds[f"build-lfb {s}"] = run_cli(
+                ["build-lfb", *c, "--set", "model.folded=true", "--manifest",
+                 out(f"{s}.pkl"), "--ckpt", out("ck1"), "--engine", "clip",
+                 "--out", out(f"bank_{s}.npz")])
+        counts["lfb-ckpt"] = {k: lfb["train"].get(k, 0) + lfb["val"].get(k, 0)
+                              for k in set(lfb["train"]) | set(lfb["val"])}
+        tmr_args = [*c, *manifests, "--lfb", out("bank_train.npz"),
+                    "--val-lfb", out("bank_val.npz"), "--stage1-ckpt",
+                    out("ck1"), "--set", f"train.epochs={TMR_EPOCHS}"]
+        _, counts["train-tmr"], seconds["train-tmr"] = run_cli(
+            ["train-tmr", *tmr_args, "--log-dir", out("log2"),
+             "--set", f"train.checkpoint_dir={out('ck2')}"])
+        lines, counts["test-ckpt"], seconds["test"] = run_cli(
+            ["test", *c, "--set", "model.folded=true", "--manifest",
+             out("val.pkl"), "--ckpt", out("ck2"), "--lfb",
+             out("bank_val.npz"), "--out", out("preds.npz")])
+        for path, got in counts.items():
+            if path in want:
+                good = got == want[path]
+                print(f"  {path}: launches {got} (want {want[path]}) "
+                      f"{'ok' if good else 'FAIL'}")
+                ok &= good
+        from tmrnet_torch import cli
+
+        labels = cli.clip_labels(cli.load_manifest(out("val.pkl")), SEQ)
+        with np.load(out("preds.npz")) as z:
+            preds, scores = z["preds"], z["scores"]
+        with open(out("ck2/best.json")) as f:
+            best = json.load(f)["metrics"]
+        acc = float((preds == labels).mean())
+        v_loss, v_acc, v_preds, v_probs = val_pass(
+            torch, cfg_path, {s: out(f"{s}.pkl") for s in split},
+            out("bank_val.npz"), out("ck2"))
+        loss_err = abs(v_loss - best["val_loss"])
+        good = (v_acc == best["val_acc"]
+                and loss_err <= VAL_LOSS_TOL * abs(best["val_loss"])
+                and preds.shape == (clips["val"],)
+                and bool(np.isfinite(scores).all())
+                and json.loads(lines[-1])["clip_accuracy"] == acc)
+        print(f"  best train-tmr checkpoint (epoch {best['epoch']}): val_loss "
+              f"{best['val_loss']:.8g} val_acc {best['val_acc']:.6f}, the "
+              f"trainer's val pass re-run on its weights {v_loss:.8g} "
+              f"(|diff| {loss_err:.3g}, limit {VAL_LOSS_TOL} relative) "
+              f"{v_acc:.6f}; "
+              f"test --ckpt on the val split mean of "
+              f"preds == labels {acc:.6f} over {len(preds)} clips "
+              f"{'ok' if good else 'FAIL'}")
+        good &= probs_close("test --ckpt (folded) vs the best checkpoint's "
+                            "val pass (unfolded) softmax", scores, v_probs)
+        good &= argmax_agrees("test --ckpt vs the best checkpoint's val pass",
+                              preds, v_preds, v_probs,
+                              min_decided=1)
+        ok &= good
+        numbers["commands_s"] = seconds
+        print(f"train slice: commands' seconds {json.dumps(seconds)} "
+              f"(train-bank {BANK_EPOCHS} epoch, train-tmr {TMR_EPOCHS}, "
+              f"{clips['train']} train and {clips['val']} val clips) on "
+              f"{card}")
+        ok &= preemption_run(torch, tmp, tmr_args, card)
+    print(f"train slice: {json.dumps(numbers)} on {card} "
+          f"{'ok' if ok else 'FAIL'}")
+    torch.cuda.empty_cache()
+    return counts, numbers, ok
+
+
 def run_gate(torch, seed, card):
     """Phase 5: the int8 gate at B = 128 over the four stages: the int8
     bottleneck chain through the kernels against the same chain through the
@@ -1705,9 +2243,11 @@ def main():
     by_path["serve"], ok_serve = run_serve_slice(torch, args.seed, card)
     test_counts, ok_test = run_test_slice(torch, args.seed, card)
     by_path.update(test_counts)
+    train_counts, _, ok_train = run_train_slice(torch, args.seed, card)
+    by_path.update(train_counts)
     by_path["gate"], ok_gate = run_gate(torch, args.seed, card)
     ok = (ok_block and ok_tiled and ok_paths and ok_video and ok_stream
-          and ok_serve and ok_test and ok_gate)
+          and ok_serve and ok_test and ok_train and ok_gate)
     for rec in records:
         rec["launches_by_path"] = {p: c[rec["name"]] for p, c in by_path.items()
                                    if rec["name"] in c}

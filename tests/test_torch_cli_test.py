@@ -217,9 +217,11 @@ def test_port_cli_refuses(files, runs):
         with pytest.raises(SystemExit, match="cross-video"):
             cli.main(base + ["--engine", engine, "--set",
                              "memory.compat_cross_video=true"])
+    # --videos is not ported; --ckpt (a port checkpoint) and --torch-ckpt
+    # exclude each other
     for command, flag in (("test", "--videos"), ("test", "--ckpt"),
                           ("build-lfb", "--videos"), ("build-lfb", "--ckpt")):
-        with pytest.raises(SystemExit) as exc:        # not ported
+        with pytest.raises(SystemExit) as exc:
             cli.main(_base(files, runs, command) + [flag, "x"])
         assert exc.value.code == 2
     # a g_LFB pickle of another dataset's row count

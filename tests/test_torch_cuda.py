@@ -66,9 +66,9 @@ def _randn(gen, shape, scale=1.0, dtype=torch.bfloat16):
     return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
 
 
-def _close(got, want):
+def _close(got, want, rel=REL):
     err = (got.float() - want.float()).abs().max().item()
-    assert err <= REL * want.float().abs().max().item(), err
+    assert err <= rel * want.float().abs().max().item(), err
 
 
 @pytest.mark.parametrize("b,w,f", [(32, 30, 512), (5, 7, 64), (3, 40, 200)])
@@ -819,3 +819,167 @@ def test_dataset_engines_on_card_match_cpu(gen, tmp_path):
     assert card.scores.shape == cpu.scores.shape == (18, 7)
     assert np.abs(card.scores - cpu.scores).max() <= REL
     np.testing.assert_array_equal(card.rows, np.arange(18))
+
+
+def test_head_functions_backward_on_card_match_plain(gen):
+    """time_conv and nl_attention under autograd on the card (bf16, B = 8,
+    W = 30, C = 512): one kernel launch each in the forward, none in the
+    backward, and every gradient within 2e-2 of max |plain| of the plain
+    versions' autograd in f32 on the same inputs."""
+    from tmrnet_torch.ops.nl_attention import nl_attention
+    from tmrnet_torch.ops.time_conv import time_conv
+
+    b, w, c = 8, 30, 512
+    x = _randn(gen, (b, w, c))
+    ws = []
+    for k in (3, 5, 7):
+        ws += [_randn(gen, (k, c, c), (1.0 / (k * c)) ** 0.5),
+               _randn(gen, (c,), 0.02).float()]
+    q, kk, v = (_randn(gen, s) for s in ((b, c), (b, w, c), (b, w, c)))
+    g_tc, g_nl = _randn(gen, (b, w, c)), _randn(gen, (b, c))
+    for fn, inputs, g, plain, name in (
+            (time_conv, [x, *ws], g_tc, time_conv_plain, "time_conv"),
+            (nl_attention, [q, kk, v], g_nl, nl_attention_plain,
+             "nl_attention")):
+        card = [t.detach().clone().requires_grad_() for t in inputs]
+        reset_launches()
+        out = fn(*card)
+        torch.cuda.synchronize()
+        assert dict(LAUNCHES) == {name: 1}
+        (out.float() * g.float()).sum().backward()
+        torch.cuda.synchronize()
+        assert dict(LAUNCHES) == {name: 1}
+        ref = [t.detach().float().requires_grad_() for t in inputs]
+        (plain(*ref) * g.float()).sum().backward()
+        for got, want in zip(card, ref):
+            assert got.grad.dtype == got.dtype
+            _close(got.grad, want.grad)
+
+
+def test_time_conv_copies_follow_an_optimizer_step_on_card(gen):
+    """TimeConv in bf16 on the card: after each SGD step the kernel's
+    copies are made again from the new parameters, and the module's output
+    follows them."""
+    from tmrnet_torch.models.blocks import TimeConv
+
+    block = TimeConv(512, torch.bfloat16).cuda()
+    with torch.no_grad():
+        for p in block.parameters():
+            p.normal_(0, 0.02, generator=gen)
+    opt = torch.optim.SGD(block.parameters(), lr=0.5, momentum=0.9)
+    x = _randn(gen, (4, 30, 512))
+    for _ in range(2):
+        before = block.kernel_args()
+        block(x).float().square().mean().backward()
+        opt.step()
+        opt.zero_grad()
+        after = block.kernel_args()
+        assert after is not before
+        torch.testing.assert_close(
+            after[0], block.conv_k3.weight.detach().permute(2, 1, 0)
+            .to(torch.bfloat16).contiguous(), rtol=0, atol=0)
+        with torch.no_grad():
+            _close(block(x), time_conv_plain(x.float(), *(
+                t.float() for t in after)))
+
+
+def _step_on(device, head, weights, batch, cdt=None):
+    """One train step of `head` on `device` (bf16 on the card, f32 on the
+    CPU unless `cdt` says otherwise); returns (loss, the parameter deltas,
+    the running statistics, the launches)."""
+    from tmrnet_torch.config import DataConfig, ModelConfig, TrainConfig
+    from tmrnet_torch.data.device_feed import DevicePrep
+    from tmrnet_torch.models.tmrnet import build_model
+    from tmrnet_torch.train.optim import make_optimizer, slow_modules_for_head
+    from tmrnet_torch.train.state import TrainState
+    from tmrnet_torch.train.steps import make_stage1_steps, make_stage2_steps
+
+    cdt = cdt or ("bfloat16" if device == "cuda" else "float32")
+    cfg = ModelConfig(backbone="resnet50", stage_sizes=(1, 1, 1, 1),
+                      hidden_dim=64, head=head, compute_dtype=cdt,
+                      dropout_stage1=0.0, dropout_head=0.0, dropout_nl=0.0)
+    model = build_model(cfg, device=device)
+    model.load_state_dict(weights)
+    state = TrainState(model, make_optimizer(
+        TrainConfig(lr=0.05, momentum=0.9, weight_decay=5e-4), model,
+        slow_modules_for_head(head)))
+    make = make_stage1_steps if head == "stage1" else make_stage2_steps
+    train, _ = make(prep=DevicePrep(DataConfig(device_normalize=True), cdt,
+                                    device))
+    clips, memory, labels = (t.to(device) for t in batch)
+    args = (clips,) if head == "stage1" else (clips, memory)
+    before = {k: v.detach().clone() for k, v in model.named_parameters()}
+    reset_launches()
+    loss = train(state, *args, labels,
+                 torch.Generator(device=device).manual_seed(0))["loss"]
+    if device == "cuda":
+        torch.cuda.synchronize()
+    deltas = {k: (v.detach() - before[k]).float().cpu()
+              for k, v in model.named_parameters()}
+    stats = {k: v.float().cpu() for k, v in model.state_dict().items()
+             if "running" in k}
+    return float(loss), deltas, stats, dict(LAUNCHES)
+
+
+@pytest.mark.parametrize("head", ["stage1", "tmr", "nl_only"])
+def test_train_step_on_card_matches_cpu(gen, head):
+    """One SGD step on the card in bf16 against the CPU in f32, beside the
+    same step in bf16 on the CPU (`train/step_check.py`): loss within 2e-2
+    relative, the running statistics within 2e-2 of max |cpu|, the head's
+    kernels launched once each; the backbone's deltas laid end to end, and
+    the head's and LSTM's, no further from the f32 step than twice the
+    CPU's bf16 step (+ 1e-3); each tensor that the CPU's bf16 step resolves
+    within 5e-2 or twice that step's distance."""
+    from tmrnet_torch.config import ModelConfig
+    from tmrnet_torch.models.convert import from_jax_variables, random_variables
+    from tmrnet_torch.train.step_check import aggregate, verdicts
+
+    weights = from_jax_variables(random_variables(ModelConfig(
+        backbone="resnet50", stage_sizes=(1, 1, 1, 1), hidden_dim=64,
+        head=head), 3))
+    g = torch.Generator().manual_seed(1)
+    batch = (torch.randint(0, 256, (4, 3, 64, 64, 3), generator=g,
+                           dtype=torch.uint8),
+             torch.randn(4, 30, 64, generator=g), torch.tensor([0, 3, 6, 2]))
+    cpu = _step_on("cpu", head, weights, batch)
+    ref = _step_on("cpu", head, weights, batch, "bfloat16")
+    card = _step_on("cuda", head, weights, batch)
+    assert abs(card[0] - cpu[0]) <= 2e-2 * abs(cpu[0])
+    agg, agg_ref = aggregate(card[1], cpu[1]), aggregate(ref[1], cpu[1])
+    for group, d in agg.items():
+        assert d <= 2 * agg_ref[group] + 1e-3, (group, d, agg_ref[group])
+    bad = {k: v for k, v in verdicts(card[1], ref[1], cpu[1]).items()
+           if v[0] == "FAIL"}
+    assert not bad
+    for k, want in cpu[2].items():
+        _close(card[2][k], want)
+    assert card[3] == {"stage1": {}, "tmr": {"time_conv": 1,
+                                             "nl_attention": 1},
+                       "nl_only": {"nl_attention": 1}}[head]
+
+
+@pytest.mark.parametrize("head", ["stage1", "nl_only"])
+def test_train_step_on_card_in_f32_matches_cpu(gen, head):
+    """The same step in f32 on the card (time_conv's kernel takes bf16
+    only, so head tmr is left out): loss and the running statistics
+    within 1e-3 of the CPU's, each parameter tensor's delta within 5e-2
+    (cosine 0.95 for the backbone), nl_attention launched once."""
+    from tmrnet_torch.config import ModelConfig
+    from tmrnet_torch.models.convert import from_jax_variables, random_variables
+    from tmrnet_torch.train.step_check import TENSOR_LIMIT, distance
+
+    weights = from_jax_variables(random_variables(ModelConfig(
+        backbone="resnet50", stage_sizes=(1, 1, 1, 1), hidden_dim=64,
+        head=head), 3))
+    g = torch.Generator().manual_seed(1)
+    batch = (torch.randint(0, 256, (4, 3, 64, 64, 3), generator=g,
+                           dtype=torch.uint8),
+             torch.randn(4, 30, 64, generator=g), torch.tensor([0, 3, 6, 2]))
+    cpu = _step_on("cpu", head, weights, batch)
+    card = _step_on("cuda", head, weights, batch, "float32")
+    assert abs(card[0] - cpu[0]) <= 1e-3 * abs(cpu[0])
+    for k, want in cpu[1].items():
+        assert distance(k, card[1][k], want) <= TENSOR_LIMIT, k
+    for k, want in cpu[2].items():
+        _close(card[2][k], want, 1e-3)
+    assert card[3] == ({"nl_attention": 1} if head == "nl_only" else {})

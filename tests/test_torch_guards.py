@@ -56,7 +56,11 @@ def test_importing_the_port_leaves_jax_out():
             "tmrnet_torch.data.packed, tmrnet_torch.data.pipeline, "
             "tmrnet_torch.data.transforms, tmrnet_torch.data.indexing, "
             "tmrnet_torch.data.manifests, tmrnet_torch.data.device_feed, "
-            "tmrnet_torch.eval.metrics; "
+            "tmrnet_torch.eval.metrics, tmrnet_torch.train.losses, "
+            "tmrnet_torch.train.optim, tmrnet_torch.train.state, "
+            "tmrnet_torch.train.steps, tmrnet_torch.train.step_check, "
+            "tmrnet_torch.utils.checkpoint, "
+            "tmrnet_torch.utils.logging; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -180,3 +184,58 @@ def test_int8_gate_needs_cuda(no_cuda):
         int8_gate.main(["--stages", "stage4", "--batch", "1"])
     with pytest.raises(ValueError, match="needs a CUDA device"):
         int8_gate.measure_stage(int8_gate.STAGES[-1], 1, device="cpu")
+
+
+def test_trainers_need_cuda_unless_cpu(no_cuda, tmp_path):
+    """train_stage1, train_stage2 and the train-bank / train-tmr commands
+    refuse to run without a card unless asked for the CPU, before reading
+    anything; what the trainer does not port raises by name."""
+    from tmrnet_torch import cli
+    from tmrnet_torch.config import TrainConfig
+    from tmrnet_torch.data.manifests import Manifest, VideoRecord
+    from tmrnet_torch.data.pipeline import ClipDataset, array_frame_loader
+    from tmrnet_torch.data.transforms import TrainTransform
+    from tmrnet_torch.train.loop import train_stage1, train_stage2
+
+    frames = {f"f{i}": np.zeros((32, 32, 3), np.uint8) for i in range(5)}
+    ds = ClipDataset(Manifest([VideoRecord("v", list(frames),
+                                           np.arange(5) % 2)]),
+                     2, frame_loader=array_frame_loader(frames))
+    model = dataclasses.replace(CFG, stage_sizes=(1, 1))
+    cfg = ExperimentConfig(model=model,
+                           data=DataConfig(sequence_length=2, batch_clips=2,
+                                           num_workers=1),
+                           train=TrainConfig(epochs=1, log_every=1,
+                                             checkpoint_dir=str(tmp_path)))
+    bank = FeatureBank.create(2, [5], 16, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_stage1(cfg, ds)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_stage2(cfg, ds, bank)
+    for argv in (["train-bank", "--train-manifest", "m.pkl"],
+                 ["train-tmr", "--train-manifest", "m.pkl", "--lfb", "b"]):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cli.main(argv)
+    _, hist = train_stage1(cfg, ds, device="cpu")
+    assert len(hist) == 1
+    state, hist = train_stage2(
+        cfg.replace(train=dataclasses.replace(
+            cfg.train, checkpoint_dir=str(tmp_path / "s2"))), ds, bank,
+        device="cpu")
+    assert len(hist) == 1 and state.step == 2
+    assert all(p.device.type == "cpu" for p in state.model.parameters())
+    for kw, match in ((dict(remat=True), "train.remat"),
+                      (dict(async_checkpoint=True), "async_checkpoint")):
+        bad = cfg.replace(train=dataclasses.replace(cfg.train, **kw))
+        with pytest.raises(NotImplementedError, match=match):
+            train_stage1(bad, ds, device="cpu")
+    bad = cfg.replace(model=dataclasses.replace(model, remat=True))
+    with pytest.raises(NotImplementedError, match="model.remat"):
+        train_stage1(bad, ds, device="cpu")
+    for fn in (lambda: train_stage1(cfg, ds, mesh=object(), device="cpu"),
+               lambda: train_stage2(cfg, ds, bank, mesh=object(),
+                                    device="cpu")):
+        with pytest.raises(NotImplementedError, match="mesh"):
+            fn()
+    with pytest.raises(NotImplementedError, match="use_native"):
+        TrainTransform(use_native=True)

@@ -1,7 +1,9 @@
 """Command line of the port: `python -m tmrnet_torch <command>`.
 
   manifest   frames dir + phase annotations -> manifest pickle/CSV
+  train-bank stage-1 memory-bank training (trunk + LSTM + fc)
   build-lfb  the frozen extractor's feature bank of a manifest -> .npz
+  train-tmr  stage-2 TMRNet / only-non-local training over a bank
   test       test-set inference -> predictions .npz, per-class
              precision/recall and accuracy
   serve      serving daemon: JSONL frame events on stdin (or TCP clients
@@ -9,13 +11,15 @@
              connection)
 
 Port of `tmrnet_tpu/cli.py` (`_load_manifest` :74, `_clip_labels` :145,
-`_dataset` :153-175, `cmd_manifest` :314-347, `cmd_build_lfb` :517-575,
-`cmd_test` :632-824, `cmd_serve` :1041-1152, their parsers), with
-weights from reference-format `.pth` files only (`--torch-ckpt`,
-`--extractor-torch-ckpt`; `_restore_variables` :233-275 and
-`_extractor_for` :122-142). Entry points run on the card unless `--device
-cpu` asks for the CPU. Not ported: video-direct datasets (`--videos`; the
-card's machine has no decoder), Orbax checkpoints (`--ckpt`), meshes.
+`_dataset` :153-175, `cmd_manifest` :314-347, `cmd_train_bank` :479-515,
+`cmd_build_lfb` :517-575, `cmd_train_tmr` :577-630, `cmd_test` :632-824,
+`cmd_serve` :1041-1152, their parsers). Weights come from the port's own
+checkpoints (`--ckpt`, `--stage1-ckpt`: `utils/checkpoint.py`) or from
+reference-format `.pth` files (`--torch-ckpt`, `--extractor-torch-ckpt`,
+`--torch-init`; `_restore_variables` :233-275 and `_extractor_for`
+:122-142). Entry points run on the card unless `--device cpu` asks for
+the CPU. Not ported: video-direct datasets (`--videos`; the card's machine
+has no decoder), Orbax checkpoints and `--extractor-ckpt`, meshes.
 
 Config: --config <json> loads an ExperimentConfig (a JSON written by either
 package; fields the port lacks are skipped, and a `config_ignored` line on
@@ -57,16 +61,56 @@ def load_config(args) -> ExperimentConfig:
     return cfg
 
 
-def restore_state(cfg: ExperimentConfig, head: str, torch_ckpt: str) -> Dict:
+def restore_state(cfg: ExperimentConfig, head: str,
+                  torch_ckpt: Optional[str] = None,
+                  ckpt: Optional[str] = None) -> Dict:
     """The unfolded state dict of `head` from a reference `.pth`, through
-    the port's import; a checkpoint that lacks a key the head needs
-    raises and names it."""
-    from tmrnet_torch.models.torch_import import (
-        convert_reference_checkpoint, load_torch_state_dict, require_complete)
+    the port's import, or from the weights of a port checkpoint directory
+    (its best, else its newest step); a checkpoint that lacks a key the
+    head needs raises and names it."""
+    from tmrnet_torch.models.torch_import import require_complete
 
-    state = convert_reference_checkpoint(load_torch_state_dict(torch_ckpt),
-                                         head, cfg.model.stage_sizes)
+    state = (checkpoint_weights(ckpt) if ckpt
+             else reference_weights(cfg, head, torch_ckpt))
     require_complete(state, dataclasses.replace(cfg.model, head=head))
+    return state
+
+
+def reference_weights(cfg: ExperimentConfig, head: str, path: str) -> Dict:
+    """The keys of a reference `.pth` that `head` has, as the port's state
+    dict (unfolded); possibly a subset of the head's."""
+    from tmrnet_torch.models.torch_import import (
+        convert_reference_checkpoint, load_torch_state_dict)
+
+    return convert_reference_checkpoint(load_torch_state_dict(path), head,
+                                        cfg.model.stage_sizes)
+
+
+def checkpoint_weights(ckpt_dir: str) -> Dict:
+    """The port's state dict of a port checkpoint directory's weights."""
+    from tmrnet_torch.models.convert import from_jax_variables
+    from tmrnet_torch.utils.checkpoint import CheckpointManager
+
+    if not os.path.isdir(ckpt_dir):
+        raise SystemExit(f"checkpoint dir not found: {ckpt_dir}")
+    return from_jax_variables(CheckpointManager(ckpt_dir).restore_weights())
+
+
+def init_with(cfg: ExperimentConfig, head: str, weights: Dict) -> Dict:
+    """A fresh init of `head` (flax's distributions, seed 0 as JAX's
+    restore inits with PRNGKey(0)) with every entry of `weights` it has
+    put over it: the strict=False bootstrap of the reference's trainers.
+    An entry of another shape raises."""
+    from tmrnet_torch.models.tmrnet import init_state_dict
+
+    state = init_state_dict(dataclasses.replace(cfg.model, head=head), 0)
+    bad = [f"{k} {tuple(v.shape)} (want {tuple(state[k].shape)})"
+           for k, v in weights.items()
+           if k in state and tuple(v.shape) != tuple(state[k].shape)]
+    if bad:
+        raise ValueError(f"init weights' shapes differ from the model's: "
+                         f"{', '.join(bad)}")
+    state.update({k: v for k, v in weights.items() if k in state})
     return state
 
 
@@ -102,14 +146,18 @@ def eval_transform(cfg: ExperimentConfig):
                          d.std, normalize=not d.device_normalize)
 
 
-def load_manifest(path: str):
-    """A manifest by extension: `.csv`, else a reference pickle (the train
-    split of a 6-list)."""
+def load_manifest(path: str, split: str = "train"):
+    """A manifest by extension: `.csv`, else a reference pickle: its train
+    split, or under split 'val' its second split where it has one (else
+    the first)."""
     from tmrnet_torch.data.manifests import load_csv_manifest, load_pickle_manifest
 
     if path.endswith(".csv"):
         return load_csv_manifest(path)
-    return load_pickle_manifest(path)[0]
+    primary, secondary = load_pickle_manifest(path)
+    if split == "val" and secondary is not None:
+        return secondary
+    return primary
 
 
 def clip_labels(manifest, seq_len: int) -> np.ndarray:
@@ -127,6 +175,20 @@ def dataset(cfg: ExperimentConfig, manifest):
 
     return ClipDataset(manifest, cfg.data.sequence_length,
                        transform=eval_transform(cfg))
+
+
+def train_dataset(cfg: ExperimentConfig, manifest):
+    """The training ClipDataset of a manifest: TrainTransform's numpy path
+    (one augmentation draw per clip and epoch), uint8 out under
+    `data.device_normalize`."""
+    from tmrnet_torch.data.pipeline import ClipDataset
+    from tmrnet_torch.data.transforms import TrainTransform
+
+    d = cfg.data
+    tf = TrainTransform(d.crop_size, d.resize, d.use_flip, d.rotate_degrees,
+                        d.color_jitter, hue=d.color_jitter_hue, mean=d.mean,
+                        std=d.std, normalize=not d.device_normalize)
+    return ClipDataset(manifest, d.sequence_length, transform=tf)
 
 
 def frame_loader(cfg: ExperimentConfig):
@@ -175,7 +237,8 @@ def cmd_manifest(args) -> int:
 
 
 def cmd_build_lfb(args) -> int:
-    """The bank of a manifest from the extractor's `.pth` (head lfb), built
+    """The bank of a manifest from the extractor's weights (head lfb: a
+    `.pth`, or the trunk and LSTM of a port checkpoint, `--ckpt`), built
     by the video engine (default; one backbone pass per frame) or the clip
     engine, which crop types outside 1/2/3 fall back to."""
     from tmrnet_torch.device import resolve_device
@@ -187,13 +250,93 @@ def cmd_build_lfb(args) -> int:
         args.engine = ("clip" if cfg.data.test_crop_type not in (1, 2, 3)
                        else "video")
     ds = dataset(cfg, load_manifest(args.manifest))
-    state = restore_state(cfg, "lfb", args.torch_ckpt)
+    state = restore_state(cfg, "lfb", args.torch_ckpt, args.ckpt)
     extractor, = folded_weights(cfg, extractor_state(cfg, state, None))
     del state
     bank = build_lfb(cfg, extractor, ds, cache_path=args.out, force=True,
                      engine=args.engine, device=device)
     print(f"bank: {bank.num_rows} rows x {bank.feature_dim} -> {args.out}")
     return 0
+
+
+def _finish_training(hist) -> int:
+    if not hist:
+        # preempted before the first epoch completed: the replay
+        # checkpoint is saved; the same command resumes
+        print("preempted before any completed epoch; checkpoint saved -- "
+              "re-run to resume")
+        return 0
+    best = max(hist, key=lambda h: h.val_acc)
+    print(f"best epoch {best.epoch}: val_acc={best.val_acc:.4f}")
+    return 0
+
+
+def cmd_train_bank(args) -> int:
+    """Stage-1 training on a manifest's train split, validated on
+    --val-manifest (or the manifest's second split, else the same clips);
+    fresh flax-distributed weights, or a reference `.pth` over them
+    (--torch-init)."""
+    from tmrnet_torch.device import resolve_device
+    from tmrnet_torch.train.loop import train_stage1
+    from tmrnet_torch.utils.logging import MetricLogger
+
+    device = resolve_device(args.device)
+    cfg = load_config(args)
+    path = args.train_manifest or cfg.data.manifest_path
+    train_ds = train_dataset(cfg, load_manifest(path))
+    val_ds = dataset(cfg, load_manifest(args.val_manifest or path, "val"))
+    init = None
+    if args.torch_init:
+        init = init_with(cfg, "stage1", reference_weights(cfg, "stage1",
+                                                          args.torch_init))
+    _, hist = train_stage1(cfg, train_ds, val_ds, init_state_dict=init,
+                           log=MetricLogger(args.log_dir), device=device)
+    return _finish_training(hist)
+
+
+def cmd_train_tmr(args) -> int:
+    """Stage-2 training of model.head (tmr, or nl_only) over the train
+    split's bank (--lfb), validated on --val-manifest over --val-lfb;
+    from a fresh init with a stage-1 checkpoint's trunk and LSTM
+    transplanted (--stage1-ckpt) or a reference `.pth` over it
+    (--torch-init)."""
+    from tmrnet_torch.device import resolve_device
+    from tmrnet_torch.memory.lfb import load_bank
+    from tmrnet_torch.train.loop import train_stage2
+    from tmrnet_torch.utils.logging import MetricLogger
+
+    device = resolve_device(args.device)
+    cfg = load_config(args)
+    head = cfg.model.head if cfg.model.head in ("tmr", "nl_only") else "tmr"
+    if (device.type == "cuda" and head == "tmr"
+            and cfg.model.compute_dtype != "bfloat16"):
+        raise SystemExit(
+            f"model.compute_dtype={cfg.model.compute_dtype} with head tmr: "
+            f"time_conv's kernel takes bf16 only on the card; train with "
+            f"model.compute_dtype=bfloat16, or on the CPU (--device cpu)")
+    train_m = load_manifest(args.train_manifest or cfg.data.manifest_path)
+    train_ds = train_dataset(cfg, train_m)
+    val_ds = (dataset(cfg, load_manifest(args.val_manifest, "val"))
+              if args.val_manifest else None)
+    bank = load_bank(args.lfb, device=device,
+                     seq_len=cfg.data.sequence_length,
+                     video_lengths=train_m.video_lengths)
+    val_bank = load_bank(args.val_lfb, device=device) if args.val_lfb else None
+    init = None
+    if args.torch_init:
+        init = init_with(cfg, head, reference_weights(cfg, head,
+                                                      args.torch_init))
+    elif args.stage1_ckpt:
+        # the stage-1 trunk and LSTM over a fresh head (the reference's
+        # strict=False bootstrap, `train_non-local_mutiConv_resnet.py:707`)
+        s1 = checkpoint_weights(args.stage1_ckpt)
+        init = init_with(cfg, head, {k: v for k, v in s1.items()
+                                     if k.startswith(("backbone.",
+                                                      "encoder."))})
+    _, hist = train_stage2(cfg, train_ds, bank, val_ds, val_bank,
+                           init_state_dict=init,
+                           log=MetricLogger(args.log_dir), device=device)
+    return _finish_training(hist)
 
 
 def _video_engine_results(cfg, state, extractor, manifest, device):
@@ -284,7 +427,7 @@ def cmd_test(args) -> int:
     m = load_manifest(args.manifest)
     seq = cfg.data.sequence_length
     labels = clip_labels(m, seq)
-    state = restore_state(cfg, cfg.model.head, args.torch_ckpt)
+    state = restore_state(cfg, cfg.model.head, args.torch_ckpt, args.ckpt)
     if args.engine == "video":
         state, extractor = folded_weights(
             cfg, state, extractor_state(cfg, state, args.extractor_torch_ckpt))
@@ -443,11 +586,27 @@ def build_parser() -> argparse.ArgumentParser:
                          "split)")
     sp.set_defaults(fn=cmd_manifest)
 
+    def weights_args(sp, torch_help):
+        g = sp.add_mutually_exclusive_group(required=True)
+        g.add_argument("--ckpt", help="the port's checkpoint dir (its best, "
+                                      "else its newest step)")
+        g.add_argument("--torch-ckpt", help=torch_help)
+
+    sp = sub.add_parser("train-bank", help="stage-1 memory-bank training")
+    config_args(sp)
+    sp.add_argument("--train-manifest",
+                    help="default: data.manifest_path (its train split)")
+    sp.add_argument("--val-manifest",
+                    help="default: the train manifest's second split")
+    sp.add_argument("--torch-init", help="reference .pth to initialize from")
+    sp.add_argument("--log-dir", default="./runs/train-bank")
+    device_arg(sp)
+    sp.set_defaults(fn=cmd_train_bank)
+
     sp = sub.add_parser("build-lfb", help="build the feature bank")
     config_args(sp)
     sp.add_argument("--manifest", required=True)
-    sp.add_argument("--torch-ckpt", required=True,
-                    help="reference-format .pth of the extractor (head lfb)")
+    weights_args(sp, "reference-format .pth of the extractor (head lfb)")
     sp.add_argument("--engine", choices=["clip", "video"], default=None,
                     help="'video' builds the bank at one backbone pass per "
                          "frame (crop types 1/2/3); default: video, falling "
@@ -456,12 +615,27 @@ def build_parser() -> argparse.ArgumentParser:
     device_arg(sp)
     sp.set_defaults(fn=cmd_build_lfb)
 
+    sp = sub.add_parser("train-tmr", help="stage-2 TMRNet training")
+    config_args(sp)
+    sp.add_argument("--train-manifest",
+                    help="default: data.manifest_path (its train split)")
+    sp.add_argument("--val-manifest")
+    sp.add_argument("--lfb", required=True,
+                    help="the train split's bank (.npz, or a g_LFB .pkl "
+                         "checked against the manifest)")
+    sp.add_argument("--val-lfb", help="the val split's bank")
+    sp.add_argument("--stage1-ckpt",
+                    help="the port's stage-1 checkpoint dir: its trunk and "
+                         "LSTM start the model")
+    sp.add_argument("--torch-init", help="reference .pth to initialize from")
+    sp.add_argument("--log-dir", default="./runs/train-tmr")
+    device_arg(sp)
+    sp.set_defaults(fn=cmd_train_tmr)
+
     sp = sub.add_parser("test", help="test-set inference -> predictions npz")
     config_args(sp)
     sp.add_argument("--manifest", required=True)
-    sp.add_argument("--torch-ckpt", required=True,
-                    help="reference-format .pth of the model (head "
-                         "model.head)")
+    weights_args(sp, "reference-format .pth of the model (head model.head)")
     sp.add_argument("--extractor-torch-ckpt",
                     help="reference-format .pth of the LFB extractor (head "
                          "lfb); default: the model's trunk and LSTM")

@@ -4,12 +4,16 @@ inference engines, the data layer and the CLI read.
 
 Own copy of those fields (names, defaults, meaning) of
 `tmrnet_tpu/config.py` (the phase names :22-43, DataConfig :50-93 but for
-the training augmentation and manifest_path, ModelConfig :97-123,
-MemoryConfig :200-210 but for feature_dim, EvalConfig batch_clips,
-video_batch, backbone_chunk, corpus and corpus_chunk :214-245), and of
-`ExperimentConfig.from_json` (:283-300) and `apply_override` (:395-428),
-so the port never imports the JAX package. Later slices add the fields
-they read.
+num_classes and use_native_preproc, ModelConfig :97-123, TrainConfig
+:125-200, MemoryConfig :200-210 but for feature_dim, EvalConfig
+batch_clips, video_batch, backbone_chunk, corpus and corpus_chunk
+:214-245), and of `ExperimentConfig.from_json` (:283-300) and
+`apply_override` (:395-428), so the port never imports the JAX package.
+Later slices add the fields they read.
+
+`check_trainable` refuses what the port's trainer does not do, naming the
+field: `train.remat` / `model.remat` (a recomputed forward would update
+BatchNorm's running statistics a second time) and `train.async_checkpoint`.
 
 `from_json` skips keys the port's dataclasses lack, so a JSON written by
 either package's `to_json` loads here; `ignored_fields` names those of
@@ -58,6 +62,15 @@ class DataConfig:
     # Image geometry: decode -> resize 250 -> crop 224.
     resize: int = 250
     crop_size: int = 224
+    # The manifest the trainers read when no --train-manifest is given.
+    manifest_path: str = "./train_val_paths_labels.pkl"
+    # Training augmentation (data/transforms.py::TrainTransform): use_flip
+    # is the reference's --flip, which gates the colour jitter and the
+    # rotation only (the horizontal flip runs in both stacks).
+    use_flip: bool = True
+    rotate_degrees: float = 5.0
+    color_jitter: float = 0.1
+    color_jitter_hue: float = 0.05
     # Test-time crop type (the reference's --crop): 0 random / 1 center /
     # 2 or 3 resize-only / 5 five-crop / 10 ten-crop (data/transforms.py).
     test_crop_type: int = 1
@@ -88,9 +101,67 @@ class ModelConfig:
     # last step's features), 'tmr' (TimeConv + NLBlock memory head) or
     # 'nl_only' (NLBlock alone).
     head: str = "tmr"
+    # Dropout rates in training: after the stage-1 LSTM, after fc_h_c, and
+    # after the NLBlock's output layer.
+    dropout_stage1: float = 0.2
+    dropout_head: float = 0.5
+    dropout_nl: float = 0.2
     compute_dtype: str = "bfloat16"  # bfloat16 on the card; float32 for parity
     # Inference-only: BatchNorm pre-folded into conv weights (models/fold_bn).
     folded: bool = False
+    # Recomputed backbone blocks: not ported (check_trainable raises).
+    remat: bool = False
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Optimizer, schedule and loop settings (train/optim.py,
+    train/loop.py)."""
+
+    epochs: int = 25
+    optimizer: str = "sgd"  # sgd | adam
+    lr: float = 5e-4
+    momentum: float = 0.9
+    weight_decay: float = 5e-4
+    dampening: float = 0.0
+    nesterov: bool = False
+    # The trunk (stage 1: the backbone; stage 2: backbone and LSTM) trains
+    # at lr * trunk_lr_scale, the rest at lr.
+    trunk_lr_scale: float = 0.1
+    # 'step' (StepLR) | 'plateau' (ReduceLROnPlateau on val loss) |
+    # 'constant'.
+    schedule: str = "plateau"
+    step_size: int = 5
+    gamma: float = 0.1
+    plateau_factor: float = 0.1
+    plateau_patience: int = 10
+    # Class-balanced weighted CE, summed, on each clip's last frame.
+    class_weighting: bool = True
+    label_smoothing: float = 0.0
+    seed: int = 0
+    log_every: int = 50
+    # One held-out val batch every N train steps (0 = off).
+    val_minibatch_every: int = 0
+    # Stop after this many epochs without a new best (0 = off).
+    early_stop_patience: int = 0
+    # Log the first clip of every Nth train batch as images (0 = off).
+    log_images_every: int = 0
+    checkpoint_dir: str = "./checkpoints"
+    keep_checkpoints: int = 3
+    resume: bool = True
+    # SIGTERM/SIGINT finish the step, save a checkpoint marked for epoch
+    # replay and return; a second signal interrupts.
+    preempt_save: bool = True
+    # Not ported: check_trainable raises on either.
+    async_checkpoint: bool = False
+    remat: bool = False
+    # JAX donates the state to its jitted step; the port's step updates the
+    # model in place either way.
+    donate_state: bool = True
+    # The mean gradient of k micro-batches, an optimizer step every k-th.
+    grad_accum: int = 1
+    # Global-norm gradient clip before the optimizer (0 = off).
+    grad_clip: float = 0.0
 
 
 @dataclass(frozen=True)
@@ -129,10 +200,11 @@ class EvalConfig:
 
 @dataclass(frozen=True)
 class ExperimentConfig:
-    """The sections of the JAX ExperimentConfig that the engines read."""
+    """The sections of the JAX ExperimentConfig that the port reads."""
 
     data: DataConfig = field(default_factory=DataConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
     memory: MemoryConfig = field(default_factory=MemoryConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
 
@@ -163,19 +235,22 @@ class ExperimentConfig:
         return build(ExperimentConfig, json.loads(text))
 
 
-_SECTIONS = {"data": DataConfig, "model": ModelConfig, "memory": MemoryConfig,
-             "eval": EvalConfig}
+_SECTIONS = {"data": DataConfig, "model": ModelConfig, "train": TrainConfig,
+             "memory": MemoryConfig, "eval": EvalConfig}
 
 # Fields of JAX's config that the port lacks and that change what JAX
 # computes, at JAX's defaults (`tmrnet_tpu/config.py` :83, :104, :116-118,
-# :204): class and feature widths, the parameter dtype and the kernel
-# switch.
+# :204, MeshConfig :249-262): class and feature widths, the parameter
+# dtype, the kernel switch, and a device mesh (the port runs on one card).
 JAX_ONLY_DEFAULTS: Dict[str, Any] = {
     "data.num_classes": 7,
     "memory.feature_dim": 512,
     "model.feature_dim": 2048,
     "model.param_dtype": "float32",
     "model.use_pallas": False,
+    "mesh.data_parallel": -1,
+    "mesh.model_parallel": 1,
+    "mesh.multihost": False,
 }
 
 
@@ -190,6 +265,20 @@ def ignored_fields(text: str) -> Dict[str, Any]:
         if value != default:
             out[dotted] = value
     return out
+
+
+def check_trainable(cfg: ExperimentConfig) -> None:
+    """Raise, naming the field, where the config asks the trainer for what
+    the port does not do."""
+    if cfg.train.remat or cfg.model.remat:
+        raise NotImplementedError(
+            "train.remat / model.remat is not ported: a recomputed backbone "
+            "forward (torch.utils.checkpoint) would update BatchNorm's "
+            "running statistics a second time")
+    if cfg.train.async_checkpoint:
+        raise NotImplementedError(
+            "train.async_checkpoint is not ported: checkpoints are written "
+            "synchronously")
 
 
 def _coerce(value: str, current: Any) -> Any:

@@ -1,12 +1,18 @@
-"""The test-time transform stack, as pure numpy functions of a clip.
+"""The train- and test-time transform stacks, as pure numpy functions of a
+clip and its (epoch, clip) seed.
 
-Port of `tmrnet_tpu/data/transforms.py` (`clip_rng` :30,
-`random_crop_per_frame` :60, `center_crop` :75, `five_crop` :128,
-`ten_crop` :139, `pad_or_crop` :146, `resize_clip` :158, `normalize` :215,
-`EvalTransform` :334-392). Clips are (T, H, W, 3) uint8 arrays. The resize
-is cv2's and returns early when the size already matches, so prepared
-250x250 frames under crop type 1 need no cv2. The training transforms come
-with training.
+Port of `tmrnet_tpu/data/transforms.py` (`clip_rng` :30, `random_crop`
+:50, `random_crop_per_frame` :60, `center_crop` :75,
+`random_horizontal_flip` :81, `random_rotation` :88, `random_resized_crop`
+:105, `five_crop` :128, `ten_crop` :139, `pad_or_crop` :146,
+`resize_clip` :158, the colour jitter :175-212, `normalize` :215,
+`TrainTransform` :225-289, `EvalTransform` :334-392). Clips are (T, H, W,
+3) uint8 arrays. The resize is cv2's and returns early when the size
+already matches, so prepared 250x250 frames need no cv2 to be resized. The
+rotation and the hue shift are cv2's too: where cv2 is missing they raise
+(JAX's skip them), so a training stack without cv2 runs with
+`data.use_flip=false` (crop and flip only). Only the numpy path of
+`TrainTransform` is ported: `use_native=True` (the C++ preprocess) raises.
 """
 
 from __future__ import annotations
@@ -33,6 +39,69 @@ def clip_rng(epoch: int, clip_id: int, base_seed: int = 0) -> np.random.Generato
         np.random.Philox(key=np.uint64(base_seed),
                          counter=[0, 0, np.uint64(clip_id),
                                   np.uint64(epoch)]))
+
+
+def _need_cv2(what: str) -> None:
+    if not _HAS_CV2:
+        raise RuntimeError(f"{what} requires cv2 (opencv-python), which is "
+                           f"not installed; train with data.use_flip=false "
+                           f"for the crop and flip alone")
+
+
+def random_crop(clip: np.ndarray, size: int,
+                rng: np.random.Generator) -> np.ndarray:
+    """One crop offset for the whole clip."""
+    t, h, w = clip.shape[:3]
+    if h == size and w == size:
+        return clip
+    y = int(rng.integers(0, h - size + 1))
+    x = int(rng.integers(0, w - size + 1))
+    return clip[:, y:y + size, x:x + size]
+
+
+def random_horizontal_flip(clip: np.ndarray, rng: np.random.Generator,
+                           prob: float = 0.5) -> np.ndarray:
+    if rng.random() < prob:
+        return clip[:, :, ::-1]
+    return clip
+
+
+def random_rotation(clip: np.ndarray, degrees: float,
+                    rng: np.random.Generator) -> np.ndarray:
+    """Every frame rotated by one integer angle in [-degrees, degrees]
+    about its centre (cv2, bilinear, zero border)."""
+    angle = int(rng.integers(-int(degrees), int(degrees) + 1))
+    if angle == 0:
+        return clip
+    _need_cv2("the rotation")
+    h, w = clip.shape[1:3]
+    m = cv2.getRotationMatrix2D((w / 2, h / 2), angle, 1.0)
+    out = np.empty_like(clip)
+    for i in range(clip.shape[0]):
+        out[i] = cv2.warpAffine(clip[i], m, (w, h), flags=cv2.INTER_LINEAR,
+                                borderValue=0)
+    return out
+
+
+def random_resized_crop(clip: np.ndarray, size: int, rng: np.random.Generator,
+                        scale: Tuple[float, float] = (0.2, 1.0),
+                        ratio: Tuple[float, float] = (3 / 4, 4 / 3)
+                        ) -> np.ndarray:
+    """RandomResizedCrop shared across the clip: ten tries at an area and
+    aspect ratio that fit, else the centre square; resized to size."""
+    t, h, w = clip.shape[:3]
+    area = h * w
+    for _ in range(10):
+        target = area * rng.uniform(*scale)
+        log_r = rng.uniform(np.log(ratio[0]), np.log(ratio[1]))
+        ar = float(np.exp(log_r))
+        cw = int(round(np.sqrt(target * ar)))
+        ch = int(round(np.sqrt(target / ar)))
+        if 0 < cw <= w and 0 < ch <= h:
+            y = int(rng.integers(0, h - ch + 1))
+            x = int(rng.integers(0, w - cw + 1))
+            return resize_clip(clip[:, y:y + ch, x:x + cw], (size, size))
+    return resize_clip(center_crop(clip, min(h, w)), (size, size))
 
 
 def random_crop_per_frame(clip: np.ndarray, size: int,
@@ -98,11 +167,94 @@ def resize_clip(clip: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
     return out
 
 
+def _blend(a: np.ndarray, b: np.ndarray, factor: float) -> np.ndarray:
+    return np.clip(factor * a + (1.0 - factor) * b, 0, 255)
+
+
+def _grayscale(clip_f: np.ndarray) -> np.ndarray:
+    """ITU-R 601-2 luma, as PIL's convert('L')."""
+    g = (clip_f[..., 0] * 0.299 + clip_f[..., 1] * 0.587
+         + clip_f[..., 2] * 0.114)
+    return g[..., None]
+
+
+def color_jitter(clip: np.ndarray, rng: np.random.Generator,
+                 brightness: float = 0.1, contrast: float = 0.1,
+                 saturation: float = 0.1, hue: float = 0.05) -> np.ndarray:
+    """One jitter for the whole clip: brightness, contrast, saturation,
+    then a hue shift in HSV (cv2), in the reference's order."""
+    bf = rng.uniform(1 - brightness, 1 + brightness)
+    cf = rng.uniform(1 - contrast, 1 + contrast)
+    sf = rng.uniform(1 - saturation, 1 + saturation)
+    hf = rng.uniform(-hue, hue)
+
+    x = clip.astype(np.float32)
+    x = np.clip(x * bf, 0, 255)
+    mean_gray = _grayscale(x).mean(axis=(1, 2, 3), keepdims=True)
+    x = _blend(x, mean_gray, cf)
+    x = _blend(x, _grayscale(x), sf)
+    if abs(hf) > 1e-6:
+        _need_cv2("the hue jitter")
+        u8 = x.astype(np.uint8)
+        for i in range(u8.shape[0]):
+            hsv = cv2.cvtColor(u8[i], cv2.COLOR_RGB2HSV)
+            # cv2's hue runs over [0, 180); the factor is in turns
+            hsv[..., 0] = (hsv[..., 0].astype(np.int32)
+                           + int(round(hf * 180))) % 180
+            u8[i] = cv2.cvtColor(hsv, cv2.COLOR_HSV2RGB)
+        x = u8.astype(np.float32)
+    return x.astype(clip.dtype)
+
+
 def normalize(clip: np.ndarray, mean: Sequence[float],
               std: Sequence[float]) -> np.ndarray:
     """uint8 [0, 255] -> float32 normalized (ToTensor + Normalize)."""
     x = clip.astype(np.float32) / 255.0
     return (x - np.asarray(mean, np.float32)) / np.asarray(std, np.float32)
+
+
+@dataclasses.dataclass
+class TrainTransform:
+    """Resize(250) -> RandomCrop(224) [-> ColorJitter] -> Flip
+    [-> Rotation] -> Normalize, one draw per clip from clip_rng(epoch,
+    clip_id). use_flip is the reference's --flip: it gates the jitter and
+    the rotation; the flip runs in both stacks. normalize=False stops
+    before the normalization and returns the uint8 clip, the exact wire of
+    `data.device_normalize` (every step before it is uint8 -> uint8).
+    use_native (JAX's C++ tail) is not ported and raises."""
+
+    crop_size: int = 224
+    resize: int = 250
+    use_flip: bool = True
+    rotate_degrees: float = 5.0
+    jitter: float = 0.1
+    hue: float = 0.05
+    mean: Sequence[float] = CHOLEC80_MEAN
+    std: Sequence[float] = CHOLEC80_STD
+    base_seed: int = 0
+    use_native: bool = False
+    normalize: bool = True
+
+    def __post_init__(self):
+        if self.use_native:
+            raise NotImplementedError(
+                "TrainTransform(use_native=True): the native preprocess "
+                "(native/tmrnet_data.cc) is not ported; the numpy path "
+                "computes the same values")
+
+    def __call__(self, clip: np.ndarray, epoch: int, clip_id: int) -> np.ndarray:
+        rng = clip_rng(epoch, clip_id, self.base_seed)
+        clip = resize_clip(clip, (self.resize, self.resize))
+        clip = random_crop(clip, self.crop_size, rng)
+        if self.use_flip:
+            clip = color_jitter(clip, rng, self.jitter, self.jitter,
+                                self.jitter, self.hue)
+        clip = random_horizontal_flip(clip, rng)
+        if self.use_flip:
+            clip = random_rotation(clip, self.rotate_degrees, rng)
+        if not self.normalize:
+            return np.ascontiguousarray(clip)
+        return normalize(clip, self.mean, self.std)
 
 
 @dataclasses.dataclass

@@ -28,3 +28,8 @@ def torch_dtype(name) -> torch.dtype:
         return _DTYPES[str(name)]
     except KeyError:
         raise ValueError(f"unsupported dtype {name!r}") from None
+
+
+def at_least_f32(t: torch.Tensor) -> torch.Tensor:
+    """t in f32, or in its own dtype where that is wider (f64)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))

@@ -13,6 +13,10 @@ so the bridge only changes layouts:
 - norm `scale` -> `weight`; BatchNorm `mean`/`var` -> `running_mean`/
   `running_var` (plus torch's `num_batches_tracked`).
 
+`to_flax_variables` is the inverse: the port's unfolded state dict as a
+flax variables tree of numpy arrays (the layout of the port's checkpoints,
+`utils/checkpoint.py`).
+
 `random_variables` builds a flax-layout tree of the same names and shapes
 from a numpy seed, for runs that need full-size weights without the JAX
 package (chip_smoke.py).
@@ -63,6 +67,37 @@ def from_jax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
     walk(variables["params"], variables.get("batch_stats", {}), "")
     return out
+
+
+_INVERSE_PERM = {4: (2, 3, 1, 0), 3: (2, 1, 0), 2: (1, 0)}
+
+
+def to_flax_variables(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The port's unfolded state dict -> {"params": ..., "batch_stats":
+    ...}, nested dicts of f32 numpy arrays under the flax names, such that
+    `from_jax_variables` gives the state dict back (`num_batches_tracked`,
+    which flax lacks, is dropped)."""
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+
+    def put(tree, dotted, value):
+        *path, leaf = dotted.split(".")
+        for p in path:
+            tree = tree.setdefault(p, {})
+        tree[leaf] = value
+
+    for key, t in state.items():
+        module, _, name = key.rpartition(".")
+        a = t.detach().cpu().numpy()
+        if name == "weight" and a.ndim > 1:
+            put(params, module + ".kernel", a.transpose(_INVERSE_PERM[a.ndim]))
+        elif name == "weight":
+            put(params, module + ".scale", a)
+        elif name in ("running_mean", "running_var"):
+            put(stats, module + "." + name[len("running_"):], a)
+        elif name != "num_batches_tracked":
+            put(params, key, a)
+    return {"params": params, "batch_stats": stats}
 
 
 def random_variables(cfg: ModelConfig, seed: int = 0) -> Dict[str, Any]:

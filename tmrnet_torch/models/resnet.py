@@ -2,8 +2,9 @@
 
 Port of `tmrnet_tpu/models/resnet.py:21-99`. Frames come in as (N, H, W, 3)
 and activations stay in `channels_last` memory, so a block's input viewed as
-NHWC is contiguous. Unfolded, every conv is followed by BatchNorm in eval
-mode (eps 1e-5). Folded (BN pre-folded into the convs, `models/fold_bn.py`),
+NHWC is contiguous. Unfolded, every conv is followed by BatchNorm (eps
+1e-5): in eval mode by default; with `train=True` with flax's training
+semantics (`batch_norm`). Folded (BN pre-folded into the convs, `models/fold_bn.py`),
 every stride-1 identity block runs as one fused-bottleneck kernel, the
 role `tmrnet_tpu/experimental/fused_resnet.py::apply_fused_resnet` (:68-108)
 plays in JAX; the stem and the strided/projection blocks stay on
@@ -31,6 +32,8 @@ from tmrnet_torch.experimental.fused_bottleneck_tiled import fused_bottleneck_ti
 
 EXPANSION = 4
 BN_EPS = 1e-5
+# flax BatchNorm's momentum: running = 0.9 * running + 0.1 * batch.
+BN_MOMENTUM = 0.9
 FUSED_KERNELS = ("block", "tiled")
 # Identity blocks this wide stay on the block kernel under kernel="tiled"
 # (fused_resnet.py:91: the TPU's VMEM could not hold stage 4's weights twice).
@@ -49,12 +52,34 @@ def conv(layer: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
                     layer.padding)
 
 
-def batch_norm(layer: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
-    """Eval-mode BatchNorm with its parameters cast to x's dtype."""
-    cast = lambda t: t.to(x.dtype)
-    return F.batch_norm(x, cast(layer.running_mean), cast(layer.running_var),
-                        cast(layer.weight), cast(layer.bias), False, 0.0,
-                        BN_EPS)
+def batch_norm(layer: nn.BatchNorm2d, x: torch.Tensor,
+               train: bool = False) -> torch.Tensor:
+    """Eval mode: BatchNorm over the running statistics, its parameters
+    cast to x's dtype.
+
+    train=True, flax's BatchNorm in training (`tmrnet_tpu/models/resnet.py`
+    :38-41): x normalized by its batch mean and biased variance over N*H*W,
+    computed in f32 (the f32 scale and bias applied before the one rounding
+    to x's dtype), and the running statistics updated as 0.9 * running +
+    0.1 * batch with the biased variance. `F.batch_norm` would write the
+    unbiased variance, so it only fills scratch buffers (momentum 1: the
+    batch mean and unbiased variance), and the update is made here."""
+    if not train:
+        cast = lambda t: t.to(x.dtype)
+        return F.batch_norm(x, cast(layer.running_mean),
+                            cast(layer.running_var), cast(layer.weight),
+                            cast(layer.bias), False, 0.0, BN_EPS)
+    c = x.shape[1]
+    n = x.numel() // c
+    mean = torch.zeros(c, dtype=torch.float32, device=x.device)
+    var = torch.zeros_like(mean)
+    y = F.batch_norm(x, mean, var, layer.weight, layer.bias, True, 1.0, BN_EPS)
+    with torch.no_grad():
+        m = 1.0 - BN_MOMENTUM
+        layer.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=m)
+        layer.running_var.mul_(BN_MOMENTUM).add_(var * ((n - 1) / n), alpha=m)
+        layer.num_batches_tracked.add_(1)
+    return y
 
 
 class Bottleneck(nn.Module):
@@ -88,8 +113,9 @@ class Bottleneck(nn.Module):
                 w(self.conv2, (2, 3, 1, 0)), b(self.conv2),
                 w(self.conv3, (2, 3, 1, 0))[0, 0], b(self.conv3))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (N, C, H, W) in channels_last memory."""
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """x: (N, C, H, W) in channels_last memory; train: BatchNorm on the
+        batch's statistics, updating the running ones (unfolded only)."""
         if self.folded and not self.projection:
             xh = x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
             op = (fused_bottleneck_tiled
@@ -98,7 +124,7 @@ class Bottleneck(nn.Module):
             y = op(xh, *self.fused_weights(x.dtype))
             return y.permute(0, 3, 1, 2)
         bn = (lambda name, y: y) if self.folded else (
-            lambda name, y: batch_norm(getattr(self, name), y))
+            lambda name, y: batch_norm(getattr(self, name), y, train))
         y = torch.relu(bn("bn1", conv(self.conv1, x)))
         y = torch.relu(bn("bn2", conv(self.conv2, y)))
         y = bn("bn3", conv(self.conv3, y))
@@ -144,15 +170,19 @@ class ResNet(nn.Module):
                        * EXPANSION)
         return most
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (N, H, W, 3) -> (N, num_features)."""
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """x: (N, H, W, 3) -> (N, num_features); train as in
+        `Bottleneck.forward` (a folded backbone is for inference only)."""
+        if train and self.folded:
+            raise ValueError("a folded backbone is for inference only; "
+                             "train the unfolded one")
         x = x.to(self.compute_dtype).permute(0, 3, 1, 2)
         x = x.contiguous(memory_format=torch.channels_last)
         x = conv(self.conv1, x)
         if not self.folded:
-            x = batch_norm(self.bn1, x)
+            x = batch_norm(self.bn1, x, train)
         x = F.max_pool2d(torch.relu(x), 3, 2, 1)
         for l, n_blocks in enumerate(self.stage_sizes):
             for i in range(n_blocks):
-                x = getattr(self, f"layer{l + 1}_{i}")(x)
+                x = getattr(self, f"layer{l + 1}_{i}")(x, train)
         return x.mean(dim=(2, 3))

@@ -8,7 +8,10 @@ in q's dtype.
 
 `nl_attention` takes the kernel for CUDA tensors and the plain version for
 CPU tensors; anything else raises. One launch takes any B: the kernel's row
-offsets are 64-bit.
+offsets are 64-bit. It is a `torch.autograd.Function`: the forward
+launches the kernel (or runs the plain version) once, and the backward
+recomputes the plain version in f32 from the saved q, k and v, with no
+second launch, for dq, dk and dv.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import functools
 
 import torch
 
+from tmrnet_torch.device import at_least_f32
 from tmrnet_torch.kernels import build
 from tmrnet_torch.kernels.build import LAUNCHES
 
@@ -29,11 +33,12 @@ def nl_attention_plain(q: torch.Tensor, k: torch.Tensor,
                        v: torch.Tensor) -> torch.Tensor:
     """The math of `nl_attention_reference` (tmrnet_tpu/ops/nl_attention.py
     :67-75): f32 logits * (1/F)**0.5, softmax over the window, f32 weighted
-    sum, result in q's dtype."""
+    sum (f64 for f64 inputs), result in q's dtype."""
     f = q.shape[-1]
-    logits = torch.einsum("bf,bwf->bw", q.float(), k.float()) * (1.0 / f) ** 0.5
+    logits = torch.einsum("bf,bwf->bw", at_least_f32(q),
+                          at_least_f32(k)) * (1.0 / f) ** 0.5
     attn = torch.softmax(logits, dim=-1)
-    return torch.einsum("bw,bwf->bf", attn, v.float()).to(q.dtype)
+    return torch.einsum("bw,bwf->bf", attn, at_least_f32(v)).to(q.dtype)
 
 
 def nl_attention_smem_bytes(w: int, f: int, itemsize: int) -> int:
@@ -112,11 +117,37 @@ def nl_attention_cuda(q: torch.Tensor, k: torch.Tensor,
     return out
 
 
+class NLAttentionFunction(torch.autograd.Function):
+    """Forward: the kernel (CUDA) or the plain version (CPU). Backward: the
+    plain version in f32 from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        if q.device.type == "cpu":
+            return nl_attention_plain(q, k, v)
+        if q.device.type == "cuda":
+            return nl_attention_cuda(q, k, v)
+        raise ValueError(f"nl_attention: unsupported device {q.device}")
+
+    @staticmethod
+    def backward(ctx, grad):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        with torch.enable_grad():
+            inputs = [at_least_f32(t.detach()).requires_grad_(n)
+                      for t, n in zip(saved, need)]
+            out = nl_attention_plain(*inputs)
+            wanted = [t for t in inputs if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wanted,
+                                             grad.to(out.dtype))
+                         if wanted else ())
+        return tuple(next(grads).to(t.dtype) if n else None
+                     for t, n in zip(saved, need))
+
+
 def nl_attention(q: torch.Tensor, k: torch.Tensor,
                  v: torch.Tensor) -> torch.Tensor:
-    """softmax(q k^T / sqrt(F)) v; q (B, F), k/v (B, W, F) -> (B, F)."""
-    if q.device.type == "cpu":
-        return nl_attention_plain(q, k, v)
-    if q.device.type == "cuda":
-        return nl_attention_cuda(q, k, v)
-    raise ValueError(f"nl_attention: unsupported device {q.device}")
+    """softmax(q k^T / sqrt(F)) v; q (B, F), k/v (B, W, F) -> (B, F),
+    differentiable in q, k and v."""
+    return NLAttentionFunction.apply(q, k, v)

@@ -6,7 +6,13 @@ header says what bounds it and how it is built.
 
 x (B, W, C); weights in the flax layout (k, Cin, Cout); biases (C,).
 `time_conv` takes the kernel for CUDA tensors and the plain version for CPU
-tensors; anything else raises. `plan_time_conv` decides how the kernel cuts
+tensors; anything else raises. It is a `torch.autograd.Function`: the
+forward launches the kernel (or runs the plain version) once, and the
+backward recomputes the block in plain f32 ops from the saved inputs
+(`time_conv_plain`, in the flax module's nesting of the max), with no
+second launch. A caller whose weights are not in the kernel's layout and dtype
+(a module's f32 parameters) passes `prepared`, copies that are, and the
+weights themselves for the gradient. `plan_time_conv` decides how the kernel cuts
 a launch into blocks. The kernel's offsets are 32-bit, so one launch takes
 at most `time_conv_max_rows(W, C)` rows of B; a call past that launches
 once per piece of at most that many rows (rows are independent along B, so
@@ -22,6 +28,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from tmrnet_torch.device import at_least_f32
 from tmrnet_torch.kernels import build
 from tmrnet_torch.kernels.build import LAUNCHES
 
@@ -35,21 +42,26 @@ BM, BN, HALO, NSTAGE = 64, 64, 3, 5
 
 def time_conv_plain(x, w3, b3, w5, b5, w7, b7):
     """The math of `time_conv_reference` (tmrnet_tpu/ops/time_conv.py
-    :100-116), in f32, result in x's dtype."""
-    xf = x.float()
+    :100-116), in f32 (f64 for f64 inputs), result in x's dtype. The max
+    is nested as the flax TimeConv nests it (`tmrnet_tpu/models/blocks.py
+    :88-91`), max(max(max(x, b1), max(b2, b3)), b4) with b1-b3 the convs
+    and b4 = max(x, shifted x): the values do not depend on the nesting,
+    but the split of a tie's gradient (torch.maximum and jnp.maximum halve
+    it) does, and the backward differentiates this function."""
+    xf = at_least_f32(x)
     xt = xf.transpose(1, 2)                                   # (B, C, W)
 
     def conv(wk, bk):
         k = wk.shape[0]
-        wt = wk.float().permute(2, 1, 0)                      # (Cout, Cin, k)
-        out = F.conv1d(xt, wt, bk.float(), padding=k // 2)
+        wt = at_least_f32(wk).permute(2, 1, 0)                # (Cout, Cin, k)
+        out = F.conv1d(xt, wt, at_least_f32(bk), padding=k // 2)
         return out.transpose(1, 2)
 
     shifted = F.pad(xf, (0, 0, 1, 0))[:, :-1, :]
-    out = torch.maximum(xf, conv(w3, b3))
-    out = torch.maximum(out, conv(w5, b5))
-    out = torch.maximum(out, conv(w7, b7))
-    out = torch.maximum(out, torch.maximum(xf, shifted))
+    b4 = torch.maximum(xf, shifted)
+    out = torch.maximum(torch.maximum(torch.maximum(xf, conv(w3, b3)),
+                                      torch.maximum(conv(w5, b5),
+                                                    conv(w7, b7))), b4)
     return out.to(x.dtype)
 
 
@@ -181,10 +193,43 @@ def time_conv_cuda(x, w3, b3, w5, b5, w7, b7):
     return run_in_pieces(launch, x, rows)
 
 
-def time_conv(x, w3, b3, w5, b5, w7, b7):
-    """(B, W, C) -> (B, W, C); the branch-wise max of the TimeConv block."""
+def _time_conv_forward(x, w3, b3, w5, b5, w7, b7):
     if x.device.type == "cpu":
         return time_conv_plain(x, w3, b3, w5, b5, w7, b7)
     if x.device.type == "cuda":
         return time_conv_cuda(x, w3, b3, w5, b5, w7, b7)
     raise ValueError(f"time_conv: unsupported device {x.device}")
+
+
+class TimeConvFunction(torch.autograd.Function):
+    """Forward: the kernel (CUDA) or the plain version (CPU), on `prepared`
+    where given, else on the weights. Backward: `time_conv_plain` in f32
+    from the saved x and weights."""
+
+    @staticmethod
+    def forward(ctx, x, prepared, *weights):
+        ctx.save_for_backward(x, *weights)
+        return _time_conv_forward(x, *(prepared or weights))
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, *weights = ctx.saved_tensors
+        need = ctx.needs_input_grad[:1] + ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            inputs = [at_least_f32(t.detach()).requires_grad_(n)
+                      for t, n in zip([x, *weights], need)]
+            out = time_conv_plain(*inputs)
+            wanted = [t for t in inputs if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wanted,
+                                             grad.to(out.dtype))
+                         if wanted else ())
+        got = [next(grads).to(t.dtype) if n else None
+               for t, n in zip([x, *weights], need)]
+        return (got[0], None, *got[1:])
+
+
+def time_conv(x, w3, b3, w5, b5, w7, b7, prepared=None):
+    """(B, W, C) -> (B, W, C); the branch-wise max of the TimeConv block,
+    differentiable in x and the weights. prepared: (w3, b3, w5, b5, w7, b7)
+    in the kernel's layout and dtypes, run in place of the weights."""
+    return TimeConvFunction.apply(x, prepared, w3, b3, w5, b5, w7, b7)

@@ -1,1 +1,2 @@
-"""Training-side modules; so far the video-engine LFB build."""
+"""Training: losses, optimizers, the train state and steps, the epoch
+loops of both stages and the LFB build."""

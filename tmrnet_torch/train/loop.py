@@ -1,6 +1,23 @@
-"""The Long-term Feature Bank build.
+"""The trainers of both stages and the Long-term Feature Bank build.
 
-Port of `tmrnet_tpu/train/loop.py::build_lfb` (:589-684),
+Port of `tmrnet_tpu/train/loop.py`: `train_stage1` (:578) and
+`train_stage2` (:761) over the shared epoch machinery (`EpochStats`,
+`_make_memory_fn`, `_run_epoch_train`, `_run_epoch_eval`, `_fit`,
+`_epoch_loop`, :55-575) on one card: class-balanced weighted CE on each
+clip's last frame, two learning-rate groups, shuffled batches through a
+`ClipLoader` and `device_prefetch`, a full validation pass per epoch, the
+best checkpoint by val accuracy (train accuracy breaking ties), StepLR or
+ReduceLROnPlateau between epochs, resume from the latest checkpoint (the
+plateau state and the best tracker re-seeded from the checkpoints'
+metadata), early stop, one-batch mid-epoch validation, image logging, and
+preemption (train.preempt_save: SIGTERM/SIGINT finish the step, save a
+checkpoint marked for the epoch's replay and return; a second signal
+interrupts). Dropout masks come from a torch generator seeded per step
+from train.seed, the epoch and the step (`step_generator`), where JAX
+folds epoch * 100003 + step into its key: the same schedule of seeds, not
+the same masks. JAX's `mesh=` raises: the port trains on one card.
+
+And `build_lfb`, port of `tmrnet_tpu/train/loop.py::build_lfb` (:589-684),
 `framewise_transform_for_video_build` (:687-700), `load_video_frames`
 (:703-722) and the body of `_build_lfb_video` (:725-760). Two engines
 fill the same bank, one row per clip position:
@@ -18,18 +35,29 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Mapping, Optional, Sequence
+import signal
+import time
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from tmrnet_torch.config import ExperimentConfig
+from tmrnet_torch.config import ExperimentConfig, check_trainable
 from tmrnet_torch.data.device_feed import DevicePrep, device_prefetch
+from tmrnet_torch.data.indexing import quirk_window_table
 from tmrnet_torch.data.pipeline import ClipDataset, ClipLoader
 from tmrnet_torch.device import resolve_device
 from tmrnet_torch.eval.infer import (VideoInference, corpus_lengths,
                                      load_video, load_weights)
-from tmrnet_torch.memory.lfb import FeatureBank, load_bank, save_bank, update_bank
+from tmrnet_torch.memory.lfb import (FeatureBank, gather_memory_windows,
+                                     load_bank, save_bank, update_bank)
+from tmrnet_torch.train.losses import balanced_class_weights
+from tmrnet_torch.train.optim import (make_optimizer, make_schedule,
+                                      set_learning_rate, slow_modules_for_head)
+from tmrnet_torch.train.state import TrainState
+from tmrnet_torch.train.steps import make_stage1_steps, make_stage2_steps
+from tmrnet_torch.utils.checkpoint import BestTracker, CheckpointManager
+from tmrnet_torch.utils.logging import MetricLogger, Timer
 
 
 def build_lfb(cfg: ExperimentConfig,
@@ -147,3 +175,350 @@ def build_lfb_video(cfg: ExperimentConfig,
     if cache_path:
         save_bank(cache_path, bank)
     return bank
+
+
+@dataclasses.dataclass
+class EpochStats:
+    epoch: int
+    train_loss: float
+    train_acc: float
+    val_loss: float
+    val_acc: float
+    lr: float
+    seconds: float
+
+
+def step_generator(seed: int, epoch: int, step: int,
+                   device: torch.device) -> torch.Generator:
+    """The dropout masks' generator of one train step, on `device`, seeded
+    from (seed, epoch * 100003 + step) as JAX folds the step into its
+    key."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed((seed * 1_000_003 + epoch * 100003 + step) % (1 << 63))
+    return gen
+
+
+def _make_memory_fn(cfg: ExperimentConfig, ds: Optional[ClipDataset],
+                    bank: Optional[FeatureBank], window: int
+                    ) -> Optional[Callable]:
+    """rows (numpy) -> their (B, window, F) memory, gathered on the bank's
+    device: clamped at each video's first row, or, under
+    `memory.compat_cross_video`, the reference's cross-video walk through
+    a precomputed table (`data/indexing.py::quirk_window_table`)."""
+    if bank is None or ds is None:
+        return None
+    dev = bank.features.device
+    to_dev = lambda rows: torch.as_tensor(np.asarray(rows), dtype=torch.long,
+                                          device=dev)
+    if cfg.memory.compat_cross_video:
+        table = to_dev(quirk_window_table(ds.seq_len, ds.manifest.video_lengths,
+                                          window))
+        return lambda rows: bank.features[table[to_dev(rows)]]
+    first_rows = to_dev(ds.first_rows)
+
+    def fn(rows):
+        r = to_dev(rows)
+        return gather_memory_windows(bank.features, r, first_rows[r], window)
+
+    return fn
+
+
+def _run_epoch_train(train_step, state: TrainState, loader: ClipLoader,
+                     epoch: int, seed: int, device: torch.device,
+                     memory_fn: Optional[Callable] = None,
+                     log: Optional[MetricLogger] = None, log_every: int = 50,
+                     minibatch_val: Optional[Callable] = None,
+                     minibatch_val_every: int = 0, log_images_every: int = 0,
+                     stop: Optional[dict] = None):
+    """One epoch of train steps. Returns (mean loss, accuracy, whether a
+    preemption signal stopped it); the running sums stay on the card
+    between logs."""
+    acc = None
+    interrupted = False
+    prev_loss, prev_count = 0.0, 0
+    timer = Timer()
+    batches = device_prefetch(loader.epoch(epoch), device=device,
+                              array_indices=(0, 1))
+    for i, (clips, labels, rows, pad) in enumerate(batches):
+        gen = step_generator(seed, epoch, i, device)
+        if memory_fn is not None:
+            m = train_step(state, clips, memory_fn(rows), labels, gen)
+        else:
+            m = train_step(state, clips, labels, gen)
+        got = (m["loss"], m["correct"], m["count"])
+        acc = got if acc is None else tuple(a + b for a, b in zip(acc, got))
+        timer.add_frames((len(rows) - pad) * clips.shape[1])
+        if log is not None and log_images_every and i % log_images_every == 0:
+            log.log_images(state.step, "train/input_sequence",
+                           clips[0].cpu().numpy())
+        if log is not None and (i + 1) % log_every == 0:
+            tot_loss, tot_count = float(acc[0]), int(acc[2])
+            n = max(tot_count - prev_count, 1)
+            log.log(state.step, {"loss": (tot_loss - prev_loss) / n,
+                                 "fps": timer.fps}, prefix="train/")
+            prev_loss, prev_count = tot_loss, tot_count
+        if (minibatch_val is not None and minibatch_val_every
+                and (i + 1) % minibatch_val_every == 0):
+            vm = minibatch_val(state)
+            if log is not None:
+                log.log(state.step, vm, prefix="val_minibatch/")
+        if stop is not None and stop.get("stop"):
+            # the step in flight is applied: leave at this boundary so the
+            # caller checkpoints a consistent state
+            interrupted = True
+            break
+    batches.close()
+    if acc is None:
+        return 0.0, 0.0, interrupted
+    count = max(int(acc[2]), 1)
+    return float(acc[0]) / count, int(acc[1]) / count, interrupted
+
+
+def _run_epoch_eval(eval_step, state: TrainState, loader: ClipLoader,
+                    device: torch.device,
+                    memory_fn: Optional[Callable] = None):
+    """A full pass over the loader. Returns (mean loss, accuracy, preds,
+    labels, rows) over the real rows (a padded batch's repeats dropped)."""
+    loss_sum, correct, count = 0.0, 0, 0
+    all_preds, all_labels, all_rows = [], [], []
+    for clips, labels, rows, pad in device_prefetch(
+            loader.epoch(0), device=device, array_indices=(0, 1)):
+        if memory_fn is not None:
+            m = eval_step(state, clips, memory_fn(rows), labels)
+        else:
+            m = eval_step(state, clips, labels)
+        b = len(rows) - pad
+        losses = m["losses"][:b].cpu().numpy()
+        preds = m["preds"][:b].cpu().numpy()
+        labels = labels[:b].cpu().numpy()
+        loss_sum += float(losses.sum())
+        correct += int((preds == labels).sum())
+        count += b
+        all_preds.append(preds)
+        all_labels.append(labels)
+        all_rows.append(rows[:b])
+    cat = lambda xs: np.concatenate(xs) if xs else np.zeros(0, np.int64)
+    return (loss_sum / max(count, 1), correct / max(count, 1),
+            cat(all_preds), cat(all_labels), cat(all_rows))
+
+
+def _fit(cfg: ExperimentConfig, model_cfg, train_ds: ClipDataset,
+         val_ds: Optional[ClipDataset], use_memory: bool,
+         bank: Optional[FeatureBank], slow_modules,
+         init_state_dict: Optional[Mapping[str, torch.Tensor]] = None,
+         log: Optional[MetricLogger] = None,
+         val_bank: Optional[FeatureBank] = None, device="cuda"
+         ) -> Tuple[TrainState, List[EpochStats]]:
+    from tmrnet_torch.models.tmrnet import init_state_dict as fresh_init
+
+    dev = resolve_device(device)
+    check_trainable(cfg)
+    t = cfg.train
+    for name, b in (("bank", bank), ("val_bank", val_bank)):
+        if b is not None and b.features.device != dev:
+            raise ValueError(f"{name} on {b.features.device}, trainer on "
+                             f"{dev}")
+    if init_state_dict is None:
+        init_state_dict = fresh_init(model_cfg, t.seed)
+    model = load_weights(model_cfg, init_state_dict, dev, "block")
+    state = TrainState(model, make_optimizer(t, model, slow_modules),
+                       grad_accum=t.grad_accum, grad_clip=t.grad_clip)
+
+    ckpt = CheckpointManager(t.checkpoint_dir, keep=t.keep_checkpoints,
+                             use_async=t.async_checkpoint)
+    start_epoch = 0
+    resume_meta: Dict = {}
+    if t.resume and ckpt.latest_step() is not None:
+        state = ckpt.restore(state)
+        resume_meta = ckpt.metadata(ckpt.latest_step()).get("metrics", {})
+        start_epoch = int(resume_meta.get("epoch", -1)) + 1
+
+    class_weights = (balanced_class_weights(train_ds.manifest.flat_labels(),
+                                            model_cfg.num_classes)
+                     if t.class_weighting else None)
+    make_steps = make_stage2_steps if use_memory else make_stage1_steps
+    prep = (DevicePrep(cfg.data, model_cfg.compute_dtype, dev)
+            if cfg.data.device_normalize else None)
+    train_step, eval_step = make_steps(class_weights, "sum",
+                                       label_smoothing=t.label_smoothing,
+                                       prep=prep)
+    d = cfg.data
+    train_loader = ClipLoader(train_ds, d.batch_clips, shuffle=True,
+                              num_workers=d.num_workers, prefetch=d.prefetch,
+                              seed=t.seed, drop_remainder=True,
+                              use_processes=d.use_process_workers)
+    val_loader = (ClipLoader(val_ds, d.batch_clips, shuffle=False,
+                             num_workers=d.num_workers, prefetch=d.prefetch,
+                             use_processes=d.use_process_workers)
+                  if val_ds is not None else None)
+
+    schedule = make_schedule(t)
+    if start_epoch and hasattr(schedule, "scale"):
+        # the plateau schedule's host state: a fresh one would revert the
+        # rate to base_lr after the first resumed epoch
+        for k in ("best", "bad_epochs", "scale"):
+            if f"sched_{k}" in resume_meta:
+                setattr(schedule, k, resume_meta[f"sched_{k}"])
+    tracker = BestTracker()
+    if start_epoch:
+        # re-seed the rule from the saved best, so the first resumed epoch
+        # cannot overwrite the real best checkpoint
+        bm = ckpt.best_metadata().get("metrics", {})
+        tracker.best_val = float(bm.get("val_acc", -1.0))
+        tracker.best_train = float(bm.get("train_acc", -1.0))
+        tracker.best_epoch = int(bm.get("epoch", -1))
+    window = cfg.memory.window
+    memory_fn = (_make_memory_fn(cfg, train_ds, bank, window)
+                 if use_memory else None)
+    val_memory_fn = (_make_memory_fn(
+        cfg, val_ds, val_bank if val_bank is not None else bank, window)
+        if use_memory and val_ds is not None else None)
+
+    minibatch_val = None
+    if t.val_minibatch_every and val_ds is not None:
+        vb_clips, vb_labels, vb_rows, vb_pad = next(iter(device_prefetch(
+            val_loader.epoch(0), device=dev, array_indices=(0, 1))))
+
+        def minibatch_val(st):
+            args = (vb_clips,) + ((val_memory_fn(vb_rows),) if use_memory
+                                  else ())
+            m = eval_step(st, *args, vb_labels)
+            b = len(vb_rows) - vb_pad
+            preds = m["preds"][:b].cpu().numpy()
+            return {"loss": float(m["losses"][:b].sum()) / max(b, 1),
+                    "acc": float((preds == vb_labels[:b].cpu().numpy())
+                                 .mean())}
+
+    stop = {"stop": False}
+    restore_sigs = []
+    if t.preempt_save:
+        def _on_preempt(signum, frame):
+            stop["signals"] = stop.get("signals", 0) + 1
+            if stop["signals"] > 1:     # the second signal interrupts
+                raise KeyboardInterrupt
+            stop["stop"] = True
+
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                restore_sigs.append((sig, signal.signal(sig, _on_preempt)))
+            except ValueError:          # not the main thread: raw signals
+                pass
+    try:
+        return _epoch_loop(cfg, state, stop, start_epoch, train_step,
+                           eval_step, train_loader, val_loader, dev,
+                           memory_fn, val_memory_fn, log, minibatch_val,
+                           schedule, tracker, ckpt, [])
+    finally:
+        for sig, prev in restore_sigs:
+            signal.signal(sig, prev)
+
+
+def _epoch_loop(cfg, state, stop, start_epoch, train_step, eval_step,
+                train_loader, val_loader, dev, memory_fn, val_memory_fn,
+                log, minibatch_val, schedule, tracker,
+                ckpt: CheckpointManager, history: List[EpochStats]):
+    """The epochs of `_fit`, inside the signal handlers. Returns (the
+    state, the history)."""
+    from tmrnet_torch.eval.metrics import classification_metrics
+
+    t = cfg.train
+    ncls = cfg.model.num_classes
+    plateau = lambda: ({"sched_best": schedule.best,
+                        "sched_bad_epochs": schedule.bad_epochs,
+                        "sched_scale": schedule.scale}
+                       if hasattr(schedule, "scale") else {})
+    for epoch in range(start_epoch, t.epochs):
+        t0 = time.time()
+        tr_loss, tr_acc, interrupted = _run_epoch_train(
+            train_step, state, train_loader, epoch, t.seed, dev, memory_fn,
+            log, t.log_every, minibatch_val, t.val_minibatch_every,
+            t.log_images_every, stop)
+        if interrupted:
+            # marked for the epoch's replay (epoch = the last completed
+            # one): resume restarts this epoch from these weights
+            ckpt.save(state, step=state.step,
+                      metrics={"epoch": epoch - 1, "preempted": True,
+                               **plateau()})
+            if log is not None:
+                log.log(epoch, {"preempted": 1.0}, prefix="epoch/")
+            break
+        if val_loader is not None:
+            va_loss, va_acc, va_preds, va_labels, _ = _run_epoch_eval(
+                eval_step, state, val_loader, dev, val_memory_fn)
+            if log is not None and va_preds.size:
+                cmm = classification_metrics(va_labels, va_preds, ncls)
+                for c in range(ncls):
+                    log.log(epoch, {f"precision_{c}": cmm["precision"][c],
+                                    f"recall_{c}": cmm["recall"][c]},
+                            prefix="val/")
+                log.log_confusion_matrix(epoch, va_labels, va_preds, ncls,
+                                         tag="val/confusion")
+        else:
+            va_loss, va_acc = tr_loss, tr_acc
+        lr = schedule(epoch + 1, va_loss)
+        set_learning_rate(state.optimizer, lr)
+        secs = time.time() - t0
+        history.append(EpochStats(epoch, tr_loss, tr_acc, va_loss, va_acc,
+                                  lr, secs))
+        if log is not None:
+            log.log(epoch, {"train_loss": tr_loss, "train_acc": tr_acc,
+                            "val_loss": va_loss, "val_acc": va_acc,
+                            "lr": lr, "seconds": secs}, prefix="epoch/")
+        is_best = tracker.update(epoch, va_acc, tr_acc)
+        ckpt.save(state, step=state.step,
+                  metrics={"epoch": epoch, "val_acc": va_acc,
+                           "train_acc": tr_acc, "val_loss": va_loss,
+                           **plateau()},
+                  is_best=is_best)
+        if stop.get("stop"):
+            # the signal came in the val pass or the bookkeeping: this
+            # epoch is complete and saved, resume goes on with the next
+            if log is not None:
+                log.log(epoch, {"preempted": 1.0}, prefix="epoch/")
+            break
+        if (t.early_stop_patience
+                and epoch - tracker.best_epoch >= t.early_stop_patience):
+            if log is not None:
+                log.log(epoch, {"early_stop": 1.0}, prefix="epoch/")
+            break
+    return state, history
+
+
+def _no_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError("mesh= is not ported: the port trains on "
+                                  "one card")
+
+
+def train_stage1(cfg: ExperimentConfig, train_ds: ClipDataset,
+                 val_ds: Optional[ClipDataset] = None,
+                 init_state_dict: Optional[Mapping[str, torch.Tensor]] = None,
+                 mesh=None, log: Optional[MetricLogger] = None,
+                 device="cuda") -> Tuple[TrainState, List[EpochStats]]:
+    """Stage-1 memory-bank model training (head stage1) from
+    `init_state_dict` (default: fresh flax-distributed weights at
+    train.seed) on `device`. Returns (the train state, the history)."""
+    _no_mesh(mesh)
+    model_cfg = dataclasses.replace(cfg.model, head="stage1")
+    return _fit(cfg, model_cfg, train_ds, val_ds, use_memory=False, bank=None,
+                slow_modules=slow_modules_for_head("stage1"),
+                init_state_dict=init_state_dict, log=log, device=device)
+
+
+def train_stage2(cfg: ExperimentConfig, train_ds: ClipDataset,
+                 bank: FeatureBank, val_ds: Optional[ClipDataset] = None,
+                 val_bank: Optional[FeatureBank] = None,
+                 init_state_dict: Optional[Mapping[str, torch.Tensor]] = None,
+                 mesh=None, log: Optional[MetricLogger] = None,
+                 device="cuda") -> Tuple[TrainState, List[EpochStats]]:
+    """TMRNet (or only-non-local) head training over a built bank; train
+    and val read their own banks (val_bank defaults to bank)."""
+    _no_mesh(mesh)
+    if val_ds is not None and val_bank is None:
+        val_bank = bank
+    head = cfg.model.head if cfg.model.head in ("tmr", "nl_only") else "tmr"
+    model_cfg = dataclasses.replace(cfg.model, head=head)
+    return _fit(cfg, model_cfg, train_ds, val_ds, use_memory=True, bank=bank,
+                slow_modules=slow_modules_for_head(head),
+                init_state_dict=init_state_dict, log=log, val_bank=val_bank,
+                device=device)

@@ -1,0 +1,207 @@
+"""Checkpoints: save, restore and resume, and the best-model rule.
+
+Port of `tmrnet_tpu/utils/checkpoint.py` (:21-268) with JAX's directory
+layout and semantics, in torch files where JAX writes Orbax trees:
+
+    <dir>/step_00000120/state.pt     the weights and the train state
+    <dir>/step_00000120.json         {"step": 120, "metrics": {...}}
+    <dir>/best/ and <dir>/best.json  a copy of the best step
+
+`state.pt` holds the weights as a flax variables tree (`variables`:
+"params" and "batch_stats" under the flax names and layouts,
+`models/convert.py::to_flax_variables`, the arrays stored as tensors), so
+the weight bridge reads them back, and the train state (`train`: the optimizer's state, the step, the
+gradient accumulator). A step is written to a temporary directory and
+renamed into place; `keep` bounds the step directories (the best is a
+copy apart, which the pruning never touches); the best is replaced by a
+staged copy and two renames. `restore_weights` reads the weights alone,
+whatever optimizer wrote them. Files are read with
+`torch.load(weights_only=True)`, which unpickles tensors and plain
+containers only: a file holding any other object is refused, as
+the port's other readers of untrusted files refuse one. Orbax checkpoints of the JAX package cannot
+be read here: weights move between the packages as reference `.pth` files
+(`models/torch_import.py`).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+STATE_FILE = "state.pt"
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+class CheckpointManager:
+    def __init__(self, directory: str, keep: int = 3,
+                 use_async: bool = False):
+        if use_async:
+            raise NotImplementedError(
+                "train.async_checkpoint is not ported: checkpoints are "
+                "written synchronously")
+        self.dir = os.path.abspath(directory)
+        self.keep = keep
+        os.makedirs(self.dir, exist_ok=True)
+
+    # -- paths ------------------------------------------------------------
+    def _step_dir(self, step: int) -> str:
+        return os.path.join(self.dir, f"step_{step:08d}")
+
+    def _meta_path(self, step: int) -> str:
+        return self._step_dir(step) + ".json"
+
+    @property
+    def best_dir(self) -> str:
+        return os.path.join(self.dir, "best")
+
+    # -- save/restore -------------------------------------------------------
+    @staticmethod
+    def _savable(state) -> Dict[str, Any]:
+        from tmrnet_torch.models.convert import to_flax_variables
+
+        variables = _tree_map(lambda a: torch.from_numpy(
+            np.ascontiguousarray(a)), to_flax_variables(state.model.state_dict()))
+        return {"variables": variables, "train": state.state_dict()}
+
+    def save(self, state, step: int, metrics: Optional[Dict] = None,
+             is_best: bool = False) -> str:
+        """Write the state as step `step` with its metrics; under is_best
+        also as the best. Returns the step's directory."""
+        path = self._step_dir(step)
+        tmp = path + ".tmp"
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        torch.save(self._savable(state), os.path.join(tmp, STATE_FILE))
+        if os.path.exists(path):
+            shutil.rmtree(path)
+        os.replace(tmp, path)
+        meta = {"step": step, "metrics": metrics or {}}
+        with open(self._meta_path(step), "w") as f:
+            json.dump(meta, f)
+        if is_best:
+            # stage the whole copy, then swap: a kill at any point leaves a
+            # complete best (or its staged copy, which restores read)
+            staged = self.best_dir + ".tmp"
+            if os.path.exists(staged):
+                shutil.rmtree(staged)
+            shutil.copytree(path, staged)
+            with open(staged + ".json", "w") as f:
+                json.dump(meta, f)
+            if os.path.exists(self.best_dir):
+                shutil.rmtree(self.best_dir)
+            os.replace(staged, self.best_dir)
+            os.replace(staged + ".json", self.best_dir + ".json")
+        self._gc()
+        return path
+
+    def _gc(self) -> None:
+        """Drop all but the newest `keep` steps."""
+        steps = self.all_steps()
+        for s in steps[: max(0, len(steps) - self.keep)]:
+            shutil.rmtree(self._step_dir(s), ignore_errors=True)
+            try:
+                os.remove(self._meta_path(s))
+            except OSError:
+                pass
+
+    def all_steps(self):
+        out = []
+        for name in os.listdir(self.dir):
+            if name.startswith("step_") and not name.endswith(".json"):
+                try:
+                    out.append(int(name.split("_")[1]))
+                except ValueError:
+                    pass
+        return sorted(out)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    @staticmethod
+    def _load(path: str) -> Dict[str, Any]:
+        """A step's saved dict, the variables as numpy arrays; a file that
+        holds more than tensors and plain containers raises
+        `pickle.UnpicklingError`."""
+        saved = torch.load(os.path.join(path, STATE_FILE), map_location="cpu",
+                           weights_only=True)
+        saved["variables"] = _tree_map(lambda t: t.numpy(),
+                                       saved["variables"])
+        return saved
+
+    def restore(self, state, step: Optional[int] = None):
+        """Load step `step` (default the latest) into the train state:
+        weights and running statistics, optimizer state, step and
+        accumulator. Returns the state."""
+        from tmrnet_torch.models.convert import from_jax_variables
+
+        if step is None:
+            step = self.latest_step()
+            if step is None:
+                raise FileNotFoundError(f"no checkpoints in {self.dir}")
+        saved = self._load(self._step_dir(step))
+        state.model.load_state_dict(from_jax_variables(saved["variables"]),
+                                    strict=True)
+        state.load_state_dict(saved["train"])
+        return state
+
+    def restore_weights(self) -> Dict[str, Any]:
+        """The weights alone, {"params", "batch_stats"} in the flax layout
+        (numpy), whatever optimizer wrote them: from best/, else its staged
+        copy, else the newest step."""
+        path = self.best_dir
+        if not os.path.exists(path):
+            if os.path.exists(path + ".tmp"):
+                path = path + ".tmp"
+            else:
+                step = self.latest_step()
+                if step is None:
+                    raise FileNotFoundError(f"no checkpoints in {self.dir}")
+                path = self._step_dir(step)
+        return self._load(path)["variables"]
+
+    def metadata(self, step: int) -> Dict:
+        """A step's metadata; {"step", "metrics": {}} where the sidecar was
+        lost (the checkpoint itself is whole)."""
+        try:
+            with open(self._meta_path(step)) as f:
+                return json.load(f)
+        except (FileNotFoundError, json.JSONDecodeError):
+            return {"step": step, "metrics": {}}
+
+    def best_metadata(self) -> Dict:
+        """The best checkpoint's metadata ({} when there is none)."""
+        try:
+            with open(self.best_dir + ".json") as f:
+                return json.load(f)
+        except (FileNotFoundError, json.JSONDecodeError):
+            return {}
+
+
+class BestTracker:
+    """The reference's rule: the epoch with the highest val accuracy, ties
+    broken by train accuracy."""
+
+    def __init__(self):
+        self.best_val = -1.0
+        self.best_train = -1.0
+        self.best_epoch = -1
+
+    def update(self, epoch: int, val_acc: float, train_acc: float) -> bool:
+        better = (val_acc > self.best_val
+                  or (val_acc == self.best_val and train_acc > self.best_train))
+        if better:
+            self.best_val, self.best_train, self.best_epoch = (
+                val_acc, train_acc, epoch)
+        return better
