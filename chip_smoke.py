@@ -99,6 +99,29 @@ Phases, in order; any failure exits nonzero:
    tmrnet_torch test` as a subprocess, equal to the in-process corpus
    run; clips/s of `test` and frames/s of `build-lfb` per engine, and the
    loader's share (host clock around each next() of ClipLoader);
+4g. the training slice (`run_train_slice`): a train step of each stage on
+   the card against the CPU, 20 steps that learn, the training commands
+   with exact launch counts, preemption and resume, step times;
+4h. the ResNeSt slice: the full-width folded ResNeSt-50 TMRNet (stem 32,
+   radix 2, bf16) with seeded weights through the weight bridge; (a) the
+   clip slice of phase 4 through ClipInference, 0 fused_bottleneck, 0
+   fused_bottleneck_tiled, 1 time_conv and 1 nl_attention launches a
+   forward (its blocks have no identity 3x3 conv for the fused kernels),
+   the first 2 clips against the CPU in f32; (b) run_video on a
+   1,500-frame video (1 + 1 launches) with its copy / trunks / head
+   split, the peak memory of one trunk chunk at the auto plan (2,048
+   frames at 224x224) within MEMORY_SHARE of what the card can allocate,
+   bank_features against the extractor clip-wise at 64 positions, and
+   the stream slice of 4d on this trunk (1 + 1 launches a step); (c) the
+   weights exported as reference `.pth` in the resnest package's naming,
+   then `manifest`, `build-lfb` (clip) and `test` (clip, corpus) with
+   `--set model.backbone=resnest50 --set model.folded=true` in this
+   process over 4f's videos, exact launch counts, each softmax against
+   the engine built in memory from the unexported weights and the two
+   engines against each other; then `python -m tmrnet_torch serve` from
+   the same `.pth`, 2 streams for 12 ticks, its rows against serve_loop
+   in this process within 1e-6; frames/s, stream p50 / p99 and peak
+   memory beside the card;
 5. the int8 gate (tmrnet_torch.experimental.int8_gate) at B = 128 over the
    four stages: the int8 bottleneck chain through the kernels equal to the
    same chain through the plain versions, 2 int8_matmul and 1 int8_conv3x3
@@ -636,18 +659,18 @@ def check_int8_kernels(torch, seed):
     return records, all_ok
 
 
-def slice_setup(torch, seed):
-    """The slices' model config, folded seeded weights, bank on the card
-    and 1 + REQUESTS host requests (the first is the warm-up)."""
+def slice_setup(torch, seed, backbone="resnet50"):
+    """The slices' model config (`backbone` at full width), folded seeded
+    weights, bank on the card and 1 + REQUESTS host requests (the first is
+    the warm-up)."""
     from tmrnet_torch.config import DataConfig, ExperimentConfig, MemoryConfig, ModelConfig
     from tmrnet_torch.memory.lfb import FeatureBank
     from tmrnet_torch.models.convert import from_jax_variables, random_variables
     from tmrnet_torch.models.fold_bn import fold_variables
 
-    cfg = ModelConfig(backbone="resnet50", head="tmr", hidden_dim=HIDDEN,
+    cfg = ModelConfig(backbone=backbone, head="tmr", hidden_dim=HIDDEN,
                       num_classes=CLASSES, compute_dtype="bfloat16", folded=True)
-    unfolded = ModelConfig(backbone="resnet50", head="tmr", hidden_dim=HIDDEN,
-                           num_classes=CLASSES, compute_dtype="float32")
+    unfolded = dataclasses.replace(cfg, compute_dtype="float32", folded=False)
     state = fold_variables(from_jax_variables(random_variables(unfolded, seed)))
     ecfg = ExperimentConfig(data=DataConfig(device_normalize=True), model=cfg,
                             memory=MemoryConfig(window=WINDOW))
@@ -666,18 +689,18 @@ def slice_setup(torch, seed):
                 requests=requests)
 
 
-def run_slice(torch, setup, card, fused_kernel, want_per_forward):
-    """Phase 4 / 4b: full-width clip inference on the card through the
-    `fused_kernel` path, launch counts, and the first 2 clips against an f32
-    CPU run of the same path. Returns (counts, frames/s, scores, ok)."""
-    from tmrnet_torch.config import ModelConfig
+def run_slice(torch, setup, card, fused_kernel, want_per_forward, tag=None):
+    """Phase 4 / 4b / 4h (a): full-width clip inference on the card through
+    the `fused_kernel` path, launch counts, and the first 2 clips against
+    an f32 CPU run of the same path. Returns (counts, frames/s, scores,
+    ok)."""
     from tmrnet_torch.eval.infer import ClipInference
     from tmrnet_torch.kernels.build import LAUNCHES, reset_launches
     from tmrnet_torch.memory.lfb import FeatureBank
 
     ecfg, state, bank = setup["ecfg"], setup["state"], setup["bank"]
     first_rows, requests = setup["first_rows"], setup["requests"]
-    tag = f"{fused_kernel} slice"
+    tag = tag or f"{fused_kernel} slice"
     engine = ClipInference(ecfg, state, bank, device="cuda",
                            fused_kernel=fused_kernel)
     engine.run_batches(requests[:1], first_rows)  # warm-up, not counted
@@ -698,9 +721,8 @@ def run_slice(torch, setup, card, fused_kernel, want_per_forward):
     ok &= scores.shape == (REQUESTS * CLIPS, CLASSES) and bool(np.isfinite(scores).all())
 
     # The first 2 clips of the first timed request on the CPU, in f32.
-    cpu_cfg = ecfg.replace(model=ModelConfig(
-        backbone="resnet50", head="tmr", hidden_dim=HIDDEN, num_classes=CLASSES,
-        compute_dtype="float32", folded=True))
+    cpu_cfg = ecfg.replace(model=dataclasses.replace(
+        ecfg.model, compute_dtype="float32"))
     cpu_bank = FeatureBank(bank.features.float().cpu(), bank.first_rows.cpu())
     cpu_engine = ClipInference(cpu_cfg, state, cpu_bank, device="cpu",
                                fused_kernel=fused_kernel)
@@ -724,15 +746,16 @@ def run_slice(torch, setup, card, fused_kernel, want_per_forward):
     return counts, frames / dt, scores, ok
 
 
-def engine_setup(seed):
-    """The engines' config (the slices' model, device_normalize, 10-frame
-    clips, window 30) and two independently seeded folded weight sets:
-    the TMR model (head tmr) and the extractor (head lfb)."""
+def engine_setup(seed, backbone="resnet50"):
+    """The engines' config (the slices' model with `backbone`,
+    device_normalize, 10-frame clips, window 30) and two independently
+    seeded folded weight sets: the TMR model (head tmr) and the extractor
+    (head lfb)."""
     from tmrnet_torch.config import DataConfig, ExperimentConfig, MemoryConfig, ModelConfig
     from tmrnet_torch.models.convert import from_jax_variables, random_variables
     from tmrnet_torch.models.fold_bn import fold_variables
 
-    cfg = ModelConfig(backbone="resnet50", head="tmr", hidden_dim=HIDDEN,
+    cfg = ModelConfig(backbone=backbone, head="tmr", hidden_dim=HIDDEN,
                       num_classes=CLASSES, compute_dtype="bfloat16", folded=True)
     ecfg = ExperimentConfig(data=DataConfig(device_normalize=True,
                                             sequence_length=SEQ),
@@ -778,6 +801,19 @@ def video_counts(trunk_chunks, head_calls, fused_kernel):
     want = {k: v * 2 * trunk_chunks for k, v in per_trunk.items()}
     want.update(time_conv=head_calls, nl_attention=head_calls)
     return want
+
+
+def corpus_head_calls(lengths):
+    """corpus_heads' head calls over videos of `lengths`: one per group of
+    up to 8 videos with a clip that share a length bucket."""
+    from tmrnet_torch.eval.infer import VideoInference
+
+    groups = {}
+    for n in lengths:
+        if n >= SEQ:
+            b = VideoInference.bucket_frames(n)
+            groups[b] = groups.get(b, 0) + 1
+    return sum(-(-g // 8) for g in groups.values())
 
 
 def run_video_slice(torch, seed, card):
@@ -839,11 +875,7 @@ def run_video_slice(torch, seed, card):
     corpus_chunk = min(2048, total)               # run_corpus's own cut
     blocks = -(-total // corpus_chunk)
     per_block = -(-corpus_chunk // tiled.trunk_chunk(corpus_chunk, (IMG, IMG)))
-    groups = {}
-    for n in lengths:
-        if n >= SEQ:
-            groups[tiled.bucket_frames(n)] = groups.get(tiled.bucket_frames(n), 0) + 1
-    head_calls = sum(-(-g // 8) for g in groups.values())
+    head_calls = corpus_head_calls(lengths)
     reset_launches()
     t0 = time.perf_counter()
     corpus = tiled.run_corpus(videos, chunk=corpus_chunk)
@@ -897,25 +929,28 @@ def run_video_slice(torch, seed, card):
     return counts, block, ok
 
 
-def run_stream_slice(torch, seed, card, video_engine):
-    """Phase 4d: 16 streams, 48 steps of uint8 224x224 frames; stream 3
-    inactive at steps 20-24, stream 5 reset at step 30. Each stream's valid
-    outputs against run_video over the frames it took (split at the
-    reset), inactive slots frozen bit for bit, launches per step; step
+def run_stream_slice(torch, seed, card, video_engine, backbone="resnet50",
+                     per_step=None, tag="stream slice"):
+    """Phase 4d / 4h (b): 16 streams, 48 steps of uint8 224x224 frames
+    through `backbone`; stream 3 inactive at steps 20-24, stream 5 reset
+    at step 30. Each stream's valid outputs against run_video over the
+    frames it took (split at the reset), inactive slots frozen bit for
+    bit, launches per step (`per_step`, default the ResNet path's); step
     p50 / p99 ms and stream-frames/s. Returns (counts, ok)."""
     from tmrnet_torch.eval.stream import StreamingInference
     from tmrnet_torch.kernels.build import LAUNCHES, reset_launches
 
     streams, steps, warm = STREAMS, STREAM_STEPS, 4
     inactive, reset = (3, range(20, 25)), (5, 30)
-    ecfg, weights = engine_setup(seed)
+    ecfg, weights = engine_setup(seed, backbone)
     frames = np.random.default_rng(seed + 4).integers(
         0, 256, (steps, streams, IMG, IMG, 3), dtype=np.uint8)
     engine = StreamingInference(ecfg, *weights, fused_kernel="block")
     state = engine.init_state(streams)
     lives = [[[]] for _ in range(streams)]        # frames taken, per life
     outs = [[[]] for _ in range(streams)]         # valid probs, per life
-    per_step = {"fused_bottleneck": 24, "time_conv": 1, "nl_attention": 1}
+    per_step = per_step or {"fused_bottleneck": 24, "time_conv": 1,
+                            "nl_attention": 1}
     ok, times, taken = True, [], 0
     torch.cuda.synchronize()
     reset_launches()
@@ -952,10 +987,10 @@ def run_stream_slice(torch, seed, card, video_engine):
     want = {k: v * steps for k, v in per_step.items()}
     ok &= counts == want
     ms = np.array(times) * 1e3
-    print(f"stream slice: {streams} streams x {steps} steps, launches {counts} "
+    print(f"{tag}: {streams} streams x {steps} steps, launches {counts} "
           f"(want {want}, each step {per_step}); inactive slots frozen; "
           f"{'ok' if ok else 'FAIL'}")
-    print(f"stream slice: step p50 {np.percentile(ms, 50):.3f} ms, p99 "
+    print(f"{tag}: step p50 {np.percentile(ms, 50):.3f} ms, p99 "
           f"{np.percentile(ms, 99):.3f} ms over {len(ms)} steps after {warm} "
           f"warm-up, {taken / sum(times):.1f} stream-frames/s on {card}")
     flat = [(np.stack(f), o) for s in range(streams)
@@ -996,13 +1031,13 @@ class Client:
         self.sock.close()
 
 
-def full_width_config(folded=True):
-    """The full-width config of phases 4e and 4f: ResNet-50, hidden 512,
-    window 30, 7 classes, bf16, device_normalize, test crop 1, 10-frame
-    clips; BN folded at load where `folded`."""
+def full_width_config(folded=True, backbone="resnet50"):
+    """The full-width config of phases 4e, 4f and 4h: ResNet-50 (or
+    `backbone`), hidden 512, window 30, 7 classes, bf16, device_normalize,
+    test crop 1, 10-frame clips; BN folded at load where `folded`."""
     from tmrnet_torch.config import DataConfig, ExperimentConfig, MemoryConfig, ModelConfig
 
-    model = ModelConfig(backbone="resnet50", head="tmr", hidden_dim=HIDDEN,
+    model = ModelConfig(backbone=backbone, head="tmr", hidden_dim=HIDDEN,
                         num_classes=CLASSES, compute_dtype="bfloat16",
                         folded=folded)
     return ExperimentConfig(
@@ -1011,17 +1046,13 @@ def full_width_config(folded=True):
         model=model, memory=MemoryConfig(window=WINDOW))
 
 
-def write_reference_weights(seed, tmp, cfg):
-    """Two seeded weight sets written as reference `.pth` files by the
-    port's export: the TMR model (head tmr, fc_c scaled by
-    SERVE_LOGIT_SCALE, so that the 7-class softmax spreads) and the
-    extractor (head lfb); and the config JSON. Returns their paths."""
-    import torch
-
+def reference_states(seed, cfg):
+    """Two seeded unfolded weight sets of `cfg.model`: the TMR model (head
+    tmr, fc_c scaled by SERVE_LOGIT_SCALE, so that the 7-class softmax
+    spreads) and the extractor (head lfb), by head."""
     from tmrnet_torch.models.convert import from_jax_variables, random_variables
-    from tmrnet_torch.models.torch_import import export_reference_checkpoint
 
-    paths = {}
+    states = {}
     for k, head in ((200, "tmr"), (300, "lfb")):
         state = from_jax_variables(random_variables(dataclasses.replace(
             cfg.model, head=head, compute_dtype="float32", folded=False),
@@ -1029,6 +1060,19 @@ def write_reference_weights(seed, tmp, cfg):
         if head == "tmr":
             for key in ("fc_c.weight", "fc_c.bias"):
                 state[key] = state[key] * SERVE_LOGIT_SCALE
+        states[head] = state
+    return states
+
+
+def write_reference_weights(seed, tmp, cfg):
+    """`reference_states` written as reference `.pth` files by the port's
+    export, and the config JSON. Returns their paths."""
+    import torch
+
+    from tmrnet_torch.models.torch_import import export_reference_checkpoint
+
+    paths = {}
+    for head, state in reference_states(seed, cfg).items():
         paths[head] = os.path.join(tmp, f"{head}.pth")
         torch.save(export_reference_checkpoint(state, head,
                                                cfg.model.stage_sizes),
@@ -1232,6 +1276,51 @@ def serve_part_a(torch, cfg, tmp, videos, engine, video_engine):
     return counts, summary, ok
 
 
+def serve_daemon(cmd, ticks, frame):
+    """`cmd` (a `serve --listen 127.0.0.1:0` daemon) as a subprocess:
+    once it prints {"ready": true}, streams P and Q send `frame(sid, t)`
+    and a step at each of `ticks`, then SIGTERM. Returns (the rows, its
+    exit code, seconds to ready)."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdin=subprocess.DEVNULL,
+                            stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True)
+    lines = queue.Queue()
+
+    def read():
+        for line in proc.stderr:
+            lines.put(line)
+        lines.put(None)
+
+    threading.Thread(target=read, daemon=True).start()
+    port, startup, rows = None, None, []
+    try:
+        while startup is None:
+            line = lines.get(timeout=SERVE_READY_TIMEOUT)
+            if line is None:
+                raise RuntimeError(f"the daemon exited before it was "
+                                   f"ready: {proc.wait()}")
+            if line.startswith("{"):
+                obj = json.loads(line)
+                port = obj.get("listening", {}).get("port", port)
+                if obj.get("ready"):
+                    startup = time.perf_counter() - t0
+            else:
+                print(f"  daemon: {line.rstrip()}")
+        c = Client(port)
+        for t in ticks:
+            c.send(frame("P", t), frame("Q", t), {"step": True})
+            rows += [c.recv(), c.recv()]
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        c.close()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return rows, rc, startup
+
+
 def serve_part_b(cfg, paths, tmp, engine):
     """Phase 4e, part B: `python -m tmrnet_torch serve` as a subprocess,
     2 streams for 12 ticks over TCP, SIGTERM (exit 0, state.npz left), a
@@ -1253,49 +1342,9 @@ def serve_part_b(cfg, paths, tmp, engine):
     frame = lambda sid, t: {"id": sid, "image": os.path.join(
         tmp, f"v{'PQ'.index(sid)}.npy#{t}")}
 
-    def daemon(ticks):
-        t0 = time.perf_counter()
-        proc = subprocess.Popen(cmd, cwd=ROOT, stdin=subprocess.DEVNULL,
-                                stdout=subprocess.DEVNULL,
-                                stderr=subprocess.PIPE, text=True)
-        lines = queue.Queue()
-
-        def read():
-            for line in proc.stderr:
-                lines.put(line)
-            lines.put(None)
-
-        threading.Thread(target=read, daemon=True).start()
-        port, startup, rows = None, None, []
-        try:
-            while startup is None:
-                line = lines.get(timeout=SERVE_READY_TIMEOUT)
-                if line is None:
-                    raise RuntimeError(f"the daemon exited before it was "
-                                       f"ready: {proc.wait()}")
-                if line.startswith("{"):
-                    obj = json.loads(line)
-                    port = obj.get("listening", {}).get("port", port)
-                    if obj.get("ready"):
-                        startup = time.perf_counter() - t0
-                else:
-                    print(f"  daemon: {line.rstrip()}")
-            c = Client(port)
-            for t in ticks:
-                c.send(frame("P", t), frame("Q", t), {"step": True})
-                rows += [c.recv(), c.recv()]
-            proc.send_signal(signal.SIGTERM)
-            rc = proc.wait(timeout=120)
-            c.close()
-        finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-        return rows, rc, startup
-
-    rows1, rc1, start1 = daemon(range(12))
+    rows1, rc1, start1 = serve_daemon(cmd, range(12), frame)
     saved = os.path.exists(os.path.join(state_dir, "state.npz"))
-    rows2, rc2, start2 = daemon(range(12, 20))
+    rows2, rc2, start2 = serve_daemon(cmd, range(12, 20), frame)
     print(f"serve slice B: daemon exit codes {rc1}, {rc2} (want 0), "
           f"state.npz left {saved}; startup to ready {start1:.2f} s and "
           f"{start2:.2f} s (restart)")
@@ -1441,8 +1490,7 @@ def run_test_slice(torch, seed, card):
     clips/s, frames/s and the loader's share. Returns (counts by path,
     ok)."""
     from tmrnet_torch import cli
-    from tmrnet_torch.eval.infer import (ClipInference, VideoInference,
-                                         plan_trunk_chunk)
+    from tmrnet_torch.eval.infer import ClipInference, plan_trunk_chunk
     from tmrnet_torch.kernels.build import LAUNCHES, reset_launches
     from tmrnet_torch.memory.lfb import load_bank
     from tmrnet_torch.models.resnet import ResNet
@@ -1457,11 +1505,7 @@ def run_test_slice(torch, seed, card):
     chunk = plan_trunk_chunk(
         ResNet((3, 4, 6, 3), 64).activation_elements(IMG, IMG), 2,
         free + torch.cuda.memory_reserved() - torch.cuda.memory_allocated())
-    groups = {}
-    for n in with_clips:                    # corpus_heads' bucket groups
-        b = VideoInference.bucket_frames(n)
-        groups[b] = groups.get(b, 0) + 1
-    corpus_heads = sum(-(-g // 8) for g in groups.values())
+    corpus_heads = corpus_head_calls(TEST_LENGTHS)
     corpus_chunk = min(4096, sum(TEST_LENGTHS))
     want = {
         "lfb-clip": {"fused_bottleneck": 12 * -(-clips // LFB_BATCH)},
@@ -2144,6 +2188,271 @@ def run_train_slice(torch, seed, card):
     return counts, numbers, ok
 
 
+# Phase 4h, the ResNeSt slice: the launches of a ResNeSt forward, step or
+# head call (its blocks have no identity 3x3 conv for #3 or #4 to compute),
+# the daemon's ticks, and the seed offset of its reference `.pth`.
+RESNEST_LAUNCHES = {"time_conv": 1, "nl_attention": 1}
+RESNEST_SERVE_TICKS, RESNEST_SEED = 12, 1400
+
+
+def run_resnest_video(torch, seed, card):
+    """Phase 4h (b), the video part: run_video on one 1,500-frame video of
+    the full-width folded ResNeSt-50 (one #1 and one #2 launch, none of
+    #3 or #4), the peak memory of a trunk chunk at the auto plan against
+    MEMORY_SHARE of what the card can allocate, and bank_features against
+    the extractor run clip-wise at 64 positions. Returns (counts, the
+    engine, numbers, ok)."""
+    from tmrnet_torch.eval.infer import MEMORY_SHARE, VideoInference
+    from tmrnet_torch.kernels.build import LAUNCHES, reset_launches
+
+    ecfg, weights = engine_setup(seed, "resnest50")
+    n = VIDEO_LENGTHS[0]
+    video = np.random.default_rng(seed + 3).integers(
+        0, 256, (n, IMG, IMG, 3), dtype=np.uint8)
+    engine = VideoInference(ecfg, *weights)
+    engine.run_video(video[:64])                  # warm-up, not counted
+    torch.cuda.synchronize()
+    chunk = engine.trunk_chunk(n, (IMG, IMG))
+    reset_launches()
+    t0 = time.perf_counter()
+    preds, probs = engine.run_video(video)
+    dt = time.perf_counter() - t0
+    counts = dict(LAUNCHES)
+    ok = (counts == RESNEST_LAUNCHES and probs.shape == (n - SEQ + 1, CLASSES)
+          and bool(np.isfinite(probs).all()))
+    print(f"resnest video: run_video {n} frames in {dt:.4f} s = "
+          f"{n / dt:.1f} frames/s, trunk chunk {chunk} (auto) on {card}; "
+          f"launches {counts} (want {RESNEST_LAUNCHES}) "
+          f"{'ok' if ok else 'FAIL'}")
+    # Where run_video's time goes (outside the counted run), as in 4c.
+    t0 = time.perf_counter()
+    staged = torch.from_numpy(video).to(engine.device)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    fe, ft = engine.corpus_features([staged])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    engine.corpus_heads(fe, ft, [n])
+    t3 = time.perf_counter()
+    print(f"resnest video: run_video split: copy to the card "
+          f"{(t1 - t0) * 1e3:.1f} ms, both trunks {(t2 - t1) * 1e3:.1f} ms, "
+          f"LSTMs + head + copy back {(t3 - t2) * 1e3:.1f} ms")
+    del staged, fe, ft
+
+    # One trunk chunk at the auto plan: the plan's frames (the video, then
+    # its start again) through the TMR trunk, peak over what was allocated
+    free, _ = torch.cuda.mem_get_info()
+    available = (free + torch.cuda.memory_reserved()
+                 - torch.cuda.memory_allocated())
+    frames = torch.from_numpy(np.resize(video, (chunk, IMG, IMG, 3))).cuda()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        feats = engine.model.backbone(engine.prep(frames))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    good = bool(torch.isfinite(feats).all()) and peak <= MEMORY_SHARE * available
+    print(f"resnest video: a {chunk}-frame trunk chunk peaks at "
+          f"{peak / 2**30:.3f} GiB over its input (limit MEMORY_SHARE "
+          f"{MEMORY_SHARE} x {available / 2**30:.3f} GiB allocatable) on "
+          f"{card} {'ok' if good else 'FAIL'}")
+    ok &= good
+    del frames, feats
+
+    k = n - SEQ + 1
+    rng = np.random.default_rng(seed + 5)
+    positions = np.unique(np.concatenate([[0, 1, k - 1], rng.choice(
+        np.arange(2, k - 1), min(61, k - 3), replace=False)]))
+    clips = np.stack([video[p:p + SEQ] for p in positions])
+    bank = engine.bank_features(video)
+    with torch.inference_mode():
+        clipwise = engine.extractor(engine.prep(
+            torch.from_numpy(clips).to(engine.device)))
+    ok &= compare(torch, f"resnest bank_features vs LFBExtractor clip-wise at "
+                  f"{len(positions)} positions",
+                  bank[torch.from_numpy(positions).to(engine.device)],
+                  clipwise)[1]
+    del bank, clipwise
+    torch.cuda.empty_cache()
+    return counts, engine, {"frames_s": n / dt, "chunk": chunk,
+                            "peak_gib": peak / 2**30}, ok
+
+
+def run_resnest_reference(torch, seed, card):
+    """Phase 4h (c): seeded ResNeSt weights exported as reference `.pth`
+    in the resnest package's naming, then `manifest`, `build-lfb` (clip)
+    and `test` (clip over that bank, corpus) with `--set
+    model.backbone=resnest50 --set model.folded=true` through
+    `tmrnet_torch.cli.main` over phase 4f's packed videos: exact launch
+    counts, each softmax against the same engine built in memory from the
+    unexported weights, the two engines against each other; then `python
+    -m tmrnet_torch serve` from the same `.pth`, 2 streams for
+    RESNEST_SERVE_TICKS ticks, its rows against an in-process serve_loop
+    within RESUME_TOL. Returns (counts by path, ok)."""
+    import io
+
+    from tmrnet_torch import cli
+    from tmrnet_torch.eval.infer import ClipInference
+    from tmrnet_torch.eval.serve import serve_loop
+    from tmrnet_torch.eval.stream import StreamingInference
+    from tmrnet_torch.kernels.build import LAUNCHES, reset_launches
+    from tmrnet_torch.models.fold_bn import fold_variables
+    from tmrnet_torch.train.loop import build_lfb
+
+    clips = sum(max(0, n - SEQ + 1) for n in TEST_LENGTHS)
+    heads = corpus_head_calls(TEST_LENGTHS)
+    per = lambda calls: {k: v * calls for k, v in RESNEST_LAUNCHES.items()}
+    want = {"resnest-lfb-clip": {},
+            "resnest-test-clip": per(-(-clips // TEST_BATCH)),
+            "resnest-test-corpus": per(heads)}
+    counts, ok = {}, True
+    os.makedirs(ROOT_TMP, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="resnest-", dir=ROOT_TMP) as tmp:
+        # the config JSON holds ResNet-50; the commands' --set picks ResNeSt
+        cfg = full_width_config(folded=False, backbone="resnest50")
+        paths = write_reference_weights(seed + RESNEST_SEED, tmp, cfg)
+        with open(paths["config"], "w") as f:
+            f.write(full_width_config(folded=False).to_json())
+        sd = torch.load(paths["tmr"], weights_only=True)
+        named = all(k in sd for k in (
+            "share.conv1.0.weight", "share.conv1.6.weight", "share.bn1.weight",
+            "share.layer1.0.conv2.fc1.weight", "share.layer2.0.downsample.1.weight"))
+        print(f"resnest reference: .pth in the resnest package's naming "
+              f"({len(sd)} keys, {os.path.getsize(paths['tmr']) / 1e6:.1f} MB) "
+              f"{'ok' if named else 'FAIL'}")
+        ok &= named
+        del sd
+        write_test_videos(seed, tmp)
+        out = lambda name: os.path.join(tmp, name)
+        m = out("m.pkl")
+        common = ["--config", paths["config"], "--set",
+                  "model.backbone=resnest50", "--set", "model.folded=true"]
+        run_cli(["manifest", "--config", paths["config"], "--frames",
+                 out("frames"), "--annotations", out("ann"), "--out", m])
+        _, counts["resnest-lfb-clip"], dt = run_cli(
+            ["build-lfb", *common, "--manifest", m, "--torch-ckpt",
+             paths["lfb"], "--engine", "clip", "--out", out("bank.npz")])
+        print(f"resnest reference: build-lfb --engine clip {SEQ * clips} "
+              f"frames in {dt:.3f} s = {SEQ * clips / dt:.1f} frames/s on {card}")
+        scores, preds = {}, {}
+        for engine in ("clip", "corpus"):
+            extra = ["--lfb", out("bank.npz")] if engine == "clip" else []
+            _, counts[f"resnest-test-{engine}"], dt = run_cli(
+                ["test", *common, "--manifest", m, "--torch-ckpt",
+                 paths["tmr"], "--extractor-torch-ckpt", paths["lfb"],
+                 "--engine", engine, *extra, "--out", out(f"{engine}.npz")])
+            with np.load(out(f"{engine}.npz")) as z:
+                scores[engine], preds[engine] = z["scores"], z["preds"]
+            print(f"resnest reference: test --engine {engine}: {clips} clips "
+                  f"in {dt:.3f} s = {clips / dt:.1f} clips/s on {card}")
+        for path, got in counts.items():
+            good = got == want[path]
+            print(f"  {path}: launches {got} (want {want[path]}) "
+                  f"{'ok' if good else 'FAIL'}")
+            ok &= good
+        ok &= all(scores[e].shape == (clips, CLASSES)
+                  and bool(np.isfinite(scores[e]).all()) for e in scores)
+
+        # the same engines in memory, from the weights before their export
+        fcfg = cfg.replace(model=dataclasses.replace(cfg.model, folded=True))
+        states = reference_states(seed + RESNEST_SEED, cfg)
+        state = fold_variables(states["tmr"])
+        ext = fold_variables({k: v for k, v in states["lfb"].items()
+                              if k.startswith(("backbone.", "encoder."))})
+        manifest = cli.load_manifest(m)
+        ds = cli.dataset(fcfg, manifest)
+        bank = build_lfb(fcfg, ext, ds, cache_path=out("mem.npz"), force=True)
+        mem = {"clip": ClipInference(fcfg, state, bank).run(ds).scores}
+        ccfg = fcfg.replace(eval=dataclasses.replace(fcfg.eval, corpus=True))
+        mem["corpus"] = np.concatenate([r[1] for r in cli._video_engine_results(
+            ccfg, state, ext, manifest, "cuda")])
+        del bank
+        for engine in scores:
+            ok &= probs_close(f"resnest test --engine {engine} vs the engine "
+                              f"in memory", scores[engine], mem[engine])
+        ok &= probs_close("resnest test corpus vs clip", scores["corpus"],
+                          scores["clip"])
+        ok &= argmax_agrees("resnest test corpus vs clip", preds["corpus"],
+                            preds["clip"], scores["clip"], min_decided=1)
+
+        # the daemon from the same .pth, against serve_loop in this process
+        video = lambda sid: out(f"frames/video0{'PQ'.index(sid) + 1}.npy")
+        frame = lambda sid, t: {"id": sid, "image": f"{video(sid)}#{t}"}
+        ticks = range(RESNEST_SERVE_TICKS)
+        cmd = [sys.executable, "-m", "tmrnet_torch", "serve", "--torch-ckpt",
+               paths["tmr"], "--extractor-torch-ckpt", paths["lfb"], *common,
+               "--slots", "2", "--listen", "127.0.0.1:0", "--probs"]
+        rows, rc, ready = serve_daemon(cmd, ticks, frame)
+        engine = StreamingInference(fcfg, state, ext)
+        text = "".join(json.dumps(o) + "\n" for t in ticks for o in
+                       (frame("P", t), frame("Q", t), {"step": True}))
+        sink = io.StringIO()
+        torch.cuda.synchronize()
+        reset_launches()
+        serve_loop(engine, 2, io.StringIO(text), sink, cli.frame_loader(fcfg),
+                   emit_probs=True)
+        counts["resnest-serve"] = dict(LAUNCHES)
+        good = counts["resnest-serve"] == per(len(ticks))
+        print(f"  resnest-serve (in process): launches "
+              f"{counts['resnest-serve']} over {len(ticks)} ticks (want "
+              f"{per(len(ticks))}) {'ok' if good else 'FAIL'}")
+        ok &= good
+        inproc = [json.loads(line) for line in sink.getvalue().splitlines()]
+        valid = [(g, w) for g, w in zip(rows, inproc) if w["valid"]]
+        good = (rc == 0 and len(rows) == len(inproc) == 2 * len(ticks)
+                and [{k: r.get(k) for k in ("id", "frame", "valid")}
+                     for r in rows]
+                == [{k: r[k] for k in ("id", "frame", "valid")} for r in inproc]
+                and len(valid) == 2 * (len(ticks) - SEQ + 1))
+        print(f"resnest reference: serve daemon exit {rc}, ready after "
+              f"{ready:.2f} s, {len(rows)} rows with ids/frames/valid as in "
+              f"process {'ok' if good else 'FAIL'}")
+        ok &= good and probs_close(
+            "resnest daemon vs in-process rows", [g["probs"] for g, _ in valid],
+            np.array([w["probs"] for _, w in valid]), RESUME_TOL)
+        del engine, state, ext, states
+    torch.cuda.empty_cache()
+    return counts, ok
+
+
+def run_resnest_slice(torch, seed, card):
+    """Phase 4h: the ResNeSt-50 slice at full width. (a) the clip slice of
+    phase 4 through ClipInference; (b) run_video with its trunk chunk's
+    peak memory and bank_features (`run_resnest_video`), then the stream
+    slice of phase 4d, each stream against run_video; (c) the reference
+    `.pth`, `test` and `serve` (`run_resnest_reference`). Returns (counts
+    by path, ok)."""
+    t0 = time.perf_counter()
+    setup = slice_setup(torch, seed, "resnest50")
+    counts = {}
+    counts["resnest-clip"], rate, _, ok = run_slice(
+        torch, setup, card, "block", RESNEST_LAUNCHES, tag="resnest clip slice")
+    del setup
+    torch.cuda.empty_cache()
+    counts["resnest-video"], engine, video, ok_v = run_resnest_video(
+        torch, seed, card)
+    counts["resnest-stream"], ok_s = run_stream_slice(
+        torch, seed, card, engine, "resnest50", RESNEST_LAUNCHES,
+        "resnest stream slice")
+    del engine
+    torch.cuda.empty_cache()
+    test_counts, ok_r = run_resnest_reference(torch, seed, card)
+    counts.update(test_counts)
+    fused = {k: sum(c.get(k, 0) for c in counts.values())
+             for k in ("fused_bottleneck", "fused_bottleneck_tiled")}
+    print(f"resnest slice: fused-bottleneck launches over its "
+          f"{len(counts)} paths {fused} (want 0 each) "
+          f"{'ok' if not any(fused.values()) else 'FAIL'}")
+    ok &= ok_v and ok_s and ok_r and not any(fused.values())
+    print(f"resnest slice: clip {rate:.1f} frames/s, run_video "
+          f"{video['frames_s']:.1f} frames/s, a {video['chunk']}-frame trunk "
+          f"chunk {video['peak_gib']:.3f} GiB peak, in "
+          f"{time.perf_counter() - t0:.1f} s on {card} "
+          f"{'ok' if ok else 'FAIL'}")
+    return counts, ok
+
+
 def run_gate(torch, seed, card):
     """Phase 5: the int8 gate at B = 128 over the four stages: the int8
     bottleneck chain through the kernels against the same chain through the
@@ -2245,9 +2554,11 @@ def main():
     by_path.update(test_counts)
     train_counts, _, ok_train = run_train_slice(torch, args.seed, card)
     by_path.update(train_counts)
+    resnest_counts, ok_resnest = run_resnest_slice(torch, args.seed, card)
+    by_path.update(resnest_counts)
     by_path["gate"], ok_gate = run_gate(torch, args.seed, card)
     ok = (ok_block and ok_tiled and ok_paths and ok_video and ok_stream
-          and ok_serve and ok_test and ok_train and ok_gate)
+          and ok_serve and ok_test and ok_train and ok_resnest and ok_gate)
     for rec in records:
         rec["launches_by_path"] = {p: c[rec["name"]] for p, c in by_path.items()
                                    if rec["name"] in c}

@@ -1,8 +1,9 @@
 """The port's Hopper kernels on the card, against their plain versions on
 the same inputs; wrapper checks and launch counts; a small folded
-ResNet-50 TMRNet on the card, on the block and the tiled fused path,
+ResNet-50 TMRNet on the card, on the block and the tiled fused path, and a
+ResNeSt-50 one (folded and not; its trunk launches no fused kernel),
 against the same model in f32 on the CPU; and the video and stream engines
-on the card against the video engine in f32 on the CPU.
+(on both trunks) on the card against the video engine in f32 on the CPU.
 
 Needs a CUDA card and skips without one. The card has no JAX, so this file
 imports none and runs without the repository's conftest:
@@ -276,15 +277,18 @@ def test_launch_counts(gen):
                               "fused_bottleneck": 1}
 
 
-def _folded_resnet50_card_vs_cpu(fused_kernel):
+def _folded_resnet50_card_vs_cpu(fused_kernel, backbone="resnet50",
+                                 folded=True):
     from tmrnet_torch.config import ModelConfig
     from tmrnet_torch.models.convert import from_jax_variables, random_variables
     from tmrnet_torch.models.fold_bn import fold_variables
     from tmrnet_torch.models.tmrnet import build_model
 
-    kw = dict(backbone="resnet50", hidden_dim=512, head="tmr", folded=True)
-    state = fold_variables(from_jax_variables(random_variables(
-        ModelConfig(**dict(kw, folded=False)), seed=1)))
+    kw = dict(backbone=backbone, hidden_dim=512, head="tmr", folded=folded)
+    state = from_jax_variables(random_variables(
+        ModelConfig(**dict(kw, folded=False)), seed=1))
+    if folded:
+        state = fold_variables(state)
     card = build_model(ModelConfig(**kw, compute_dtype="bfloat16"),
                        fused_kernel=fused_kernel)
     card.load_state_dict(state, strict=True)
@@ -312,6 +316,57 @@ def test_folded_resnet50_tiled_path_on_card_matches_cpu(gen):
     assert _folded_resnet50_card_vs_cpu("tiled") == {
         "fused_bottleneck_tiled": 10, "fused_bottleneck": 2, "time_conv": 1,
         "nl_attention": 1}
+
+
+@pytest.mark.parametrize("folded", [True, False])
+@pytest.mark.parametrize("fused_kernel", ["block", "tiled"])
+def test_resnest50_tmrnet_on_card_matches_cpu(gen, fused_kernel, folded):
+    assert _folded_resnet50_card_vs_cpu(fused_kernel, "resnest50", folded) == {
+        "time_conv": 1, "nl_attention": 1}
+
+
+def test_resnest_video_and_stream_engines_on_card_match_cpu(gen):
+    """The video engine (in trunk chunks of 5 frames) and a 2-stream
+    StreamingInference on a folded ResNeSt at ResNeSt-50's widths, one
+    block a stage, on the card against the video engine in f32 on the
+    CPU; one time_conv and one nl_attention a head call or a step, and no
+    fused-bottleneck launch."""
+    from tmrnet_torch.config import (DataConfig, ExperimentConfig,
+                                     MemoryConfig, ModelConfig)
+    from tmrnet_torch.eval.infer import VideoInference
+    from tmrnet_torch.eval.stream import StreamingInference
+    from tmrnet_torch.models.convert import from_jax_variables, random_variables
+    from tmrnet_torch.models.fold_bn import fold_variables
+
+    kw = dict(backbone="resnest50", stage_sizes=(1, 1, 1, 1), hidden_dim=512,
+              head="tmr")
+    weights = [fold_variables(from_jax_variables(random_variables(
+        ModelConfig(**dict(kw, head=head)), seed))) for head, seed in
+        (("tmr", 1), ("lfb", 2))]
+    cfg = lambda cdt: ExperimentConfig(
+        data=DataConfig(device_normalize=True),
+        model=ModelConfig(**kw, folded=True, compute_dtype=cdt),
+        memory=MemoryConfig(window=30))
+    rng = np.random.default_rng(3)
+    videos = [rng.integers(0, 256, (12, 64, 64, 3), dtype=np.uint8)
+              for _ in range(2)]
+    want = [VideoInference(cfg("float32"), *weights, device="cpu")
+            .run_video(v)[1] for v in videos]
+    card = VideoInference(cfg("bfloat16"), *weights, backbone_chunk=5)
+    reset_launches()
+    _, got = card.run_video(videos[0])
+    assert dict(LAUNCHES) == {"time_conv": 1, "nl_attention": 1}
+    assert np.abs(got - want[0]).max() <= REL
+    stream = StreamingInference(cfg("bfloat16"), *weights)
+    state, outs = stream.init_state(2), []
+    for t in range(12):
+        reset_launches()
+        state, _, probs, valid = stream.step(
+            state, torch.from_numpy(np.stack([v[t] for v in videos])).cuda())
+        assert dict(LAUNCHES) == {"time_conv": 1, "nl_attention": 1}
+        outs.append(probs.cpu().numpy())
+    got = np.stack(outs[9:], axis=1)                  # (streams, clips, C)
+    assert np.abs(got - np.stack(want)).max() <= REL
 
 
 def test_video_and_stream_engines_on_card_match_cpu(gen):

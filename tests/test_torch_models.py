@@ -227,7 +227,8 @@ def _shapes(tree, prefix=""):
 @pytest.mark.parametrize("backbone,head", [("resnet50", "tmr"),
                                            ("tiny", "nl_only"),
                                            ("tiny", "stage1"),
-                                           ("resnet50", "lfb")])
+                                           ("resnet50", "lfb"),
+                                           ("resnest50", "tmr")])
 def test_random_variables_have_the_flax_tree(backbone, head):
     kw = dict(backbone=backbone, hidden_dim=32, head=head,
               compute_dtype="float32")

@@ -8,7 +8,10 @@ for bit, what `from_jax_variables` makes of JAX's conversion; the port's
 export must give back the reference dict exactly (and equal JAX's export).
 A real `torch.save` with a `state_dict` wrapper and DataParallel `module.`
 prefixes loads through `load_torch_state_dict`. A checkpoint missing a key
-the head needs, and a ResNeSt trunk, raise. `.pkl` banks (numpy and torch)
+the head needs raises. A ResNeSt trunk in the resnest package's naming
+(`share.` or a bare ImageNet trunk) converts as JAX's conversion does, and
+the port's export of a ResNeSt model equals JAX's and reads back to the
+same state dict. `.pkl` banks (numpy and torch)
 load as JAX's do, a wrong row count raises, and a pickle of any other
 object is refused. Exact comparisons: the
 map only renames."""
@@ -39,14 +42,14 @@ STAGES = (1, 1, 1, 1)
 HEADS = ["stage1", "lfb", "tmr", "nl_only"]
 
 
-def _cfg(head):
-    return ModelConfig(backbone="resnet50", stage_sizes=STAGES, width=8,
+def _cfg(head, backbone="resnet50"):
+    return ModelConfig(backbone=backbone, stage_sizes=STAGES, width=8,
                        hidden_dim=16, num_classes=5, head=head,
                        compute_dtype="float32")
 
 
-def _reference(head, seed=3):
-    variables = random_variables(_cfg(head), seed)
+def _reference(head, seed=3, backbone="resnet50"):
+    variables = random_variables(_cfg(head, backbone), seed)
     return variables, jax_import.export_reference_checkpoint(variables, head,
                                                              STAGES)
 
@@ -73,6 +76,25 @@ def test_convert_equals_jax_conversion_and_exports_back(head):
     _assert_same(back, torch_sd)
 
 
+@pytest.mark.parametrize("head", HEADS)
+def test_resnest_export_equals_jax_and_reads_back(head):
+    """The port's export of a ResNeSt state dict equals JAX's export of
+    the same variables (the deep stem as `conv1.{0,1,3,4,6}` and `bn1`,
+    the split attention's fc1 / fc2 as 1x1 convs, the shortcut at
+    `downsample.{1,2}`), and the import reads it back to the state dict,
+    which the model loads."""
+    variables, want = _reference(head, seed=5, backbone="resnest50")
+    state = from_jax_variables(variables)
+    sd = export_reference_checkpoint(state, head, STAGES)
+    _assert_same(sd, {k: torch.from_numpy(v) for k, v in want.items()})
+    assert sd["share.layer1.0.conv2.fc1.weight"].dim() == 4
+    assert "share.layer2.0.downsample.1.weight" in sd
+    back = convert_reference_checkpoint(sd, head, STAGES)
+    _assert_same(back, state)
+    build_model(_cfg(head, "resnest50"), device="cpu").load_state_dict(
+        back, strict=True)
+
+
 @pytest.mark.parametrize("wrap", ["bare", "state_dict", "module_prefix"])
 def test_load_torch_state_dict_unwraps(tmp_path, wrap):
     _, sd = _reference("tmr")
@@ -93,14 +115,32 @@ def test_load_torch_state_dict_unwraps(tmp_path, wrap):
 @pytest.mark.parametrize("case", ["missing_head", "missing_lstm", "shape",
                                   "resnest_share", "resnest_bare"])
 def test_incomplete_or_unported_checkpoints_raise(case):
+    if case.startswith("resnest"):
+        # a resnest-package trunk, with the `share.` prefix and the head or
+        # as a bare ImageNet trunk with a 1000-class fc: JAX's conversion,
+        # and a missing key named as a ResNet one is
+        _, sd = _reference("tmr", backbone="resnest50")
+        if case == "resnest_bare":
+            sd = {k[len("share."):]: v for k, v in sd.items()
+                  if k.startswith("share.")}
+            sd["fc.weight"] = np.zeros((1000, 64), np.float32)
+        state = convert_reference_checkpoint(
+            {k: torch.from_numpy(v) for k, v in sd.items()}, "tmr", STAGES)
+        _assert_same(state, from_jax_variables(
+            jax_import.convert_reference_checkpoint(sd, "tmr", STAGES)))
+        cfg = _cfg("tmr", "resnest50")
+        if case == "resnest_share":
+            require_complete(state, cfg)
+            del state["backbone.layer2_0.splat.bn1.running_var"]
+            missing = "backbone.layer2_0.splat.bn1.running_var"
+        else:
+            assert all(k.startswith("backbone.") for k in state)
+            missing = "encoder.lstm.weight_ih"
+        with pytest.raises(KeyError, match=missing):
+            require_complete(state, cfg)
+        return
     _, sd = _reference("tmr")
     sd = {k: torch.from_numpy(v) for k, v in sd.items()}
-    if case.startswith("resnest"):
-        key = "share.conv1.0.weight" if case == "resnest_share" else "conv1.0.weight"
-        with pytest.raises(ValueError, match="ResNeSt is not ported"):
-            convert_reference_checkpoint(dict(sd, **{key: sd["share.conv1.weight"]}),
-                                         "tmr", STAGES)
-        return
     if case == "missing_head":
         del sd["fc_c.weight"], sd["time_conv.timeconv2.bias"]
         state = convert_reference_checkpoint(sd, "tmr", STAGES)

@@ -91,8 +91,8 @@ class DataConfig:
 class ModelConfig:
     """Backbone + temporal head architecture."""
 
-    backbone: str = "resnet50"  # resnet50 | tiny (tests)
-    # ResNet stage depths; (3,4,6,3) = ResNet-50.
+    backbone: str = "resnet50"  # resnet50 | resnest50 | tiny (tests)
+    # Stage depths; (3,4,6,3) = ResNet-50 or ResNeSt-50.
     stage_sizes: Tuple[int, ...] = (3, 4, 6, 3)
     width: int = 64
     hidden_dim: int = 512  # LSTM hidden size

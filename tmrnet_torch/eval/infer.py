@@ -211,8 +211,8 @@ MEMORY_SHARE = 0.5
 def plan_trunk_chunk(frame_elements: int, itemsize: int,
                      available_bytes: Optional[int] = None) -> int:
     """The auto trunk chunk: the largest power of two of frames whose
-    largest activation (`frame_elements` a frame, `ResNet.
-    activation_elements`) stays within INDEX_LIMIT elements, that
+    largest activation (`frame_elements` a frame, the backbone's
+    `activation_elements`) stays within INDEX_LIMIT elements, that
     fused_bottleneck takes (MAX_IMAGES), and, given `available_bytes`,
     whose LIVE_ACTIVATIONS such tensors of `itemsize` bytes fit in
     MEMORY_SHARE of them. At 224^2 (802,816 elements a frame) the index

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from tmrnet_torch.config import ModelConfig
+from tmrnet_torch.models.resnest import MIN_INTER, RADIX, REDUCTION, STEM_WIDTH
 
 _KERNEL_PERM = {4: (3, 2, 0, 1), 3: (2, 1, 0), 2: (1, 0)}
 
@@ -105,8 +106,11 @@ def random_variables(cfg: ModelConfig, seed: int = 0) -> Dict[str, Any]:
     generator at `seed`: the backbone and `encoder.lstm` for every head,
     plus `fc` (head stage1), or the memory head (tmr: `time_conv`,
     `nl_block`, `fc_h_c`, `fc_c`; nl_only the same without `time_conv`);
-    head lfb has nothing more. Scales keep activations O(1) through a deep
-    trunk: He-normal convs, the last BatchNorm of each residual branch
+    head lfb has nothing more. The backbone is ResNet (`resnet50`, `tiny`)
+    or ResNeSt (`resnest50`: the deep stem, and in each block's `splat` a
+    grouped conv, `bn0`, the dense `fc1`, `bn1` and the dense `fc2`).
+    Scales keep activations O(1) through a deep trunk: He-normal convs
+    (fan-in k*k*Cin/groups), the last BatchNorm of each residual branch
     scaled by 0.25, Xavier LSTM and dense kernels."""
     rng = np.random.default_rng(seed)
     f32 = lambda a: np.asarray(a, np.float32)
@@ -127,31 +131,64 @@ def random_variables(cfg: ModelConfig, seed: int = 0) -> Dict[str, Any]:
         return {"kernel": uniform((din, dout), -lim, lim),
                 "bias": normal((dout,), 0.02)}
 
-    if cfg.backbone == "resnet50":
-        stage_sizes, width = tuple(cfg.stage_sizes), cfg.width
-    elif cfg.backbone == "tiny":
-        stage_sizes, width = (1, 1), 8
-    else:
-        raise ValueError(f"backbone {cfg.backbone!r} is not ported")
-    bp: Dict[str, Any] = {"conv1": conv(7, 3, width)}
+    def shortcut(p, s, cin, cout, strides):
+        if strides != 1 or cin != cout:
+            p["downsample_conv"] = conv(1, cin, cout)
+            p["downsample_bn"], s["downsample_bn"] = bn(cout, 0.25)
+
+    def resnet_block(cin, planes, strides):
+        p: Dict[str, Any] = {"conv1": conv(1, cin, planes),
+                             "conv2": conv(3, planes, planes),
+                             "conv3": conv(1, planes, planes * 4)}
+        s: Dict[str, Any] = {}
+        p["bn1"], s["bn1"] = bn(planes)
+        p["bn2"], s["bn2"] = bn(planes)
+        p["bn3"], s["bn3"] = bn(planes * 4, 0.25)
+        shortcut(p, s, cin, planes * 4, strides)
+        return p, s
+
+    def resnest_block(cin, planes, strides):
+        # the split attention: a grouped 3x3 conv (RADIX groups), then
+        # two dense layers
+        r, inter = RADIX, max(planes * RADIX // REDUCTION, MIN_INTER)
+        sp: Dict[str, Any] = {"conv": conv(3, planes // r, planes * r),
+                              "fc1": dense(planes, inter),
+                              "fc2": dense(inter, planes * r)}
+        ss: Dict[str, Any] = {}
+        sp["bn0"], ss["bn0"] = bn(planes * r)
+        sp["bn1"], ss["bn1"] = bn(inter)
+        p: Dict[str, Any] = {"conv1": conv(1, cin, planes), "splat": sp,
+                             "conv3": conv(1, planes, planes * 4)}
+        s: Dict[str, Any] = {"splat": ss}
+        p["bn1"], s["bn1"] = bn(planes)
+        p["bn3"], s["bn3"] = bn(planes * 4, 0.25)
+        shortcut(p, s, cin, planes * 4, strides)
+        return p, s
+
+    bp: Dict[str, Any] = {}
     bs: Dict[str, Any] = {}
-    bp["bn1"], bs["bn1"] = bn(width)
-    cin = width
+    if cfg.backbone == "resnest50":
+        stage_sizes, width, block = tuple(cfg.stage_sizes), cfg.width, resnest_block
+        sw = STEM_WIDTH
+        for i, (ci, co) in enumerate(((3, sw), (sw, sw), (sw, 2 * sw)), 1):
+            bp[f"stem_conv{i}"] = conv(3, ci, co)
+            bp[f"stem_bn{i}"], bs[f"stem_bn{i}"] = bn(co)
+        cin = 2 * sw
+    elif cfg.backbone in ("resnet50", "tiny"):
+        stage_sizes, width = ((1, 1), 8) if cfg.backbone == "tiny" else (
+            tuple(cfg.stage_sizes), cfg.width)
+        block = resnet_block
+        bp["conv1"] = conv(7, 3, width)
+        bp["bn1"], bs["bn1"] = bn(width)
+        cin = width
+    else:
+        raise ValueError(f"unknown backbone {cfg.backbone!r}")
     for l, n_blocks in enumerate(stage_sizes):
         planes = width * 2 ** l
         for i in range(n_blocks):
             strides = 2 if l > 0 and i == 0 else 1
-            p: Dict[str, Any] = {"conv1": conv(1, cin, planes),
-                                 "conv2": conv(3, planes, planes),
-                                 "conv3": conv(1, planes, planes * 4)}
-            s: Dict[str, Any] = {}
-            p["bn1"], s["bn1"] = bn(planes)
-            p["bn2"], s["bn2"] = bn(planes)
-            p["bn3"], s["bn3"] = bn(planes * 4, 0.25)
-            if strides != 1 or cin != planes * 4:
-                p["downsample_conv"] = conv(1, cin, planes * 4)
-                p["downsample_bn"], s["downsample_bn"] = bn(planes * 4, 0.25)
-            bp[f"layer{l + 1}_{i}"], bs[f"layer{l + 1}_{i}"] = p, s
+            bp[f"layer{l + 1}_{i}"], bs[f"layer{l + 1}_{i}"] = block(
+                cin, planes, strides)
             cin = planes * 4
 
     h = cfg.hidden_dim

@@ -47,9 +47,11 @@ def check_fused_kernel(kernel: str) -> str:
 
 
 def conv(layer: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """The layer's conv in x's dtype, its weight and bias cast to it;
+    grouped where the layer is (ResNeSt's split-attention conv)."""
     bias = None if layer.bias is None else layer.bias.to(x.dtype)
     return F.conv2d(x, layer.weight.to(x.dtype), bias, layer.stride,
-                    layer.padding)
+                    layer.padding, layer.dilation, layer.groups)
 
 
 def batch_norm(layer: nn.BatchNorm2d, x: torch.Tensor,

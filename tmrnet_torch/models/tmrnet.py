@@ -23,11 +23,13 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
+from torch.nn.modules.batchnorm import _BatchNorm
 
 from tmrnet_torch.config import ModelConfig
 from tmrnet_torch.device import resolve_device, torch_dtype
 from tmrnet_torch.models.blocks import NLBlock, TimeConv, dense, dropout
 from tmrnet_torch.models.lstm import LSTM
+from tmrnet_torch.models.resnest import ResNeSt, SplitAttention
 from tmrnet_torch.models.resnet import ResNet
 
 HEADS = ("stage1", "lfb", "tmr", "nl_only")
@@ -54,7 +56,7 @@ class ClipEncoder(nn.Module):
 class MemoryBankModel(nn.Module):
     """Stage-1 model: logits for every step, (B, T, classes)."""
 
-    def __init__(self, backbone: ResNet, num_classes: int = 7,
+    def __init__(self, backbone: nn.Module, num_classes: int = 7,
                  hidden_dim: int = 512,
                  compute_dtype: torch.dtype = torch.float32,
                  dropout: float = 0.2):
@@ -75,7 +77,7 @@ class LFBExtractor(nn.Module):
     """Clip-feature extractor for the LFB build: the last LSTM step,
     (B, hidden)."""
 
-    def __init__(self, backbone: ResNet, hidden_dim: int = 512,
+    def __init__(self, backbone: nn.Module, hidden_dim: int = 512,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.backbone = backbone
@@ -88,7 +90,7 @@ class LFBExtractor(nn.Module):
 
 
 class TMRNet(nn.Module):
-    def __init__(self, backbone: ResNet, num_classes: int = 7,
+    def __init__(self, backbone: nn.Module, num_classes: int = 7,
                  hidden_dim: int = 512, use_time_conv: bool = True,
                  compute_dtype: torch.dtype = torch.float32,
                  dropout: float = 0.5, dropout_nl: float = 0.2):
@@ -126,18 +128,25 @@ class TMRNet(nn.Module):
         return self.head(ys[:, -1, :], long_feature, train, generator)
 
 
-def build_backbone(cfg: ModelConfig, fused_kernel: str = "block") -> ResNet:
-    """fused_kernel: the folded identity blocks' kernel, "block" or "tiled"
-    (`models/resnet.py`; JAX's `fused_tmr_apply(kernel=...)`,
+def build_backbone(cfg: ModelConfig, fused_kernel: str = "block"
+                   ) -> nn.Module:
+    """The backbone of `cfg`: ResNet (`resnet50`, `tiny`) or ResNeSt
+    (`resnest50`, stem width 32 whatever `cfg.width`, as JAX builds it).
+    fused_kernel: the folded ResNet identity blocks' kernel, "block" or
+    "tiled" (`models/resnet.py`; JAX's `fused_tmr_apply(kernel=...)`,
     `tmrnet_tpu/experimental/fused_resnet.py:111-144`). A keyword, not a
-    config field: JAX's ModelConfig has none."""
+    config field: JAX's ModelConfig has none. ResNeSt checks it and runs
+    neither kernel: it has no identity block they compute."""
     cdt = torch_dtype(cfg.compute_dtype)
     if cfg.backbone == "resnet50":
         return ResNet(tuple(cfg.stage_sizes), cfg.width, cfg.folded, cdt,
                       fused_kernel)
+    if cfg.backbone == "resnest50":
+        return ResNeSt(tuple(cfg.stage_sizes), cfg.width, cfg.folded, cdt,
+                       fused_kernel)
     if cfg.backbone == "tiny":
         return ResNet((1, 1), 8, cfg.folded, cdt, fused_kernel)
-    raise ValueError(f"backbone {cfg.backbone!r} is not ported")
+    raise ValueError(f"unknown backbone {cfg.backbone!r}")
 
 
 def _build_on_meta(cfg: ModelConfig, fused_kernel: str = "block") -> nn.Module:
@@ -185,11 +194,12 @@ def init_state_dict(cfg: ModelConfig, seed: int = 0) -> Dict[str, torch.Tensor]:
     """Fresh unfolded weights for the model of `cfg`, on the CPU, from a
     torch generator at `seed`, drawn from the distributions of flax's
     initialisers in the JAX modules: convs lecun-normal (truncated normal,
-    variance 1/fan_in, fan_in = k*k*Cin or k*Cin), Dense kernels
-    xavier-uniform, the LSTM's kernels xavier-normal (truncated, variance
-    2/(fan_in + fan_out)), every bias and BN shift 0, BN and LayerNorm
-    scales 1, BN running means 0 and variances 1. The draws are not
-    JAX's: the distributions are."""
+    variance 1/fan_in, fan_in = k*k*Cin/groups or k*Cin), Dense kernels
+    xavier-uniform but ResNeSt's split-attention `fc1`/`fc2` lecun-normal
+    (flax Dense's default), the LSTM's kernels xavier-normal (truncated,
+    variance 2/(fan_in + fan_out)), every bias and BN shift 0, BN (2-D and
+    1-D) and LayerNorm scales 1, BN running means 0 and variances 1. The
+    draws are not JAX's: the distributions are."""
     gen = torch.Generator().manual_seed(seed)
     model = build_model(dataclasses.replace(cfg, folded=False), device="cpu")
 
@@ -197,11 +207,15 @@ def init_state_dict(cfg: ModelConfig, seed: int = 0) -> Dict[str, torch.Tensor]:
         std = math.sqrt(variance) / _TRUNC_STD
         nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std, generator=gen)
 
+    lecun_dense = {id(fc) for m in model.modules()
+                   if isinstance(m, SplitAttention) for fc in (m.fc1, m.fc2)}
     with torch.no_grad():
         for module in model.modules():
             if isinstance(module, (nn.Conv2d, nn.Conv1d)):
                 w = module.weight
                 trunc_normal_(w, 1.0 / (w[0].numel()))
+            elif id(module) in lecun_dense:
+                trunc_normal_(module.weight, 1.0 / module.in_features)
             elif isinstance(module, nn.Linear):
                 fan_in, fan_out = module.in_features, module.out_features
                 lim = math.sqrt(6.0 / (fan_in + fan_out))
@@ -209,8 +223,8 @@ def init_state_dict(cfg: ModelConfig, seed: int = 0) -> Dict[str, torch.Tensor]:
             elif isinstance(module, LSTM):
                 for w in (module.weight_ih, module.weight_hh):
                     trunc_normal_(w, 2.0 / (w.shape[0] + w.shape[1]))
-            elif isinstance(module, (nn.BatchNorm2d, nn.LayerNorm)):
+            elif isinstance(module, (_BatchNorm, nn.LayerNorm)):
                 module.weight.fill_(1.0)
-                if isinstance(module, nn.BatchNorm2d):
+                if isinstance(module, _BatchNorm):
                     module.running_var.fill_(1.0)
     return model.state_dict()

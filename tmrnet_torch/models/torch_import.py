@@ -2,14 +2,16 @@
 
 Port of `tmrnet_tpu/models/torch_import.py` (`load_torch_state_dict`
 :33-48, `convert_reference_checkpoint` :145-197 with the ResNet trunk
-:91-119, LSTM :82-88, NLBlock :122-132 and TimeConv :135-142,
-`export_reference_checkpoint` :279-381). The reference trainers name their
-modules `share.conv1`, `share.layer1.0...`, `lstm.weight_ih_l0`,
-`nl_block.linear1..4`, `time_conv.timeconv1..3`, `fc`, `fc_h_c` and `fc_c`
-(reference `train_singlenet_phase_1fc.py:201-232`,
-`train_non-local_mutiConv_resnet.py:208-253`). Both sides are torch
-layouts, so the map only renames, apart from LayerNorm's (1, F) weight,
-which becomes (F,):
+:91-119, the ResNeSt trunk :200-250, LSTM :82-88, NLBlock :122-132 and
+TimeConv :135-142, `export_reference_checkpoint` :279-381). The reference
+trainers name their modules `share.conv1`, `share.layer1.0...`,
+`lstm.weight_ih_l0`, `nl_block.linear1..4`, `time_conv.timeconv1..3`,
+`fc`, `fc_h_c` and `fc_c` (reference `train_singlenet_phase_1fc.py:
+201-232`, `train_non-local_mutiConv_resnet.py:208-253`); the ResNeSt
+trainer's trunk is the resnest package's (`train_non-local_mutiConv_
+resnest.py:24,207-210`). Both sides are torch layouts, so the map only
+renames, apart from LayerNorm's (1, F) weight, which becomes (F,), and
+the split attention's 1x1 convs (O, I, 1, 1), which become Linear (O, I):
 
     share.conv1 / share.bn1               -> backbone.conv1 / backbone.bn1
     share.layer{l}.{i}.conv{c} / .bn{c}   -> backbone.layer{l}_{i}.conv{c} / .bn{c}
@@ -20,11 +22,22 @@ which becomes (F,):
     time_conv.timeconv1..3                -> time_conv.conv_k3 / conv_k5 / conv_k7
     fc, fc_h_c, fc_c                      -> the same names
 
+A ResNeSt trunk (a deep stem, `conv1.0.weight`) maps as
+
+    share.conv1.0 / .1, conv1.3 / .4, conv1.6 / share.bn1
+                                          -> backbone.stem_conv1 / stem_bn1 .. 3
+    share.layer{l}.{i}.conv1 / .bn1, .conv3 / .bn3
+                                          -> backbone.layer{l}_{i}.conv1 / ...
+    share.layer{l}.{i}.conv2.conv / .bn0 / .fc1 / .bn1 / .fc2
+                                          -> backbone.layer{l}_{i}.splat.(same)
+    share.layer{l}.{i}.downsample.1 / .2  -> ....downsample_conv / _bn
+                                             (downsample.0 is the pool)
+
 Every BatchNorm gets `num_batches_tracked` 0, as `models/convert.py`
 gives it (eval mode never reads it). What differs by design from JAX: JAX
 merges a partial checkpoint over a fresh PRNGKey(0) init (`merge_variables`
 :383), which the port cannot reproduce; `require_complete` raises instead
-and names the missing keys. ResNeSt trunks are not ported and raise.
+and names the missing keys.
 """
 
 from __future__ import annotations
@@ -92,19 +105,60 @@ def convert_resnet_trunk(sd: Mapping[str, Any],
     return out
 
 
+# The resnest package's deep stem: conv1.{0,3,6} are convs, conv1.{1,4}
+# and the trunk's bn1 their BatchNorms.
+_RESNEST_STEM = (("conv1.0", "conv1.1"), ("conv1.3", "conv1.4"),
+                 ("conv1.6", "bn1"))
+_SPLAT_BNS = ("bn0", "bn1")
+_SPLAT_FCS = ("fc1", "fc2")
+
+
+def convert_resnest_trunk(sd: Mapping[str, Any],
+                          stage_sizes: Sequence[int] = (3, 4, 6, 3),
+                          prefix: str = "share.") -> Dict[str, Tensor]:
+    """A resnest-package ResNeSt trunk -> the port's `backbone.*` keys."""
+    out: Dict[str, Tensor] = {}
+    for i, (c, bn) in enumerate(_RESNEST_STEM, start=1):
+        out[f"backbone.stem_conv{i}.weight"] = _tensor(
+            sd[f"{prefix}{c}.weight"])
+        _bn(sd, f"{prefix}{bn}", f"backbone.stem_bn{i}", out)
+    for l, n_blocks in enumerate(stage_sizes, start=1):
+        for i in range(n_blocks):
+            src, dst = f"{prefix}layer{l}.{i}", f"backbone.layer{l}_{i}"
+            for c in (1, 3):
+                out[f"{dst}.conv{c}.weight"] = _tensor(sd[f"{src}.conv{c}.weight"])
+                _bn(sd, f"{src}.bn{c}", f"{dst}.bn{c}", out)
+            out[f"{dst}.splat.conv.weight"] = _tensor(
+                sd[f"{src}.conv2.conv.weight"])
+            for bn in _SPLAT_BNS:
+                _bn(sd, f"{src}.conv2.{bn}", f"{dst}.splat.{bn}", out)
+            for fc in _SPLAT_FCS:
+                out[f"{dst}.splat.{fc}.weight"] = _tensor(
+                    sd[f"{src}.conv2.{fc}.weight"])[:, :, 0, 0].contiguous()
+                out[f"{dst}.splat.{fc}.bias"] = _tensor(
+                    sd[f"{src}.conv2.{fc}.bias"])
+            if f"{src}.downsample.1.weight" in sd:
+                out[f"{dst}.downsample_conv.weight"] = _tensor(
+                    sd[f"{src}.downsample.1.weight"])
+                _bn(sd, f"{src}.downsample.2", f"{dst}.downsample_bn", out)
+    return out
+
+
 def convert_reference_checkpoint(sd: Mapping[str, Any], head: str,
                                  stage_sizes: Sequence[int] = (3, 4, 6, 3)
                                  ) -> Dict[str, Tensor]:
     """A reference `.pth` state dict -> the port's state dict (unfolded)
     for `head` ('stage1' | 'lfb' | 'tmr' | 'nl_only'): the keys the
-    checkpoint holds, as JAX's conversion picks them. A bare torchvision
-    ImageNet trunk (no `share.` prefix, no LSTM) converts to the backbone
+    checkpoint holds, as JAX's conversion picks them. The trunk is a
+    ResNeSt where it has a deep stem (`conv1.0.weight`), else a ResNet. A
+    bare ImageNet trunk (torchvision's resnet50 or the resnest package's
+    resnest50: no `share.` prefix, no LSTM) converts to the backbone
     alone; its 1000-class `fc` is dropped."""
-    if "share.conv1.0.weight" in sd or "conv1.0.weight" in sd:
-        raise ValueError("ResNeSt is not ported: the checkpoint has a deep "
-                         "stem (conv1.0.weight)")
-    prefix = "share." if "share.conv1.weight" in sd else ""
-    out = convert_resnet_trunk(sd, stage_sizes, prefix)
+    resnest = "share.conv1.0.weight" in sd or "conv1.0.weight" in sd
+    prefix = ("share." if "share.conv1.0.weight" in sd
+              or "share.conv1.weight" in sd else "")
+    trunk = convert_resnest_trunk if resnest else convert_resnet_trunk
+    out = trunk(sd, stage_sizes, prefix)
     if "lstm.weight_ih_l0" not in sd:
         return out
     for name in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"):
@@ -150,7 +204,8 @@ def export_reference_checkpoint(state: Mapping[str, Tensor], head: str,
                                 ) -> Dict[str, Tensor]:
     """The inverse of `convert_reference_checkpoint`: the port's unfolded
     state dict -> a reference-format state dict (`share.*` names), the
-    keys JAX's export writes; save it with `torch.save`."""
+    keys JAX's export writes, a ResNeSt trunk (a `backbone.stem_conv1`)
+    in the resnest package's naming; save it with `torch.save`."""
     sd: Dict[str, Tensor] = {}
 
     def bn(src, dst):
@@ -162,18 +217,36 @@ def export_reference_checkpoint(state: Mapping[str, Tensor], head: str,
         if f"{src}.bias" in state:
             sd[f"{dst}.bias"] = state[f"{src}.bias"]
 
-    sd["share.conv1.weight"] = state["backbone.conv1.weight"]
-    bn("backbone.bn1", "share.bn1")
+    resnest = "backbone.stem_conv1.weight" in state
+    if resnest:
+        for i, (c, b) in enumerate(_RESNEST_STEM, start=1):
+            sd[f"share.{c}.weight"] = state[f"backbone.stem_conv{i}.weight"]
+            bn(f"backbone.stem_bn{i}", f"share.{b}")
+    else:
+        sd["share.conv1.weight"] = state["backbone.conv1.weight"]
+        bn("backbone.bn1", "share.bn1")
+    # the shortcut's conv and BN: downsample.1 / .2 behind ResNeSt's pool
+    down = (1, 2) if resnest else (0, 1)
     for l, n_blocks in enumerate(stage_sizes, start=1):
         for i in range(n_blocks):
             src, dst = f"backbone.layer{l}_{i}", f"share.layer{l}.{i}"
-            for c in (1, 2, 3):
+            for c in ((1, 3) if resnest else (1, 2, 3)):
                 sd[f"{dst}.conv{c}.weight"] = state[f"{src}.conv{c}.weight"]
                 bn(f"{src}.bn{c}", f"{dst}.bn{c}")
+            if resnest:
+                sd[f"{dst}.conv2.conv.weight"] = state[
+                    f"{src}.splat.conv.weight"]
+                for b in _SPLAT_BNS:
+                    bn(f"{src}.splat.{b}", f"{dst}.conv2.{b}")
+                for fc in _SPLAT_FCS:
+                    sd[f"{dst}.conv2.{fc}.weight"] = state[
+                        f"{src}.splat.{fc}.weight"][:, :, None, None]
+                    sd[f"{dst}.conv2.{fc}.bias"] = state[
+                        f"{src}.splat.{fc}.bias"]
             if f"{src}.downsample_conv.weight" in state:
-                sd[f"{dst}.downsample.0.weight"] = state[
+                sd[f"{dst}.downsample.{down[0]}.weight"] = state[
                     f"{src}.downsample_conv.weight"]
-                bn(f"{src}.downsample_bn", f"{dst}.downsample.1")
+                bn(f"{src}.downsample_bn", f"{dst}.downsample.{down[1]}")
     for name in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"):
         sd[f"lstm.{name}_l0"] = state[f"encoder.lstm.{name}"]
     if head == "stage1" and "fc.weight" in state:
