@@ -122,6 +122,28 @@ Phases, in order; any failure exits nonzero:
    the same `.pth`, 2 streams for 12 ticks, its rows against serve_loop
    in this process within 1e-6; frames/s, stream p50 / p99 and peak
    memory beside the card;
+4i. the scoring slice, over the directories 4f, 4g and 4h leave: (a)
+   `stream --max-streams 2` through `tmrnet_torch.cli.main` over 4f's
+   videos and `.pth` files, 24 fused_bottleneck, 1 time_conv and 1
+   nl_attention launches on every step and none in a slot reset, the
+   steps of the slot plan (300), its JSONL rows in the plan's order and
+   each valid row's softmax (recorded from the engine) within 2e-2 of
+   4f's `test --engine video` with the argmax rule, stream-frames/s and
+   step p50 / p99 (the frames over the first step's start to the last
+   step's end); (b) `export` of that test's `.npz` and of the stream's
+   `.jsonl`, `evaluate --fps 1 --json-out` of each, equal per-video
+   accuracies where the predictions agree (the whole reports where they
+   all do); (c) `parity` from 4f's `.pth` files, exact launches of its
+   bank build (12 fused_bottleneck a batch of 40 clips) and inference (12
+   / 1 / 1 a batch of 64), its predictions against `test --engine clip
+   --set memory.compat_cross_video=true` over its bank within 1e-6, its
+   JSON equal to `evaluate` of its export; (d) the same with `--preset
+   tmr-resnest50` from 4h's ResNeSt `.pth` (0 / 0 / 1 / 1 launches a
+   batch), its clips normalized on the host as the preset says, and again
+   with `--set data.device_normalize=true`, the uint8 path of 4f and 4h,
+   the two softmaxes within 2e-2 with the argmax rule; (e) `export-ckpt` of 4g's stage-2 checkpoint, then `test
+   --torch-ckpt` on the `.pth` bit for bit against `test --ckpt`; the
+   commands' seconds beside the card;
 5. the int8 gate (tmrnet_torch.experimental.int8_gate) at B = 128 over the
    four stages: the int8 bottleneck chain through the kernels equal to the
    same chain through the plain versions, 2 int8_matmul and 1 int8_conv3x3
@@ -134,6 +156,7 @@ It needs a CUDA card and the rest of the repository beside it.
 """
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -1479,7 +1502,17 @@ def run_cli(argv):
     return lines, dict(LAUNCHES), dt
 
 
-def run_test_slice(torch, seed, card):
+def phase_dir(prefix, kept=None):
+    """A phase's scratch directory under build/: removed when the phase
+    ends, or, where `kept` (a dict) is given, made under kept["root"],
+    recorded as kept[prefix] and left for phase 4i."""
+    if kept is None:
+        return tempfile.TemporaryDirectory(prefix=prefix + "-", dir=ROOT_TMP)
+    kept[prefix] = tempfile.mkdtemp(prefix=prefix + "-", dir=kept["root"])
+    return contextlib.nullcontext(kept[prefix])
+
+
+def run_test_slice(torch, seed, card, kept=None):
     """Phase 4f: `manifest`, `build-lfb` (clip and video engines) and
     `test` (clip engine over the clip bank, video and corpus engines)
     through `tmrnet_torch.cli.main` at full width (BN folded by --set),
@@ -1523,7 +1556,7 @@ def run_test_slice(torch, seed, card):
                       for k, v in (("fused_bottleneck_tiled", 10),
                                    ("fused_bottleneck", 2))},
     }
-    with tempfile.TemporaryDirectory(prefix="test-", dir=ROOT_TMP) as tmp:
+    with phase_dir("test", kept) as tmp:
         t0 = time.perf_counter()
         cfg = full_width_config(folded=False)
         paths = write_reference_weights(seed + 1000, tmp, cfg)
@@ -2068,7 +2101,7 @@ def val_pass(torch, cfg_path, manifests, bank_path, ck):
     return loss, acc, preds, torch.cat(probs)[:len(preds)].cpu().numpy()
 
 
-def run_train_slice(torch, seed, card):
+def run_train_slice(torch, seed, card, kept=None):
     """Phase 4g: the training slice. A: a stage-2 and a stage-1 step on the
     card against the CPU; B: the head learns; C: `manifest` (train and val
     splits of 4f's videos), `train-bank`, `build-lfb --ckpt` (both splits,
@@ -2102,7 +2135,7 @@ def run_train_slice(torch, seed, card):
                        "nl_attention": 1}.items()},
     }
     seconds = {}
-    with tempfile.TemporaryDirectory(prefix="train-", dir=ROOT_TMP) as tmp:
+    with phase_dir("train", kept) as tmp:
         write_test_videos(seed, tmp)
         out = lambda name: os.path.join(tmp, name)
         for s, vs in split.items():
@@ -2279,7 +2312,7 @@ def run_resnest_video(torch, seed, card):
                             "peak_gib": peak / 2**30}, ok
 
 
-def run_resnest_reference(torch, seed, card):
+def run_resnest_reference(torch, seed, card, kept=None):
     """Phase 4h (c): seeded ResNeSt weights exported as reference `.pth`
     in the resnest package's naming, then `manifest`, `build-lfb` (clip)
     and `test` (clip over that bank, corpus) with `--set
@@ -2308,7 +2341,7 @@ def run_resnest_reference(torch, seed, card):
             "resnest-test-corpus": per(heads)}
     counts, ok = {}, True
     os.makedirs(ROOT_TMP, exist_ok=True)
-    with tempfile.TemporaryDirectory(prefix="resnest-", dir=ROOT_TMP) as tmp:
+    with phase_dir("resnest", kept) as tmp:
         # the config JSON holds ResNet-50; the commands' --set picks ResNeSt
         cfg = full_width_config(folded=False, backbone="resnest50")
         paths = write_reference_weights(seed + RESNEST_SEED, tmp, cfg)
@@ -2416,7 +2449,7 @@ def run_resnest_reference(torch, seed, card):
     return counts, ok
 
 
-def run_resnest_slice(torch, seed, card):
+def run_resnest_slice(torch, seed, card, kept=None):
     """Phase 4h: the ResNeSt-50 slice at full width. (a) the clip slice of
     phase 4 through ClipInference; (b) run_video with its trunk chunk's
     peak memory and bank_features (`run_resnest_video`), then the stream
@@ -2437,7 +2470,7 @@ def run_resnest_slice(torch, seed, card):
         "resnest stream slice")
     del engine
     torch.cuda.empty_cache()
-    test_counts, ok_r = run_resnest_reference(torch, seed, card)
+    test_counts, ok_r = run_resnest_reference(torch, seed, card, kept)
     counts.update(test_counts)
     fused = {k: sum(c.get(k, 0) for c in counts.values())
              for k in ("fused_bottleneck", "fused_bottleneck_tiled")}
@@ -2451,6 +2484,373 @@ def run_resnest_slice(torch, seed, card):
           f"{time.perf_counter() - t0:.1f} s on {card} "
           f"{'ok' if ok else 'FAIL'}")
     return counts, ok
+
+
+# Phase 4i, the scoring slice: `stream`'s slots, the launches of a stream
+# step, and the launches of a clip-engine batch of the bank build and of
+# inference on the ResNet and the ResNeSt trunk.
+SCORE_SLOTS = 2
+STEP_LAUNCHES = {"fused_bottleneck": 24, "time_conv": 1, "nl_attention": 1}
+LFB_BATCH_LAUNCHES = {"fused_bottleneck": 12}
+TEST_BATCH_LAUNCHES = {"fused_bottleneck": 12, "time_conv": 1,
+                       "nl_attention": 1}
+
+
+def slot_schedule(lengths, slots):
+    """`stream`'s slot plan: for every step, the (slot, video, frame) of
+    each occupied slot; a finished video's slot takes the next video."""
+    pending = list(range(len(lengths)))[::-1]
+    video = [pending.pop() if pending else -1 for _ in range(slots)]
+    t = [0] * slots
+    steps = []
+    while any(v >= 0 for v in video):
+        steps.append([(i, v, t[i]) for i, v in enumerate(video) if v >= 0])
+        for i, v in enumerate(video):
+            if v >= 0:
+                t[i] += 1
+                if t[i] >= lengths[v]:
+                    video[i], t[i] = (pending.pop() if pending else -1), 0
+    return steps
+
+
+class StreamCalls:
+    """While inside, StreamingInference.step and reset_streams record the
+    launches of every call and, for a step, its start and end (to a
+    synchronize after it) on the host's clock and its probabilities, kept
+    on the card and copied to the host on leaving."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __enter__(self):
+        from tmrnet_torch.eval.stream import StreamingInference
+        from tmrnet_torch.kernels.build import LAUNCHES
+
+        self.steps, self.resets = [], []
+        self.orig = (StreamingInference.step, StreamingInference.reset_streams)
+
+        def recorded(fn, calls, is_step):
+            def call(engine, *args, **kw):
+                before = dict(LAUNCHES)
+                t0 = time.perf_counter()
+                out = fn(engine, *args, **kw)
+                self.torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                launched = {k: v - before.get(k, 0) for k, v in LAUNCHES.items()
+                            if v != before.get(k, 0)}
+                calls.append((launched, dt,
+                              out[2].detach().clone() if is_step else None,
+                              t0, t0 + dt))
+                return out
+            return call
+
+        StreamingInference.step = recorded(self.orig[0], self.steps, True)
+        StreamingInference.reset_streams = recorded(self.orig[1], self.resets,
+                                                    False)
+        return self
+
+    def __exit__(self, *exc):
+        from tmrnet_torch.eval.stream import StreamingInference
+
+        StreamingInference.step, StreamingInference.reset_streams = self.orig
+        self.steps = [(launched, dt, probs.float().cpu().numpy(), t0, t1)
+                      for launched, dt, probs, t0, t1 in self.steps]
+
+
+def split_launches(counts, part):
+    """counts less part, the kernels that remain."""
+    return {k: v - part.get(k, 0) for k, v in counts.items()
+            if v - part.get(k, 0)}
+
+
+def times(calls, per):
+    return {k: v * calls for k, v in per.items()}
+
+
+def score_stream(torch, card, tmp, out):
+    """Phase 4i (a) and (b): `stream --max-streams SCORE_SLOTS` over phase
+    4f's videos against its `test --engine video`, then `export` and
+    `evaluate` of both. Returns (counts by path, numbers, ok)."""
+    from tmrnet_torch import cli
+
+    clips = sum(max(0, n - SEQ + 1) for n in TEST_LENGTHS)
+    plan = slot_schedule(TEST_LENGTHS, SCORE_SLOTS)
+    m = os.path.join(tmp, "m.pkl")
+    common = ["--config", os.path.join(tmp, "cfg.json"), "--set",
+              "model.folded=true", "--manifest", m]
+    with StreamCalls(torch) as calls:
+        lines, launched, dt = run_cli(
+            ["stream", *common, "--torch-ckpt", os.path.join(tmp, "tmr.pth"),
+             "--extractor-torch-ckpt", os.path.join(tmp, "lfb.pth"),
+             "--max-streams", str(SCORE_SLOTS), "--out", out("stream.jsonl")])
+    counts = {"stream_cli": launched}
+    summary = json.loads(lines[-1])
+    steps_ok = sum(c[0] == STEP_LAUNCHES for c in calls.steps)
+    resets_ok = sum(not c[0] for c in calls.resets)
+    # a reset after every step in which a video ends
+    want_resets = sum(any(t == TEST_LENGTHS[v] - 1 for _, v, t in occupied)
+                      for occupied in plan)
+    ok = (len(calls.steps) == len(plan) == summary["steps"]
+          and steps_ok == len(plan) and resets_ok == len(calls.resets)
+          and len(calls.resets) == want_resets
+          and launched == times(len(plan), STEP_LAUNCHES)
+          and summary["predictions"] == clips
+          and summary["slots"] == SCORE_SLOTS)
+    print(f"  stream: {len(calls.steps)} steps (the slot plan of "
+          f"{SCORE_SLOTS} slots over {TEST_LENGTHS}: {len(plan)}), "
+          f"{steps_ok} with launches {STEP_LAUNCHES}, {len(calls.resets)} "
+          f"slot resets, {resets_ok} with none; launches {launched}; "
+          f"summary {summary} {'ok' if ok else 'FAIL'}")
+
+    # the rows: in the plan's order, valid from each video's frame SEQ-1;
+    # the recorded softmax of each valid row in bank-row order
+    with open(out("stream.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    manifest = cli.load_manifest(m)
+    ids = [v.video_id for v in manifest.videos]
+    starts = np.cumsum([0] + [max(0, n - SEQ + 1) for n in TEST_LENGTHS])
+    probs = np.full((clips, CLASSES), np.nan, np.float32)
+    preds = np.full(clips, -1)
+    order_ok, k = True, 0
+    for step, occupied in enumerate(plan):
+        for slot, v, t in occupied:
+            r = rows[k]
+            k += 1
+            valid = t >= SEQ - 1
+            order_ok &= (r["video"] == ids[v] and r["frame"] == t
+                         and r["valid"] == valid
+                         and (r["pred"] is None) != valid)
+            if valid:
+                probs[starts[v] + t - SEQ + 1] = calls.steps[step][2][slot]
+                preds[starts[v] + t - SEQ + 1] = r["pred"]
+    order_ok &= k == len(rows) and bool(np.isfinite(probs).all())
+    with np.load(out("video.npz")) as z:
+        video_preds, video_scores = z["preds"], z["scores"]
+    order_ok &= bool((probs.argmax(-1) == preds).all())
+    print(f"  stream rows: {len(rows)} in the plan's order, valid from "
+          f"frame {SEQ - 1}, every valid row's pred the argmax of its "
+          f"step's softmax {'ok' if order_ok else 'FAIL'}")
+    ok &= order_ok
+    ok &= probs_close("stream vs test --engine video softmax", probs,
+                      video_scores)
+    ok &= argmax_agrees("stream vs test --engine video", preds, video_preds,
+                        video_scores, min_decided=1)
+    # throughput from the first step's start to the last step's end: the
+    # steps, the slot resets, the lazy decode and the rows between them,
+    # without the command's set-up (weights, BN folding, engine)
+    step_ms = np.array([c[1] for c in calls.steps]) * 1e3
+    steps_s = calls.steps[-1][4] - calls.steps[0][3]
+    numbers = {"stream_frames_s": sum(TEST_LENGTHS) / steps_s,
+               "stream_steps_s": steps_s,
+               "stream_s": dt,
+               "step_ms_p50": float(np.percentile(step_ms, 50)),
+               "step_ms_p99": float(np.percentile(step_ms, 99))}
+    print(f"score slice: stream {sum(TEST_LENGTHS)} frames in "
+          f"{steps_s:.3f} s from the first step to the last = "
+          f"{numbers['stream_frames_s']:.1f} stream-frames/s (the command "
+          f"{dt:.3f} s), step p50 {numbers['step_ms_p50']:.3f} ms p99 "
+          f"{numbers['step_ms_p99']:.3f} ms ({SCORE_SLOTS} slots) on {card}")
+
+    # export and evaluate of the video engine's and the stream's predictions
+    reports = {}
+    for name, preds_path in (("test", out("video.npz")),
+                             ("stream", out("stream.jsonl"))):
+        root = out(f"export_{name}")
+        run_cli(["export", "--config", os.path.join(tmp, "cfg.json"),
+                 "--manifest", m, "--preds", preds_path, "--pred-dir",
+                 os.path.join(root, "phase"), "--gt-dir",
+                 os.path.join(root, "gt-phase")])
+        _, _, numbers[f"evaluate_{name}_s"] = run_cli(
+            ["evaluate", "--pred-dir", os.path.join(root, "phase"),
+             "--gt-dir", os.path.join(root, "gt-phase"), "--fps", "1",
+             "--json-out", os.path.join(root, "report.json")])
+        with open(os.path.join(root, "report.json")) as f:
+            reports[name] = json.load(f)
+    same = [bool(np.array_equal(preds[starts[v]:starts[v + 1]],
+                                video_preds[starts[v]:starts[v + 1]]))
+            for v in range(len(TEST_LENGTHS))]
+    acc = [reports[n]["accuracy_per_video"] for n in ("test", "stream")]
+    good = (all(acc[0][v] == acc[1][v] for v in range(len(same)) if same[v])
+            and reports["test"]["videos"] == reports["stream"]["videos"] == ids)
+    if all(same):
+        good &= json.dumps(reports["test"]) == json.dumps(reports["stream"])
+    print(f"  evaluate --fps 1 of the exports of test --engine video and "
+          f"stream: predictions equal on videos {same}, their accuracies "
+          f"equal there{', the reports equal' if all(same) else ''}; mean "
+          f"jaccard {reports['test']['mean_jaccard']:.4f} / "
+          f"{reports['stream']['mean_jaccard']:.4f}, mean accuracy "
+          f"{reports['test']['mean_accuracy']:.4f} / "
+          f"{reports['stream']['mean_accuracy']:.4f} "
+          f"{'ok' if good else 'FAIL'}")
+    return counts, numbers, ok and good
+
+
+class CountedBuild:
+    """While inside, build_lfb records the launches it makes."""
+
+    def __enter__(self):
+        from tmrnet_torch.kernels.build import LAUNCHES
+        from tmrnet_torch.train import loop
+
+        self.launched, self.orig = {}, loop.build_lfb
+
+        def build(*args, **kw):
+            before = dict(LAUNCHES)
+            bank = self.orig(*args, **kw)
+            self.launched = split_launches(dict(LAUNCHES), before)
+            return bank
+
+        loop.build_lfb = build
+        return self
+
+    def __exit__(self, *exc):
+        from tmrnet_torch.train import loop
+
+        loop.build_lfb = self.orig
+
+
+def score_parity(torch, card, tmp, out, tag, argv, per_lfb_batch,
+                 per_test_batch):
+    """`parity` (argv) through `tmrnet_torch.cli.main` with its workdir in
+    out(tag): launches of the bank build and of inference, each exact per
+    clip-engine batch; its JSON against `evaluate` of its export. Returns
+    (launches, seconds, ok)."""
+    clips = sum(max(0, n - SEQ + 1) for n in TEST_LENGTHS)
+    work = out(tag)
+    with CountedBuild() as build:
+        lines, launched, dt = run_cli(
+            ["parity", *argv, "--workdir", work, "--json-out",
+             os.path.join(work, "report.json")])
+    lfb, infer = build.launched, split_launches(launched, build.launched)
+    want_lfb = times(-(-clips // LFB_BATCH), per_lfb_batch)
+    want_infer = times(-(-clips // TEST_BATCH), per_test_batch)
+    ok = lfb == want_lfb and infer == want_infer
+    print(f"  {tag}: bank build launches {lfb} (want {want_lfb}), inference "
+          f"{infer} (want {want_infer}) {'ok' if ok else 'FAIL'}")
+    _, _, eval_s = run_cli(
+        ["evaluate", "--pred-dir", os.path.join(work, "phase"), "--gt-dir",
+         os.path.join(work, "gt-phase"), "--json-out",
+         os.path.join(work, "evaluate.json")])
+    with open(os.path.join(work, "report.json")) as f:
+        report = json.load(f)
+    with open(os.path.join(work, "evaluate.json")) as f:
+        evaluated = json.load(f)
+    with np.load(os.path.join(work, "predictions.npz")) as z:
+        scores = z["scores"]
+    good = (json.dumps({k: evaluated[k] for k in report if k in evaluated})
+            == json.dumps({k: v for k, v in report.items()
+                           if k != "clip_accuracy"})
+            and scores.shape == (clips, CLASSES)
+            and bool(np.isfinite(scores).all())
+            and any("Mean jaccard" in line for line in lines))
+    print(f"  {tag}: JSON equal to evaluate of its export, mean jaccard "
+          f"{report['mean_jaccard']:.4f}, clip accuracy "
+          f"{report['clip_accuracy']:.4f}; parity {dt:.3f} s, evaluate "
+          f"{eval_s:.3f} s on {card} {'ok' if good else 'FAIL'}")
+    return launched, dt, ok and good
+
+
+def run_score_slice(torch, seed, card, kept):
+    """Phase 4i: the scoring commands at full width over the directories
+    phases 4f, 4g and 4h left in `kept`. (a) `stream --max-streams 2` over
+    4f's videos: 24 / 1 / 1 launches on every step and none in a slot
+    reset, the steps of the slot plan, its rows against 4f's `test
+    --engine video`; (b) `export` and `evaluate --fps 1` of both; (c)
+    `parity` from 4f's `.pth` files, exact launches of the bank build and
+    inference, its predictions against `test --engine clip --set
+    memory.compat_cross_video=true` over its bank, its JSON against
+    `evaluate`; (d) `parity --preset tmr-resnest50` from 4h's ResNeSt
+    `.pth`, against the same with data.device_normalize=true; (e) `export-ckpt` of 4g's stage-2 checkpoint, then `test
+    --torch-ckpt` on it bit for bit against `test --ckpt`. Returns
+    (counts by path, numbers, ok)."""
+    t0 = time.perf_counter()
+    tmp, rtmp, ttmp = kept["test"], kept["resnest"], kept["train"]
+    out = lambda name: os.path.join(tmp, name)
+    counts, numbers, ok = score_stream(torch, card, tmp, out)
+    counts_p = {}
+
+    # (c) parity from 4f's .pth, against the clip engine over its bank
+    common = ["--config", out("cfg.json"), "--set", "model.folded=true",
+              "--manifest", out("m.pkl")]
+    weights = ["--torch-ckpt", out("tmr.pth"), "--extractor-torch-ckpt",
+               out("lfb.pth")]
+    counts_p["parity"], numbers["parity_s"], good = score_parity(
+        torch, card, tmp, out, "parity", common + weights, LFB_BATCH_LAUNCHES,
+        TEST_BATCH_LAUNCHES)
+    ok &= good
+    _, counts_p["test-compat"], _ = run_cli(
+        ["test", *common, *weights, "--engine", "clip", "--set",
+         "memory.compat_cross_video=true", "--lfb", out("parity/lfb.npz"),
+         "--out", out("compat.npz")])
+    with np.load(out("compat.npz")) as z, \
+            np.load(out("parity/predictions.npz")) as w:
+        err = float(np.abs(z["scores"] - w["scores"]).max())
+        good = (np.array_equal(z["preds"], w["preds"])
+                and np.array_equal(z["rows"], w["rows"]) and err <= RESUME_TOL)
+    print(f"  parity vs test --engine clip --set memory.compat_cross_video="
+          f"true over its bank: predictions equal, softmax max_abs_err "
+          f"{err:.3g} (limit {RESUME_TOL}) {'ok' if good else 'FAIL'}")
+    ok &= good
+
+    # (d) parity on the ResNeSt trunk, from the preset, which normalizes
+    # on the host (data.device_normalize=false); held against the same
+    # parity on the uint8 path that normalizes on the card, as 4f and 4h
+    # run, bank included
+    rout = lambda n: os.path.join(rtmp, n)
+    resnest = ["--preset", "tmr-resnest50", "--set", "model.folded=true",
+               "--manifest", rout("m.pkl"), "--torch-ckpt", rout("tmr.pth"),
+               "--extractor-torch-ckpt", rout("lfb.pth")]
+    counts_p["parity-resnest"], numbers["parity_resnest_s"], good = \
+        score_parity(torch, card, rtmp, rout, "parity-resnest", resnest, {},
+                     RESNEST_LAUNCHES)
+    ok &= good
+    counts_p["parity-resnest-u8"], numbers["parity_resnest_u8_s"], good = \
+        score_parity(torch, card, rtmp, rout, "parity-resnest-u8",
+                     resnest + ["--set", "data.device_normalize=true"], {},
+                     RESNEST_LAUNCHES)
+    ok &= good
+    with np.load(rout("parity-resnest/predictions.npz")) as z, \
+            np.load(rout("parity-resnest-u8/predictions.npz")) as w:
+        good = bool(np.array_equal(z["rows"], w["rows"]))
+        print(f"  parity-resnest vs parity-resnest-u8: rows equal "
+              f"{'ok' if good else 'FAIL'}")
+        good &= probs_close("parity-resnest (host normalize) vs "
+                            "parity-resnest-u8 (card normalize) softmax",
+                            z["scores"], w["scores"])
+        good &= argmax_agrees("parity-resnest vs parity-resnest-u8",
+                              z["preds"], w["preds"], w["scores"],
+                              min_decided=1)
+    ok &= good
+
+    # (e) export-ckpt of 4g's stage-2 checkpoint, and test from the .pth
+    tout = lambda name: os.path.join(ttmp, name)
+    c = ["--config", tout("train_cfg.json")]
+    lines, _, numbers["export_ckpt_s"] = run_cli(
+        ["export-ckpt", *c, "--ckpt", tout("ck2"), "--out", tout("ck2.pth")])
+    scores = {}
+    for name, w in (("ckpt", ["--ckpt", tout("ck2")]),
+                    ("pth", ["--torch-ckpt", tout("ck2.pth")])):
+        _, counts_p[f"test-{name}-export"], _ = run_cli(
+            ["test", *c, "--set", "model.folded=true", "--manifest",
+             tout("val.pkl"), *w, "--lfb", tout("bank_val.npz"), "--out",
+             tout(f"{name}.npz")])
+        with np.load(tout(f"{name}.npz")) as z:
+            scores[name] = (z["preds"], z["scores"])
+    good = (lines[-1].startswith("wrote ")
+            and np.array_equal(scores["pth"][0], scores["ckpt"][0])
+            and np.array_equal(scores["pth"][1], scores["ckpt"][1])
+            and counts_p["test-pth-export"] == counts_p["test-ckpt-export"])
+    print(f"  export-ckpt of the stage-2 checkpoint ({lines[-1]}) in "
+          f"{numbers['export_ckpt_s']:.3f} s, test --torch-ckpt on it vs "
+          f"test --ckpt: {len(scores['pth'][0])} clips bit for bit "
+          f"{'ok' if good else 'FAIL'}")
+    ok &= good
+    counts.update(counts_p)
+    print(f"score slice: {json.dumps(numbers)} in "
+          f"{time.perf_counter() - t0:.1f} s on {card} "
+          f"{'ok' if ok else 'FAIL'}")
+    torch.cuda.empty_cache()
+    return counts, numbers, ok
 
 
 def run_gate(torch, seed, card):
@@ -2550,15 +2950,24 @@ def main():
     del video_engine
     torch.cuda.empty_cache()
     by_path["serve"], ok_serve = run_serve_slice(torch, args.seed, card)
-    test_counts, ok_test = run_test_slice(torch, args.seed, card)
-    by_path.update(test_counts)
-    train_counts, _, ok_train = run_train_slice(torch, args.seed, card)
-    by_path.update(train_counts)
-    resnest_counts, ok_resnest = run_resnest_slice(torch, args.seed, card)
-    by_path.update(resnest_counts)
+    os.makedirs(ROOT_TMP, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="kept-", dir=ROOT_TMP) as root:
+        kept = {"root": root}       # 4f, 4g and 4h's directories, for 4i
+        test_counts, ok_test = run_test_slice(torch, args.seed, card, kept)
+        by_path.update(test_counts)
+        train_counts, _, ok_train = run_train_slice(torch, args.seed, card,
+                                                    kept)
+        by_path.update(train_counts)
+        resnest_counts, ok_resnest = run_resnest_slice(torch, args.seed, card,
+                                                       kept)
+        by_path.update(resnest_counts)
+        score_counts, _, ok_score = run_score_slice(torch, args.seed, card,
+                                                    kept)
+        by_path.update(score_counts)
     by_path["gate"], ok_gate = run_gate(torch, args.seed, card)
     ok = (ok_block and ok_tiled and ok_paths and ok_video and ok_stream
-          and ok_serve and ok_test and ok_train and ok_resnest and ok_gate)
+          and ok_serve and ok_test and ok_train and ok_resnest and ok_score
+          and ok_gate)
     for rec in records:
         rec["launches_by_path"] = {p: c[rec["name"]] for p, c in by_path.items()
                                    if rec["name"] in c}

@@ -56,7 +56,8 @@ def test_importing_the_port_leaves_jax_out():
             "tmrnet_torch.data.packed, tmrnet_torch.data.pipeline, "
             "tmrnet_torch.data.transforms, tmrnet_torch.data.indexing, "
             "tmrnet_torch.data.manifests, tmrnet_torch.data.device_feed, "
-            "tmrnet_torch.eval.metrics, tmrnet_torch.train.losses, "
+            "tmrnet_torch.eval.metrics, tmrnet_torch.eval.export, "
+            "tmrnet_torch.train.losses, "
             "tmrnet_torch.train.optim, tmrnet_torch.train.state, "
             "tmrnet_torch.train.steps, tmrnet_torch.train.step_check, "
             "tmrnet_torch.utils.checkpoint, "

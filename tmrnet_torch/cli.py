@@ -1,30 +1,44 @@
 """Command line of the port: `python -m tmrnet_torch <command>`.
 
-  manifest   frames dir + phase annotations -> manifest pickle/CSV
-  train-bank stage-1 memory-bank training (trunk + LSTM + fc)
-  build-lfb  the frozen extractor's feature bank of a manifest -> .npz
-  train-tmr  stage-2 TMRNet / only-non-local training over a bank
-  test       test-set inference -> predictions .npz, per-class
-             precision/recall and accuracy
-  serve      serving daemon: JSONL frame events on stdin (or TCP clients
-             with --listen) -> predictions on stdout (or the owning
-             connection)
+  manifest    frames dir + phase annotations -> manifest pickle/CSV
+  train-bank  stage-1 memory-bank training (trunk + LSTM + fc)
+  build-lfb   the frozen extractor's feature bank of a manifest -> .npz
+  train-tmr   stage-2 TMRNet / only-non-local training over a bank
+  test        test-set inference -> predictions .npz, per-class
+              precision/recall and accuracy
+  stream      online streaming inference, one frame a stream a step ->
+              JSONL rows
+  serve       serving daemon: JSONL frame events on stdin (or TCP clients
+              with --listen) -> predictions on stdout (or the owning
+              connection)
+  parity      reference .pth + frames -> Main.m protocol table, one command
+  export      predictions -> <video>-phase.txt trees (export_phase_copy.py)
+  evaluate    relaxed-boundary protocol scoring (MATLAB Main.m, in Python)
+  export-ckpt the port's checkpoint -> reference-format .pth
 
-Port of `tmrnet_tpu/cli.py` (`_load_manifest` :74, `_clip_labels` :145,
-`_dataset` :153-175, `cmd_manifest` :314-347, `cmd_train_bank` :479-515,
-`cmd_build_lfb` :517-575, `cmd_train_tmr` :577-630, `cmd_test` :632-824,
-`cmd_serve` :1041-1152, their parsers). Weights come from the port's own
-checkpoints (`--ckpt`, `--stage1-ckpt`: `utils/checkpoint.py`) or from
-reference-format `.pth` files (`--torch-ckpt`, `--extractor-torch-ckpt`,
-`--torch-init`; `_restore_variables` :233-275 and `_extractor_for`
-:122-142). Entry points run on the card unless `--device cpu` asks for
-the CPU. Not ported: video-direct datasets (`--videos`; the card's machine
-has no decoder), Orbax checkpoints and `--extractor-ckpt`, meshes.
+Port of `tmrnet_tpu/cli.py` (`load_config` :48-57, `_phase_names` :68,
+`_load_manifest` :74, `_clip_labels` :145, `_dataset` :153-175,
+`cmd_manifest` :314-347, `cmd_train_bank` :479-515, `cmd_build_lfb`
+:517-575, `cmd_train_tmr` :577-630, `cmd_test` :632-824, `cmd_stream`
+:843-1038, `cmd_serve` :1041-1152, `cmd_parity` :1155-1214, `cmd_export`
+:1217-1262, `cmd_evaluate` :1265-1320, `cmd_export_ckpt` :1323-1340, their
+parsers). Weights come from the port's own checkpoints (`--ckpt`,
+`--stage1-ckpt`: `utils/checkpoint.py`) or from reference-format `.pth`
+files (`--torch-ckpt`, `--extractor-torch-ckpt`, `--torch-init`;
+`_restore_variables` :233-275 and `_extractor_for` :122-142). Entry
+points that run a model run on the card unless `--device cpu` asks for
+the CPU; `manifest`, `export`, `evaluate` and `export-ckpt` touch no card
+and take no `--device`. Not ported: video-direct datasets (`--videos`;
+the card's machine has no decoder), Orbax checkpoints and
+`--extractor-ckpt`, meshes and multihost runs, `stream --artifact` and
+the subcommands `prepare`, `stats`, `pack`, `synth`, `migrate`, `doctor`
+and `export-model`.
 
 Config: --config <json> loads an ExperimentConfig (a JSON written by either
 package; fields the port lacks are skipped, and a `config_ignored` line on
 stderr names those that JAX would honour at another value than its
-default); --set a.b=c applies dotted overrides (a field the port lacks
+default), else --preset <name> one of the presets of `config.PRESETS`;
+then --set a.b=c applies dotted overrides (a field the port lacks
 raises).
 """
 
@@ -41,8 +55,9 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from tmrnet_torch.config import (CHOLEC80_PHASES, M2CAI_PHASES, ExperimentConfig,
-                                 apply_override, ignored_fields)
+from tmrnet_torch.config import (CHOLEC80_PHASES, M2CAI_PHASES, PRESETS,
+                                 ExperimentConfig, apply_override,
+                                 get_preset, ignored_fields)
 
 
 def load_config(args) -> ExperimentConfig:
@@ -54,11 +69,17 @@ def load_config(args) -> ExperimentConfig:
         if ignored:
             print(json.dumps({"config_ignored": ignored}), file=sys.stderr,
                   flush=True)
+    elif getattr(args, "preset", None):
+        cfg = get_preset(args.preset)
     else:
         cfg = ExperimentConfig()
     for o in getattr(args, "set", None) or []:
         cfg = apply_override(cfg, o)
     return cfg
+
+
+def phase_names(protocol: str):
+    return CHOLEC80_PHASES if protocol == "cholec80" else M2CAI_PHASES
 
 
 def restore_state(cfg: ExperimentConfig, head: str,
@@ -217,8 +238,8 @@ def cmd_manifest(args) -> int:
     if not os.path.isdir(frames):
         raise SystemExit(f"frames dir not found: {frames} "
                          f"(pass --frames or set data.data_root)")
-    phases = CHOLEC80_PHASES if args.protocol == "cholec80" else M2CAI_PHASES
-    m = build_manifest_from_frames(frames, annotations, phases,
+    m = build_manifest_from_frames(frames, annotations,
+                                   phase_names(args.protocol),
                                    sample_stride=args.stride)
     print(f"{len(m.videos)} videos, {m.num_frames} frames")
     as_csv = (args.out.endswith(".csv")
@@ -470,6 +491,117 @@ def cmd_test(args) -> int:
     return 0
 
 
+def _refuse_unported_stream(args) -> None:
+    """`stream`'s JAX features that the port lacks are argparse errors,
+    raised before anything is read: an export-model artifact and the
+    multihost branch (mesh.multihost in --set or --config)."""
+    if args.artifact:
+        args.parser.error("--artifact is not ported: the port has no "
+                          "export-model artifacts; pass --ckpt or "
+                          "--torch-ckpt")
+    multihost = any(o.partition("=")[0].strip() == "mesh.multihost"
+                    for o in args.set or [])
+    if args.config and not multihost:
+        with open(args.config) as f:
+            multihost = "mesh.multihost" in ignored_fields(f.read())
+    if multihost:
+        args.parser.error("mesh.multihost: multihost streaming is not "
+                          "ported; the port streams on one card")
+
+
+def cmd_stream(args) -> int:
+    """Online streaming inference: every manifest video plays as a 1-fps
+    stream through eval/stream.py's StreamingInference, one frame a stream
+    a step, over --max-streams slots; a finished video's slot takes the
+    next video (reset_streams). Writes one JSONL row a (video, frame),
+    valid from the stream's first full clip on, where the predictions
+    equal `test --engine video`'s; prints a summary line."""
+    _refuse_unported_stream(args)
+    from collections import deque
+
+    from tmrnet_torch.data.pipeline import load_frame
+    from tmrnet_torch.device import resolve_device
+    from tmrnet_torch.eval.stream import StreamingInference
+
+    device = resolve_device(args.device)
+    cfg = load_config(args)
+    if cfg.data.test_crop_type not in (1, 2, 3):
+        raise SystemExit(
+            "stream needs a deterministic frame-wise crop (test_crop_type "
+            f"1/2/3, got {cfg.data.test_crop_type}): multi-crop and per-clip "
+            "random crops have no streaming equivalent")
+    m = load_manifest(args.manifest)
+    n_videos = len(m.videos)
+    if n_videos == 0:
+        raise SystemExit("manifest has no videos")
+    state = restore_state(cfg, cfg.model.head, args.torch_ckpt, args.ckpt)
+    state, extractor = folded_weights(
+        cfg, state, extractor_state(cfg, state, args.extractor_torch_ckpt))
+    engine = StreamingInference(cfg, state, extractor, device=device)
+    del state, extractor
+
+    tf = eval_transform(cfg)
+    seq = cfg.data.sequence_length
+    lengths = [len(v) for v in m.videos]
+    if args.max_steps:
+        lengths = [min(n, args.max_steps) for n in lengths]
+    # Videos queue for the slots, one slot a video under -1; 64 by default
+    # bounds the decoded videos held in host memory.
+    max_streams = n_videos if args.max_streams < 0 else args.max_streams
+    num_slots = min(max_streams or n_videos, n_videos)
+    stream = engine.init_state(num_slots)
+
+    # A video is decoded, only its streamed prefix, when its slot starts,
+    # and freed when it ends.
+    loaded = {}
+
+    def assign(v: int) -> int:
+        paths = m.videos[v].frame_paths[: lengths[v]]
+        loaded[v] = tf(np.stack([load_frame(p) for p in paths]))
+        return v
+
+    pending = deque(range(n_videos))
+    slot_video = [assign(pending.popleft()) if pending else -1
+                  for _ in range(num_slots)]
+    slot_t = [0] * num_slots
+    blank = np.zeros_like(next(iter(loaded.values()))[0])
+    correct = total = steps = 0
+    with open(args.out, "w") as f:
+        while any(v >= 0 for v in slot_video):
+            frames = np.stack([loaded[v][slot_t[i]] if v >= 0 else blank
+                               for i, v in enumerate(slot_video)])
+            stream, preds, _, valid = engine.step(stream, frames)
+            preds, valid = preds.cpu().numpy(), valid.cpu().numpy()
+            steps += 1
+            reset = [False] * num_slots
+            for i, v in enumerate(slot_video):
+                if v < 0:
+                    continue
+                t, video = slot_t[i], m.videos[v]
+                ok = bool(valid[i]) and t >= seq - 1
+                f.write(json.dumps({
+                    "video": video.video_id, "frame": t,
+                    "pred": int(preds[i]) if ok else None,
+                    "valid": ok}) + "\n")
+                if ok:
+                    correct += int(preds[i] == video.labels[t])
+                    total += 1
+                slot_t[i] += 1
+                if slot_t[i] >= lengths[v]:     # done: recycle the slot
+                    reset[i] = True
+                    del loaded[v]
+                    slot_video[i] = (assign(pending.popleft())
+                                     if pending else -1)
+                    slot_t[i] = 0
+            if any(reset):
+                stream = engine.reset_streams(stream, reset)
+    acc = correct / total if total else 0.0
+    print(json.dumps({"streams": n_videos, "slots": num_slots,
+                      "steps": int(steps), "clip_accuracy": round(acc, 6),
+                      "predictions": total, "out": args.out}))
+    return 0
+
+
 def cmd_serve(args) -> int:
     """Serving daemon: JSONL protocol on stdin/stdout, or over TCP with
     --listen, over B stream slots (eval/serve.py). Streams join on their
@@ -559,12 +691,196 @@ def cmd_serve(args) -> int:
     return 0
 
 
+
+def protocol_json(rep) -> Dict:
+    """The keys of a ProtocolReport that `parity` and `evaluate` write."""
+    return {
+        "mean_accuracy": rep.mean_accuracy,
+        "std_accuracy": rep.std_accuracy,
+        "mean_jaccard": rep.mean_jaccard,
+        "std_jaccard": rep.std_jaccard,
+        "mean_precision": rep.mean_precision,
+        "mean_recall": rep.mean_recall,
+        "jaccard_per_phase": rep.jaccard_per_phase.tolist(),
+    }
+
+
+def cmd_parity(args) -> int:
+    """One command from a reference .pth and frames to the Main.m protocol
+    table: the bank from the extractor's weights (the clip engine), clip
+    inference over the reference's memory windows (which cross video
+    boundaries, memory.compat_cross_video, unless --set says otherwise),
+    the phase trees exported, and the relaxed-boundary scoring under
+    --protocol, else the config's eval.protocol (JAX's parity reads only
+    --protocol, so a preset's m2cai would score as cholec80 there)."""
+    from tmrnet_torch.device import resolve_device
+    from tmrnet_torch.eval.export import export_predictions, load_exported
+    from tmrnet_torch.eval.infer import ClipInference
+    from tmrnet_torch.eval.metrics import evaluate_protocol
+    from tmrnet_torch.train.loop import build_lfb
+
+    device = resolve_device(args.device)
+    cfg = load_config(args)
+    protocol = args.protocol or cfg.eval.protocol
+    if not any(o.startswith("memory.compat_cross_video")
+               for o in args.set or []):
+        cfg = cfg.replace(memory=dataclasses.replace(
+            cfg.memory, compat_cross_video=True))
+    m = load_manifest(args.manifest)
+    ds = dataset(cfg, m)
+    state = restore_state(cfg, cfg.model.head, args.torch_ckpt)
+    extractor, = folded_weights(
+        cfg, extractor_state(cfg, state, args.extractor_torch_ckpt))
+    os.makedirs(args.workdir, exist_ok=True)
+    bank = build_lfb(cfg, extractor, ds,
+                     cache_path=args.lfb or os.path.join(args.workdir,
+                                                         "lfb.npz"),
+                     force=not args.load_lfb, device=device)
+    del extractor
+    state, = folded_weights(cfg, state)
+    res = ClipInference(cfg, state, bank, device=device).run(ds)
+    np.savez(os.path.join(args.workdir, "predictions.npz"),
+             preds=res.preds, scores=res.scores, rows=res.rows)
+    pred_dir = os.path.join(args.workdir, "phase")
+    gt_dir = os.path.join(args.workdir, "gt-phase")
+    export_predictions(m, res.preds, cfg.data.sequence_length,
+                       pred_dir=pred_dir, gt_dir=gt_dir,
+                       fps=cfg.eval.export_fps)
+    gts, preds = load_exported(pred_dir, gt_dir,
+                               [v.video_id for v in m.videos],
+                               phase_names=phase_names(protocol))
+    rep = evaluate_protocol(gts, preds, protocol=protocol, quirk_compat=True)
+    print(rep.format_table())
+    if args.json_out:
+        with open(args.json_out, "w") as f:
+            json.dump({"clip_accuracy": res.accuracy, **protocol_json(rep)},
+                      f, indent=2)
+    return 0
+
+
+def stream_predictions(path: str, manifest) -> np.ndarray:
+    """The valid rows of a `stream` JSONL as clip predictions in bank-row
+    order (video-major, frame-ascending)."""
+    by_video = {}
+    with open(path) as f:
+        for line in f:
+            r = json.loads(line)
+            if r.get("valid"):
+                by_video.setdefault(r["video"], []).append(
+                    (r["frame"], r["pred"]))
+    parts = [np.asarray([p for _, p in sorted(by_video.get(v.video_id, []))],
+                        np.int64) for v in manifest.videos]
+    return np.concatenate(parts) if parts else np.zeros(0, np.int64)
+
+
+def cmd_export(args) -> int:
+    """Predictions -> per-video phase files (and the gt tree): a `test`
+    `.npz`, a `stream` `.jsonl` or a reference test script's pickle."""
+    from tmrnet_torch.eval.export import export_predictions
+
+    cfg = load_config(args)
+    m = load_manifest(args.manifest)
+    if args.preds.endswith(".jsonl"):
+        preds = stream_predictions(args.preds, m)
+    elif args.preds.endswith((".pkl", ".pickle")):
+        # The reference's test script writes its per-clip predictions with
+        # pickle.dump, a list of 0-d torch tensors (`test_..._2fc_copy.py:
+        # 424,443-450`), not with torch.save, so torch.load cannot read
+        # it: plain pickle does, as in JAX. It runs what the file names, so
+        # read only files you trust.
+        with open(args.preds, "rb") as f:
+            obj = pickle.load(f)
+        preds = np.asarray([int(np.asarray(v)) for v in obj], np.int64)
+    else:
+        preds = np.load(args.preds)["preds"]
+    stats = export_predictions(m, preds, cfg.data.sequence_length,
+                               pred_dir=args.pred_dir or cfg.eval.pred_dir,
+                               gt_dir=args.gt_dir or cfg.eval.gt_dir,
+                               fps=cfg.eval.export_fps,
+                               video_name_fmt=args.name_fmt)
+    print(json.dumps(stats))
+    return 0
+
+
+def cmd_evaluate(args) -> int:
+    """Relaxed-boundary protocol scoring of exported phase trees: the
+    table of Main.m, and with --json-out its numbers."""
+    import re
+
+    from tmrnet_torch.eval.export import load_exported
+    from tmrnet_torch.eval.metrics import evaluate_protocol
+
+    cfg = load_config(args)
+    pred_dir = args.pred_dir or cfg.eval.pred_dir
+    gt_dir = args.gt_dir or cfg.eval.gt_dir
+    protocol = args.protocol or cfg.eval.protocol
+    relaxed = (args.relaxed_seconds if args.relaxed_seconds is not None
+               else cfg.eval.relaxed_seconds)
+    video_ids = args.videos or sorted(
+        f[: -len("-phase.txt")] for f in os.listdir(gt_dir)
+        if f.endswith("-phase.txt"))
+    # Main.m and Main_m2cai.m iterate a numeric range of videos (41:80,
+    # 1:14); --video-range, or eval.test_videos of a --preset or --config,
+    # selects the same from the gt listing. An id without a trailing
+    # number is outside every range.
+    vrange = args.video_range or (
+        tuple(cfg.eval.test_videos) if (args.preset or args.config) else None)
+    if not args.videos and vrange:
+        def num(vid):
+            found = re.search(r"(\d+)\D*$", vid)
+            return int(found.group(1)) if found else None
+
+        video_ids = [v for v in video_ids
+                     if num(v) is not None and vrange[0] <= num(v) <= vrange[1]]
+        if not video_ids:
+            raise SystemExit(
+                f"no videos in {gt_dir} fall in range {vrange}; "
+                f"pass --videos or widen --video-range")
+    gts, preds = load_exported(pred_dir, gt_dir, video_ids,
+                               phase_names=phase_names(protocol),
+                               matlab_compat=args.matlab_compat)
+    rep = evaluate_protocol(gts, preds, protocol=protocol, fps=args.fps,
+                            quirk_compat=not args.no_quirk,
+                            relaxed_seconds=relaxed)
+    print(rep.format_table())
+    if args.json_out:
+        with open(args.json_out, "w") as f:
+            json.dump({
+                **protocol_json(rep),
+                "precision_per_phase": rep.precision_per_phase.tolist(),
+                "recall_per_phase": rep.recall_per_phase.tolist(),
+                "accuracy_per_video": rep.accuracy_per_video.tolist(),
+                "videos": list(video_ids),
+            }, f, indent=2)
+    return 0
+
+
+def cmd_export_ckpt(args) -> int:
+    """The port's checkpoint (its best, else its newest step) ->
+    reference-format .pth of head model.head, which the reference's
+    tooling loads with a plain load_state_dict and `--torch-ckpt` reads
+    back."""
+    import torch
+
+    from tmrnet_torch.models.torch_import import export_reference_checkpoint
+
+    cfg = load_config(args)
+    head = cfg.model.head
+    state = restore_state(cfg, head, ckpt=args.ckpt)
+    sd = export_reference_checkpoint(state, head, cfg.model.stage_sizes)
+    torch.save(sd, args.out)
+    print(f"wrote {args.out} ({len(sd)} tensors, head={head})")
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="python -m tmrnet_torch",
                                      description=__doc__.splitlines()[0])
     sub = parser.add_subparsers(dest="command", required=True)
 
     def config_args(sp):
+        sp.add_argument("--preset", choices=sorted(PRESETS),
+                        help="a preset config (--config wins over it)")
         sp.add_argument("--config", help="path to ExperimentConfig json")
         sp.add_argument("--set", action="append", metavar="KEY=VALUE",
                         help="dotted config override, repeatable")
@@ -660,6 +976,26 @@ def build_parser() -> argparse.ArgumentParser:
     device_arg(sp)
     sp.set_defaults(fn=cmd_test)
 
+    sp = sub.add_parser("stream", help="online streaming inference "
+                                       "(one frame/stream/step, JSONL out)")
+    config_args(sp)
+    sp.add_argument("--manifest", required=True)
+    weights_args(sp, "reference-format .pth of the model (head model.head)")
+    sp.add_argument("--extractor-torch-ckpt",
+                    help="reference-format .pth of the LFB extractor (head "
+                         "lfb); default: the model's trunk and LSTM")
+    sp.add_argument("--artifact", help="not ported (an export-model stream "
+                                       "artifact): an error")
+    sp.add_argument("--max-steps", type=int, default=0,
+                    help="cap the number of streamed frames per video")
+    sp.add_argument("--max-streams", type=int, default=64,
+                    help="stream slots; a finished video's slot takes the "
+                         "next (default 64 bounds the decoded videos in "
+                         "host memory; -1 = one slot per video)")
+    sp.add_argument("--out", default="./stream_preds.jsonl")
+    device_arg(sp)
+    sp.set_defaults(fn=cmd_stream, parser=sp)
+
     sp = sub.add_parser("serve", help="serving daemon: JSONL frame events "
                                       "on stdin -> predictions on stdout")
     config_args(sp)
@@ -710,6 +1046,85 @@ def build_parser() -> argparse.ArgumentParser:
                          "connection frees its streams' slots (port 0 = "
                          "ephemeral, bound address printed to stderr)")
     sp.set_defaults(fn=cmd_serve)
+
+    sp = sub.add_parser("parity", help="reference .pth + frames -> Main.m "
+                                       "protocol table in one command")
+    config_args(sp)
+    sp.add_argument("--manifest", required=True,
+                    help="test manifest (pickle/CSV) over the frames")
+    sp.add_argument("--torch-ckpt", required=True,
+                    help="reference stage-2 .pth (TMRNet weights)")
+    sp.add_argument("--extractor-torch-ckpt",
+                    help="reference .pth of the LFB extractor (head lfb); "
+                         "default: --torch-ckpt's trunk and LSTM")
+    sp.add_argument("--lfb", help="bank cache path (default workdir/lfb.npz)")
+    sp.add_argument("--load-lfb", action="store_true",
+                    help="read the bank at --lfb where it exists")
+    sp.add_argument("--workdir", default="./parity")
+    sp.add_argument("--protocol", default=None,
+                    choices=["cholec80", "m2cai"],
+                    help="default: the config's eval.protocol (cholec80)")
+    sp.add_argument("--json-out")
+    device_arg(sp)
+    sp.set_defaults(fn=cmd_parity)
+
+    sp = sub.add_parser("export", help="predictions (npz, stream jsonl or "
+                                       "reference pickle) -> phase trees")
+    config_args(sp)
+    sp.add_argument("--manifest", required=True)
+    sp.add_argument("--preds", required=True,
+                    help=".npz from `test`, .jsonl from `stream`, or a "
+                         "reference test script's .pkl")
+    sp.add_argument("--pred-dir",
+                    help="default: eval.pred_dir (./eval/phase)")
+    sp.add_argument("--gt-dir",
+                    help="default: eval.gt_dir (./eval/gt-phase)")
+    sp.add_argument("--name-fmt", default="{vid}-phase.txt",
+                    help="per-video file name; a cutMargin tree has "
+                         "bare-number video ids, so pass "
+                         "'video{vid}-phase.txt' for the names Main.m "
+                         "iterates (video41..video80)")
+    sp.set_defaults(fn=cmd_export)
+
+    sp = sub.add_parser("evaluate", help="relaxed-boundary protocol scoring")
+    config_args(sp)
+    sp.add_argument("--pred-dir",
+                    help="default: eval.pred_dir (./eval/phase)")
+    sp.add_argument("--gt-dir",
+                    help="default: eval.gt_dir (./eval/gt-phase)")
+    sp.add_argument("--protocol", default=None,
+                    choices=["cholec80", "m2cai"],
+                    help="default: the config's eval.protocol (cholec80)")
+    sp.add_argument("--fps", type=int, default=None,
+                    help="frames a second of the label streams (default "
+                         "1 for cholec80, 25 for m2cai)")
+    sp.add_argument("--videos", nargs="*")
+    sp.add_argument("--relaxed-seconds", type=int, default=None,
+                    help="boundary relaxation (default eval.relaxed_seconds"
+                         " = 10, Evaluate.m:13)")
+    sp.add_argument("--video-range", nargs=2, type=int, metavar=("LO", "HI"),
+                    help="score only gt files whose trailing video number "
+                         "falls in [LO, HI] (Main.m's 41:80, Main_m2cai.m's "
+                         "1:14); a --preset or --config defaults it to "
+                         "eval.test_videos")
+    sp.add_argument("--no-quirk", action="store_true",
+                    help="the intended early relaxation, not MATLAB's quirk")
+    sp.add_argument("--json-out")
+    sp.add_argument("--matlab-compat", action="store_true",
+                    help="drop each phase file's first row as "
+                         "ReadPhaseLabel.m's fgets does (the reference's "
+                         "exports have no header, so Main.m loses frame 0 "
+                         "of every video)")
+    sp.set_defaults(fn=cmd_evaluate)
+
+    sp = sub.add_parser("export-ckpt", help="the port's checkpoint -> "
+                                            "reference-format .pth")
+    config_args(sp)
+    sp.add_argument("--ckpt", required=True,
+                    help="the port's checkpoint dir (its best, else its "
+                         "newest step)")
+    sp.add_argument("--out", required=True, help="output .pth path")
+    sp.set_defaults(fn=cmd_export_ckpt)
     return parser
 
 

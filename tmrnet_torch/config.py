@@ -5,11 +5,15 @@ inference engines, the data layer and the CLI read.
 Own copy of those fields (names, defaults, meaning) of
 `tmrnet_tpu/config.py` (the phase names :22-43, DataConfig :50-93 but for
 num_classes and use_native_preproc, ModelConfig :97-123, TrainConfig
-:125-200, MemoryConfig :200-210 but for feature_dim, EvalConfig
-batch_clips, video_batch, backbone_chunk, corpus and corpus_chunk
-:214-245), and of `ExperimentConfig.from_json` (:283-300) and
-`apply_override` (:395-428), so the port never imports the JAX package.
-Later slices add the fields they read.
+:125-200, MemoryConfig :200-210 but for feature_dim, EvalConfig :214-245
+but for checkpoint), of `ExperimentConfig.from_json` (:283-300), of the
+six `PRESETS` and `get_preset` (:308-434) and of `apply_override`
+(:395-428), so the port never imports the JAX package. The presets are
+JAX's but for `data.num_classes`, which the port lacks (it reads
+`model.num_classes`, which the m2cai preset sets to 8 in both packages),
+and for `ExperimentConfig.name` (:268), which nothing in the port reads:
+a preset is known by its key in `PRESETS`. Later slices add the fields
+they read.
 
 `check_trainable` refuses what the port's trainer does not do, naming the
 field: `train.remat` / `model.remat` (a recomputed forward would update
@@ -181,10 +185,22 @@ class MemoryConfig:
 
 @dataclass(frozen=True)
 class EvalConfig:
-    """Inference settings."""
+    """Inference and scoring settings."""
 
     # Clips per batch of the clip engine.
     batch_clips: int = 64
+    # Where `export` writes the phase files and `evaluate` reads them
+    # (their --pred-dir / --gt-dir default to these), `evaluate`'s protocol
+    # (cholec80 | m2cai, `eval/metrics.py`), its boundary relaxation in
+    # seconds, the frame-id step of exported rows (25*k,
+    # `export_phase_copy.py:63-73`) and the videos it scores (an inclusive
+    # range of video numbers, Main.m's 41:80).
+    pred_dir: str = "./eval/phase"
+    gt_dir: str = "./eval/gt-phase"
+    protocol: str = "cholec80"
+    relaxed_seconds: int = 10
+    export_fps: int = 25
+    test_videos: Tuple[int, int] = (41, 80)
     # `test --engine video`: videos of one length bucket scored together
     # (VideoInference.run_videos).
     video_batch: int = 1
@@ -279,6 +295,77 @@ def check_trainable(cfg: ExperimentConfig) -> None:
         raise NotImplementedError(
             "train.async_checkpoint is not ported: checkpoints are written "
             "synchronously")
+
+
+def _preset_memorybank() -> ExperimentConfig:
+    """Stage-1 memory-bank model (ResNet-50 + LSTM, 10-frame clips, 224px),
+    reference `train_singlenet_phase_1fc.py`."""
+    return ExperimentConfig(
+        model=ModelConfig(head="stage1"),
+        train=TrainConfig(lr=5e-4, optimizer="sgd", schedule="plateau"))
+
+
+def _preset_nl_only() -> ExperimentConfig:
+    """Non-local head alone over a 40-row window,
+    reference `train_only_non-local_pretrained.py:44`."""
+    return ExperimentConfig(
+        model=ModelConfig(head="nl_only"),
+        memory=MemoryConfig(window=40),
+        train=TrainConfig(lr=5e-7))
+
+
+def _preset_tmr_resnet() -> ExperimentConfig:
+    """TMRNet (TimeConv + NLBlock) on ResNet-50,
+    reference `train_non-local_mutiConv_resnet.py:41,49`."""
+    return ExperimentConfig(
+        model=ModelConfig(head="tmr"),
+        memory=MemoryConfig(window=30),
+        train=TrainConfig(lr=5e-7))
+
+
+def _preset_tmr_resnest() -> ExperimentConfig:
+    """TMRNet on the ResNeSt-50 trunk (the best accuracy),
+    reference `train_non-local_mutiConv_resnest.py`."""
+    return ExperimentConfig(
+        model=ModelConfig(backbone="resnest50", head="tmr"),
+        memory=MemoryConfig(window=30),
+        train=TrainConfig(lr=5e-7))
+
+
+def _preset_inference() -> ExperimentConfig:
+    """Inference over the 40-video Cholec80 test split."""
+    return ExperimentConfig(
+        model=ModelConfig(head="tmr", compute_dtype="bfloat16"),
+        memory=MemoryConfig(window=30),
+        eval=EvalConfig(batch_clips=128))
+
+
+def _preset_m2cai() -> ExperimentConfig:
+    """The M2CAI16 workflow challenge: 8 phases (TrocarPlacement first),
+    videos 1-14 scored at 25 fps (`Main_m2cai.m`, `Evaluate_m2cai.m`)."""
+    base = _preset_tmr_resnet()
+    return ExperimentConfig(
+        data=dataclasses.replace(base.data, phase_names=M2CAI_PHASES),
+        model=dataclasses.replace(base.model, num_classes=8),
+        memory=base.memory,
+        train=base.train,
+        eval=EvalConfig(protocol="m2cai", test_videos=(1, 14)))
+
+
+PRESETS = {
+    "memorybank": _preset_memorybank,
+    "tmr-nl-only": _preset_nl_only,
+    "tmr-resnet50": _preset_tmr_resnet,
+    "tmr-resnest50": _preset_tmr_resnest,
+    "inference-e2e": _preset_inference,
+    "tmr-resnet50-m2cai": _preset_m2cai,
+}
+
+
+def get_preset(name: str) -> ExperimentConfig:
+    if name not in PRESETS:
+        raise KeyError(f"unknown preset {name!r}; available: {sorted(PRESETS)}")
+    return PRESETS[name]()
 
 
 def _coerce(value: str, current: Any) -> Any:
