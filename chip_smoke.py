@@ -38,7 +38,9 @@ Phases, in order; any failure exits nonzero:
    answering 3 requests of 32 uint8 clips of 10 224x224 frames; launch
    counts must be 12 fused_bottleneck, 1 time_conv and 1 nl_attention per
    forward; the first 2 clips rerun on the CPU in f32 through the plain ops
-   must match the card's softmax within 2e-2 and agree on the argmax;
+   must match the card's softmax within 2e-2 and agree on the argmax, one
+   of them at least decided (fc_c's seeded weights scaled by
+   SERVE_LOGIT_SCALE in 4, 4b, 4c, 4d and 4h, as in 4e);
 4b. the tiled slice: the same model, weights, bank and requests through
    ClipInference(fused_kernel="tiled"); 10 fused_bottleneck_tiled, 2
    fused_bottleneck, 1 time_conv and 1 nl_attention launches per forward;
@@ -88,12 +90,15 @@ Phases, in order; any failure exits nonzero:
    `--lfb`; video; corpus) through `tmrnet_torch.cli.main` in this
    process, at the width of 4e (`--set model.folded=true`), over 4 packed
    videos of 300, 200, 45 and 9 uint8 250x250 frames with phase
-   annotations (518 clip positions) and two seeded reference `.pth`;
+   annotations (518 clip positions; each frame its phase's colour under a
+   quarter of noise) and two seeded reference `.pth`;
    exact launch counts per command (the clip engines 12 fused_bottleneck a
    batch of 40 or 64 clips, `test`'s also 1 time_conv and 1 nl_attention;
    the video engines by the chunk plan); the two banks within 2e-2 of max
    |feature|; the three engines' softmax within 2e-2 of each other and the
-   argmax rule; 8 clips of the clip engine against the CPU in f32;
+   argmax rule; each engine's predictions over two classes at least and
+   its softmax varying across rows by more than 2e-2; 8 clips of the
+   clip engine against the CPU in f32;
    build_lfb(fused_kernel="tiled") against the block build; each clip
    accuracy equal to the mean of preds == labels; then `python -m
    tmrnet_torch test` as a subprocess, equal to the in-process corpus
@@ -102,6 +107,25 @@ Phases, in order; any failure exits nonzero:
 4g. the training slice (`run_train_slice`): a train step of each stage on
    the card against the CPU, 20 steps that learn, the training commands
    with exact launch counts, preemption and resume, step times;
+4j. the ResNeSt and training-options slice (`run_options_slice`), over
+   4g's directory: (a) a ResNeSt-50 train step of each stage on the card
+   against the CPU as 4g's, the bf16 aggregates by ResNeSt's own limits
+   (`train/step_check.py::AGG_LIMITS`); (b) `train-bank`, `build-lfb
+   --ckpt`, `train-tmr --stage1-ckpt` and `test --ckpt --extractor-ckpt`
+   with `--set model.backbone=resnest50` over 4g's split, no #3 or #4
+   launch and #1 / #2 as 4g reckons them, `test` against the best
+   checkpoint's val pass re-run; (c) ResNeSt-50's train step at
+   TRAIN_BATCH clips, p50 ms, frames/s, peak memory; (d) remat on
+   ResNet-50: an f32 step with train.remat against without (deltas within
+   STEP_F32_TOL, statistics within 1e-6), then the bf16 step at
+   TRAIN_BATCH both ways, ms and peak memory; (e) async checkpoints: how
+   long save() blocks, sync and async, and 4g D's SIGTERM and resume of
+   `train-tmr` under train.async_checkpoint; (f) the native preprocess:
+   the first train batch through the C++ library against numpy (1e-6),
+   and a `train-bank` epoch each way with host normalization; (g) on
+   4g's checkpoints, `test`, `stream` and `serve` with `--extractor-ckpt`
+   equal to `--extractor-torch-ckpt` on its exported `.pth`, and `serve
+   --ckpt` to `serve --torch-ckpt` within 1e-6 (2 streams, 12 ticks);
 4h. the ResNeSt slice: the full-width folded ResNeSt-50 TMRNet (stem 32,
    radix 2, bf16) with seeded weights through the weight bridge; (a) the
    clip slice of phase 4 through ClipInference, 0 fused_bottleneck, 0
@@ -128,7 +152,8 @@ Phases, in order; any failure exits nonzero:
    nl_attention launches on every step and none in a slot reset, the
    steps of the slot plan (300), its JSONL rows in the plan's order and
    each valid row's softmax (recorded from the engine) within 2e-2 of
-   4f's `test --engine video` with the argmax rule, stream-frames/s and
+   4f's `test --engine video` with the argmax rule, two predicted classes
+   at least and a softmax that varies across rows, stream-frames/s and
    step p50 / p99 (the frames over the first step's start to the last
    step's end); (b) `export` of that test's `.npz` and of the stream's
    `.jsonl`, `evaluate --fps 1 --json-out` of each, equal per-video
@@ -202,6 +227,11 @@ ROOT_TMP = os.path.join(ROOT, "build")
 # `python -m tmrnet_torch test` may take as a subprocess.
 TEST_LENGTHS = (300, 200, 45, 9)
 LFB_BATCH, TEST_BATCH = 40, 64
+# A colour a phase for the test videos' frames (write_test_videos), and
+# the frames of each in the video that calibrates 4f's logits.
+PHASE_COLOURS = ((220, 40, 40), (40, 200, 60), (40, 60, 220), (230, 220, 50),
+                 (40, 210, 220), (210, 50, 210), (20, 20, 20))
+CALIB_FRAMES = 20
 TEST_TIMEOUT = 600
 # Phase 4g, the training slice: clips of a train step (A, B) and of the
 # benchmark (E, data.batch_clips), the Adam steps of B, the warm-up and
@@ -209,16 +239,12 @@ TEST_TIMEOUT = 600
 # subprocess may take (D); the card-vs-CPU step's limits (A: the bf16
 # step's loss, the f32 step's loss and statistics, the aggregates of the
 # bf16 step's deltas); the best checkpoint's val loss against its val pass
-# re-run (C). The aggregates' limits come from the full-width readings
-# in PERF.md: at ResNet-50's depth the bf16 backbone step lands at
-# 1 - cosine 0.87 from the f32 one on the CPU too, so the trunk's limit
-# only refuses a delta unrelated to the f32 step (1 - cosine ~1 over 23M
-# values); the f32 step holds the backbone per tensor.
+# re-run (C). The aggregates' limits are `train/step_check.py::AGG_LIMITS`,
+# per backbone, from full-width CPU readings (`--step-reading`).
 TRAIN_CLIPS, LEARN_STEPS, TRAIN_BATCH = 8, 20, 40
 BENCH_WARMUP, BENCH_STEPS = 3, 10
 BANK_EPOCHS, TMR_EPOCHS, TRAIN_TIMEOUT = 1, 2, 600
 STEP_LOSS_TOL, STEP_F32_TOL, VAL_LOSS_TOL = 2e-2, 1e-3, 1e-5
-STEP_AGG_LIMITS = {"trunk": 0.95, "head": 0.15}
 
 
 def card_line():
@@ -682,6 +708,16 @@ def check_int8_kernels(torch, seed):
     return records, all_ok
 
 
+def scale_logits(state):
+    """`state` with fc_c's weights scaled by SERVE_LOGIT_SCALE where it has
+    them: random weights leave the 7-class softmax near uniform, and the
+    argmax rule decides no row."""
+    for key in ("fc_c.weight", "fc_c.bias"):
+        if key in state:
+            state[key] = state[key] * SERVE_LOGIT_SCALE
+    return state
+
+
 def slice_setup(torch, seed, backbone="resnet50"):
     """The slices' model config (`backbone` at full width), folded seeded
     weights, bank on the card and 1 + REQUESTS host requests (the first is
@@ -694,7 +730,8 @@ def slice_setup(torch, seed, backbone="resnet50"):
     cfg = ModelConfig(backbone=backbone, head="tmr", hidden_dim=HIDDEN,
                       num_classes=CLASSES, compute_dtype="bfloat16", folded=True)
     unfolded = dataclasses.replace(cfg, compute_dtype="float32", folded=False)
-    state = fold_variables(from_jax_variables(random_variables(unfolded, seed)))
+    state = fold_variables(scale_logits(from_jax_variables(random_variables(
+        unfolded, seed))))
     ecfg = ExperimentConfig(data=DataConfig(device_normalize=True), model=cfg,
                             memory=MemoryConfig(window=WINDOW))
 
@@ -758,10 +795,11 @@ def run_slice(torch, setup, card, fused_kernel, want_per_forward, tag=None):
     # A clip whose two best classes lie within twice the tolerance may
     # legitimately swap between bf16 and f32; every other argmax must agree.
     decided = margin > 2 * TOL
-    agree = bool((res.preds[:2] == ref.preds)[decided].all())
+    agree = (bool((res.preds[:2] == ref.preds)[decided].all())
+             and int(decided.sum()) >= 1)
     print(f"{tag}: card vs CPU f32 probs max_abs_err {err:.4g} (limit {TOL}), "
           f"argmax card {res.preds[:2].tolist()} cpu {ref.preds.tolist()} "
-          f"(top-2 margins {margin.round(4).tolist()}) "
+          f"(top-2 margins {margin.round(4).tolist()}, want >= 1 decided) "
           f"{'ok' if err <= TOL and agree else 'FAIL'}")
     ok &= err <= TOL and agree
     del engine
@@ -783,9 +821,10 @@ def engine_setup(seed, backbone="resnet50"):
     ecfg = ExperimentConfig(data=DataConfig(device_normalize=True,
                                             sequence_length=SEQ),
                             model=cfg, memory=MemoryConfig(window=WINDOW))
-    weights = [fold_variables(from_jax_variables(random_variables(
-        dataclasses.replace(cfg, head=head, compute_dtype="float32",
-                            folded=False), seed + k)))
+    weights = [fold_variables(scale_logits(from_jax_variables(
+        random_variables(dataclasses.replace(
+            cfg, head=head, compute_dtype="float32", folded=False),
+            seed + k))))
         for k, head in ((0, "tmr"), (100, "lfb"))]
     return ecfg, weights
 
@@ -812,6 +851,18 @@ def probs_close(name, got, want, tol=TOL):
     err = float(np.abs(np.asarray(got, np.float32) - want).max())
     ok = bool(np.isfinite(err)) and err <= tol
     print(f"  {name}: max_abs_err {err:.4g} (limit {tol}) "
+          f"{'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def varies(name, preds, probs):
+    """Predictions that follow the frames: at least two predicted classes,
+    and a softmax whose rows differ by more than TOL somewhere."""
+    classes = np.unique(preds)
+    spread = float(np.ptp(np.asarray(probs), axis=0).max())
+    ok = len(classes) >= 2 and spread > TOL
+    print(f"  {name}: predicted classes {classes.tolist()} (want >= 2), "
+          f"softmax spread across rows {spread:.4g} (want > {TOL}) "
           f"{'ok' if ok else 'FAIL'}")
     return ok
 
@@ -918,7 +969,8 @@ def run_video_slice(torch, seed, card):
                         for c, n in zip(corpus[:2], lengths))
     ok &= probs_close("run_corpus (tiled) vs run_video (block), video 0 probs",
                 corpus[0][1], probs)
-    ok &= argmax_agrees("run_corpus vs run_video", corpus[0][0], preds, probs)
+    ok &= argmax_agrees("run_corpus vs run_video", corpus[0][0], preds, probs,
+                        min_decided=1)
 
     positions = np.unique(np.concatenate([[0, 1, k - 1], rng.choice(
         np.arange(2, k - 1), min(61, k - 3), replace=False)]))
@@ -938,7 +990,7 @@ def run_video_slice(torch, seed, card):
     ok &= probs_close("ClipInference over build_lfb_video's bank vs run_video",
                 res.scores, probs[positions])
     ok &= argmax_agrees("ClipInference vs run_video", res.preds,
-                        preds[positions], probs[positions])
+                        preds[positions], probs[positions], min_decided=1)
 
     cpu_cfg = ecfg.replace(model=dataclasses.replace(ecfg.model,
                                                      compute_dtype="float32"))
@@ -946,7 +998,8 @@ def run_video_slice(torch, seed, card):
     p_cpu, pr_cpu = cpu.run_video(videos[0][:14])
     p_card, pr_card = block.run_video(videos[0][:14])
     ok &= probs_close("14-frame video, card vs CPU f32", pr_card, pr_cpu)
-    ok &= argmax_agrees("card vs CPU f32", p_card, p_cpu, pr_cpu)
+    ok &= argmax_agrees("card vs CPU f32", p_card, p_cpu, pr_cpu,
+                        min_decided=1)
     del tiled, clip_engine, bank, videos
     torch.cuda.empty_cache()
     return counts, block, ok
@@ -1069,25 +1122,53 @@ def full_width_config(folded=True, backbone="resnet50"):
         model=model, memory=MemoryConfig(window=WINDOW))
 
 
-def reference_states(seed, cfg):
+def reference_states(seed, cfg, calibrate=False):
     """Two seeded unfolded weight sets of `cfg.model`: the TMR model (head
     tmr, fc_c scaled by SERVE_LOGIT_SCALE, so that the 7-class softmax
-    spreads) and the extractor (head lfb), by head."""
+    spreads, and under `calibrate` its bias shifted by `calibrate_phases`)
+    and the extractor (head lfb), by head."""
     from tmrnet_torch.models.convert import from_jax_variables, random_variables
 
     states = {}
     for k, head in ((200, "tmr"), (300, "lfb")):
-        state = from_jax_variables(random_variables(dataclasses.replace(
-            cfg.model, head=head, compute_dtype="float32", folded=False),
-            seed + k))
-        if head == "tmr":
-            for key in ("fc_c.weight", "fc_c.bias"):
-                state[key] = state[key] * SERVE_LOGIT_SCALE
-        states[head] = state
+        states[head] = scale_logits(from_jax_variables(random_variables(
+            dataclasses.replace(cfg.model, head=head, compute_dtype="float32",
+                                folded=False), seed + k)))
+    if calibrate:
+        calibrate_phases(cfg, states, seed)
     return states
 
 
-def write_reference_weights(seed, tmp, cfg):
+def calibrate_phases(cfg, states, seed):
+    """Shift fc_c's bias of the TMR weights in `states`, in place, so that
+    every class has the same mean log-softmax over a calibration video:
+    CALIB_FRAMES frames of each of PHASE_COLOURS under a quarter of noise
+    (another seed than the test videos'), through VideoInference on the
+    card (bf16, folded). Seeded weights give every clip the same argmax
+    otherwise: the frames move the softmax (by ~0.1) less than the
+    classes' fixed offsets."""
+    import torch
+
+    from tmrnet_torch.eval.infer import VideoInference
+    from tmrnet_torch.models.fold_bn import fold_variables
+
+    rng = np.random.default_rng(seed + 9)
+    colours = np.asarray(PHASE_COLOURS, np.float32)
+    phases = np.repeat(np.arange(len(PHASE_COLOURS)), CALIB_FRAMES)
+    noise = rng.integers(0, 256, (len(phases), IMG, IMG, 3), dtype=np.uint8)
+    video = (0.75 * colours[phases][:, None, None, :]
+             + 0.25 * noise).astype(np.uint8)
+    engine = VideoInference(
+        cfg.replace(model=dataclasses.replace(cfg.model, folded=True)),
+        fold_variables(states["tmr"]), fold_variables(states["lfb"]))
+    _, probs = engine.run_video(video)
+    shift = np.log(np.maximum(probs, 1e-30)).mean(axis=0)
+    states["tmr"]["fc_c.bias"] = (states["tmr"]["fc_c.bias"]
+                                  - torch.from_numpy(shift.astype(np.float32)))
+    del engine
+
+
+def write_reference_weights(seed, tmp, cfg, calibrate=False):
     """`reference_states` written as reference `.pth` files by the port's
     export, and the config JSON. Returns their paths."""
     import torch
@@ -1095,7 +1176,7 @@ def write_reference_weights(seed, tmp, cfg):
     from tmrnet_torch.models.torch_import import export_reference_checkpoint
 
     paths = {}
-    for head, state in reference_states(seed, cfg).items():
+    for head, state in reference_states(seed, cfg, calibrate).items():
         paths[head] = os.path.join(tmp, f"{head}.pth")
         torch.save(export_reference_checkpoint(state, head,
                                                cfg.model.stage_sizes),
@@ -1460,20 +1541,26 @@ class LoaderClock:
 def write_test_videos(seed, tmp):
     """Phase 4f's frames: TEST_LENGTHS packed uint8 250x250 videos under
     tmp/frames and their phase annotations (`<video>-phase.txt`, a row
-    every 25 source frames) under tmp/ann."""
+    every 25 source frames, the phase changing every 40) under tmp/ann.
+    A frame is its phase's colour of PHASE_COLOURS with a quarter of
+    seeded noise over it, so that what a model sees follows the phase."""
     from tmrnet_torch.config import CHOLEC80_PHASES
 
     rng = np.random.default_rng(seed + 8)
     os.makedirs(os.path.join(tmp, "frames"))
     os.makedirs(os.path.join(tmp, "ann"))
+    colours = np.asarray(PHASE_COLOURS, np.float32)
     for v, n in enumerate(TEST_LENGTHS):
         vid = f"video{v + 1:02d}"
+        phases = (np.arange(n) // 40 + v) % 7
+        noise = rng.integers(0, 256, (n, 250, 250, 3), dtype=np.uint8)
+        frames = 0.75 * colours[phases][:, None, None, :] + 0.25 * noise
         np.save(os.path.join(tmp, "frames", f"{vid}.npy"),
-                rng.integers(0, 256, (n, 250, 250, 3), dtype=np.uint8))
+                frames.astype(np.uint8))
         with open(os.path.join(tmp, "ann", f"{vid}-phase.txt"), "w") as f:
             f.write("Frame\tPhase\n")
             for k in range(n):
-                f.write(f"{25 * k}\t{CHOLEC80_PHASES[(k // 40 + v) % 7]}\n")
+                f.write(f"{25 * k}\t{CHOLEC80_PHASES[phases[k]]}\n")
 
 
 def run_cli(argv):
@@ -1559,7 +1646,8 @@ def run_test_slice(torch, seed, card, kept=None):
     with phase_dir("test", kept) as tmp:
         t0 = time.perf_counter()
         cfg = full_width_config(folded=False)
-        paths = write_reference_weights(seed + 1000, tmp, cfg)
+        paths = write_reference_weights(seed + 1000, tmp, cfg,
+                                        calibrate=True)
         write_test_videos(seed, tmp)
         print(f"test slice: {len(TEST_LENGTHS)} packed videos of "
               f"{TEST_LENGTHS} 250x250 frames ({clips} clip positions) and "
@@ -1622,7 +1710,8 @@ def run_test_slice(torch, seed, card, kept=None):
             print(f"  {engine}: clip accuracy "
                   f"{summaries[engine]['clip_accuracy']:.4f} equal to the "
                   f"mean of preds == labels {'ok' if good else 'FAIL'}")
-            ok &= good
+            ok &= good and varies(f"test {engine}", preds[engine],
+                                  scores[engine])
         for a, b in (("video", "clip"), ("corpus", "clip"),
                      ("corpus", "video")):
             ok &= probs_close(f"test {a} vs {b} softmax", scores[a], scores[b])
@@ -1700,22 +1789,26 @@ def run_test_slice(torch, seed, card, kept=None):
     return counts, ok
 
 
-def train_model_config(head, device, dtype=None):
-    """The full-width model of the training slice: bf16 on the card, f32
-    on the CPU unless `dtype` says otherwise, unfolded, dropout 0."""
+def train_model_config(head, device, dtype=None, backbone="resnet50",
+                       remat=False):
+    """The full-width model of the training slice: ResNet-50 (or
+    `backbone`), bf16 on the card, f32 on the CPU unless `dtype` says
+    otherwise, unfolded, dropout 0, each bottleneck recomputed in the
+    backward pass under `remat`."""
     from tmrnet_torch.config import ModelConfig
 
-    return ModelConfig(backbone="resnet50", head=head, hidden_dim=HIDDEN,
-                       num_classes=CLASSES, folded=False,
+    return ModelConfig(backbone=backbone, head=head, hidden_dim=HIDDEN,
+                       num_classes=CLASSES, folded=False, remat=remat,
                        compute_dtype=dtype or ("bfloat16" if device == "cuda"
                                                else "float32"),
                        dropout_stage1=0.0, dropout_head=0.0, dropout_nl=0.0)
 
 
 def train_state(torch, head, weights, device, optimizer="sgd", lr=0.05,
-                dtype=None):
-    """A TrainState of the full-width model on `device` from `weights`,
-    and its train step (uint8 clips prepared on the device)."""
+                dtype=None, **model):
+    """A TrainState of the full-width model (`train_model_config`'s
+    `model` keywords) on `device` from `weights`, and its train step
+    (uint8 clips prepared on the device)."""
     from tmrnet_torch.config import DataConfig, TrainConfig
     from tmrnet_torch.data.device_feed import DevicePrep
     from tmrnet_torch.device import resolve_device
@@ -1724,7 +1817,7 @@ def train_state(torch, head, weights, device, optimizer="sgd", lr=0.05,
     from tmrnet_torch.train.state import TrainState
     from tmrnet_torch.train.steps import make_stage1_steps, make_stage2_steps
 
-    cfg = train_model_config(head, device, dtype)
+    cfg = train_model_config(head, device, dtype, **model)
     device = resolve_device(device)
     model = build_model(cfg, device=device)
     model.load_state_dict(weights)
@@ -1748,12 +1841,14 @@ def train_batch(torch, seed, clips):
             torch.from_numpy(rng.integers(0, CLASSES, clips)))
 
 
-def one_step(torch, head, weights, batch, device, dtype=None):
+def one_step(torch, head, weights, batch, device, dtype=None, **model):
     """One SGD step (momentum 0.9, weight decay 5e-4) of `head` on
-    `device`: (loss, parameter deltas, running statistics, launches)."""
+    `device` (`train_model_config`'s `model` keywords): (loss, parameter
+    deltas, running statistics, launches)."""
     from tmrnet_torch.kernels.build import LAUNCHES, reset_launches
 
-    state, step = train_state(torch, head, weights, device, dtype=dtype)
+    state, step = train_state(torch, head, weights, device, dtype=dtype,
+                              **model)
     before = {k: v.detach().clone() for k, v in
               state.model.named_parameters()}
     clips, memory, labels = (t.to(device) for t in batch)
@@ -1773,45 +1868,63 @@ def one_step(torch, head, weights, batch, device, dtype=None):
     return loss, deltas, stats, counts
 
 
-def check_step_vs_cpu(torch, seed, card):
-    """Phase 4g A: one SGD step of the full-width model on TRAIN_CLIPS
-    uint8 clips on the card against the same step in f32 on the CPU
-    through the plain versions (`train/step_check.py` says how deltas are
-    compared). In bf16 (heads tmr and stage1), beside the same step in
-    bf16 on the CPU: the loss within STEP_LOSS_TOL relative, the running
-    statistics within TOL of max |cpu|, one time_conv and one
-    nl_attention launch in the stage-2 step and none in stage 1 (so none
-    in a backward), the backbone's and the head's and LSTM's deltas laid
-    end to end within STEP_AGG_LIMITS, and each tensor that the CPU's
-    bf16 step resolves within 5e-2 or twice that step's distance. In f32
-    (heads stage1 and nl_only; time_conv's kernel takes bf16 only): the
-    loss and the running statistics within STEP_F32_TOL, each tensor's
-    delta within 5e-2 (cosine 0.95 for the backbone), the nl_attention
-    kernel launched once in nl_only's step; beside it, the spread of the
-    CPU's own f32 step between two thread counts. Returns (the card
-    stage-2 bf16 step's launches, ok)."""
+def check_step_vs_cpu(torch, seed, card, backbone="resnet50"):
+    """Phase 4g A (4j a with backbone resnest50): one SGD step of the
+    full-width model on TRAIN_CLIPS uint8 clips on the card against the
+    same step in f32 on the CPU through the plain versions
+    (`train/step_check.py` says how deltas are compared). In bf16 (heads
+    tmr and stage1), beside the same step in bf16 on the CPU: the loss
+    within STEP_LOSS_TOL relative, the running statistics within TOL of
+    max |cpu|, one time_conv and one nl_attention launch in the stage-2
+    step and none in stage 1 (so none in a backward), the backbone's and
+    the head's and LSTM's deltas laid end to end within the backbone's
+    `step_check.AGG_LIMITS`, and each tensor that the CPU's bf16 step
+    resolves within 5e-2 or twice that step's distance. In f32 (heads
+    stage1 and, on ResNet-50, nl_only; time_conv's kernel takes bf16
+    only): the loss and the running statistics within STEP_F32_TOL, each
+    tensor's delta within 5e-2 (cosine 0.95 for the backbone), the
+    nl_attention kernel launched once in nl_only's step; before it, the
+    spread of the CPU's own f32 stage-1 step between two thread counts.
+    On ResNeSt-50 each bf16 statistic lands within TOL or within twice the
+    CPU bf16 step's error there (at the split attention's fc1 the batch
+    mean is ~30x its spread, and bf16 rounding moves the batch variance),
+    and the f32 check leaves the split attention's fc1 biases to the
+    aggregates (`step_check.rounding_only`: each feeds a train-mode
+    BatchNorm, so its gradient is zero but for rounding), printing their
+    distances. Returns (the card stage-2 bf16 step's launches, ok)."""
     from tmrnet_torch.models.convert import from_jax_variables, random_variables
-    from tmrnet_torch.train.step_check import (TENSOR_LIMIT, aggregate,
-                                               distance, verdicts,
+    from tmrnet_torch.train.step_check import (AGG_LIMITS, TENSOR_LIMIT,
+                                               aggregate, distance,
+                                               rounding_only, verdicts,
                                                worst_by_group)
 
+    limits = AGG_LIMITS[backbone]
+    heads = (("tmr", "stage1", "nl_only") if backbone == "resnet50"
+             else ("tmr", "stage1"))
+    tag = "" if backbone == "resnet50" else f"{backbone} "
     ok, counts = True, {}
     batch = train_batch(torch, seed + 20, TRAIN_CLIPS)
-    stat_err = lambda got, want: max(
-        float((got[k] - w).abs().max() / max(float(w.abs().max()), 1e-12))
-        for k, w in want.items())
-    for head in ("tmr", "stage1", "nl_only"):
+    stat_errs = lambda got, want: {
+        k: float((got[k] - w).abs().max() / max(float(w.abs().max()), 1e-12))
+        for k, w in want.items()}
+    stat_err = lambda got, want: max(stat_errs(got, want).values())
+    # ResNeSt's bf16 statistics are judged against how far the CPU's own
+    # bf16 step lands, as the deltas are
+    resolve = backbone != "resnet50"
+    for head in heads:
         weights = from_jax_variables(random_variables(
-            train_model_config(head, "cpu"), seed + 21))
+            train_model_config(head, "cpu", backbone=backbone), seed + 21))
         t0 = time.perf_counter()
-        cpu = one_step(torch, head, weights, batch, "cpu")
-        print(f"train step {head}: CPU f32 step {time.perf_counter() - t0:.1f}"
-              f" s, loss {cpu[0]:.6g}")
+        cpu = one_step(torch, head, weights, batch, "cpu", backbone=backbone)
+        print(f"train step {tag}{head}: CPU f32 step "
+              f"{time.perf_counter() - t0:.1f} s, loss {cpu[0]:.6g}")
         if head != "nl_only":
             t0 = time.perf_counter()
-            ref = one_step(torch, head, weights, batch, "cpu", "bfloat16")
+            ref = one_step(torch, head, weights, batch, "cpu", "bfloat16",
+                           backbone=backbone)
             t1 = time.perf_counter()
-            gpu = one_step(torch, head, weights, batch, "cuda")
+            gpu = one_step(torch, head, weights, batch, "cuda",
+                           backbone=backbone)
             torch.cuda.empty_cache()
             if head == "tmr":
                 counts = gpu[3]
@@ -1825,22 +1938,31 @@ def check_step_vs_cpu(torch, seed, card):
                     print(f"    {k}: card {d:.5g}, cpu bf16 {r:.5g} FAIL")
             unresolved = [k for k, (v, _, _) in judged.items()
                           if v == "unresolved"]
-            sterr = stat_err(gpu[2], cpu[2])
+            errs, errs_ref = stat_errs(gpu[2], cpu[2]), stat_errs(ref[2],
+                                                                  cpu[2])
+            sterr = max(errs.values())
+            stats_ok = (all(e <= TOL or e <= 2 * errs_ref[k]
+                            for k, e in errs.items()) if resolve
+                        else sterr <= TOL)
+            worst = max(errs, key=errs.get)
             want = {"time_conv": 1, "nl_attention": 1} if head == "tmr" else {}
-            good = (rel <= STEP_LOSS_TOL and sterr <= TOL and gpu[3] == want
+            good = (rel <= STEP_LOSS_TOL and stats_ok and gpu[3] == want
                     and tally["FAIL"] == 0
-                    and all(agg[g] <= STEP_AGG_LIMITS[g] for g in agg))
+                    and all(agg[g] <= limits[g] for g in agg))
+            rule = (f"each within {TOL} or twice the cpu bf16 step's"
+                    if resolve else f"limit {TOL}")
             print(f"  {head} bf16: loss card {gpu[0]:.6g} cpu bf16 "
                   f"{ref[0]:.6g}, card rel {rel:.3g} (limit {STEP_LOSS_TOL});"
-                  f" running stats worst /max|cpu| {sterr:.4g} (limit {TOL});"
-                  f" launches {gpu[3]} (want {want}: the forward launches "
-                  f"each once, the backward none) (CPU bf16 step "
-                  f"{t1 - t0:.1f} s)")
+                  f" running stats worst /max|cpu| {sterr:.4g} at {worst} "
+                  f"(cpu bf16 there {errs_ref[worst]:.4g}, its worst "
+                  f"{max(errs_ref.values()):.4g}; {rule}); launches "
+                  f"{gpu[3]} (want {want}: the forward launches each once, "
+                  f"the backward none) (CPU bf16 step {t1 - t0:.1f} s)")
             print(f"  {head} bf16: aggregates card "
                   f"{json.dumps(agg)} cpu bf16 {json.dumps(agg_ref)} "
                   f"(1 - cosine of the backbone's deltas, relative error of "
                   f"the head's and LSTM's; limits "
-                  f"{json.dumps(STEP_AGG_LIMITS)})")
+                  f"{json.dumps(limits)})")
             print(f"  {head} bf16: {len(judged)} parameter deltas {tally} "
                   f"(within 5e-2, within twice the cpu bf16 step's "
                   f"distance, not resolved by the cpu bf16 step, failed); "
@@ -1848,38 +1970,73 @@ def check_step_vs_cpu(torch, seed, card):
                   f"{[k for k in unresolved if not k.startswith('backbone.')]} "
                   f"{'ok' if good else 'FAIL'}")
             ok &= good
-        if head != "tmr":
-            g32 = one_step(torch, head, weights, batch, "cuda", "float32")
-            torch.cuda.empty_cache()
-            rel = abs(g32[0] - cpu[0]) / abs(cpu[0])
-            dist = {k: distance(k, g32[1][k], w) for k, w in cpu[1].items()}
-            sterr = stat_err(g32[2], cpu[2])
-            want = {"nl_attention": 1} if head == "nl_only" else {}
-            good = (rel <= STEP_F32_TOL and sterr <= STEP_F32_TOL
-                    and all(d <= TENSOR_LIMIT for d in dist.values())
-                    and g32[3] == want)
-            print(f"  {head} f32: loss card {g32[0]:.8g} rel {rel:.3g}, "
-                  f"running stats {sterr:.4g} (limit {STEP_F32_TOL} each); "
-                  f"{len(dist)} deltas, worst {worst_by_group(dist)} "
-                  f"(limit {TENSOR_LIMIT} each); aggregates "
-                  f"{json.dumps(aggregate(g32[1], cpu[1]))}; launches "
-                  f"{g32[3]} (want {want}) {'ok' if good else 'FAIL'}")
-            ok &= good
         if head == "stage1":
             # the f32 step's own spread: the same CPU step with half the
             # threads sums in another order
             n = torch.get_num_threads()
             torch.set_num_threads(max(1, n // 2))
             try:
-                half = one_step(torch, head, weights, batch, "cpu")
+                half = one_step(torch, head, weights, batch, "cpu",
+                                backbone=backbone)
             finally:
                 torch.set_num_threads(n)
             dist = {k: distance(k, half[1][k], w) for k, w in cpu[1].items()}
             print(f"  {head} f32 on the CPU with {max(1, n // 2)} threads "
                   f"against {n}: worst {worst_by_group(dist)}; aggregates "
                   f"{json.dumps(aggregate(half[1], cpu[1]))}")
-    print(f"train step vs CPU on {card} {'ok' if ok else 'FAIL'}")
+        if head != "tmr":
+            g32 = one_step(torch, head, weights, batch, "cuda", "float32",
+                           backbone=backbone)
+            torch.cuda.empty_cache()
+            rel = abs(g32[0] - cpu[0]) / abs(cpu[0])
+            dist = {k: distance(k, g32[1][k], w) for k, w in cpu[1].items()}
+            sterr = stat_err(g32[2], cpu[2])
+            want = {"nl_attention": 1} if head == "nl_only" else {}
+            # a bias that feeds a train-mode BatchNorm has no gradient
+            # but rounding: the aggregates hold it, not its own distance
+            held = {k: d for k, d in dist.items() if not rounding_only(k)}
+            rounding = {k: round(d, 4) for k, d in dist.items()
+                        if rounding_only(k)}
+            good = (rel <= STEP_F32_TOL and sterr <= STEP_F32_TOL
+                    and all(d <= TENSOR_LIMIT for d in held.values())
+                    and g32[3] == want)
+            print(f"  {head} f32: loss card {g32[0]:.8g} rel {rel:.3g}, "
+                  f"running stats {sterr:.4g} (limit {STEP_F32_TOL} each); "
+                  f"{len(held)} deltas, worst {worst_by_group(held)} "
+                  f"(limit {TENSOR_LIMIT} each), {len(rounding)} biases "
+                  f"before a train-mode BatchNorm apart {rounding}; "
+                  f"aggregates "
+                  f"{json.dumps(aggregate(g32[1], cpu[1]))}; launches "
+                  f"{g32[3]} (want {want}) {'ok' if good else 'FAIL'}")
+            ok &= good
+    print(f"train step {tag}vs CPU on {card} {'ok' if ok else 'FAIL'}")
     return counts, ok
+
+
+def step_reading(torch, seed, backbone):
+    """The CPU reading behind `train/step_check.py::AGG_LIMITS`: phase 4g
+    A's stage-2 and stage-1 steps (the same seeds and clips) of the
+    full-width `backbone` in bf16 against f32, both on the CPU through the
+    plain versions; one JSON line a head with the aggregates of the bf16
+    step's deltas and both steps' seconds."""
+    from tmrnet_torch.models.convert import from_jax_variables, random_variables
+    from tmrnet_torch.train.step_check import aggregate
+
+    batch = train_batch(torch, seed + 20, TRAIN_CLIPS)
+    for head in ("tmr", "stage1"):
+        weights = from_jax_variables(random_variables(
+            train_model_config(head, "cpu", backbone=backbone), seed + 21))
+        t0 = time.perf_counter()
+        f32 = one_step(torch, head, weights, batch, "cpu", backbone=backbone)
+        t1 = time.perf_counter()
+        bf16 = one_step(torch, head, weights, batch, "cpu", "bfloat16",
+                        backbone=backbone)
+        t2 = time.perf_counter()
+        print(json.dumps({"step_reading": backbone, "head": head,
+                          "aggregates": aggregate(bf16[1], f32[1]),
+                          "loss_f32": f32[0], "loss_bf16": bf16[0],
+                          "f32_s": t1 - t0, "bf16_s": t2 - t1,
+                          "threads": torch.get_num_threads()}), flush=True)
 
 
 def check_learns(torch, seed, card):
@@ -1912,22 +2069,25 @@ def check_learns(torch, seed, card):
     return counts, ok
 
 
-def bench_steps(torch, seed, card):
-    """Phase 4g E: the train step of each stage at TRAIN_BATCH clips
+def bench_steps(torch, seed, card, heads=("stage1", "tmr"), **model):
+    """Phase 4g E (4j c and d with `train_model_config`'s `model`
+    keywords): the train step of each stage at TRAIN_BATCH clips
     (TRAIN_BATCH * SEQ frames of 224x224, bf16) on a batch already on the
     card: p50 ms after BENCH_WARMUP steps, frames/s and peak memory.
-    Returns (the stage-2 timed steps' launches, numbers, ok)."""
+    Returns (the stage-2 timed steps' launches, numbers by head, ok)."""
     from tmrnet_torch.kernels.build import LAUNCHES, reset_launches
     from tmrnet_torch.models.convert import from_jax_variables, random_variables
 
     ok, numbers, counts = True, {}, {}
+    tag = " ".join(["train bench"] + [f"{k}={v}" for k, v in model.items()])
     batch = [t.cuda() for t in train_batch(torch, seed + 24, TRAIN_BATCH)]
-    for head in ("stage1", "tmr"):
+    for head in heads:
         weights = from_jax_variables(random_variables(
-            train_model_config(head, "cpu"), seed + 25))
+            train_model_config(head, "cpu", **model), seed + 25))
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        state, step = train_state(torch, head, weights, "cuda", lr=1e-4)
+        state, step = train_state(torch, head, weights, "cuda", lr=1e-4,
+                                  **model)
         args = (batch[0],) if head == "stage1" else tuple(batch[:2])
         gen = torch.Generator(device="cuda").manual_seed(0)
         for _ in range(BENCH_WARMUP):
@@ -1951,7 +2111,7 @@ def bench_steps(torch, seed, card):
                              frames_per_s=frames / p50 * 1e3,
                              peak_gib=peak)
         good = all(np.isfinite(losses))
-        print(f"train bench {head}: {TRAIN_BATCH} clips ({frames} frames "
+        print(f"{tag} {head}: {TRAIN_BATCH} clips ({frames} frames "
               f"224x224 bf16) step p50 {p50:.2f} ms (min {min(times):.2f}, "
               f"max {max(times):.2f}, {BENCH_STEPS} steps after "
               f"{BENCH_WARMUP}) = {frames / p50 * 1e3:.1f} frames/s, peak "
@@ -1959,9 +2119,10 @@ def bench_steps(torch, seed, card):
               f"{'ok' if good else 'FAIL'}")
         ok &= good
         del state, step
-    want = {"time_conv": BENCH_STEPS, "nl_attention": BENCH_STEPS}
+    want = ({"time_conv": BENCH_STEPS, "nl_attention": BENCH_STEPS}
+            if "tmr" in heads else {})
     good = counts == want
-    print(f"train bench: stage-2 launches {counts} (want {want}) "
+    print(f"{tag}: stage-2 launches {counts} (want {want}) "
           f"{'ok' if good else 'FAIL'}")
     torch.cuda.empty_cache()
     return counts, numbers, ok and good
@@ -1984,16 +2145,16 @@ def write_train_config(tmp):
     return path
 
 
-def preemption_run(torch, tmp, argv, card):
-    """Phase 4g D: `python -m tmrnet_torch train-tmr` (argv) as a
+def preemption_run(torch, tmp, argv, card, name="pre"):
+    """Phase 4g D (4j e): `python -m tmrnet_torch train-tmr` (argv) as a
     subprocess, SIGTERM in epoch 1 after its first log line, then the same
-    command again. Returns ok."""
+    command again, checkpoints under tmp/ck_<name>. Returns ok."""
     import threading
 
-    ck = os.path.join(tmp, "ck_pre")
+    ck = os.path.join(tmp, f"ck_{name}")
     cmd = [sys.executable, "-u", "-m", "tmrnet_torch", "train-tmr", *argv,
            "--set", f"train.checkpoint_dir={ck}", "--log-dir",
-           os.path.join(tmp, "log_pre")]
+           os.path.join(tmp, f"log_{name}")]
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
@@ -2018,7 +2179,7 @@ def preemption_run(torch, tmp, argv, card):
     meta = latest_metrics(ck)
     good1 = (rc == 0 and sent["at"] is not None
              and meta.get("preempted") is True and meta.get("epoch") == 0)
-    print(f"  train-tmr subprocess: SIGTERM after {sent['at']!r}, exit {rc} "
+    print(f"  train-tmr subprocess ({name}): SIGTERM after {sent['at']!r}, exit {rc} "
           f"in {t1 - t0:.1f} s, replay checkpoint {meta} "
           f"{'ok' if good1 else 'FAIL'}")
     if rc != 0:
@@ -2032,7 +2193,7 @@ def preemption_run(torch, tmp, argv, card):
     good2 = (proc2.returncode == 0 and epochs == list(range(1, TMR_EPOCHS))
              and last.get("epoch") == TMR_EPOCHS - 1
              and not last.get("preempted"))
-    print(f"  train-tmr rerun: exit {proc2.returncode} in {t2 - t1:.1f} s, "
+    print(f"  train-tmr rerun ({name}): exit {proc2.returncode} in {t2 - t1:.1f} s, "
           f"epochs {epochs} (want {list(range(1, TMR_EPOCHS))}: the "
           f"interrupted epoch on), last checkpoint {last} on {card} "
           f"{'ok' if good2 else 'FAIL'}")
@@ -2049,14 +2210,14 @@ def latest_metrics(ck):
     return m.metadata(m.latest_step()).get("metrics", {})
 
 
-def val_pass(torch, cfg_path, manifests, bank_path, ck):
+def val_pass(torch, cfg_path, manifests, bank_path, ck, sets=()):
     """The trainer's val pass (`train/loop.py::_run_epoch_eval`: the
     unfolded model, the stage-2 eval step with the train split's class
     weights, the memory gather) over the val manifest on the card, with a
-    checkpoint directory's weights: (mean loss, accuracy, preds, f32
-    probs)."""
+    checkpoint directory's weights, the config JSON with the `--set`
+    overrides `sets`: (mean loss, accuracy, preds, f32 probs)."""
     from tmrnet_torch import cli
-    from tmrnet_torch.config import ExperimentConfig
+    from tmrnet_torch.config import ExperimentConfig, apply_override
     from tmrnet_torch.data.device_feed import DevicePrep
     from tmrnet_torch.data.pipeline import ClipLoader
     from tmrnet_torch.device import resolve_device
@@ -2070,6 +2231,8 @@ def val_pass(torch, cfg_path, manifests, bank_path, ck):
 
     with open(cfg_path) as f:
         cfg = ExperimentConfig.from_json(f.read())
+    for o in sets:
+        cfg = apply_override(cfg, o)
     dev, d = resolve_device("cuda"), cfg.data
     model = load_weights(dataclasses.replace(cfg.model, head="tmr"),
                          cli.checkpoint_weights(ck), dev, "block")
@@ -2101,6 +2264,16 @@ def val_pass(torch, cfg_path, manifests, bank_path, ck):
     return loss, acc, preds, torch.cat(probs)[:len(preds)].cpu().numpy()
 
 
+def train_split():
+    """4g's split of 4f's videos: (videos of TEST_LENGTHS by split, clips
+    by split, train steps an epoch (drop_remainder), val batches)."""
+    split = {"train": (0, 1), "val": (2, 3)}
+    clips = {s: sum(max(0, TEST_LENGTHS[v] - SEQ + 1) for v in vs)
+             for s, vs in split.items()}
+    return (split, clips, clips["train"] // TRAIN_BATCH,
+            -(-clips["val"] // TRAIN_BATCH))
+
+
 def run_train_slice(torch, seed, card, kept=None):
     """Phase 4g: the training slice. A: a stage-2 and a stage-1 step on the
     card against the CPU; B: the head learns; C: `manifest` (train and val
@@ -2119,11 +2292,7 @@ def run_train_slice(torch, seed, card, kept=None):
                                                                 card)
     ok = ok_a and ok_b and ok_e
     os.makedirs(ROOT_TMP, exist_ok=True)
-    split = {"train": (0, 1), "val": (2, 3)}          # videos of TEST_LENGTHS
-    clips = {s: sum(max(0, TEST_LENGTHS[v] - SEQ + 1) for v in vs)
-             for s, vs in split.items()}
-    steps = clips["train"] // TRAIN_BATCH             # drop_remainder
-    val_batches = -(-clips["val"] // TRAIN_BATCH)
+    split, clips, steps, val_batches = train_split()
     want = {
         "train-bank": {},
         "lfb-ckpt": {"fused_bottleneck": 12 * sum(
@@ -2216,6 +2385,392 @@ def run_train_slice(torch, seed, card, kept=None):
               f"{card}")
         ok &= preemption_run(torch, tmp, tmr_args, card)
     print(f"train slice: {json.dumps(numbers)} on {card} "
+          f"{'ok' if ok else 'FAIL'}")
+    torch.cuda.empty_cache()
+    return counts, numbers, ok
+
+
+# Phase 4j, the ResNeSt and training-options slice: the running
+# statistics of a remat step against the plain step (of max |stat|), the
+# save() calls timed each way, the daemon's ticks over the checkpoint
+# flags, and the seed offsets of its weights and batches.
+REMAT_STAT_TOL, SAVE_REPEATS, FLAG_TICKS = 1e-6, 3, 12
+
+
+def check_remat(torch, seed, card):
+    """Phase 4j (d): one f32 stage-1 step of the full-width ResNet-50 with
+    train.remat (each bottleneck recomputed in the backward pass) against
+    the same step without it on the card, every delta within STEP_F32_TOL
+    (1 - cosine for the backbone, relative error for the rest) and the
+    running statistics within REMAT_STAT_TOL of max |stat|; then the bf16
+    step at TRAIN_BATCH clips both ways: p50 ms and peak memory. Returns
+    (launches, numbers, ok)."""
+    from tmrnet_torch.models.convert import from_jax_variables, random_variables
+    from tmrnet_torch.train.step_check import distance, worst_by_group
+
+    weights = from_jax_variables(random_variables(
+        train_model_config("stage1", "cpu"), seed + 26))
+    batch = train_batch(torch, seed + 27, TRAIN_CLIPS)
+    plain = one_step(torch, "stage1", weights, batch, "cuda", "float32")
+    remat = one_step(torch, "stage1", weights, batch, "cuda", "float32",
+                     remat=True)
+    torch.cuda.empty_cache()
+    dist = {k: distance(k, remat[1][k], w) for k, w in plain[1].items()}
+    stat = max(float((remat[2][k] - w).abs().max())
+               / max(float(w.abs().max()), 1e-12) for k, w in plain[2].items())
+    ok = (all(d <= STEP_F32_TOL for d in dist.values())
+          and stat <= REMAT_STAT_TOL and remat[3] == plain[3] == {}
+          and abs(remat[0] - plain[0]) <= STEP_F32_TOL * abs(plain[0]))
+    print(f"remat: f32 stage-1 step with train.remat against without on "
+          f"{card}: loss {remat[0]:.8g} / {plain[0]:.8g}; {len(dist)} "
+          f"deltas, worst {worst_by_group(dist)} (limit {STEP_F32_TOL} "
+          f"each); running stats worst {stat:.3g} of max |stat| (limit "
+          f"{REMAT_STAT_TOL}); launches {remat[3]} / {plain[3]} (want {{}}) "
+          f"{'ok' if ok else 'FAIL'}")
+    numbers = {}
+    for remat_on in (False, True):
+        _, got, good = bench_steps(torch, seed, card, heads=("stage1",),
+                                   remat=remat_on)
+        numbers["remat" if remat_on else "plain"] = got["stage1"]
+        ok &= good
+    a, b = numbers["plain"], numbers["remat"]
+    print(f"remat: bf16 stage-1 step at {TRAIN_BATCH} clips p50 "
+          f"{a['step_ms_p50']:.2f} -> {b['step_ms_p50']:.2f} ms "
+          f"({b['step_ms_p50'] / a['step_ms_p50']:.3f}x), peak "
+          f"{a['peak_gib']:.2f} -> {b['peak_gib']:.2f} GiB on {card}")
+    return {}, numbers, ok
+
+
+def save_blocking(torch, seed, card, tmp):
+    """Phase 4j (e), the in-process part: how long `CheckpointManager.save`
+    blocks the trainer, sync against async (train.async_checkpoint), on a
+    full-width stage-2 train state after one step on the card (weights,
+    statistics and SGD momentum): SAVE_REPEATS saves each way, and the
+    async wait() after each; the last async step's file equal to the sync
+    one's, tensor for tensor. Returns (numbers, ok)."""
+    from tmrnet_torch.models.convert import from_jax_variables, random_variables
+    from tmrnet_torch.utils.checkpoint import CheckpointManager
+
+    weights = from_jax_variables(random_variables(
+        train_model_config("tmr", "cpu"), seed + 28))
+    state, step = train_state(torch, "tmr", weights, "cuda")
+    clips, memory, labels = (t.cuda() for t in train_batch(torch, seed + 29,
+                                                             2))
+    step(state, clips, memory, labels,
+         torch.Generator(device="cuda").manual_seed(0))
+    ms = {"sync": [], "async": [], "async_wait": []}
+    managers = {}
+    for mode in ("sync", "async"):
+        ck = managers[mode] = CheckpointManager(
+            os.path.join(tmp, f"save_{mode}"), keep=2,
+            use_async=mode == "async")
+        for i in range(SAVE_REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ck.save(state, i + 1)
+            t1 = time.perf_counter()
+            ck.wait()
+            t2 = time.perf_counter()
+            ms[mode].append((t1 - t0) * 1e3)
+            if mode == "async":
+                ms["async_wait"].append((t2 - t1) * 1e3)
+    a = CheckpointManager._load(managers["sync"]._step_dir(SAVE_REPEATS))
+    b = CheckpointManager._load(managers["async"]._step_dir(SAVE_REPEATS))
+    flat = lambda tree, pre="": (
+        [x for k, v in sorted(tree.items()) for x in flat(v, f"{pre}{k}.")]
+        if isinstance(tree, dict) else [(pre, tree)])
+    fa, fb = flat(a["variables"]), flat(b["variables"])
+    same = ([k for k, _ in fa] == [k for k, _ in fb]
+            and all(np.array_equal(x, y) for (_, x), (_, y) in zip(fa, fb)))
+    nbytes = sum(x.nbytes for _, x in fa)
+    numbers = {k: float(np.median(v)) for k, v in ms.items()}
+    numbers["weights_mib"] = nbytes / 2**20
+    print(f"async checkpoints: save() blocks p50 {numbers['sync']:.1f} ms "
+          f"sync, {numbers['async']:.1f} ms async (its write then "
+          f"{numbers['async_wait']:.1f} ms in the background), "
+          f"{SAVE_REPEATS} saves each of a full-width stage-2 state "
+          f"({nbytes / 2**20:.1f} MiB of weights and statistics, and the "
+          f"momentum); the async file equal to the sync one {same} on "
+          f"{card} {'ok' if same else 'FAIL'}")
+    del state, step
+    torch.cuda.empty_cache()
+    return numbers, same
+
+
+def check_native(torch, tmp, card, cfg_path, manifests):
+    """Phase 4j (f): the native preprocess on the card's host. The first
+    train batch of `cli.train_dataset` under data.device_normalize=false
+    through the C++ library against numpy's (within 1e-6), then one
+    `train-bank` epoch each way with the frames/s of its train steps.
+    Returns (launches, numbers, ok)."""
+    from tmrnet_torch import cli
+    from tmrnet_torch.config import ExperimentConfig, apply_override
+    from tmrnet_torch.data.pipeline import ClipLoader
+
+    with open(cfg_path) as f:
+        cfg = apply_override(ExperimentConfig.from_json(f.read()),
+                             "data.device_normalize=false")
+    d = cfg.data
+    first = {}
+    for native in (True, False):
+        c = apply_override(cfg, f"data.use_native_preproc={native}")
+        ds = cli.train_dataset(c, cli.load_manifest(manifests[1]))
+        loader = ClipLoader(ds, d.batch_clips, shuffle=True,
+                            num_workers=d.num_workers, prefetch=d.prefetch,
+                            seed=c.train.seed, drop_remainder=True)
+        it = loader.epoch(0)
+        first[native] = next(it)[0]
+        it.close()
+    err = float(np.abs(first[True] - first[False]).max())
+    ok = (first[True].dtype == np.float32
+          and first[True].shape == (TRAIN_BATCH, SEQ, IMG, IMG, 3)
+          and err <= 1e-6)
+    print(f"native preprocess: the first train batch {first[True].shape} "
+          f"{first[True].dtype}, C++ against numpy max_abs_err {err:.3g} "
+          f"(limit 1e-6) {'ok' if ok else 'FAIL'}")
+    numbers, counts = {}, {}
+    for native in (True, False):
+        name = "native" if native else "numpy"
+        lines, counts[name], secs = run_cli(
+            ["train-bank", "--config", cfg_path, *manifests,
+             "--set", "data.device_normalize=false",
+             "--set", f"data.use_native_preproc={str(native).lower()}",
+             "--set", "train.epochs=1",
+             "--set", f"train.checkpoint_dir={os.path.join(tmp, f'ck_{name}')}",
+             "--log-dir", os.path.join(tmp, f"log_{name}")])
+        fps = [float(x.split("train/fps=")[1].split()[0]) for x in lines
+               if "train/fps=" in x]
+        numbers[name] = {"train_frames_per_s": fps[-1] if fps else None,
+                         "command_s": secs}
+        ok &= bool(fps) and counts[name] == {}
+    print(f"native preprocess: train-bank epoch (host normalization) train "
+          f"frames/s {json.dumps(numbers)} on {card}")
+    return counts, numbers, ok
+
+
+def serve_rows(argv):
+    """`serve --input` through `run_cli`, its SIGTERM / SIGINT handlers
+    put back after: (rows, launches, seconds)."""
+    saved = {sig: signal.getsignal(sig) for sig in (signal.SIGTERM,
+                                                     signal.SIGINT)}
+    try:
+        lines, counts, secs = run_cli(argv)
+    finally:
+        for sig, handler in saved.items():
+            signal.signal(sig, handler)
+    return [json.loads(x) for x in lines], counts, secs
+
+
+def check_checkpoint_flags(torch, tmp, card, cfg_path):
+    """Phase 4j (g), on 4g's ResNet-50 checkpoints (ck1 stage 1, ck2
+    stage 2), folded: `test`, `stream` and `serve` with `--extractor-ckpt
+    ck1` against the same commands with `--extractor-torch-ckpt` on its
+    `export-ckpt` `.pth`, bit for bit and launch for launch; `serve --ckpt
+    ck2` against `serve --torch-ckpt` on its `.pth`, 2 streams for
+    FLAG_TICKS ticks, within RESUME_TOL. Returns (launches, seconds,
+    ok)."""
+    out = lambda name: os.path.join(tmp, name)
+    c = ["--config", cfg_path, "--set", "model.folded=true"]
+    run_cli(["export-ckpt", "--config", cfg_path, "--set", "model.head=stage1",
+             "--ckpt", out("ck1"), "--out", out("ck1_stage1.pth")])
+    run_cli(["export-ckpt", "--config", cfg_path, "--ckpt", out("ck2"),
+             "--out", out("ck2_tmr.pth")])
+    flags = {"ckpt": ["--extractor-ckpt", out("ck1")],
+             "pth": ["--extractor-torch-ckpt", out("ck1_stage1.pth")]}
+    ok, counts, seconds, got = True, {}, {}, {}
+    for kind, flag in flags.items():
+        _, counts[f"flags-test-{kind}"], seconds[f"test {kind}"] = run_cli(
+            ["test", *c, "--manifest", out("val.pkl"), "--ckpt", out("ck2"),
+             *flag, "--out", out(f"flags_{kind}.npz")])
+        with np.load(out(f"flags_{kind}.npz")) as z:
+            got[kind] = z["scores"]
+    same = (np.array_equal(got["ckpt"], got["pth"])
+            and counts["flags-test-ckpt"] == counts["flags-test-pth"])
+    print(f"  test --extractor-ckpt vs --extractor-torch-ckpt: "
+          f"{got['ckpt'].shape[0]} clips bit for bit, launches "
+          f"{counts['flags-test-ckpt']} both {'ok' if same else 'FAIL'}")
+    ok &= same
+    for kind, flag in flags.items():
+        _, counts[f"flags-stream-{kind}"], seconds[f"stream {kind}"] = (
+            run_cli(["stream", *c, "--manifest", out("val.pkl"), "--ckpt",
+                     out("ck2"), *flag, "--max-streams", "2", "--out",
+                     out(f"flags_{kind}.jsonl")]))
+        with open(out(f"flags_{kind}.jsonl")) as f:
+            got[kind] = f.read()
+    same = (got["ckpt"] == got["pth"]
+            and counts["flags-stream-ckpt"] == counts["flags-stream-pth"])
+    print(f"  stream --extractor-ckpt vs --extractor-torch-ckpt: "
+          f"{len(got['ckpt'].splitlines())} rows equal, launches "
+          f"{counts['flags-stream-ckpt']} both {'ok' if same else 'FAIL'}")
+    ok &= same
+    with open(out("flag_events.jsonl"), "w") as f:
+        for t in range(FLAG_TICKS):
+            for sid, path in (("a", "frames_val/video03.npy"),
+                              ("b", "frames_train/video01.npy")):
+                f.write(json.dumps({"id": sid,
+                                    "image": f"{out(path)}#{t}"}) + "\n")
+            f.write(json.dumps({"step": True}) + "\n")
+    serve = ["serve", *c, "--input", out("flag_events.jsonl"), "--slots",
+             "2", "--probs"]
+    rows = {}
+    for name, argv in (
+            ("ckpt", ["--ckpt", out("ck2"), *flags["ckpt"]]),
+            ("pth", ["--ckpt", out("ck2"), *flags["pth"]]),
+            ("model-ckpt", ["--ckpt", out("ck2")]),
+            ("model-pth", ["--torch-ckpt", out("ck2_tmr.pth")])):
+        rows[name], counts[f"flags-serve-{name}"], seconds[f"serve {name}"] = (
+            serve_rows(serve + argv))
+    same = (rows["ckpt"] == rows["pth"]
+            and counts["flags-serve-ckpt"] == counts["flags-serve-pth"])
+    print(f"  serve --extractor-ckpt vs --extractor-torch-ckpt: "
+          f"{len(rows['ckpt'])} rows equal, launches "
+          f"{counts['flags-serve-ckpt']} both {'ok' if same else 'FAIL'}")
+    ok &= same
+    a, b = rows["model-ckpt"], rows["model-pth"]
+    key = lambda r: (r.get("id"), r.get("frame"), r.get("valid"))
+    err = max((abs(x - y) for ra, rb in zip(a, b) if "probs" in ra
+               for x, y in zip(ra["probs"], rb["probs"])), default=np.inf)
+    good = (len(a) == len(b) == 2 * FLAG_TICKS
+            and [key(r) for r in a] == [key(r) for r in b]
+            and sum(bool(r.get("valid")) for r in a) > 0
+            and err <= RESUME_TOL
+            and counts["flags-serve-model-ckpt"]
+            == counts["flags-serve-model-pth"])
+    print(f"  serve --ckpt vs --torch-ckpt: {len(a)} rows over 2 streams x "
+          f"{FLAG_TICKS} ticks, probs max_abs_err {err:.3g} (limit "
+          f"{RESUME_TOL}), launches {counts['flags-serve-model-ckpt']} both "
+          f"{'ok' if good else 'FAIL'}")
+    ok &= good
+    print(f"checkpoint flags: commands' seconds {json.dumps(seconds)} on "
+          f"{card}")
+    return counts, seconds, ok
+
+
+def resnest_workflow(torch, tmp, card, cfg_path, manifests):
+    """Phase 4j (b): the two stages with `--set model.backbone=resnest50`
+    over 4g's split: `train-bank`, `build-lfb --ckpt` (both splits,
+    folded through fold_resnest, clip engine), `train-tmr --stage1-ckpt`
+    and `test --ckpt --extractor-ckpt` (clip engine, the bank built from
+    the stage-1 checkpoint), exact launch counts (no #3 or #4), the best
+    checkpoint's val metrics against the trainer's val pass re-run, and
+    `test`'s softmax against that pass's. Returns (launches, seconds,
+    ok)."""
+    from tmrnet_torch import cli
+
+    out = lambda name: os.path.join(tmp, name)
+    split, clips, steps, val_batches = train_split()
+    rs = ["--config", cfg_path, "--set", "model.backbone=resnest50"]
+    want = {
+        "resnest-train-bank": {},
+        "resnest-lfb-ckpt": {},
+        "resnest-train-tmr": {k: TMR_EPOCHS * (steps + val_batches)
+                              for k in ("time_conv", "nl_attention")},
+        "resnest-test-ckpt": {k: -(-clips["val"] // TEST_BATCH)
+                              for k in ("time_conv", "nl_attention")},
+    }
+    counts, seconds = {}, {}
+    _, counts["resnest-train-bank"], seconds["train-bank"] = run_cli(
+        ["train-bank", *rs, *manifests, "--log-dir", out("rlog1"),
+         "--set", f"train.epochs={BANK_EPOCHS}",
+         "--set", f"train.checkpoint_dir={out('rck1')}"])
+    lfb = {}
+    for s in split:
+        _, lfb[s], seconds[f"build-lfb {s}"] = run_cli(
+            ["build-lfb", *rs, "--set", "model.folded=true", "--manifest",
+             out(f"{s}.pkl"), "--ckpt", out("rck1"), "--engine", "clip",
+             "--out", out(f"rbank_{s}.npz")])
+    counts["resnest-lfb-ckpt"] = {k: lfb["train"].get(k, 0)
+                                  + lfb["val"].get(k, 0)
+                                  for k in set(lfb["train"]) | set(lfb["val"])}
+    _, counts["resnest-train-tmr"], seconds["train-tmr"] = run_cli(
+        ["train-tmr", *rs, *manifests, "--lfb", out("rbank_train.npz"),
+         "--val-lfb", out("rbank_val.npz"), "--stage1-ckpt", out("rck1"),
+         "--set", f"train.epochs={TMR_EPOCHS}", "--log-dir", out("rlog2"),
+         "--set", f"train.checkpoint_dir={out('rck2')}"])
+    lines, counts["resnest-test-ckpt"], seconds["test"] = run_cli(
+        ["test", *rs, "--set", "model.folded=true", "--manifest",
+         out("val.pkl"), "--ckpt", out("rck2"), "--extractor-ckpt",
+         out("rck1"), "--engine", "clip", "--lfb", out("rbank_test.npz"),
+         "--out", out("rpreds.npz")])
+    ok = True
+    for path, got in counts.items():
+        good = got == want[path]
+        print(f"  {path}: launches {got} (want {want[path]}) "
+              f"{'ok' if good else 'FAIL'}")
+        ok &= good
+    labels = cli.clip_labels(cli.load_manifest(out("val.pkl")), SEQ)
+    with np.load(out("rpreds.npz")) as z:
+        preds, scores = z["preds"], z["scores"]
+    with open(out("rck2/best.json")) as f:
+        best = json.load(f)["metrics"]
+    v_loss, v_acc, v_preds, v_probs = val_pass(
+        torch, cfg_path, {s: out(f"{s}.pkl") for s in split},
+        out("rbank_val.npz"), out("rck2"), sets=("model.backbone=resnest50",))
+    loss_err = abs(v_loss - best["val_loss"])
+    good = (v_acc == best["val_acc"]
+            and loss_err <= VAL_LOSS_TOL * abs(best["val_loss"])
+            and preds.shape == (clips["val"],)
+            and bool(np.isfinite(scores).all())
+            and json.loads(lines[-1])["clip_accuracy"]
+            == float((preds == labels).mean()))
+    print(f"  best resnest train-tmr checkpoint (epoch {best['epoch']}): "
+          f"val_loss {best['val_loss']:.8g} val_acc {best['val_acc']:.6f}, "
+          f"its val pass re-run {v_loss:.8g} (|diff| {loss_err:.3g}, limit "
+          f"{VAL_LOSS_TOL} relative) {v_acc:.6f} "
+          f"{'ok' if good else 'FAIL'}")
+    good &= probs_close("resnest test --ckpt --extractor-ckpt (folded) vs "
+                        "the val pass (unfolded) softmax", scores, v_probs)
+    good &= argmax_agrees("resnest test --ckpt vs the val pass", preds,
+                          v_preds, v_probs, min_decided=1)
+    print(f"resnest workflow: commands' seconds {json.dumps(seconds)} "
+          f"(train-bank {BANK_EPOCHS} epoch, train-tmr {TMR_EPOCHS}, "
+          f"{clips['train']} train and {clips['val']} val clips) on {card}")
+    return counts, seconds, ok and good
+
+
+def run_options_slice(torch, seed, card, tmp):
+    """Phase 4j: the ResNeSt and training-options slice, over 4g's
+    directory `tmp`. (a) a ResNeSt-50 train step of each stage on the card
+    against the CPU; (b) the two-stage workflow on ResNeSt-50; (c)
+    ResNeSt-50's train step at TRAIN_BATCH clips; (d) remat on
+    ResNet-50; (e) async checkpoints: save()'s blocking time and 4g D's
+    preemption and resume under train.async_checkpoint; (f) the native
+    preprocess; (g) the checkpoint flags on 4g's checkpoints. Returns
+    (counts by path, numbers, ok)."""
+    t0 = time.perf_counter()
+    counts, numbers = {}, {}
+    counts["resnest-train-step"], ok = check_step_vs_cpu(torch, seed, card,
+                                                         "resnest50")
+    cfg_path = os.path.join(tmp, "train_cfg.json")
+    manifests = ["--train-manifest", os.path.join(tmp, "train.pkl"),
+                 "--val-manifest", os.path.join(tmp, "val.pkl")]
+    got, numbers["resnest_commands_s"], good = resnest_workflow(
+        torch, tmp, card, cfg_path, manifests)
+    counts.update(got)
+    ok &= good
+    counts["resnest-train-bench"], numbers["resnest_steps"], good = (
+        bench_steps(torch, seed, card, backbone="resnest50"))
+    ok &= good
+    counts["remat"], numbers["remat"], good = check_remat(torch, seed, card)
+    ok &= good
+    numbers["save_ms"], good = save_blocking(torch, seed, card, tmp)
+    ok &= good
+    tmr_args = ["--config", cfg_path, *manifests, "--lfb",
+                os.path.join(tmp, "bank_train.npz"), "--val-lfb",
+                os.path.join(tmp, "bank_val.npz"), "--stage1-ckpt",
+                os.path.join(tmp, "ck1"), "--set", f"train.epochs={TMR_EPOCHS}",
+                "--set", "train.async_checkpoint=true"]
+    ok &= preemption_run(torch, tmp, tmr_args, card, name="async")
+    got, numbers["native"], good = check_native(torch, tmp, card, cfg_path,
+                                                manifests)
+    counts.update({f"train-bank-{k}": v for k, v in got.items()})
+    ok &= good
+    got, numbers["flags_s"], good = check_checkpoint_flags(torch, tmp, card,
+                                                           cfg_path)
+    counts.update(got)
+    ok &= good
+    print(f"options slice: {json.dumps(numbers)} in "
+          f"{time.perf_counter() - t0:.1f} s on {card} "
           f"{'ok' if ok else 'FAIL'}")
     torch.cuda.empty_cache()
     return counts, numbers, ok
@@ -2635,6 +3190,7 @@ def score_stream(torch, card, tmp, out):
                       video_scores)
     ok &= argmax_agrees("stream vs test --engine video", preds, video_preds,
                         video_scores, min_decided=1)
+    ok &= varies("stream", preds, probs)
     # throughput from the first step's start to the last step's end: the
     # steps, the slot resets, the lazy decode and the rows between them,
     # without the command's set-up (weights, BN folding, engine)
@@ -2894,6 +3450,10 @@ def run_gate(torch, seed, card):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--step-reading", metavar="BACKBONE",
+                        help="only print the CPU reading of the bf16 train "
+                             "step against the f32 one at full width "
+                             "(train/step_check.py::AGG_LIMITS), then exit")
     args = parser.parse_args()
 
     import torch
@@ -2902,6 +3462,9 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    if args.step_reading:
+        step_reading(torch, args.seed, args.step_reading)
+        return 0
     from tmrnet_torch.kernels.build import build_all
 
     torch.backends.cudnn.allow_tf32 = False
@@ -2958,6 +3521,9 @@ def main():
         train_counts, _, ok_train = run_train_slice(torch, args.seed, card,
                                                     kept)
         by_path.update(train_counts)
+        options_counts, _, ok_options = run_options_slice(
+            torch, args.seed, card, kept["train"])
+        by_path.update(options_counts)
         resnest_counts, ok_resnest = run_resnest_slice(torch, args.seed, card,
                                                        kept)
         by_path.update(resnest_counts)
@@ -2966,8 +3532,8 @@ def main():
         by_path.update(score_counts)
     by_path["gate"], ok_gate = run_gate(torch, args.seed, card)
     ok = (ok_block and ok_tiled and ok_paths and ok_video and ok_stream
-          and ok_serve and ok_test and ok_train and ok_resnest and ok_score
-          and ok_gate)
+          and ok_serve and ok_test and ok_train and ok_options and ok_resnest
+          and ok_score and ok_gate)
     for rec in records:
         rec["launches_by_path"] = {p: c[rec["name"]] for p, c in by_path.items()
                                    if rec["name"] in c}

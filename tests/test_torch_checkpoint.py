@@ -9,8 +9,10 @@ the oldest steps and never the best; the best is swapped in whole, and a
 staged best left by a crash is read; `restore_weights` reads the weights
 of a checkpoint written with another optimizer; a lost sidecar reads as
 empty metrics; a file holding any object beyond tensors and plain
-containers is refused; `BestTracker` takes the same epochs as JAX's; async
-checkpoints raise. The logger writes JAX's JSONL rows.
+containers is refused; `BestTracker` takes the same epochs as JAX's; an
+async manager's best restores as the sync one's does
+(`test_torch_async_checkpoint.py` holds the rest of async). The logger
+writes JAX's JSONL rows.
 """
 
 import json
@@ -137,8 +139,13 @@ def test_restore_weights_ignores_the_optimizer(tmp_path):
     for k, v in adam.model.state_dict().items():
         if "num_batches" not in k:
             assert torch.equal(sgd.model.state_dict()[k], v), k
-    with pytest.raises(NotImplementedError, match="async_checkpoint"):
-        CheckpointManager(str(tmp_path), use_async=True)
+    # an async manager's best restores to the same weights
+    ak = CheckpointManager(str(tmp_path / "async"), use_async=True)
+    ak.save(adam, adam.step, is_best=True)
+    ak.wait()
+    got = from_jax_variables(ak.restore_weights())
+    for k, v in from_jax_variables(ck.restore_weights()).items():
+        assert torch.equal(got[k], v), k
 
 
 class _Payload:

@@ -167,10 +167,18 @@ def test_port_serve_cli_refuses(files, tmp_path, capsys):
     with pytest.raises(SystemExit, match="crop"):
         cli.main(base + ["--torch-ckpt", str(d / "model.pth"), "--set",
                          "data.test_crop_type=5"])
-    for flag in ("--ckpt", "--artifact"):       # not ported: argparse errors
+    # --ckpt and --torch-ckpt exclude each other, as do the two extractor
+    # flags; --artifact is not a serve flag: argparse errors
+    for extra in (["--ckpt", "x"], ["--artifact", "x"],
+                  ["--extractor-ckpt", "x", "--extractor-torch-ckpt", "y"]):
         with pytest.raises(SystemExit) as exc:
-            cli.main(base + ["--torch-ckpt", str(d / "model.pth"), flag, "x"])
+            cli.main(base + ["--torch-ckpt", str(d / "model.pth"), *extra])
         assert exc.value.code == 2
+    with pytest.raises(SystemExit) as exc:      # one of them is needed
+        cli.main(base)
+    assert exc.value.code == 2
+    with pytest.raises(SystemExit, match="checkpoint dir not found"):
+        cli.main(base + ["--ckpt", str(tmp_path / "none")])
     with pytest.raises(AttributeError):         # a field the port lacks
         cli.main(base + ["--torch-ckpt", str(d / "model.pth"), "--set",
                          "mesh.data_parallel=1"])

@@ -176,17 +176,23 @@ def test_training_commands_refuse(files, runs, monkeypatch):
     for argv in (["train-bank", *base, "--videos", "x"],
                  ["train-tmr", *base, "--lfb", "x", "--videos", "x"],
                  ["test", "--manifest", "m", "--ckpt", "x",
-                  "--extractor-ckpt", "x"],
+                  "--extractor-ckpt", "x", "--extractor-torch-ckpt", "y"],
                  ["test", "--manifest", "m", "--ckpt", "x", "--torch-ckpt",
                   "y"],
                  ["build-lfb", "--manifest", "m", "--out", "o"]):
         with pytest.raises(SystemExit) as exc:      # argparse errors
             cli.main(argv)
         assert exc.value.code == 2
-    for flag, match in (("train.remat=true", "train.remat"),
-                        ("train.async_checkpoint=true", "async_checkpoint")):
-        with pytest.raises(NotImplementedError, match=match):
-            cli.main(["train-bank", *base, "--set", flag, *PORT_ARGS])
+    # remat and async checkpoints train (one epoch), the last save durable
+    # when the command returns
+    ck = out / "ck_options"
+    assert cli.main(["train-bank", *base, "--set", "train.remat=true",
+                     "--set", "train.async_checkpoint=true", "--set",
+                     "train.epochs=1", "--set", f"train.checkpoint_dir={ck}",
+                     "--log-dir", str(out / "log_options"), *PORT_ARGS]) == 0
+    step = max(int(p.name[5:]) for p in ck.glob("step_????????"))
+    assert (ck / f"step_{step:08d}" / "state.pt").exists()
+    assert (ck / "best" / "state.pt").exists()
     with pytest.raises(SystemExit, match="checkpoint dir not found"):
         cli.main(["build-lfb", "--config", str(files / "cfg.json"),
                   "--manifest", str(out / "val.pkl"), "--ckpt",

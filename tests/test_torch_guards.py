@@ -190,7 +190,8 @@ def test_int8_gate_needs_cuda(no_cuda):
 def test_trainers_need_cuda_unless_cpu(no_cuda, tmp_path):
     """train_stage1, train_stage2 and the train-bank / train-tmr commands
     refuse to run without a card unless asked for the CPU, before reading
-    anything; what the trainer does not port raises by name."""
+    anything; remat, async checkpoints and the native preprocess run on
+    the CPU, and a mesh raises by name."""
     from tmrnet_torch import cli
     from tmrnet_torch.config import TrainConfig
     from tmrnet_torch.data.manifests import Manifest, VideoRecord
@@ -225,18 +226,28 @@ def test_trainers_need_cuda_unless_cpu(no_cuda, tmp_path):
         device="cpu")
     assert len(hist) == 1 and state.step == 2
     assert all(p.device.type == "cpu" for p in state.model.parameters())
-    for kw, match in ((dict(remat=True), "train.remat"),
-                      (dict(async_checkpoint=True), "async_checkpoint")):
-        bad = cfg.replace(train=dataclasses.replace(cfg.train, **kw))
-        with pytest.raises(NotImplementedError, match=match):
-            train_stage1(bad, ds, device="cpu")
-    bad = cfg.replace(model=dataclasses.replace(model, remat=True))
-    with pytest.raises(NotImplementedError, match="model.remat"):
-        train_stage1(bad, ds, device="cpu")
+    # remat, async checkpoints and model.remat alone train on the CPU; an
+    # async run's last checkpoint is durable when the trainer returns
+    for i, (section, kw) in enumerate((("train", dict(remat=True)),
+                                       ("train", dict(async_checkpoint=True)),
+                                       ("model", dict(remat=True)))):
+        ck = tmp_path / f"opt{i}"
+        opt = cfg.replace(train=dataclasses.replace(
+            cfg.train, checkpoint_dir=str(ck)))
+        opt = opt.replace(**{section: dataclasses.replace(
+            getattr(opt, section), **kw)})
+        state, hist = train_stage1(opt, ds, device="cpu")
+        assert len(hist) == 1 and state.step == 2
+        assert (ck / f"step_{state.step:08d}" / "state.pt").exists()
+        assert (ck / f"step_{state.step:08d}.json").exists()
     for fn in (lambda: train_stage1(cfg, ds, mesh=object(), device="cpu"),
                lambda: train_stage2(cfg, ds, bank, mesh=object(),
                                     device="cpu")):
         with pytest.raises(NotImplementedError, match="mesh"):
             fn()
-    with pytest.raises(NotImplementedError, match="use_native"):
-        TrainTransform(use_native=True)
+    clip = np.random.default_rng(5).integers(0, 256, (2, 40, 40, 3),
+                                             dtype=np.uint8)
+    native = TrainTransform(32, 40, False, use_native=True)(clip, 0, 1)
+    plain = TrainTransform(32, 40, False)(clip, 0, 1)
+    assert native.dtype == np.float32 and native.shape == (2, 32, 32, 3)
+    np.testing.assert_allclose(native, plain, rtol=0, atol=1e-6)

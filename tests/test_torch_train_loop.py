@@ -321,14 +321,38 @@ def test_checkpoints_of_a_run(videos, tmp_path):
 
 
 def test_trainer_refuses_what_it_does_not_port(videos, tmp_path):
-    for kw, match in ((dict(remat=True), "train.remat"),
-                      (dict(async_checkpoint=True), "async_checkpoint")):
-        with pytest.raises(NotImplementedError, match=match):
-            _port_run(videos, tmp_path, **kw)
+    """A mesh raises; train.remat and train.async_checkpoint, which the
+    trainer now runs, give the plain run's weights bit for bit, and the
+    async run's checkpoints restore to the sync run's; the native
+    TrainTransform equals JAX's."""
+    runs = {}
+    for name, kw in (("plain", {}), ("remat", dict(remat=True)),
+                     ("async", dict(async_checkpoint=True))):
+        state, _ = _port_run(videos, tmp_path / name, **kw)
+        runs[name] = state.model.state_dict()
+    for name in ("remat", "async"):
+        assert all(torch.equal(runs[name][k], v)
+                   for k, v in runs["plain"].items()), name
+    sync = CheckpointManager(str(tmp_path / "plain" / "port_ck"))
+    done = CheckpointManager(str(tmp_path / "async" / "port_ck"))
+    assert done.all_steps() == sync.all_steps()
+    for step in sync.all_steps():
+        a = CheckpointManager._load(sync._step_dir(step))
+        b = CheckpointManager._load(done._step_dir(step))
+        assert jax.tree_util.tree_all(jax.tree_util.tree_map(
+            np.array_equal, a["variables"], b["variables"]))
+        assert done.metadata(step) == sync.metadata(step)
     with pytest.raises(NotImplementedError, match="mesh"):
         _port_run(videos, tmp_path, patch={"mesh": object()})
-    with pytest.raises(NotImplementedError, match="use_native"):
-        transforms.TrainTransform(use_native=True)
+    clip = np.random.default_rng(61).integers(0, 256, (SEQ, HW, HW, 3),
+                                              dtype=np.uint8)
+    from tmrnet_tpu.data import native as jax_native
+
+    assert jax_native.available()       # not JAX's numpy fallback
+    np.testing.assert_array_equal(
+        transforms.TrainTransform(CROP, HW, False, use_native=True)(clip, 1, 2),
+        jax_transforms.TrainTransform(CROP, HW, False, use_native=True)(
+            clip, 1, 2))
 
 
 @pytest.mark.parametrize("compat", [False, True])

@@ -23,16 +23,19 @@ Port of `tmrnet_tpu/cli.py` (`load_config` :48-57, `_phase_names` :68,
 :843-1038, `cmd_serve` :1041-1152, `cmd_parity` :1155-1214, `cmd_export`
 :1217-1262, `cmd_evaluate` :1265-1320, `cmd_export_ckpt` :1323-1340, their
 parsers). Weights come from the port's own checkpoints (`--ckpt`,
-`--stage1-ckpt`: `utils/checkpoint.py`) or from reference-format `.pth`
-files (`--torch-ckpt`, `--extractor-torch-ckpt`, `--torch-init`;
-`_restore_variables` :233-275 and `_extractor_for` :122-142). Entry
-points that run a model run on the card unless `--device cpu` asks for
-the CPU; `manifest`, `export`, `evaluate` and `export-ckpt` touch no card
-and take no `--device`. Not ported: video-direct datasets (`--videos`;
-the card's machine has no decoder), Orbax checkpoints and
-`--extractor-ckpt`, meshes and multihost runs, `stream --artifact` and
-the subcommands `prepare`, `stats`, `pack`, `synth`, `migrate`, `doctor`
-and `export-model`.
+`--stage1-ckpt`, `--extractor-ckpt`: `utils/checkpoint.py`) or from
+reference-format `.pth` files (`--torch-ckpt`, `--extractor-torch-ckpt`,
+`--torch-init`; `_restore_variables` :233-275 and `_extractor_for`
+:122-142). `test`, `stream` and `serve` take the model from `--ckpt` or
+`--torch-ckpt` and the frozen extractor from a stage-1 checkpoint
+(`--extractor-ckpt`), an extractor `.pth` (`--extractor-torch-ckpt`) or,
+with neither, the model's trunk and LSTM. Entry points that run a model
+run on the card unless `--device cpu` asks for the CPU; `manifest`,
+`export`, `evaluate` and `export-ckpt` touch no card and take no
+`--device`. Not ported: video-direct datasets (`--videos`; the card's
+machine has no decoder), Orbax checkpoints, meshes and multihost runs,
+`stream --artifact` and the subcommands `prepare`, `stats`, `pack`,
+`synth`, `migrate`, `doctor` and `export-model`.
 
 Config: --config <json> loads an ExperimentConfig (a JSON written by either
 package; fields the port lacks are skipped, and a `config_ignored` line on
@@ -136,13 +139,27 @@ def init_with(cfg: ExperimentConfig, head: str, weights: Dict) -> Dict:
 
 
 def extractor_state(cfg: ExperimentConfig, state: Dict,
-                    extractor_torch_ckpt: Optional[str]) -> Dict:
-    """The frozen extractor's weights: head `lfb` from its own `.pth` when
-    given, else the `backbone.*` and `encoder.*` entries of the model's."""
-    if extractor_torch_ckpt:
+                    extractor_torch_ckpt: Optional[str] = None,
+                    extractor_ckpt: Optional[str] = None) -> Dict:
+    """The frozen extractor's weights, the `backbone.*` and `encoder.*`
+    entries of: a port stage-1 checkpoint directory when given (head
+    stage1, JAX's `_extractor_for`), else an extractor `.pth` (head lfb),
+    else the model's own. The extractor's backbone is `cfg.model`'s, so a
+    checkpoint of another backbone raises and names the missing keys."""
+    if extractor_ckpt:
+        state = restore_state(cfg, "stage1", ckpt=extractor_ckpt)
+    elif extractor_torch_ckpt:
         state = restore_state(cfg, "lfb", extractor_torch_ckpt)
     return {k: v for k, v in state.items()
             if k.startswith(("backbone.", "encoder."))}
+
+
+def extractor_for(cfg: ExperimentConfig, state: Dict, args) -> Dict:
+    """`extractor_state` from a command's `--extractor-ckpt` or
+    `--extractor-torch-ckpt`, where it has them."""
+    return extractor_state(cfg, state,
+                           getattr(args, "extractor_torch_ckpt", None),
+                           getattr(args, "extractor_ckpt", None))
 
 
 def folded_weights(cfg: ExperimentConfig, *states: Dict):
@@ -199,16 +216,18 @@ def dataset(cfg: ExperimentConfig, manifest):
 
 
 def train_dataset(cfg: ExperimentConfig, manifest):
-    """The training ClipDataset of a manifest: TrainTransform's numpy path
-    (one augmentation draw per clip and epoch), uint8 out under
-    `data.device_normalize`."""
+    """The training ClipDataset of a manifest: TrainTransform (one
+    augmentation draw per clip and epoch), uint8 out under
+    `data.device_normalize`, else normalized on the host, through the C++
+    library under `data.use_native_preproc`."""
     from tmrnet_torch.data.pipeline import ClipDataset
     from tmrnet_torch.data.transforms import TrainTransform
 
     d = cfg.data
     tf = TrainTransform(d.crop_size, d.resize, d.use_flip, d.rotate_degrees,
                         d.color_jitter, hue=d.color_jitter_hue, mean=d.mean,
-                        std=d.std, normalize=not d.device_normalize)
+                        std=d.std, use_native=d.use_native_preproc,
+                        normalize=not d.device_normalize)
     return ClipDataset(manifest, d.sequence_length, transform=tf)
 
 
@@ -272,7 +291,7 @@ def cmd_build_lfb(args) -> int:
                        else "video")
     ds = dataset(cfg, load_manifest(args.manifest))
     state = restore_state(cfg, "lfb", args.torch_ckpt, args.ckpt)
-    extractor, = folded_weights(cfg, extractor_state(cfg, state, None))
+    extractor, = folded_weights(cfg, extractor_state(cfg, state))
     del state
     bank = build_lfb(cfg, extractor, ds, cache_path=args.out, force=True,
                      engine=args.engine, device=device)
@@ -451,7 +470,7 @@ def cmd_test(args) -> int:
     state = restore_state(cfg, cfg.model.head, args.torch_ckpt, args.ckpt)
     if args.engine == "video":
         state, extractor = folded_weights(
-            cfg, state, extractor_state(cfg, state, args.extractor_torch_ckpt))
+            cfg, state, extractor_for(cfg, state, args))
         results = _video_engine_results(cfg, state, extractor, m, device)
         preds = np.concatenate([r[0] for r in results])
         res = InferenceResult(
@@ -466,7 +485,7 @@ def cmd_test(args) -> int:
                              video_lengths=m.video_lengths)
         elif not memoryless:
             extractor, = folded_weights(
-                cfg, extractor_state(cfg, state, args.extractor_torch_ckpt))
+                cfg, extractor_for(cfg, state, args))
             bank = build_lfb(cfg, extractor, ds, cache_path=args.lfb,
                              force=not args.load_lfb, device=device)
             del extractor
@@ -536,7 +555,7 @@ def cmd_stream(args) -> int:
         raise SystemExit("manifest has no videos")
     state = restore_state(cfg, cfg.model.head, args.torch_ckpt, args.ckpt)
     state, extractor = folded_weights(
-        cfg, state, extractor_state(cfg, state, args.extractor_torch_ckpt))
+        cfg, state, extractor_for(cfg, state, args))
     engine = StreamingInference(cfg, state, extractor, device=device)
     del state, extractor
 
@@ -622,9 +641,9 @@ def cmd_serve(args) -> int:
             "serve needs a deterministic frame-wise crop (test_crop_type "
             f"1/2/3, got {cfg.data.test_crop_type}): multi-crop and per-clip "
             "random crops have no streaming equivalent")
-    state = restore_state(cfg, cfg.model.head, args.torch_ckpt)
+    state = restore_state(cfg, cfg.model.head, args.torch_ckpt, args.ckpt)
     state, extractor = folded_weights(
-        cfg, state, extractor_state(cfg, state, args.extractor_torch_ckpt))
+        cfg, state, extractor_for(cfg, state, args))
     engine = StreamingInference(cfg, state, extractor, device=device)
     del state, extractor
 
@@ -730,7 +749,7 @@ def cmd_parity(args) -> int:
     ds = dataset(cfg, m)
     state = restore_state(cfg, cfg.model.head, args.torch_ckpt)
     extractor, = folded_weights(
-        cfg, extractor_state(cfg, state, args.extractor_torch_ckpt))
+        cfg, extractor_for(cfg, state, args))
     os.makedirs(args.workdir, exist_ok=True)
     bank = build_lfb(cfg, extractor, ds,
                      cache_path=args.lfb or os.path.join(args.workdir,
@@ -908,6 +927,16 @@ def build_parser() -> argparse.ArgumentParser:
                                       "else its newest step)")
         g.add_argument("--torch-ckpt", help=torch_help)
 
+    def extractor_args(sp):
+        g = sp.add_mutually_exclusive_group()
+        g.add_argument("--extractor-ckpt",
+                       help="the port's stage-1 checkpoint dir: its trunk "
+                            "and LSTM build the bank; default: the model's")
+        g.add_argument("--extractor-torch-ckpt",
+                       help="reference-format .pth of the LFB extractor "
+                            "(head lfb); default: the model's trunk and "
+                            "LSTM")
+
     sp = sub.add_parser("train-bank", help="stage-1 memory-bank training")
     config_args(sp)
     sp.add_argument("--train-manifest",
@@ -952,9 +981,7 @@ def build_parser() -> argparse.ArgumentParser:
     config_args(sp)
     sp.add_argument("--manifest", required=True)
     weights_args(sp, "reference-format .pth of the model (head model.head)")
-    sp.add_argument("--extractor-torch-ckpt",
-                    help="reference-format .pth of the LFB extractor (head "
-                         "lfb); default: the model's trunk and LSTM")
+    extractor_args(sp)
     sp.add_argument("--lfb", help="test-set bank: .npz cache, or a g_LFB "
                                   ".pkl checked against the manifest")
     sp.add_argument("--load-lfb", action="store_true",
@@ -981,9 +1008,7 @@ def build_parser() -> argparse.ArgumentParser:
     config_args(sp)
     sp.add_argument("--manifest", required=True)
     weights_args(sp, "reference-format .pth of the model (head model.head)")
-    sp.add_argument("--extractor-torch-ckpt",
-                    help="reference-format .pth of the LFB extractor (head "
-                         "lfb); default: the model's trunk and LSTM")
+    extractor_args(sp)
     sp.add_argument("--artifact", help="not ported (an export-model stream "
                                        "artifact): an error")
     sp.add_argument("--max-steps", type=int, default=0,
@@ -999,12 +1024,8 @@ def build_parser() -> argparse.ArgumentParser:
     sp = sub.add_parser("serve", help="serving daemon: JSONL frame events "
                                       "on stdin -> predictions on stdout")
     config_args(sp)
-    sp.add_argument("--torch-ckpt", required=True,
-                    help="reference-format .pth of the model (head "
-                         "model.head)")
-    sp.add_argument("--extractor-torch-ckpt",
-                    help="reference-format .pth of the LFB extractor (head "
-                         "lfb); default: the model's trunk and LSTM")
+    weights_args(sp, "reference-format .pth of the model (head model.head)")
+    extractor_args(sp)
     device_arg(sp)
     sp.add_argument("--slots", type=int, default=16,
                     help="stream slots (max concurrent streams)")

@@ -4,7 +4,7 @@ inference engines, the data layer and the CLI read.
 
 Own copy of those fields (names, defaults, meaning) of
 `tmrnet_tpu/config.py` (the phase names :22-43, DataConfig :50-93 but for
-num_classes and use_native_preproc, ModelConfig :97-123, TrainConfig
+num_classes, ModelConfig :97-123, TrainConfig
 :125-200, MemoryConfig :200-210 but for feature_dim, EvalConfig :214-245
 but for checkpoint), of `ExperimentConfig.from_json` (:283-300), of the
 six `PRESETS` and `get_preset` (:308-434) and of `apply_override`
@@ -14,10 +14,6 @@ JAX's but for `data.num_classes`, which the port lacks (it reads
 and for `ExperimentConfig.name` (:268), which nothing in the port reads:
 a preset is known by its key in `PRESETS`. Later slices add the fields
 they read.
-
-`check_trainable` refuses what the port's trainer does not do, naming the
-field: `train.remat` / `model.remat` (a recomputed forward would update
-BatchNorm's running statistics a second time) and `train.async_checkpoint`.
 
 `from_json` skips keys the port's dataclasses lack, so a JSON written by
 either package's `to_json` loads here; `ignored_fields` names those of
@@ -89,6 +85,9 @@ class DataConfig:
     num_workers: int = 8
     use_process_workers: bool = False
     device_normalize: bool = False
+    # The host normalization of TrainTransform through the port's C++
+    # library (data/native.py), built at first use; a failed build raises.
+    use_native_preproc: bool = True
 
 
 @dataclass(frozen=True)
@@ -113,7 +112,8 @@ class ModelConfig:
     compute_dtype: str = "bfloat16"  # bfloat16 on the card; float32 for parity
     # Inference-only: BatchNorm pre-folded into conv weights (models/fold_bn).
     folded: bool = False
-    # Recomputed backbone blocks: not ported (check_trainable raises).
+    # Each ResNet bottleneck recomputed in the backward pass (ResNeSt
+    # ignores it, as JAX's does); the trainers set it from train.remat.
     remat: bool = False
 
 
@@ -156,8 +156,11 @@ class TrainConfig:
     # SIGTERM/SIGINT finish the step, save a checkpoint marked for epoch
     # replay and return; a second signal interrupts.
     preempt_save: bool = True
-    # Not ported: check_trainable raises on either.
+    # save() returns once the state is copied to the host and writes it in
+    # a background thread; the best's copy and the trainer's exit wait.
     async_checkpoint: bool = False
+    # Recompute each ResNet bottleneck in the backward pass: less memory
+    # for a longer step (the trainers' model.remat).
     remat: bool = False
     # JAX donates the state to its jitted step; the port's step updates the
     # model in place either way.
@@ -281,20 +284,6 @@ def ignored_fields(text: str) -> Dict[str, Any]:
         if value != default:
             out[dotted] = value
     return out
-
-
-def check_trainable(cfg: ExperimentConfig) -> None:
-    """Raise, naming the field, where the config asks the trainer for what
-    the port does not do."""
-    if cfg.train.remat or cfg.model.remat:
-        raise NotImplementedError(
-            "train.remat / model.remat is not ported: a recomputed backbone "
-            "forward (torch.utils.checkpoint) would update BatchNorm's "
-            "running statistics a second time")
-    if cfg.train.async_checkpoint:
-        raise NotImplementedError(
-            "train.async_checkpoint is not ported: checkpoints are written "
-            "synchronously")
 
 
 def _preset_memorybank() -> ExperimentConfig:

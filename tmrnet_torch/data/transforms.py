@@ -11,8 +11,9 @@ Port of `tmrnet_tpu/data/transforms.py` (`clip_rng` :30, `random_crop`
 already matches, so prepared 250x250 frames need no cv2 to be resized. The
 rotation and the hue shift are cv2's too: where cv2 is missing they raise
 (JAX's skip them), so a training stack without cv2 runs with
-`data.use_flip=false` (crop and flip only). Only the numpy path of
-`TrainTransform` is ported: `use_native=True` (the C++ preprocess) raises.
+`data.use_flip=false` (crop and flip only). `TrainTransform(use_native=
+True)` normalizes through the port's C++ library (`data/native.py`), as
+JAX's does (:277-288).
 """
 
 from __future__ import annotations
@@ -221,7 +222,10 @@ class TrainTransform:
     the rotation; the flip runs in both stacks. normalize=False stops
     before the normalization and returns the uint8 clip, the exact wire of
     `data.device_normalize` (every step before it is uint8 -> uint8).
-    use_native (JAX's C++ tail) is not ported and raises."""
+    use_native: the normalization through the C++ library
+    (`data/native.py::preprocess_batch`, crop and flip already applied),
+    the same values as numpy's; it builds the library at first use and
+    raises where it cannot."""
 
     crop_size: int = 224
     resize: int = 250
@@ -235,13 +239,6 @@ class TrainTransform:
     use_native: bool = False
     normalize: bool = True
 
-    def __post_init__(self):
-        if self.use_native:
-            raise NotImplementedError(
-                "TrainTransform(use_native=True): the native preprocess "
-                "(native/tmrnet_data.cc) is not ported; the numpy path "
-                "computes the same values")
-
     def __call__(self, clip: np.ndarray, epoch: int, clip_id: int) -> np.ndarray:
         rng = clip_rng(epoch, clip_id, self.base_seed)
         clip = resize_clip(clip, (self.resize, self.resize))
@@ -254,6 +251,14 @@ class TrainTransform:
             clip = random_rotation(clip, self.rotate_degrees, rng)
         if not self.normalize:
             return np.ascontiguousarray(clip)
+        if self.use_native:
+            from tmrnet_torch.data import native
+
+            z = np.zeros(clip.shape[0], np.int32)
+            return native.preprocess_batch(
+                clip, z, z, clip.shape[1], z.astype(np.uint8),
+                np.asarray(self.mean, np.float32),
+                np.asarray(self.std, np.float32))
         return normalize(clip, self.mean, self.std)
 
 

@@ -15,17 +15,28 @@ identity block to `fused_bottleneck`; "tiled" sends those with C < 2048 to
 `fused_bottleneck_tiled` (10 in ResNet-50) and the others (stage 4's 2) to
 `fused_bottleneck`.
 
+`remat=True` recomputes each bottleneck in the backward pass, as JAX's
+`nn.remat(Bottleneck)` does (:89-90): `torch.utils.checkpoint` keeps a
+block's input and reruns its forward when its gradient is needed. The
+stem and the pooling are not recomputed. BatchNorm in training updates
+its running statistics in the first forward only: the recompute runs
+under `_RECOMPUTE.active`, which `batch_norm` reads (thread-local, since
+loader threads may run models too).
+
 Names follow the flax tree: `conv1`, `bn1`, `layer{l}_{i}.conv1..3`,
 `.bn1..3`, `.downsample_conv`, `.downsample_bn`.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from tmrnet_torch.experimental.fused_bottleneck import fused_bottleneck
 from tmrnet_torch.experimental.fused_bottleneck_tiled import fused_bottleneck_tiled
@@ -38,6 +49,25 @@ FUSED_KERNELS = ("block", "tiled")
 # Identity blocks this wide stay on the block kernel under kernel="tiled"
 # (fused_resnet.py:91: the TPU's VMEM could not hold stage 4's weights twice).
 TILED_MAX_C = 2048
+
+# Set while torch.utils.checkpoint recomputes a block in the backward pass.
+_RECOMPUTE = threading.local()
+
+
+@contextlib.contextmanager
+def _recomputing():
+    previous = getattr(_RECOMPUTE, "active", False)
+    _RECOMPUTE.active = True
+    try:
+        yield
+    finally:
+        _RECOMPUTE.active = previous
+
+
+def _remat_contexts():
+    """checkpoint's context_fn: nothing in the first forward, the
+    recompute flag in the recomputation."""
+    return contextlib.nullcontext(), _recomputing()
 
 
 def check_fused_kernel(kernel: str) -> str:
@@ -65,7 +95,9 @@ def batch_norm(layer: nn.BatchNorm2d, x: torch.Tensor,
     to x's dtype), and the running statistics updated as 0.9 * running +
     0.1 * batch with the biased variance. `F.batch_norm` would write the
     unbiased variance, so it only fills scratch buffers (momentum 1: the
-    batch mean and unbiased variance), and the update is made here."""
+    batch mean and unbiased variance), and the update is made here, but
+    not in a remat block's recomputation, which computes the same batch
+    statistics a second time."""
     if not train:
         cast = lambda t: t.to(x.dtype)
         return F.batch_norm(x, cast(layer.running_mean),
@@ -76,6 +108,8 @@ def batch_norm(layer: nn.BatchNorm2d, x: torch.Tensor,
     mean = torch.zeros(c, dtype=torch.float32, device=x.device)
     var = torch.zeros_like(mean)
     y = F.batch_norm(x, mean, var, layer.weight, layer.bias, True, 1.0, BN_EPS)
+    if getattr(_RECOMPUTE, "active", False):
+        return y
     with torch.no_grad():
         m = 1.0 - BN_MOMENTUM
         layer.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=m)
@@ -140,10 +174,11 @@ class ResNet(nn.Module):
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
                  width: int = 64, folded: bool = False,
                  compute_dtype: torch.dtype = torch.float32,
-                 kernel: str = "block"):
+                 kernel: str = "block", remat: bool = False):
         super().__init__()
         self.stage_sizes = tuple(stage_sizes)
         self.folded = folded
+        self.remat = remat
         self.compute_dtype = compute_dtype
         self.conv1 = nn.Conv2d(3, width, 7, 2, 3, bias=folded)
         if not folded:
@@ -174,7 +209,9 @@ class ResNet(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """x: (N, H, W, 3) -> (N, num_features); train as in
-        `Bottleneck.forward` (a folded backbone is for inference only)."""
+        `Bottleneck.forward` (a folded backbone is for inference only);
+        under remat, while autograd records, each block is recomputed in
+        the backward pass."""
         if train and self.folded:
             raise ValueError("a folded backbone is for inference only; "
                              "train the unfolded one")
@@ -184,7 +221,13 @@ class ResNet(nn.Module):
         if not self.folded:
             x = batch_norm(self.bn1, x, train)
         x = F.max_pool2d(torch.relu(x), 3, 2, 1)
+        remat = self.remat and torch.is_grad_enabled()
         for l, n_blocks in enumerate(self.stage_sizes):
             for i in range(n_blocks):
-                x = getattr(self, f"layer{l + 1}_{i}")(x, train)
+                block = getattr(self, f"layer{l + 1}_{i}")
+                if remat:
+                    x = checkpoint(block, x, train, use_reentrant=False,
+                                   context_fn=_remat_contexts)
+                else:
+                    x = block(x, train)
         return x.mean(dim=(2, 3))

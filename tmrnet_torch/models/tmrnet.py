@@ -136,16 +136,19 @@ def build_backbone(cfg: ModelConfig, fused_kernel: str = "block"
     "tiled" (`models/resnet.py`; JAX's `fused_tmr_apply(kernel=...)`,
     `tmrnet_tpu/experimental/fused_resnet.py:111-144`). A keyword, not a
     config field: JAX's ModelConfig has none. ResNeSt checks it and runs
-    neither kernel: it has no identity block they compute."""
+    neither kernel: it has no identity block they compute.
+    `cfg.remat` recomputes each ResNet bottleneck in the backward pass;
+    ResNeSt ignores it, as JAX's `build_backbone` passes it none
+    (`tmrnet_tpu/models/tmrnet.py:134-138`)."""
     cdt = torch_dtype(cfg.compute_dtype)
     if cfg.backbone == "resnet50":
         return ResNet(tuple(cfg.stage_sizes), cfg.width, cfg.folded, cdt,
-                      fused_kernel)
+                      fused_kernel, cfg.remat)
     if cfg.backbone == "resnest50":
         return ResNeSt(tuple(cfg.stage_sizes), cfg.width, cfg.folded, cdt,
                        fused_kernel)
     if cfg.backbone == "tiny":
-        return ResNet((1, 1), 8, cfg.folded, cdt, fused_kernel)
+        return ResNet((1, 1), 8, cfg.folded, cdt, fused_kernel, cfg.remat)
     raise ValueError(f"unknown backbone {cfg.backbone!r}")
 
 

@@ -12,7 +12,11 @@ plateau state and the best tracker re-seeded from the checkpoints'
 metadata), early stop, one-batch mid-epoch validation, image logging, and
 preemption (train.preempt_save: SIGTERM/SIGINT finish the step, save a
 checkpoint marked for the epoch's replay and return; a second signal
-interrupts). Dropout masks come from a torch generator seeded per step
+interrupts), checkpoints written in the background under
+train.async_checkpoint (durable before the trainer returns), and the
+backbone's blocks recomputed in the backward pass under train.remat (the
+model is built with model.remat = train.remat, as JAX's trainers build
+it, :582-583, :772-773). Dropout masks come from a torch generator seeded per step
 from train.seed, the epoch and the step (`step_generator`), where JAX
 folds epoch * 100003 + step into its key: the same schedule of seeds, not
 the same masks. JAX's `mesh=` raises: the port trains on one card.
@@ -42,7 +46,7 @@ from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from tmrnet_torch.config import ExperimentConfig, check_trainable
+from tmrnet_torch.config import ExperimentConfig
 from tmrnet_torch.data.device_feed import DevicePrep, device_prefetch
 from tmrnet_torch.data.indexing import quirk_window_table
 from tmrnet_torch.data.pipeline import ClipDataset, ClipLoader
@@ -312,7 +316,6 @@ def _fit(cfg: ExperimentConfig, model_cfg, train_ds: ClipDataset,
     from tmrnet_torch.models.tmrnet import init_state_dict as fresh_init
 
     dev = resolve_device(device)
-    check_trainable(cfg)
     t = cfg.train
     for name, b in (("bank", bank), ("val_bank", val_bank)):
         if b is not None and b.features.device != dev:
@@ -409,6 +412,9 @@ def _fit(cfg: ExperimentConfig, model_cfg, train_ds: ClipDataset,
                            memory_fn, val_memory_fn, log, minibatch_val,
                            schedule, tracker, ckpt, [])
     finally:
+        # an async save, the preemption's too, is durable before the
+        # trainer returns
+        ckpt.wait()
         for sig, prev in restore_sigs:
             signal.signal(sig, prev)
 
@@ -499,7 +505,8 @@ def train_stage1(cfg: ExperimentConfig, train_ds: ClipDataset,
     `init_state_dict` (default: fresh flax-distributed weights at
     train.seed) on `device`. Returns (the train state, the history)."""
     _no_mesh(mesh)
-    model_cfg = dataclasses.replace(cfg.model, head="stage1")
+    model_cfg = dataclasses.replace(cfg.model, head="stage1",
+                                    remat=cfg.train.remat)
     return _fit(cfg, model_cfg, train_ds, val_ds, use_memory=False, bank=None,
                 slow_modules=slow_modules_for_head("stage1"),
                 init_state_dict=init_state_dict, log=log, device=device)
@@ -517,7 +524,8 @@ def train_stage2(cfg: ExperimentConfig, train_ds: ClipDataset,
     if val_ds is not None and val_bank is None:
         val_bank = bank
     head = cfg.model.head if cfg.model.head in ("tmr", "nl_only") else "tmr"
-    model_cfg = dataclasses.replace(cfg.model, head=head)
+    model_cfg = dataclasses.replace(cfg.model, head=head,
+                                    remat=cfg.train.remat)
     return _fit(cfg, model_cfg, train_ds, val_ds, use_memory=True, bank=bank,
                 slow_modules=slow_modules_for_head(head),
                 init_state_dict=init_state_dict, log=log, val_bank=val_bank,

@@ -14,8 +14,15 @@ plain versions on the CPU): a tensor that this second bf16 step resolves
 `TENSOR_LIMIT`, or within twice the second step's distance, which is
 never more than 0.5 (cosine 0.5 for the backbone); a tensor that it does
 not resolve is counted apart and held only by the groups' aggregates.
-A step in f32 resolves every tensor and is held per tensor at
-`TENSOR_LIMIT`.
+A step in f32 resolves every tensor but those that `rounding_only`
+names, and is held per tensor at `TENSOR_LIMIT`.
+
+`AGG_LIMITS` holds each backbone's limits on the aggregates, taken from
+a CPU reading at full width (`python3 chip_smoke.py --step-reading
+BACKBONE`: the bf16 step against the f32 step, both on the CPU, at the
+seeds and clips of the card check), never from a card run: a trunk limit
+refuses only deltas unrelated to the f32 step (1 - cosine near 1 over
+millions of values), a head limit about twice the reading.
 """
 
 from __future__ import annotations
@@ -27,10 +34,26 @@ import torch
 
 TENSOR_LIMIT = 5e-2     # per tensor: 1 - cosine (backbone), relative error
 RESOLVED_MAX = 0.25     # a reference bf16 step this close resolves a tensor
+AGG_LIMITS = {
+    # CPU reading, bf16 against f32, 8 threads: trunk 0.8721 (stage 2)
+    # and 0.8705 (stage 1), head 0.0706 and 0.0638
+    "resnet50": {"trunk": 0.95, "head": 0.15},
+    # CPU reading, bf16 against f32, 8 threads: trunk 0.9195 (stage 2)
+    # and 0.9374 (stage 1), head 0.1182 and 0.0975
+    "resnest50": {"trunk": 0.98, "head": 0.25},
+}
 
 
 def is_trunk(name: str) -> bool:
     return name.startswith("backbone.")
+
+
+def rounding_only(name: str) -> bool:
+    """A bias that feeds a BatchNorm in train mode (ResNeSt's split
+    attention: fc1, then bn1): the batch mean takes it out again, so its
+    gradient is zero but for rounding, and its delta (weight decay and
+    that rounding) says nothing of the step."""
+    return name.endswith(".splat.fc1.bias")
 
 
 def _distance(trunk: bool, got: torch.Tensor, want: torch.Tensor) -> float:

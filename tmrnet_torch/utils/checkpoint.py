@@ -21,6 +21,16 @@ containers only: a file holding any other object is refused, as
 the port's other readers of untrusted files refuse one. Orbax checkpoints of the JAX package cannot
 be read here: weights move between the packages as reference `.pth` files
 (`models/torch_import.py`).
+
+`use_async=True` is JAX's `AsyncCheckpointer` (:28-125): `save()` waits
+for the write in flight, copies the weights, the running statistics and
+the train state off the live tensors (CUDA tensors into page-locked host
+memory behind an event, which the writer waits on: the next step's
+in-place updates queue after the copies), and returns; a background
+thread writes the step directory and then its sidecar. A best waits for
+its step's write before it is copied, and `wait()` blocks until the write
+is durable (a writer's error is raised there). Until its rename a step
+is a `.tmp` directory that `all_steps` does not list.
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import threading
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -45,13 +56,23 @@ def _tree_map(fn, tree):
 class CheckpointManager:
     def __init__(self, directory: str, keep: int = 3,
                  use_async: bool = False):
-        if use_async:
-            raise NotImplementedError(
-                "train.async_checkpoint is not ported: checkpoints are "
-                "written synchronously")
         self.dir = os.path.abspath(directory)
         self.keep = keep
+        self.use_async = use_async
+        self._writer: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
         os.makedirs(self.dir, exist_ok=True)
+
+    def wait(self) -> None:
+        """Block until the write in flight is durable (at once when none
+        is); raise the writer's error, once."""
+        if self._writer is not None:
+            self._writer.join()
+            self._writer = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise RuntimeError("the background checkpoint write failed"
+                               ) from err
 
     # -- paths ------------------------------------------------------------
     def _step_dir(self, step: int) -> str:
@@ -66,29 +87,85 @@ class CheckpointManager:
 
     # -- save/restore -------------------------------------------------------
     @staticmethod
-    def _savable(state) -> Dict[str, Any]:
+    def _savable(model_state: Dict[str, torch.Tensor],
+                 train_state: Dict[str, Any]) -> Dict[str, Any]:
         from tmrnet_torch.models.convert import to_flax_variables
 
         variables = _tree_map(lambda a: torch.from_numpy(
-            np.ascontiguousarray(a)), to_flax_variables(state.model.state_dict()))
-        return {"variables": variables, "train": state.state_dict()}
+            np.ascontiguousarray(a)), to_flax_variables(model_state))
+        return {"variables": variables, "train": train_state}
 
-    def save(self, state, step: int, metrics: Optional[Dict] = None,
-             is_best: bool = False) -> str:
-        """Write the state as step `step` with its metrics; under is_best
-        also as the best. Returns the step's directory."""
+    @staticmethod
+    def _snapshot(state):
+        """Copies of the model's state dict and the train state, off the
+        live tensors, and the event that ends their copies from the card
+        (None where nothing is on one)."""
+        on_card = []
+
+        def copy(x):
+            if isinstance(x, torch.Tensor):
+                x = x.detach()
+                if x.device.type != "cuda":
+                    return x.clone()
+                on_card.append(x.device)
+                out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+                return out.copy_(x, non_blocking=True)
+            if isinstance(x, dict):
+                return {k: copy(v) for k, v in x.items()}
+            if isinstance(x, (list, tuple)):
+                return type(x)(copy(v) for v in x)
+            return x
+
+        model, train = copy(state.model.state_dict()), copy(state.state_dict())
+        event = None
+        if on_card:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(on_card[0]))
+        return model, train, event
+
+    def _write(self, step: int, model_state, train_state, meta: Dict) -> None:
+        """Write a step directory through its `.tmp` and a rename, then its
+        sidecar."""
         path = self._step_dir(step)
         tmp = path + ".tmp"
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
         os.makedirs(tmp)
-        torch.save(self._savable(state), os.path.join(tmp, STATE_FILE))
+        torch.save(self._savable(model_state, train_state),
+                   os.path.join(tmp, STATE_FILE))
         if os.path.exists(path):
             shutil.rmtree(path)
         os.replace(tmp, path)
-        meta = {"step": step, "metrics": metrics or {}}
         with open(self._meta_path(step), "w") as f:
             json.dump(meta, f)
+
+    def _write_async(self, step, model_state, train_state, event, meta):
+        try:
+            if event is not None:
+                event.synchronize()
+            self._write(step, model_state, train_state, meta)
+        except BaseException as e:      # raised by wait()
+            self._error = e
+
+    def save(self, state, step: int, metrics: Optional[Dict] = None,
+             is_best: bool = False) -> str:
+        """Write the state as step `step` with its metrics; under is_best
+        also as the best. Returns the step's directory. Async: returns
+        once the state is copied, the write in flight (a best waits for
+        it)."""
+        self.wait()
+        meta = {"step": step, "metrics": metrics or {}}
+        if self.use_async:
+            self._writer = threading.Thread(
+                target=self._write_async, name=f"checkpoint-{step}",
+                args=(step, *self._snapshot(state), meta))
+            self._writer.start()
+            if is_best:
+                self.wait()
+        else:
+            self._write(step, state.model.state_dict(), state.state_dict(),
+                        meta)
+        path = self._step_dir(step)
         if is_best:
             # stage the whole copy, then swap: a kill at any point leaves a
             # complete best (or its staged copy, which restores read)
@@ -102,13 +179,26 @@ class CheckpointManager:
                 shutil.rmtree(self.best_dir)
             os.replace(staged, self.best_dir)
             os.replace(staged + ".json", self.best_dir + ".json")
-        self._gc()
+        self._gc(pending=step if self._writer is not None else None)
         return path
 
-    def _gc(self) -> None:
-        """Drop all but the newest `keep` steps."""
+    def _gc(self, pending: Optional[int] = None) -> None:
+        """Drop all but the newest `keep` steps. `pending`: the step whose
+        write is in flight (not listed until its rename), counted and never
+        dropped; then the newest durable step is kept too, so a write that
+        dies leaves a whole checkpoint."""
         steps = self.all_steps()
+        protect = set()
+        if pending is not None:
+            protect.add(pending)
+            durable = [s for s in steps if s != pending]
+            if durable:
+                protect.add(durable[-1])
+            if pending not in steps:
+                steps = sorted(steps + [pending])
         for s in steps[: max(0, len(steps) - self.keep)]:
+            if s in protect:
+                continue
             shutil.rmtree(self._step_dir(s), ignore_errors=True)
             try:
                 os.remove(self._meta_path(s))
@@ -146,6 +236,7 @@ class CheckpointManager:
         accumulator. Returns the state."""
         from tmrnet_torch.models.convert import from_jax_variables
 
+        self.wait()
         if step is None:
             step = self.latest_step()
             if step is None:
@@ -160,6 +251,7 @@ class CheckpointManager:
         """The weights alone, {"params", "batch_stats"} in the flax layout
         (numpy), whatever optimizer wrote them: from best/, else its staged
         copy, else the newest step."""
+        self.wait()
         path = self.best_dir
         if not os.path.exists(path):
             if os.path.exists(path + ".tmp"):
