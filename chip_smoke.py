@@ -169,6 +169,23 @@ Phases, in order; any failure exits nonzero:
    the two softmaxes within 2e-2 with the argmax rule; (e) `export-ckpt` of 4g's stage-2 checkpoint, then `test
    --torch-ckpt` on the `.pth` bit for bit against `test --ckpt`; the
    commands' seconds beside the card;
+4k. the multi-process slice (`run_multi_slice`), over 4f's and 4g's
+   directories, in ~90 s: (a) `python -m tmrnet_torch train-tmr` for 2
+   epochs over 4g's split as rank 0 of a world of 1 (RANK=0 WORLD_SIZE=1
+   LOCAL_RANK=0, MASTER_ADDR and MASTER_PORT, `--set mesh.multihost=true`)
+   beside the same command without it, both with cuDNN's deterministic
+   algorithms: the backend NCCL and the final weights bit for bit equal;
+   (b) two ranks sharing the card over gloo (NCCL refuses two ranks on one
+   device), each with 4 of a global batch of 8 uint8 224x224 clips of 10
+   frames, ResNet-50, hidden 512, window 30, 2 SGD steps (lr 1e-3) of
+   head tmr in bf16 (time_conv's kernel takes bf16 only) and of head
+   nl_only in f32, against the same steps in this process over the whole
+   batch by `train/step_check.py`'s limits (`multi_train`), each rank's
+   launches, the steps' ms and the host gathers' ms; (c) `test --engine
+   corpus` and `build-lfb --engine video` over 4f's videos and `.pth`
+   files as two ranks sharing the card over gloo under mesh.multihost:
+   the predictions equal 4f's exactly, the softmax and the bank within
+   2e-2; the launches of every rank, as path "multi";
 5. the int8 gate (tmrnet_torch.experimental.int8_gate) at B = 128 over the
    four stages: the int8 bottleneck chain through the kernels equal to the
    same chain through the plain versions, 2 int8_matmul and 1 int8_conv3x3
@@ -3409,6 +3426,415 @@ def run_score_slice(torch, seed, card, kept):
     return counts, numbers, ok
 
 
+# Phase 4k, the multi-process slice: the global batch of (b) and its
+# steps, the heads and dtypes of (b) (time_conv's kernel takes bf16 only,
+# so the f32 step runs head nl_only and the TMR head's runs in bf16), how
+# long a rank may take, and the determinism (a)'s two runs share.
+MULTI_CLIPS, MULTI_STEPS, MULTI_LR, MULTI_TIMEOUT = 8, 2, 1e-3, 300
+MULTI_HEADS = (("tmr", "bfloat16"), ("nl_only", "float32"))
+DETERMINISTIC = ("import runpy, sys, torch; "
+                 "torch.backends.cudnn.deterministic = True; "
+                 "torch.backends.cudnn.benchmark = False; "
+                 "sys.argv = ['tmrnet_torch'] + sys.argv[1:]; "
+                 "runpy.run_module('tmrnet_torch', run_name='__main__')")
+# A rank of (c): a gloo group shared with the other rank on one card, then
+# the command, then its launches on stderr.
+CLI_RANK = ("import json, sys; "
+            "from tmrnet_torch.parallel.mesh import initialize_multihost; "
+            "initialize_multihost(sys.argv[1], 2, int(sys.argv[2]), "
+            "device='cuda:0', backend='gloo'); "
+            "from tmrnet_torch import cli; "
+            "from tmrnet_torch.kernels.build import LAUNCHES; "
+            "rc = cli.main(sys.argv[3:]); "
+            "print(json.dumps({'launches': dict(LAUNCHES)}), file=sys.stderr); "
+            "sys.exit(rc)")
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def add_counts(*counts):
+    out = {}
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def json_lines(text, key):
+    """The JSON objects among text's lines that have `key`."""
+    out = []
+    for ln in text.splitlines():
+        try:
+            d = json.loads(ln) if ln.startswith("{") else None
+        except ValueError:
+            d = None
+        if isinstance(d, dict) and key in d:
+            out.append(d)
+    return out
+
+
+def run_ranks(cmds, timeout=MULTI_TIMEOUT, env=None):
+    """Start every command at once; (returncodes, stdouts, stderrs)."""
+    procs = [subprocess.Popen(c, cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, env=env)
+             for c in cmds]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return ([p.returncode for p in procs], [o for o, _ in outs],
+            [e for _, e in outs])
+
+
+def multi_nccl(torch, card, tmp):
+    """Phase 4k (a): `python -m tmrnet_torch train-tmr` over 4g's directory
+    for TMR_EPOCHS epochs as rank 0 of a world of 1 under torchrun's
+    variables and mesh.multihost, beside the same command without it, both
+    with cuDNN's deterministic algorithms; the backend must be NCCL and
+    the final weights equal bit for bit. Returns ok."""
+    from tmrnet_torch.utils.checkpoint import CheckpointManager
+
+    out = lambda name: os.path.join(tmp, name)
+    argv = ["train-tmr", "--config", out("train_cfg.json"),
+            "--train-manifest", out("train.pkl"), "--val-manifest",
+            out("val.pkl"), "--lfb", out("bank_train.npz"), "--val-lfb",
+            out("bank_val.npz"), "--stage1-ckpt", out("ck1"), "--set",
+            f"train.epochs={TMR_EPOCHS}"]
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8", RANK="0",
+               WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(free_port()))
+    cmd = lambda name, extra: [
+        sys.executable, "-c", DETERMINISTIC, *argv, *extra, "--set",
+        f"train.checkpoint_dir={out('ck_' + name)}", "--log-dir",
+        out("log_" + name)]
+    t0 = time.perf_counter()
+    rcs, outs, errs = run_ranks(
+        [cmd("nccl", ["--set", "mesh.multihost=true"]), cmd("plain", [])],
+        env=env)
+    dt = time.perf_counter() - t0
+    ok = rcs == [0, 0]
+    mesh = (json_lines(errs[0], "mesh") or [{"mesh": {}}])[-1]["mesh"]
+    ok &= mesh.get("backend") == "nccl" and mesh.get("world") == 1
+    same, steps = False, None
+    if ok:
+        a, b = CheckpointManager(out("ck_nccl")), CheckpointManager(
+            out("ck_plain"))
+        steps = (a.all_steps(), b.all_steps())
+        va = CheckpointManager._load(a._step_dir(a.latest_step()))
+        vb = CheckpointManager._load(b._step_dir(b.latest_step()))
+        flat = lambda t, p="": ([(p, t)] if not isinstance(t, dict) else
+                                [x for k in sorted(t)
+                                 for x in flat(t[k], f"{p}/{k}")])
+        la, lb = flat(va["variables"]), flat(vb["variables"])
+        same = (steps[0] == steps[1] and [k for k, _ in la]
+                == [k for k, _ in lb]
+                and all(np.array_equal(x, y) for (_, x), (_, y)
+                        in zip(la, lb)))
+        ok &= same
+    print(f"  (a) train-tmr, {TMR_EPOCHS} epochs, as one rank "
+          f"(RANK=0 WORLD_SIZE=1 LOCAL_RANK=0, mesh.multihost) beside the "
+          f"same command without it, at once, in {dt:.1f} s: exits {rcs}, "
+          f"mesh {mesh} (want backend nccl), checkpoint steps {steps}, "
+          f"final weights bit for bit equal: {same} "
+          f"{'ok' if ok else 'FAIL'}")
+    if rcs != [0, 0]:
+        for e in errs:
+            print(e[-2000:])
+    return ok
+
+
+def multi_steps(torch, seed, head, dtype, mesh=None):
+    """MULTI_STEPS SGD steps of the full-width model (`train_model_config`,
+    dropout 0) with head `head` in `dtype` on the card, over global
+    batches of MULTI_CLIPS clips (this rank's rows under `mesh`): (the
+    losses summed over the ranks, the parameter deltas from the start
+    after each step, the running statistics, launches, each step's ms,
+    and under `mesh` the ms of one all-reduce of gradient-sized tensors,
+    as the state makes it once a step)."""
+    from tmrnet_torch.config import DataConfig, TrainConfig
+    from tmrnet_torch.data.device_feed import DevicePrep
+    from tmrnet_torch.kernels.build import LAUNCHES, reset_launches
+    from tmrnet_torch.models.convert import from_jax_variables, random_variables
+    from tmrnet_torch.models.tmrnet import build_model
+    from tmrnet_torch.parallel.mesh import all_reduce_host, process_local_bounds
+    from tmrnet_torch.train.optim import make_optimizer, slow_modules_for_head
+    from tmrnet_torch.train.state import TrainState
+    from tmrnet_torch.train.steps import make_stage2_steps
+
+    device = torch.device("cuda", 0) if mesh is None else mesh.device
+    cfg = train_model_config(head, "cuda", dtype)
+    model = build_model(cfg, device=device)
+    model.load_state_dict(from_jax_variables(random_variables(
+        train_model_config(head, "cpu"), seed + 21)))
+    state = TrainState(model, make_optimizer(
+        TrainConfig(optimizer="sgd", lr=MULTI_LR, momentum=0.9,
+                    weight_decay=5e-4), model, slow_modules_for_head(head)),
+        mesh=mesh)
+    step, _ = make_stage2_steps(prep=DevicePrep(
+        DataConfig(device_normalize=True), cfg.compute_dtype, device),
+        mesh=mesh)
+    before = {k: v.detach().clone() for k, v in model.named_parameters()}
+    lo, hi = ((0, MULTI_CLIPS) if mesh is None else
+              process_local_bounds(MULTI_CLIPS, mesh.rank, mesh.world))
+    losses, ms, deltas = [], [], []
+    torch.cuda.synchronize(device)
+    reset_launches()
+    for i in range(MULTI_STEPS):
+        clips, memory, labels = (t[lo:hi].to(device) for t in train_batch(
+            torch, seed + 60 + i, MULTI_CLIPS))
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        m = step(state, clips, memory, labels,
+                 torch.Generator(device=device).manual_seed(i))
+        loss = np.asarray([float(m["loss"])])
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if mesh is not None:
+            loss = all_reduce_host(loss, mesh)
+        losses.append(float(loss[0]))
+        deltas.append({k: (v.detach() - before[k]).float().cpu()
+                       for k, v in model.named_parameters()})
+    counts = dict(LAUNCHES)
+    stats = {k: v.float().cpu() for k, v in model.state_dict().items()
+             if "running" in k}
+    reduce_ms = None
+    if mesh is not None:
+        from tmrnet_torch.parallel.mesh import all_reduce_sum_
+
+        grads = [p.detach().clone() for p in state.params]
+        all_reduce_sum_(grads, mesh)
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            all_reduce_sum_(grads, mesh)
+        torch.cuda.synchronize(device)
+        reduce_ms = (time.perf_counter() - t0) / 3 * 1e3
+    del state, model, before
+    torch.cuda.empty_cache()
+    return losses, deltas, stats, counts, ms, reduce_ms
+
+
+def multi_rank(torch, seed, rank, port, out_dir, world=2, backend="gloo"):
+    """Phase 4k (b), one rank of `world` on card rank % cards (all of
+    them on card 0 on a one-card machine) over `backend`: the steps of
+    each of MULTI_HEADS on its rows; each saves what they leave and
+    prints its losses, launches and step ms, and how long host gathers of
+    a 518 x 512 bank and of (4, 291, 7) softmax rows take."""
+    from tmrnet_torch.parallel.mesh import (all_gather_host,
+                                            initialize_multihost, make_mesh,
+                                            shutdown)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = initialize_multihost(
+        f"127.0.0.1:{port}", world, rank,
+        device=f"cuda:{rank % torch.cuda.device_count()}", backend=backend,
+        timeout=MULTI_TIMEOUT)
+    mesh = make_mesh(device=dev)
+    report = {"multi_rank": rank, "backend": mesh.backend, "heads": {}}
+    for head, dtype in MULTI_HEADS:
+        losses, deltas, stats, counts, ms, reduce_ms = multi_steps(
+            torch, seed, head, dtype, mesh)
+        torch.save({"deltas": deltas, "stats": stats},
+                   os.path.join(out_dir, f"rank{rank}_{head}.pt"))
+        report["heads"][head] = {"losses": losses, "launches": counts,
+                                 "step_ms": ms, "grad_reduce_ms": reduce_ms}
+    gathers = {}
+    for name, shape in (("bank 518x512", (518, 512)),
+                        ("probs 4x291x7", (4, 291, 7))):
+        a = np.zeros(shape, np.float32)
+        all_gather_host(a, mesh)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            all_gather_host(a, mesh)
+        gathers[name] = (time.perf_counter() - t0) / 5 * 1e3
+    report["gather_ms"] = gathers
+    print(json.dumps(report), flush=True)
+    shutdown()
+    return 0
+
+
+def multi_train(torch, seed, card, tmp, world=2, backend="gloo"):
+    """Phase 4k (b): `world` ranks over `backend` (by default two sharing
+    the card over gloo: NCCL refuses two ranks on one device; with
+    `--multi-only` one card a rank over NCCL) take MULTI_STEPS steps of
+    the full-width model (ResNet-50 224x224, hidden 512, window 30) at a
+    global batch of MULTI_CLIPS clips of SEQ frames, split over them,
+    against the same steps in this process over the whole batch: TMR in bf16 (time_conv's kernel
+    takes bf16 only) by the losses within STEP_LOSS_TOL, the statistics
+    within TOL and the first step's aggregates within
+    `step_check.AGG_LIMITS`; nl_only in f32 by `step_check`'s f32 limits:
+    the losses and statistics within STEP_F32_TOL and each delta of the
+    first step within TENSOR_LIMIT. The second step's deltas are printed,
+    not held: it starts from weights that differ by rounding, and it
+    amplifies that (on the CPU at 32x32, weights perturbed by 1e-7
+    relative move its head's deltas by 0.107, against 3.5e-5 after the
+    first step). The two ranks' deltas equal; the launches of each rank.
+    Returns (launches of both ranks, numbers, ok)."""
+    from tmrnet_torch.train.step_check import (AGG_LIMITS, TENSOR_LIMIT,
+                                               aggregate, distance,
+                                               rounding_only, worst_by_group)
+
+    port = free_port()
+    t0 = time.perf_counter()
+    rcs, outs, errs = run_ranks([
+        [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+         "--multi-rank", str(r), "--multi-port", str(port), "--multi-dir",
+         tmp, "--multi-world", str(world), "--multi-backend", backend]
+        for r in range(world)])
+    dt = time.perf_counter() - t0
+    if any(rcs):
+        for e in errs:
+            print(e[-3000:])
+        print(f"  (b) {world} ranks over {backend} exited {rcs} FAIL")
+        return {}, {}, False
+    reports = [json_lines(o, "multi_rank")[-1] for o in outs]
+    ok, counts, numbers = True, {}, {"ranks_s": dt}
+    for head, dtype in MULTI_HEADS:
+        t1 = time.perf_counter()
+        want = multi_steps(torch, seed, head, dtype)
+        w_losses, w_deltas, w_stats, w_counts, w_ms, _ = want
+        got = [torch.load(os.path.join(tmp, f"rank{r}_{head}.pt"))
+               for r in range(world)]
+        same = all(torch.equal(a[k], b[k]) for other in got[1:] for a, b in
+                   zip(got[0]["deltas"], other["deltas"]) for k in a)
+        losses = reports[0]["heads"][head]["losses"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, w_losses))
+        st = max(float((got[0]["stats"][k] - w).abs().max()
+                       / max(float(w.abs().max()), 1e-12))
+                 for k, w in w_stats.items())
+        want_launch = ({"time_conv": MULTI_STEPS, "nl_attention": MULTI_STEPS}
+                       if head == "tmr" else {"nl_attention": MULTI_STEPS})
+        launches = [r["heads"][head]["launches"] for r in reports]
+        counts = add_counts(counts, *launches)
+        aggs = [aggregate(g, w) for g, w in zip(got[0]["deltas"], w_deltas)]
+        dists = [{k: distance(k, g[k], w) for k, w in ws.items()
+                  if not rounding_only(k)}
+                 for g, ws in zip(got[0]["deltas"], w_deltas)]
+        worst = [worst_by_group(d) for d in dists]
+        if dtype == "float32":
+            good = (rel <= STEP_F32_TOL and st <= STEP_F32_TOL
+                    and all(d <= TENSOR_LIMIT for d in dists[0].values()))
+            rule = (f"losses and statistics within {STEP_F32_TOL}, each "
+                    f"delta of step 1 within {TENSOR_LIMIT}")
+        else:
+            limits = AGG_LIMITS["resnet50"]
+            good = (rel <= STEP_LOSS_TOL and st <= TOL
+                    and all(aggs[0][g] <= limits[g] for g in aggs[0]))
+            rule = (f"losses within {STEP_LOSS_TOL}, statistics within {TOL}, "
+                    f"step 1's aggregates within {json.dumps(limits)}")
+        good &= same and all(c == want_launch for c in launches)
+        ms = [r["heads"][head]["step_ms"] for r in reports]
+        reduce_ms = [r["heads"][head]["grad_reduce_ms"] for r in reports]
+        numbers[head] = {"rank_step_ms": ms, "one_process_step_ms": w_ms,
+                         "grad_reduce_ms": reduce_ms, "aggregates": aggs}
+        print(f"  (b) {head} {dtype}, {world} ranks x {MULTI_CLIPS // world} "
+              f"clips over {backend} against one process x {MULTI_CLIPS}: "
+              f"losses {losses} vs {w_losses} (rel {rel:.3g}), running "
+              f"stats /max {st:.3g}, aggregates by step {json.dumps(aggs)}, "
+              f"worst tensors by step {worst}; {rule}; "
+              f"the ranks' deltas equal: {same}; launches per rank "
+              f"{launches} (want {want_launch}); step ms per rank {ms} (of "
+              f"which one all-reduce of the gradients, ms {reduce_ms}), one "
+              f"process {w_ms} (its steps {time.perf_counter() - t1:.1f} s) "
+              f"{'ok' if good else 'FAIL'}")
+        ok &= good
+    numbers["gather_ms"] = [r["gather_ms"] for r in reports]
+    print(f"  (b) host gathers over the CPU group, ms per call per rank "
+          f"{numbers['gather_ms']}; ranks' run {dt:.1f} s on {card}")
+    return counts, numbers, ok
+
+
+def multi_eval(torch, card, tdir, tmp):
+    """Phase 4k (c): `test --engine corpus` and `build-lfb --engine video`
+    over 4f's videos and `.pth` files, as two ranks sharing the card over
+    gloo under mesh.multihost: the predictions equal 4f's one-process
+    `test --engine corpus` exactly, its softmax and 4f's video-engine bank
+    within TOL; rank 0 alone reports. Returns (launches of both ranks,
+    seconds, ok)."""
+    src = lambda name: os.path.join(tdir, name)
+    common = ["--config", src("cfg.json"), "--set", "model.folded=true",
+              "--manifest", src("m.pkl"), "--set", "mesh.multihost=true"]
+    jobs = {
+        "test": ["test", *common, "--torch-ckpt", src("tmr.pth"),
+                 "--extractor-torch-ckpt", src("lfb.pth"), "--engine",
+                 "corpus", "--out", os.path.join(tmp, "corpus_mh.npz")],
+        "build-lfb": ["build-lfb", *common, "--torch-ckpt", src("lfb.pth"),
+                      "--engine", "video", "--out",
+                      os.path.join(tmp, "bank_mh.npz")],
+    }
+    ok, counts, seconds = True, {}, {}
+    for name, argv in jobs.items():
+        port = free_port()
+        t0 = time.perf_counter()
+        rcs, outs, errs = run_ranks([
+            [sys.executable, "-c", CLI_RANK, f"127.0.0.1:{port}", str(r),
+             *argv] for r in range(2)])
+        seconds[name] = time.perf_counter() - t0
+        good = rcs == [0, 0]
+        if good:
+            launches = [json_lines(e, "launches")[-1]["launches"]
+                        for e in errs]
+            counts = add_counts(counts, *launches)
+            reports = [bool(o.strip()) for o in outs]
+            good = reports == [True, False]
+            print(f"  (c) {name} over 2 ranks: exits {rcs}, launches per rank "
+                  f"{launches}, rank 0 alone reports: {good}, "
+                  f"{seconds[name]:.1f} s")
+        else:
+            for e in errs:
+                print(e[-3000:])
+        ok &= good
+    if ok:
+        with np.load(os.path.join(tmp, "corpus_mh.npz")) as z, \
+                np.load(src("corpus.npz")) as w:
+            same = np.array_equal(z["preds"], w["preds"])
+            print(f"  (c) test --engine corpus over 2 ranks: predictions "
+                  f"equal 4f's one-process run: {same} "
+                  f"({int((z['preds'] != w['preds']).sum())} of "
+                  f"{len(w['preds'])} differ) {'ok' if same else 'FAIL'}")
+            ok &= same and probs_close(
+                "test --engine corpus over 2 ranks vs 4f softmax",
+                z["scores"], w["scores"])
+            ok &= np.array_equal(z["rows"], w["rows"])
+        with np.load(os.path.join(tmp, "bank_mh.npz")) as z, \
+                np.load(src("bank_video.npz")) as w:
+            ok &= np.array_equal(z["first_rows"], w["first_rows"])
+            ok &= compare(torch, "build-lfb --engine video over 2 ranks vs "
+                          "4f's bank", torch.from_numpy(z["features"]),
+                          torch.from_numpy(w["features"]))[1]
+    return counts, seconds, ok
+
+
+def run_multi_slice(torch, seed, card, kept):
+    """Phase 4k: the multi-process slice, over the directories 4f and 4g
+    leave in `kept`: (a) `multi_nccl`, (b) `multi_train`, (c)
+    `multi_eval`. Returns (counts by path, numbers, ok)."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    ok = multi_nccl(torch, card, kept["train"])
+    with phase_dir("multi") as tmp:
+        train_counts, numbers, ok_b = multi_train(torch, seed, card, tmp)
+        eval_counts, numbers["commands_s"], ok_c = multi_eval(
+            torch, card, kept["test"], tmp)
+    ok &= ok_b and ok_c
+    counts = add_counts(train_counts, eval_counts)
+    good = counts.get("time_conv", 0) > 0 and counts.get("nl_attention", 0) > 0
+    numbers["seconds"] = time.perf_counter() - t0
+    print(f"multi slice: launches over every rank {counts}, "
+          f"{numbers['seconds']:.1f} s on {card} "
+          f"{'ok' if ok and good else 'FAIL'}")
+    return {"multi": counts}, numbers, ok and good
+
+
 def run_gate(torch, seed, card):
     """Phase 5: the int8 gate at B = 128 over the four stages: the int8
     bottleneck chain through the kernels against the same chain through the
@@ -3454,6 +3880,17 @@ def main():
                         help="only print the CPU reading of the bf16 train "
                              "step against the f32 one at full width "
                              "(train/step_check.py::AGG_LIMITS), then exit")
+    for flag in ("--multi-rank", "--multi-port"):
+        parser.add_argument(flag, type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--multi-dir", help=argparse.SUPPRESS)
+    parser.add_argument("--multi-world", type=int, default=2,
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--multi-backend", default="gloo",
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--multi-only", nargs=2, metavar=("WORLD", "BACKEND"),
+                        help="only phase 4k (b) over WORLD ranks, one card a "
+                             "rank where there are enough, over BACKEND "
+                             "(nccl or gloo), then exit")
     args = parser.parse_args()
 
     import torch
@@ -3465,6 +3902,23 @@ def main():
     if args.step_reading:
         step_reading(torch, args.seed, args.step_reading)
         return 0
+    if args.multi_rank is not None:     # a rank of phase 4k (b)
+        return multi_rank(torch, args.seed, args.multi_rank, args.multi_port,
+                          args.multi_dir, args.multi_world,
+                          args.multi_backend)
+    if args.multi_only:
+        card = card_line()
+        world, backend = int(args.multi_only[0]), args.multi_only[1]
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        os.makedirs(ROOT_TMP, exist_ok=True)
+        with phase_dir("multi") as tmp:
+            counts, numbers, ok = multi_train(torch, args.seed, card, tmp,
+                                              world, backend)
+        print(json.dumps({"multi_only": [world, backend], "launches": counts,
+                          "numbers": numbers, "ok": ok}))
+        print(card)
+        return 0 if ok else 1
     from tmrnet_torch.kernels.build import build_all
 
     torch.backends.cudnn.allow_tf32 = False
@@ -3515,7 +3969,7 @@ def main():
     by_path["serve"], ok_serve = run_serve_slice(torch, args.seed, card)
     os.makedirs(ROOT_TMP, exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="kept-", dir=ROOT_TMP) as root:
-        kept = {"root": root}       # 4f, 4g and 4h's directories, for 4i
+        kept = {"root": root}       # 4f, 4g and 4h's directories, for 4i, 4k
         test_counts, ok_test = run_test_slice(torch, args.seed, card, kept)
         by_path.update(test_counts)
         train_counts, _, ok_train = run_train_slice(torch, args.seed, card,
@@ -3530,10 +3984,13 @@ def main():
         score_counts, _, ok_score = run_score_slice(torch, args.seed, card,
                                                     kept)
         by_path.update(score_counts)
+        multi_counts, _, ok_multi = run_multi_slice(torch, args.seed, card,
+                                                    kept)
+        by_path.update(multi_counts)
     by_path["gate"], ok_gate = run_gate(torch, args.seed, card)
     ok = (ok_block and ok_tiled and ok_paths and ok_video and ok_stream
           and ok_serve and ok_test and ok_train and ok_options and ok_resnest
-          and ok_score and ok_gate)
+          and ok_score and ok_multi and ok_gate)
     for rec in records:
         rec["launches_by_path"] = {p: c[rec["name"]] for p, c in by_path.items()
                                    if rec["name"] in c}

@@ -181,7 +181,7 @@ def test_port_serve_cli_refuses(files, tmp_path, capsys):
         cli.main(base + ["--ckpt", str(tmp_path / "none")])
     with pytest.raises(AttributeError):         # a field the port lacks
         cli.main(base + ["--torch-ckpt", str(d / "model.pth"), "--set",
-                         "mesh.data_parallel=1"])
+                         "model.use_pallas=true"])
     # the extractor's .pth has no memory head: as the model it is incomplete
     with pytest.raises(KeyError, match="nl_block"):
         cli.main(base + ["--torch-ckpt", str(d / "extractor.pth")])

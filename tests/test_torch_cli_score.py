@@ -448,20 +448,46 @@ def test_m2cai_preset_scores_eight_phases():
             len(cfg.data.phase_names)) == (8, "m2cai", (1, 14), 8)
 
 
-def test_scoring_commands_refuse(files, tmp_path, monkeypatch):
+def test_scoring_commands_refuse(files, streams, tmp_path, monkeypatch):
     stream = _base(files, "stream") + ["--out", str(tmp_path / "s.jsonl")]
-    # stream's JAX features that are not ported: argparse errors
+    # stream --artifact, which the port lacks: an argparse error
+    with pytest.raises(SystemExit) as exc:
+        cli.main(stream + ["--artifact", "a.tmrx"])
+    assert exc.value.code == 2
+    # mesh.multihost streams as rank 0 of a one-process group: from --set
+    # with an explicit rendezvous, and from a JAX config JSON under
+    # torchrun's environment (env://); the rows, grouped by video, equal
+    # the plain run's per video, and the group is left when it ends
+    from tests.test_torch_multiprocess_train import free_port
+
     jax_mesh = tmp_path / "mesh.json"
     cfg = json.loads((files / "cfg.json").read_text())
     cfg["mesh"]["multihost"] = True
     jax_mesh.write_text(json.dumps(cfg))
-    for extra in (["--artifact", "a.tmrx"], ["--set", "mesh.multihost=true"]):
-        with pytest.raises(SystemExit) as exc:
-            cli.main(stream + extra)
-        assert exc.value.code == 2
-    with pytest.raises(SystemExit) as exc:
-        cli.main(["stream", "--config", str(jax_mesh)] + stream[3:])
-    assert exc.value.code == 2
+    by_video = lambda rows: {v: sorted((r["frame"], r["pred"], r["valid"])
+                                       for r in rows if r["video"] == v)
+                             for v in {r["video"] for r in rows}}
+    want = by_video(_rows(streams[0] / "port.jsonl"))
+    one = ["--max-streams", "2", *PORT_ARGS]
+    rendezvous = ["--set", "mesh.multihost=true", "--set",
+                  f"mesh.coordinator=127.0.0.1:{free_port()}", "--set",
+                  "mesh.num_processes=1", "--set", "mesh.process_id=0"]
+    monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
+    monkeypatch.setenv("MASTER_PORT", str(free_port()))
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    for name, argv in (
+            ("set", _base(files, "stream") + rendezvous),
+            ("env", ["stream", "--config", str(jax_mesh)]
+             + _base(files, "stream")[3:])):
+        out = tmp_path / f"mh_{name}.jsonl"
+        lines = _run(cli.main, argv + one + ["--out", str(out)])
+        assert json.loads(lines[-1])["processes"] == 1
+        rows = _rows(out)
+        assert [(r["video"], r["frame"]) for r in rows] == sorted(
+            (r["video"], r["frame"]) for r in rows)
+        assert by_video(rows) == want
+        assert not torch.distributed.is_initialized()
     with pytest.raises(SystemExit, match="deterministic frame-wise"):
         cli.main(stream + ["--set", "data.test_crop_type=5", *PORT_ARGS])
     # export and evaluate take no --device; the others default to the card

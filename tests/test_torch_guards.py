@@ -61,7 +61,9 @@ def test_importing_the_port_leaves_jax_out():
             "tmrnet_torch.train.optim, tmrnet_torch.train.state, "
             "tmrnet_torch.train.steps, tmrnet_torch.train.step_check, "
             "tmrnet_torch.utils.checkpoint, "
-            "tmrnet_torch.utils.logging; "
+            "tmrnet_torch.utils.logging, tmrnet_torch.parallel, "
+            "tmrnet_torch.parallel.mesh, tmrnet_torch.eval.distributed, "
+            "tmrnet_torch.entry; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -191,7 +193,8 @@ def test_trainers_need_cuda_unless_cpu(no_cuda, tmp_path):
     """train_stage1, train_stage2 and the train-bank / train-tmr commands
     refuse to run without a card unless asked for the CPU, before reading
     anything; remat, async checkpoints and the native preprocess run on
-    the CPU, and a mesh raises by name."""
+    the CPU; a mesh other than a data mesh raises by name, a rank without
+    a card raises, and a one-process gloo mesh trains as no mesh does."""
     from tmrnet_torch import cli
     from tmrnet_torch.config import TrainConfig
     from tmrnet_torch.data.manifests import Manifest, VideoRecord
@@ -245,6 +248,32 @@ def test_trainers_need_cuda_unless_cpu(no_cuda, tmp_path):
                                     device="cpu")):
         with pytest.raises(NotImplementedError, match="mesh"):
             fn()
+    # a rank without its card raises, and joins no group; a data mesh of
+    # one gloo process on the CPU trains both stages to the weights of the
+    # run without one, bit for bit (a sum over one rank is the identity)
+    from tests.test_torch_multiprocess_train import free_port
+    from tmrnet_torch.parallel.mesh import (initialize_multihost, make_mesh,
+                                            shutdown)
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0)
+    assert not torch.distributed.is_initialized()
+    initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0, device="cpu")
+    try:
+        mesh = make_mesh(device="cpu")
+        for i, train in enumerate((
+                lambda c: train_stage1(c, ds, mesh=mesh),
+                lambda c: train_stage2(c, ds, bank, mesh=mesh))):
+            ck = lambda name: cfg.replace(train=dataclasses.replace(
+                cfg.train, checkpoint_dir=str(tmp_path / f"{name}{i}")))
+            got, _ = train(ck("mesh"))
+            want, _ = (train_stage1(ck("plain"), ds, device="cpu") if i == 0
+                       else train_stage2(ck("plain"), ds, bank,
+                                         device="cpu"))
+            for k, v in want.model.state_dict().items():
+                assert torch.equal(got.model.state_dict()[k], v), k
+    finally:
+        shutdown()
     clip = np.random.default_rng(5).integers(0, 256, (2, 40, 40, 3),
                                              dtype=np.uint8)
     native = TrainTransform(32, 40, False, use_native=True)(clip, 0, 1)

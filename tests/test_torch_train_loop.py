@@ -321,27 +321,40 @@ def test_checkpoints_of_a_run(videos, tmp_path):
 
 
 def test_trainer_refuses_what_it_does_not_port(videos, tmp_path):
-    """A mesh raises; train.remat and train.async_checkpoint, which the
-    trainer now runs, give the plain run's weights bit for bit, and the
-    async run's checkpoints restore to the sync run's; the native
-    TrainTransform equals JAX's."""
+    """A mesh other than a data mesh raises; train.remat,
+    train.async_checkpoint and a data mesh of one gloo process (its
+    collectives over one rank), which the trainer now runs, give the plain
+    run's weights bit for bit, and the async and mesh runs' checkpoints
+    restore to the sync run's; the native TrainTransform equals JAX's."""
+    from tests.test_torch_multiprocess_train import free_port
+    from tmrnet_torch.parallel.mesh import (initialize_multihost, make_mesh,
+                                            shutdown)
+
     runs = {}
-    for name, kw in (("plain", {}), ("remat", dict(remat=True)),
-                     ("async", dict(async_checkpoint=True))):
-        state, _ = _port_run(videos, tmp_path / name, **kw)
-        runs[name] = state.model.state_dict()
-    for name in ("remat", "async"):
+    initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0, device="cpu")
+    try:
+        for name, patch, kw in (
+                ("plain", None, {}), ("remat", None, dict(remat=True)),
+                ("async", None, dict(async_checkpoint=True)),
+                ("mesh", {"mesh": make_mesh(device="cpu")},
+                 dict(async_checkpoint=True))):
+            state, _ = _port_run(videos, tmp_path / name, patch, **kw)
+            runs[name] = state.model.state_dict()
+    finally:
+        shutdown()
+    for name in ("remat", "async", "mesh"):
         assert all(torch.equal(runs[name][k], v)
                    for k, v in runs["plain"].items()), name
     sync = CheckpointManager(str(tmp_path / "plain" / "port_ck"))
-    done = CheckpointManager(str(tmp_path / "async" / "port_ck"))
-    assert done.all_steps() == sync.all_steps()
-    for step in sync.all_steps():
-        a = CheckpointManager._load(sync._step_dir(step))
-        b = CheckpointManager._load(done._step_dir(step))
-        assert jax.tree_util.tree_all(jax.tree_util.tree_map(
-            np.array_equal, a["variables"], b["variables"]))
-        assert done.metadata(step) == sync.metadata(step)
+    for name in ("async", "mesh"):
+        done = CheckpointManager(str(tmp_path / name / "port_ck"))
+        assert done.all_steps() == sync.all_steps()
+        for step in sync.all_steps():
+            a = CheckpointManager._load(sync._step_dir(step))
+            b = CheckpointManager._load(done._step_dir(step))
+            assert jax.tree_util.tree_all(jax.tree_util.tree_map(
+                np.array_equal, a["variables"], b["variables"]))
+            assert done.metadata(step) == sync.metadata(step)
     with pytest.raises(NotImplementedError, match="mesh"):
         _port_run(videos, tmp_path, patch={"mesh": object()})
     clip = np.random.default_rng(61).integers(0, 256, (SEQ, HW, HW, 3),

@@ -33,9 +33,25 @@ with neither, the model's trunk and LSTM. Entry points that run a model
 run on the card unless `--device cpu` asks for the CPU; `manifest`,
 `export`, `evaluate` and `export-ckpt` touch no card and take no
 `--device`. Not ported: video-direct datasets (`--videos`; the card's
-machine has no decoder), Orbax checkpoints, meshes and multihost runs,
-`stream --artifact` and the subcommands `prepare`, `stats`, `pack`,
-`synth`, `migrate`, `doctor` and `export-model`.
+machine has no decoder), Orbax checkpoints, tensor parallelism
+(`mesh.model_parallel`), `stream --artifact` and the subcommands
+`prepare`, `stats`, `pack`, `synth`, `migrate`, `doctor` and
+`export-model`.
+
+Data parallelism across processes (`_mesh_for`, JAX :85-119): under
+`--set mesh.multihost=true` each process joins a `torch.distributed`
+group (torchrun's environment, or `mesh.coordinator`,
+`mesh.num_processes` and `mesh.process_id` together) and drives one
+card, cuda:(LOCAL_RANK % cards) (gloo ranks on the CPU with `--device
+cpu`): `train-bank` and `train-tmr` train on each rank's rows of every
+global batch of data.batch_clips (which must divide over the ranks),
+`build-lfb` builds each rank's rows (clip engine) or videos (video
+engine), `test --engine corpus` and `stream` partition the videos. Rank 0
+writes every output file and prints the summary line; the outputs equal
+a one-process run's. For example
+
+    torchrun --nproc-per-node 8 -m tmrnet_torch train-tmr ... \
+        --set mesh.multihost=true
 
 Config: --config <json> loads an ExperimentConfig (a JSON written by either
 package; fields the port lacks are skipped, and a `config_ignored` line on
@@ -48,6 +64,7 @@ raises).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -241,6 +258,39 @@ def frame_loader(cfg: ExperimentConfig):
     return lambda path: tf(np.stack([load_frame(path)]))[0]
 
 
+def _mesh_for(cfg: ExperimentConfig, args, batch: Optional[int] = None,
+              what: str = "data.batch_clips"):
+    """(the command's device, its data mesh or None). Under
+    mesh.multihost: join the process group before any other CUDA call
+    (`eval/distributed.py::local_eval_mesh`), the device is the rank's, a
+    `mesh` line on stderr names the rank, the world, the backend and the
+    device; a global batch `batch` (default data.batch_clips; 0: none)
+    that does not divide over the ranks exits. Else: --device, and no
+    mesh."""
+    from tmrnet_torch.device import resolve_device
+
+    if not cfg.mesh.multihost:
+        return resolve_device(args.device), None
+    from tmrnet_torch.eval.distributed import local_eval_mesh
+
+    mesh = local_eval_mesh(cfg, args.device)
+    print(json.dumps({"mesh": {"rank": mesh.rank, "world": mesh.world,
+                               "backend": mesh.backend,
+                               "device": str(mesh.device)}}),
+          file=sys.stderr, flush=True)
+    if batch is None:
+        batch = cfg.data.batch_clips
+    if batch and batch % mesh.world:
+        raise SystemExit(f"{what}={batch} must be divisible by the "
+                         f"{mesh.world} processes; adjust {what}")
+    return mesh.device, mesh
+
+
+def _writes(mesh) -> bool:
+    """Whether this process writes the outputs: rank 0, or no mesh."""
+    return mesh is None or mesh.rank == 0
+
+
 def cmd_manifest(args) -> int:
     """Walk frame directories and packed `.npy` videos with their phase
     annotations into a manifest: CSV by extension (or an extension-less
@@ -280,26 +330,32 @@ def cmd_build_lfb(args) -> int:
     """The bank of a manifest from the extractor's weights (head lfb: a
     `.pth`, or the trunk and LSTM of a port checkpoint, `--ckpt`), built
     by the video engine (default; one backbone pass per frame) or the clip
-    engine, which crop types outside 1/2/3 fall back to."""
-    from tmrnet_torch.device import resolve_device
+    engine, which crop types outside 1/2/3 fall back to. Under
+    mesh.multihost the clip engine splits each batch over the ranks and
+    the video engine the videos; rank 0 writes the bank."""
     from tmrnet_torch.train.loop import build_lfb
 
-    device = resolve_device(args.device)
     cfg = load_config(args)
     if args.engine is None:
         args.engine = ("clip" if cfg.data.test_crop_type not in (1, 2, 3)
                        else "video")
+    device, mesh = _mesh_for(cfg, args, batch=(
+        0 if args.engine == "video" else cfg.data.batch_clips))
     ds = dataset(cfg, load_manifest(args.manifest))
     state = restore_state(cfg, "lfb", args.torch_ckpt, args.ckpt)
     extractor, = folded_weights(cfg, extractor_state(cfg, state))
     del state
     bank = build_lfb(cfg, extractor, ds, cache_path=args.out, force=True,
-                     engine=args.engine, device=device)
-    print(f"bank: {bank.num_rows} rows x {bank.feature_dim} -> {args.out}")
+                     engine=args.engine, device=device, mesh=mesh)
+    if _writes(mesh):
+        print(f"bank: {bank.num_rows} rows x {bank.feature_dim} -> "
+              f"{args.out}")
     return 0
 
 
-def _finish_training(hist) -> int:
+def _finish_training(hist, mesh=None) -> int:
+    if not _writes(mesh):
+        return 0
     if not hist:
         # preempted before the first epoch completed: the replay
         # checkpoint is saved; the same command resumes
@@ -316,12 +372,11 @@ def cmd_train_bank(args) -> int:
     --val-manifest (or the manifest's second split, else the same clips);
     fresh flax-distributed weights, or a reference `.pth` over them
     (--torch-init)."""
-    from tmrnet_torch.device import resolve_device
     from tmrnet_torch.train.loop import train_stage1
     from tmrnet_torch.utils.logging import MetricLogger
 
-    device = resolve_device(args.device)
     cfg = load_config(args)
+    device, mesh = _mesh_for(cfg, args)     # before the logger
     path = args.train_manifest or cfg.data.manifest_path
     train_ds = train_dataset(cfg, load_manifest(path))
     val_ds = dataset(cfg, load_manifest(args.val_manifest or path, "val"))
@@ -330,8 +385,9 @@ def cmd_train_bank(args) -> int:
         init = init_with(cfg, "stage1", reference_weights(cfg, "stage1",
                                                           args.torch_init))
     _, hist = train_stage1(cfg, train_ds, val_ds, init_state_dict=init,
-                           log=MetricLogger(args.log_dir), device=device)
-    return _finish_training(hist)
+                           mesh=mesh, log=MetricLogger(args.log_dir),
+                           device=device)
+    return _finish_training(hist, mesh)
 
 
 def cmd_train_tmr(args) -> int:
@@ -340,13 +396,12 @@ def cmd_train_tmr(args) -> int:
     from a fresh init with a stage-1 checkpoint's trunk and LSTM
     transplanted (--stage1-ckpt) or a reference `.pth` over it
     (--torch-init)."""
-    from tmrnet_torch.device import resolve_device
     from tmrnet_torch.memory.lfb import load_bank
     from tmrnet_torch.train.loop import train_stage2
     from tmrnet_torch.utils.logging import MetricLogger
 
-    device = resolve_device(args.device)
     cfg = load_config(args)
+    device, mesh = _mesh_for(cfg, args)     # before the logger
     head = cfg.model.head if cfg.model.head in ("tmr", "nl_only") else "tmr"
     if (device.type == "cuda" and head == "tmr"
             and cfg.model.compute_dtype != "bfloat16"):
@@ -374,25 +429,32 @@ def cmd_train_tmr(args) -> int:
                                      if k.startswith(("backbone.",
                                                       "encoder."))})
     _, hist = train_stage2(cfg, train_ds, bank, val_ds, val_bank,
-                           init_state_dict=init,
+                           init_state_dict=init, mesh=mesh,
                            log=MetricLogger(args.log_dir), device=device)
-    return _finish_training(hist)
+    return _finish_training(hist, mesh)
 
 
-def _video_engine_results(cfg, state, extractor, manifest, device):
+def _video_engine_results(cfg, state, extractor, manifest, device,
+                          mesh=None):
     """`test --engine video|corpus`: every video's (preds, probs) from a
     VideoInference, the whole set as one stream (eval.corpus), same-bucket
-    groups of eval.video_batch videos, or one video at a time."""
+    groups of eval.video_batch videos, or one video at a time; under a
+    mesh, the corpus engine over each rank's videos, gathered."""
     from tmrnet_torch.data.pipeline import load_frame
+    from tmrnet_torch.eval.distributed import run_corpus_distributed
     from tmrnet_torch.eval.infer import VideoInference
 
-    engine = VideoInference(cfg, state, extractor, device=device)
     tf = eval_transform(cfg)
 
     def load_video(video):
         return tf(np.stack([load_frame(p) for p in video.frame_paths]))
 
     videos = manifest.videos
+    if mesh is not None:
+        return run_corpus_distributed(
+            cfg, state, extractor, [len(v) for v in videos],
+            lambda i: load_video(videos[i]), mesh=mesh)
+    engine = VideoInference(cfg, state, extractor, device=device)
     if cfg.eval.corpus:
         return engine.run_corpus([(lambda v=v: load_video(v)) for v in videos],
                                  lengths=[len(v) for v in videos],
@@ -420,15 +482,15 @@ def cmd_test(args) -> int:
     bank read from --lfb or built), video and corpus (the bank built in the
     same pass); the default is corpus, clip for crop types 0/5/10,
     memory.compat_cross_video, --lfb or --load-lfb, and for a memoryless
-    head (stage1)."""
-    from tmrnet_torch.device import resolve_device
+    head (stage1). Under mesh.multihost only the corpus engine runs, its
+    videos partitioned over the ranks (`eval/distributed.py`); rank 0
+    writes the outputs."""
     from tmrnet_torch.eval.infer import (ClipInference, InferenceResult,
                                          memoryless_head)
     from tmrnet_torch.eval.metrics import classification_metrics
     from tmrnet_torch.memory.lfb import load_bank
     from tmrnet_torch.train.loop import build_lfb
 
-    device = resolve_device(args.device)
     cfg = load_config(args)
     try:
         memoryless = memoryless_head(cfg.model.head)
@@ -450,6 +512,11 @@ def cmd_test(args) -> int:
                                   or cfg.memory.compat_cross_video
                                   or args.lfb or args.load_lfb)
                        else "corpus")
+    if cfg.mesh.multihost and args.engine != "corpus":
+        raise SystemExit(
+            "test under mesh.multihost runs --engine corpus only (the videos "
+            "are partitioned over the processes; the other engines run in "
+            "one process)")
     if args.engine == "corpus":
         cfg = cfg.replace(eval=dataclasses.replace(cfg.eval, corpus=True))
         args.engine = "video"
@@ -464,6 +531,7 @@ def cmd_test(args) -> int:
                 "--engine video builds per-video memory windows; the "
                 "reference cross-video quirk (memory.compat_cross_video) "
                 "requires --engine clip")
+    device, mesh = _mesh_for(cfg, args, batch=0)
     m = load_manifest(args.manifest)
     seq = cfg.data.sequence_length
     labels = clip_labels(m, seq)
@@ -471,7 +539,8 @@ def cmd_test(args) -> int:
     if args.engine == "video":
         state, extractor = folded_weights(
             cfg, state, extractor_for(cfg, state, args))
-        results = _video_engine_results(cfg, state, extractor, m, device)
+        results = _video_engine_results(cfg, state, extractor, m, device,
+                                        mesh)
         preds = np.concatenate([r[0] for r in results])
         res = InferenceResult(
             preds=preds, scores=np.concatenate([r[1] for r in results]),
@@ -491,6 +560,8 @@ def cmd_test(args) -> int:
             del extractor
         state, = folded_weights(cfg, state)
         res = ClipInference(cfg, state, bank, device=device).run(ds)
+    if not _writes(mesh):
+        return 0
     np.savez(args.out, preds=res.preds, scores=res.scores, rows=res.rows)
     if args.ref_pickle:
         # the reference's pair (`test_..._2fc_copy.py:421-450`): the
@@ -511,21 +582,12 @@ def cmd_test(args) -> int:
 
 
 def _refuse_unported_stream(args) -> None:
-    """`stream`'s JAX features that the port lacks are argparse errors,
-    raised before anything is read: an export-model artifact and the
-    multihost branch (mesh.multihost in --set or --config)."""
+    """`stream --artifact` (an export-model artifact, which the port lacks)
+    is an argparse error, raised before anything is read."""
     if args.artifact:
         args.parser.error("--artifact is not ported: the port has no "
                           "export-model artifacts; pass --ckpt or "
                           "--torch-ckpt")
-    multihost = any(o.partition("=")[0].strip() == "mesh.multihost"
-                    for o in args.set or [])
-    if args.config and not multihost:
-        with open(args.config) as f:
-            multihost = "mesh.multihost" in ignored_fields(f.read())
-    if multihost:
-        args.parser.error("mesh.multihost: multihost streaming is not "
-                          "ported; the port streams on one card")
 
 
 def cmd_stream(args) -> int:
@@ -534,16 +596,22 @@ def cmd_stream(args) -> int:
     a step, over --max-streams slots; a finished video's slot takes the
     next video (reset_streams). Writes one JSONL row a (video, frame),
     valid from the stream's first full clip on, where the predictions
-    equal `test --engine video`'s; prints a summary line."""
+    equal `test --engine video`'s; prints a summary line.
+
+    Under mesh.multihost (JAX :860-870, :994-1038) the videos are
+    partitioned over the ranks (`eval/distributed.py::partition_videos`),
+    each rank streams its own on its card, and rank 0 writes the gathered
+    rows grouped by video in manifest order (the interleaving of a
+    one-process run's steps is a rank's own)."""
     _refuse_unported_stream(args)
     from collections import deque
 
     from tmrnet_torch.data.pipeline import load_frame
-    from tmrnet_torch.device import resolve_device
+    from tmrnet_torch.eval.distributed import partition_videos
     from tmrnet_torch.eval.stream import StreamingInference
 
-    device = resolve_device(args.device)
     cfg = load_config(args)
+    device, mesh = _mesh_for(cfg, args, batch=0)
     if cfg.data.test_crop_type not in (1, 2, 3):
         raise SystemExit(
             "stream needs a deterministic frame-wise crop (test_crop_type "
@@ -564,10 +632,17 @@ def cmd_stream(args) -> int:
     lengths = [len(v) for v in m.videos]
     if args.max_steps:
         lengths = [min(n, args.max_steps) for n in lengths]
+    my_videos = list(range(n_videos))
+    if mesh is not None:
+        my_videos = partition_videos(lengths, mesh.world)[mesh.rank]
+        # every frame's prediction, -1 where none, merged at the end
+        dist_preds = {v: np.full(lengths[v], -1, np.int64)
+                      for v in my_videos}
     # Videos queue for the slots, one slot a video under -1; 64 by default
     # bounds the decoded videos held in host memory.
-    max_streams = n_videos if args.max_streams < 0 else args.max_streams
-    num_slots = min(max_streams or n_videos, n_videos)
+    n_mine = max(len(my_videos), 1)
+    max_streams = n_mine if args.max_streams < 0 else args.max_streams
+    num_slots = min(max_streams or n_mine, n_mine)
     stream = engine.init_state(num_slots)
 
     # A video is decoded, only its streamed prefix, when its slot starts,
@@ -579,13 +654,15 @@ def cmd_stream(args) -> int:
         loaded[v] = tf(np.stack([load_frame(p) for p in paths]))
         return v
 
-    pending = deque(range(n_videos))
+    pending = deque(my_videos)
     slot_video = [assign(pending.popleft()) if pending else -1
                   for _ in range(num_slots)]
     slot_t = [0] * num_slots
-    blank = np.zeros_like(next(iter(loaded.values()))[0])
+    blank = (np.zeros_like(next(iter(loaded.values()))[0]) if loaded
+             else None)
     correct = total = steps = 0
-    with open(args.out, "w") as f:
+    with (open(args.out, "w") if mesh is None
+          else contextlib.nullcontext()) as f:
         while any(v >= 0 for v in slot_video):
             frames = np.stack([loaded[v][slot_t[i]] if v >= 0 else blank
                                for i, v in enumerate(slot_video)])
@@ -598,10 +675,13 @@ def cmd_stream(args) -> int:
                     continue
                 t, video = slot_t[i], m.videos[v]
                 ok = bool(valid[i]) and t >= seq - 1
-                f.write(json.dumps({
-                    "video": video.video_id, "frame": t,
-                    "pred": int(preds[i]) if ok else None,
-                    "valid": ok}) + "\n")
+                if f is not None:
+                    f.write(json.dumps({
+                        "video": video.video_id, "frame": t,
+                        "pred": int(preds[i]) if ok else None,
+                        "valid": ok}) + "\n")
+                elif ok:
+                    dist_preds[v][t] = int(preds[i])
                 if ok:
                     correct += int(preds[i] == video.labels[t])
                     total += 1
@@ -614,11 +694,48 @@ def cmd_stream(args) -> int:
                     slot_t[i] = 0
             if any(reset):
                 stream = engine.reset_streams(stream, reset)
+    summary = {"streams": n_videos, "slots": num_slots, "steps": int(steps)}
+    if mesh is not None:
+        correct, total = _merge_streams(args.out, m, lengths, dist_preds,
+                                        mesh)
+        if not _writes(mesh):
+            return 0
+        summary["processes"] = mesh.world
     acc = correct / total if total else 0.0
-    print(json.dumps({"streams": n_videos, "slots": num_slots,
-                      "steps": int(steps), "clip_accuracy": round(acc, 6),
+    print(json.dumps({**summary, "clip_accuracy": round(acc, 6),
                       "predictions": total, "out": args.out}))
     return 0
+
+
+def _merge_streams(out: str, manifest, lengths, dist_preds, mesh):
+    """The ranks' per-frame predictions (-1: none) gathered; rank 0
+    writes the JSONL grouped by video in manifest order. Returns
+    (correct, predictions) over every video."""
+    from tmrnet_torch.eval.distributed import (gather_video_results, owners,
+                                               partition_videos)
+
+    parts = partition_videos(lengths, mesh.world)
+    local = {v: (p, np.zeros((len(p), 1), np.float32))
+             for v, p in dist_preds.items()}
+    merged = gather_video_results(local, owners(parts, len(lengths)),
+                                  lengths, seq_len=1, num_classes=1,
+                                  mesh=mesh)
+    correct = total = 0
+    with (open(out, "w") if _writes(mesh)
+          else contextlib.nullcontext()) as f:
+        for v, (preds, _) in enumerate(merged):
+            video = manifest.videos[v]
+            for t in range(lengths[v]):
+                ok = bool(preds[t] >= 0)
+                if f is not None:
+                    f.write(json.dumps({
+                        "video": video.video_id, "frame": t,
+                        "pred": int(preds[t]) if ok else None,
+                        "valid": ok}) + "\n")
+                if ok:
+                    correct += int(preds[t] == video.labels[t])
+                    total += 1
+    return correct, total
 
 
 def cmd_serve(args) -> int:
@@ -1150,5 +1267,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv: Optional[List[str]] = None) -> int:
+    import torch.distributed as dist
+
+    from tmrnet_torch.parallel.mesh import shutdown
+
     args = build_parser().parse_args(argv)
-    return args.fn(args)
+    joined = dist.is_initialized()
+    rc = args.fn(args)
+    if not joined and dist.is_initialized():
+        shutdown()      # the group this command joined (mesh.multihost)
+    return rc

@@ -6,7 +6,8 @@ Own copy of those fields (names, defaults, meaning) of
 `tmrnet_tpu/config.py` (the phase names :22-43, DataConfig :50-93 but for
 num_classes, ModelConfig :97-123, TrainConfig
 :125-200, MemoryConfig :200-210 but for feature_dim, EvalConfig :214-245
-but for checkpoint), of `ExperimentConfig.from_json` (:283-300), of the
+but for checkpoint, MeshConfig :249-262), of `ExperimentConfig.from_json`
+(:283-300), of the
 six `PRESETS` and `get_preset` (:308-434) and of `apply_override`
 (:395-428), so the port never imports the JAX package. The presets are
 JAX's but for `data.num_classes`, which the port lacks (it reads
@@ -218,6 +219,34 @@ class EvalConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """Data parallelism across processes (`parallel/mesh.py`): one process
+    a card, `torch.distributed` between them (NCCL on cards, gloo on the
+    CPU). The axis names are JAX's and name nothing in the port."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    # -1: every process on the data axis; else the world size itself.
+    data_parallel: int = -1
+    model_parallel: int = 1
+    # Rendezvous with the other processes (init_process_group) when True.
+    multihost: bool = False
+    # An explicit rendezvous, all three set together (e.g. --set
+    # mesh.coordinator=host:1234): a tcp:// init; empty/-1 = torchrun's
+    # environment (env://).
+    coordinator: str = ""
+    num_processes: int = -1
+    process_id: int = -1
+
+    def __post_init__(self):
+        if self.model_parallel > 1:
+            raise NotImplementedError(
+                f"mesh.model_parallel={self.model_parallel}: tensor "
+                f"parallelism is not ported (ROADMAP.md queue 1 item 3b); "
+                f"the port is data parallel only")
+
+
+@dataclass(frozen=True)
 class ExperimentConfig:
     """The sections of the JAX ExperimentConfig that the port reads."""
 
@@ -226,6 +255,7 @@ class ExperimentConfig:
     train: TrainConfig = field(default_factory=TrainConfig)
     memory: MemoryConfig = field(default_factory=MemoryConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
 
     def replace(self, **kw) -> "ExperimentConfig":
         return dataclasses.replace(self, **kw)
@@ -255,21 +285,18 @@ class ExperimentConfig:
 
 
 _SECTIONS = {"data": DataConfig, "model": ModelConfig, "train": TrainConfig,
-             "memory": MemoryConfig, "eval": EvalConfig}
+             "memory": MemoryConfig, "eval": EvalConfig, "mesh": MeshConfig}
 
 # Fields of JAX's config that the port lacks and that change what JAX
 # computes, at JAX's defaults (`tmrnet_tpu/config.py` :83, :104, :116-118,
-# :204, MeshConfig :249-262): class and feature widths, the parameter
-# dtype, the kernel switch, and a device mesh (the port runs on one card).
+# :204): class and feature widths, the parameter dtype and the kernel
+# switch.
 JAX_ONLY_DEFAULTS: Dict[str, Any] = {
     "data.num_classes": 7,
     "memory.feature_dim": 512,
     "model.feature_dim": 2048,
     "model.param_dtype": "float32",
     "model.use_pallas": False,
-    "mesh.data_parallel": -1,
-    "mesh.model_parallel": 1,
-    "mesh.multihost": False,
 }
 
 

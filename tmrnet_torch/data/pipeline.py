@@ -9,7 +9,8 @@ clips share seq_len - 1 frames), transformed as `(clip, epoch, row)`, and
 batched to (B, T, H, W, 3), or (B, ncrops, T, H, W, 3) for multi-crop. A
 padded last batch repeats its last row with label -1. Workers are threads
 or forked processes; numpy only, so a worker never touches torch or the
-card. The multi-controller slice (`local_rows`) waits for multi-GPU work.
+card. Under data parallelism each process assembles only its own rows of
+every (seeded, identical) global batch (`local_rows`).
 """
 
 from __future__ import annotations
@@ -122,16 +123,18 @@ class ClipDataset:
 
 
 def _assemble_batch(ds: ClipDataset, batch_rows: np.ndarray, epoch: int,
-                    batch: int):
+                    batch: int, local: Optional[Tuple[int, int]] = None):
     """One batch of `batch` rows: a short batch repeats its last row, and
     the repeats' labels are -1. Returns (clips, labels, rows, pad); clips
     stay uint8 where the transform left them so (the card normalizes),
-    else float32."""
+    else float32. local=(lo, hi): clips and labels of the padded batch's
+    rows [lo, hi) only; rows and pad stay the global batch's."""
     pad = batch - len(batch_rows)
     padded = np.concatenate([batch_rows, np.repeat(batch_rows[-1:], pad)])
-    clips, labels = zip(*(ds.get_clip(int(r), epoch) for r in padded))
+    lo, hi = local if local is not None else (0, batch)
+    clips, labels = zip(*(ds.get_clip(int(r), epoch) for r in padded[lo:hi]))
     labels = np.asarray(labels, np.int64)
-    labels[len(batch_rows):] = -1
+    labels[np.arange(lo, hi) >= len(batch_rows)] = -1
     clips = np.stack(clips)
     if clips.dtype != np.uint8:
         clips = clips.astype(np.float32, copy=False)
@@ -146,8 +149,8 @@ def _proc_init(ds):
     _PROC_DS = ds
 
 
-def _proc_make_batch(batch_rows, epoch, batch):
-    return _assemble_batch(_PROC_DS, batch_rows, epoch, batch)
+def _proc_make_batch(batch_rows, epoch, batch, local=None):
+    return _assemble_batch(_PROC_DS, batch_rows, epoch, batch, local)
 
 
 class ClipLoader:
@@ -161,12 +164,18 @@ class ClipLoader:
     or, with use_processes, forked processes: the dataset reaches them by
     the fork, not by pickling, and each batch comes back pickled. A forked
     worker runs numpy only, so forking after the card is initialised is
-    safe."""
+    safe.
+
+    local_rows=(lo, hi): each batch's clips and labels cover only its rows
+    [lo, hi) (`parallel/mesh.py::process_local_bounds`); `rows` and `pad`
+    stay global. Every process derives the same batches and decodes only
+    its own part of each."""
 
     def __init__(self, dataset: ClipDataset, batch_clips: int,
                  shuffle: bool = False, num_workers: int = 8,
                  prefetch: int = 2, seed: int = 0, drop_remainder: bool = False,
-                 use_processes: bool = False):
+                 use_processes: bool = False,
+                 local_rows: Optional[Tuple[int, int]] = None):
         self.ds = dataset
         self.batch = batch_clips
         self.shuffle = shuffle
@@ -175,6 +184,7 @@ class ClipLoader:
         self.seed = seed
         self.drop_remainder = drop_remainder
         self.use_processes = use_processes
+        self.local_rows = local_rows
 
     def __len__(self) -> int:
         n = self.ds.num_clips
@@ -204,10 +214,11 @@ class ClipLoader:
         with self._pool() as pool:
             if self.use_processes:
                 submit = lambda b: pool.submit(_proc_make_batch, b, epoch,
-                                               self.batch)
+                                               self.batch, self.local_rows)
             else:
                 submit = lambda b: pool.submit(_assemble_batch, self.ds, b,
-                                               epoch, self.batch)
+                                               epoch, self.batch,
+                                               self.local_rows)
             futs = queue.Queue()
             it = iter(batches)
             for _ in range(self.prefetch):

@@ -1,0 +1,198 @@
+"""Driver entry points of the port.
+
+`dryrun_multichip(n)`, the counterpart of `__graft_entry__.py:48-146`: n
+gloo ranks on the CPU, one process each, run one data-parallel stage-2
+train step of the flagship architecture (ResNet-50, the TMR head, hidden
+512, f32, 64x64 frames, 2 frames a clip, window 8, the default dropout)
+over a seeded global batch of 2 clips a rank, then one
+`run_corpus_distributed` pass over 3 short videos. Each rank prints the
+step's loss summed over the ranks; every rank must print the same loss,
+and it must equal the loss of one process's step over the same global
+batch, which this process computes on one thread as the ranks run, within
+LOSS_RTOL: f32 rounding through ResNet-50's 53 train-mode BatchNorms moves
+this loss by 2.5e-6 relative between one CPU thread and eight alone, and
+the ranks' convolutions see other batch sizes (1.2e-5 apart at n = 2, 2.8e-6
+at n = 3, on an 8-core CPU). Nothing here needs a card or JAX.
+
+    python -m tmrnet_torch.entry [n]
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import re
+import socket
+import subprocess
+import sys
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+CLIPS_PER_RANK, FRAMES, IMG, WINDOW, HIDDEN = 2, 2, 64, 8, 512
+VIDEO_LENGTHS = (5, 4, 3)
+LOSS_RTOL = 1e-4
+RANK_TIMEOUT = 600
+
+
+def flagship_config():
+    from tmrnet_torch.config import (DataConfig, EvalConfig,
+                                     ExperimentConfig, MemoryConfig,
+                                     ModelConfig)
+
+    return ExperimentConfig(
+        data=DataConfig(sequence_length=FRAMES, crop_size=IMG,
+                        device_normalize=True),
+        model=ModelConfig(backbone="resnet50", head="tmr", hidden_dim=HIDDEN,
+                          compute_dtype="float32"),
+        memory=MemoryConfig(window=WINDOW),
+        eval=EvalConfig(corpus_chunk=8))
+
+
+def global_batch(world: int, seed: int = 0):
+    """The step's uint8 clips, memory windows and labels, for `world`
+    ranks."""
+    rng = np.random.default_rng(seed)
+    b = CLIPS_PER_RANK * world
+    return (torch.from_numpy(rng.integers(0, 256, (b, FRAMES, IMG, IMG, 3),
+                                          dtype=np.uint8)),
+            torch.from_numpy(rng.standard_normal((b, WINDOW, HIDDEN),
+                                                 dtype=np.float32)),
+            torch.from_numpy(rng.integers(0, 7, b)))
+
+
+def train_step_loss(world: int, mesh=None) -> float:
+    """One SGD step of the flagship TMRNet over the global batch for
+    `world` ranks (this rank's rows under `mesh`): the loss summed over
+    the ranks."""
+    from tmrnet_torch.config import TrainConfig
+    from tmrnet_torch.data.device_feed import DevicePrep
+    from tmrnet_torch.models.tmrnet import build_model, init_state_dict
+    from tmrnet_torch.parallel.mesh import (all_reduce_host, broadcast_module,
+                                            process_local_bounds)
+    from tmrnet_torch.train.loop import step_generator
+    from tmrnet_torch.train.optim import make_optimizer, slow_modules_for_head
+    from tmrnet_torch.train.state import TrainState
+    from tmrnet_torch.train.steps import make_stage2_steps
+
+    cfg = flagship_config()
+    model = build_model(cfg.model, device="cpu")
+    model.load_state_dict(init_state_dict(cfg.model, 0))
+    if mesh is not None:
+        broadcast_module(model, mesh)
+    state = TrainState(model, make_optimizer(TrainConfig(lr=0.01), model,
+                                             slow_modules_for_head("tmr")),
+                       mesh=mesh)
+    step, _ = make_stage2_steps(
+        prep=DevicePrep(cfg.data, "float32", "cpu"), mesh=mesh)
+    clips, memory, labels = global_batch(world)
+    lo, hi = ((0, len(labels)) if mesh is None else
+              process_local_bounds(len(labels), mesh.rank, mesh.world))
+    m = step(state, clips[lo:hi], memory[lo:hi], labels[lo:hi],
+             step_generator(0, 0, 0, torch.device("cpu")))
+    loss = np.asarray([float(m["loss"])])
+    if mesh is not None:
+        loss = all_reduce_host(loss, mesh)
+    return float(loss[0])
+
+
+def corpus_pass(mesh) -> List:
+    """run_corpus_distributed over VIDEO_LENGTHS seeded uint8 videos with
+    seeded TMR and extractor weights."""
+    import dataclasses
+
+    from tmrnet_torch.eval.distributed import run_corpus_distributed
+    from tmrnet_torch.models.tmrnet import init_state_dict
+
+    cfg = flagship_config()
+    state = init_state_dict(cfg.model, 1)
+    extractor = init_state_dict(dataclasses.replace(cfg.model, head="lfb"), 2)
+    rng = np.random.default_rng(3)
+    videos = [rng.integers(0, 256, (n, IMG, IMG, 3), dtype=np.uint8)
+              for n in VIDEO_LENGTHS]
+    return run_corpus_distributed(cfg, state, extractor, VIDEO_LENGTHS,
+                                  lambda i: videos[i], mesh=mesh)
+
+
+def _rank_main(rank: int, world: int, port: int) -> int:
+    from tmrnet_torch.parallel.mesh import (initialize_multihost, make_mesh,
+                                            shutdown)
+
+    torch.set_num_threads(1)
+    dev = initialize_multihost(f"127.0.0.1:{port}", world, rank,
+                               device="cpu", timeout=RANK_TIMEOUT)
+    mesh = make_mesh(device=dev)
+    loss = train_step_loss(world, mesh)
+    print(f"rank {rank}/{world}: loss {loss!r}", flush=True)
+    results = corpus_pass(mesh)
+    preds = [p.tolist() for p, _ in results]
+    print(f"rank {rank}/{world}: corpus preds {preds}", flush=True)
+    shutdown()
+    return 0
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dryrun_multichip(n: int = 2) -> float:
+    """Spawn n gloo ranks on the CPU (one train step, one corpus pass) and
+    check their losses against each other and against one process's step.
+    Returns the loss; raises if a rank fails or a loss differs."""
+    port = _free_port()
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "tmrnet_torch.entry", "--rank", str(r),
+         "--world", str(n), "--port", str(port)], cwd=root, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(n)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=RANK_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        sys.stdout.write(out)
+        if p.returncode != 0:
+            raise RuntimeError(f"rank {r} of {n} exited {p.returncode}")
+    losses = [float(re.search(r"loss (\S+)", o).group(1)) for o in outs]
+    preds = [re.search(r"corpus preds (.*)", o).group(1) for o in outs]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        want = train_step_loss(n)
+    finally:
+        torch.set_num_threads(threads)
+    print(f"one process: loss {want!r}, the ranks' relative difference "
+          f"{abs(losses[0] - want) / abs(want):.3g} (limit {LOSS_RTOL})",
+          flush=True)
+    if len(set(losses)) != 1 or len(set(preds)) != 1:
+        raise RuntimeError(f"the ranks disagree: losses {losses}")
+    if abs(losses[0] - want) > LOSS_RTOL * abs(want):
+        raise RuntimeError(f"{n} ranks' loss {losses[0]!r} != one "
+                           f"process's {want!r}")
+    return losses[0]
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("n", nargs="?", type=int, default=2)
+    parser.add_argument("--rank", type=int)
+    parser.add_argument("--world", type=int)
+    parser.add_argument("--port", type=int)
+    args = parser.parse_args(argv)
+    if args.rank is not None:
+        return _rank_main(args.rank, args.world, args.port)
+    dryrun_multichip(args.n)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -61,6 +61,15 @@ class InferenceResult:
     accuracy: float            # clip-level accuracy vs last-frame labels
 
 
+def _engine_device(mesh, device, what: str) -> torch.device:
+    """The engine's device: a one-process mesh's, else `device`; a mesh
+    over several processes raises."""
+    from tmrnet_torch.parallel.mesh import require_single_controller
+
+    require_single_controller(mesh, what)
+    return mesh.device if mesh is not None else resolve_device(device)
+
+
 def load_weights(cfg_model, state_dict, device, fused_kernel):
     """`build_model` for `cfg_model` with `state_dict` loaded (strict)."""
     model = build_model(cfg_model, device, fused_kernel)
@@ -77,13 +86,16 @@ class ClipInference:
     (tmr, nl_only); head stage1 reads none.
     fused_kernel: "block" or "tiled", the folded identity blocks' kernel
     (`models/tmrnet.py::build_backbone`); the same state dict serves both.
+    mesh: a data mesh of one process (its device is the engine's); one
+    over several processes raises (`parallel/mesh.py::
+    require_single_controller`), as in JAX's engines.
     """
 
     def __init__(self, cfg: ExperimentConfig,
                  state_dict: Mapping[str, torch.Tensor],
                  bank: Optional[FeatureBank] = None, device="cuda",
-                 fused_kernel: str = "block"):
-        self.device = resolve_device(device)
+                 fused_kernel: str = "block", mesh=None):
+        self.device = _engine_device(mesh, device, "ClipInference")
         self.memoryless = memoryless_head(cfg.model.head)
         if not self.memoryless:
             if bank is None:
@@ -260,15 +272,15 @@ class VideoInference:
     (`bank_features`). fused_kernel as in `ClipInference`.
     backbone_chunk (default cfg.eval.backbone_chunk): frames per trunk
     launch; 0 = auto (`trunk_chunk`), -1 = all of a call's frames at once,
-    > 0 = that many.
+    > 0 = that many. mesh as in `ClipInference`.
     """
 
     def __init__(self, cfg: ExperimentConfig,
                  state_dict: Mapping[str, torch.Tensor],
                  extractor_state_dict: Mapping[str, torch.Tensor],
                  device="cuda", fused_kernel: str = "block",
-                 backbone_chunk: Optional[int] = None):
-        self.device = resolve_device(device)
+                 backbone_chunk: Optional[int] = None, mesh=None):
+        self.device = _engine_device(mesh, device, "VideoInference")
         self.cfg = cfg
         self.seq = cfg.data.sequence_length
         self.window = cfg.memory.window

@@ -25,8 +25,8 @@ import torch
 
 from tmrnet_torch.config import ExperimentConfig
 from tmrnet_torch.data.device_feed import DevicePrep
-from tmrnet_torch.device import resolve_device, torch_dtype
-from tmrnet_torch.eval.infer import load_weights
+from tmrnet_torch.device import torch_dtype
+from tmrnet_torch.eval.infer import _engine_device, load_weights
 
 
 @dataclasses.dataclass
@@ -41,14 +41,14 @@ class StreamState:
 
 class StreamingInference:
     """state_dict: TMR model weights (head tmr or nl_only);
-    extractor_state_dict: the extractor's (head lfb); fused_kernel as in
-    `ClipInference`."""
+    extractor_state_dict: the extractor's (head lfb); fused_kernel and
+    mesh as in `ClipInference`."""
 
     def __init__(self, cfg: ExperimentConfig,
                  state_dict: Mapping[str, torch.Tensor],
                  extractor_state_dict: Mapping[str, torch.Tensor],
-                 device="cuda", fused_kernel: str = "block"):
-        self.device = resolve_device(device)
+                 device="cuda", fused_kernel: str = "block", mesh=None):
+        self.device = _engine_device(mesh, device, "StreamingInference")
         if cfg.model.head not in ("tmr", "nl_only"):
             raise ValueError(f"head {cfg.model.head!r}: streams score a "
                              f"memory head (tmr or nl_only)")

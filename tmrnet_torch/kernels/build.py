@@ -7,6 +7,10 @@ so a build takes seconds). Builds go at first use into
 carries a hash of its source and of the shared headers, so an edited source
 is rebuilt. `build_all()` starts one `nvcc` per source, all at once.
 
+Processes that share the checkout (ranks of a data-parallel run) build a
+library once: its build holds a lock file beside it, and a process that
+finds the lock held waits for it and then loads what the other built.
+
 Every C entry point returns `cudaGetLastError()` after its launch;
 `check()` raises when that is not 0 (cudaSuccess).
 
@@ -18,6 +22,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import fcntl
 import hashlib
 import os
 import subprocess
@@ -59,30 +64,39 @@ def _lib_path(name: str) -> Path:
 
 def _start_build(name: str):
     """Start nvcc for one source unless its library is already built;
-    returns (final path, tmp path, process or None)."""
+    returns (final path, tmp path, process or None, lock or None). The
+    lock (held until the library is in place) makes another process that
+    builds the same library wait, then find it built."""
     out = _lib_path(name)
     if out.exists():
-        return out, None, None
+        return out, None, None, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lock = open(out.with_suffix(".lock"), "w")
+    fcntl.flock(lock, fcntl.LOCK_EX)
+    if out.exists():
+        lock.close()
+        return out, None, None, None
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
            str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
-    return out, tmp, proc
+    return out, tmp, proc, lock
 
 
 def build_all(names: Iterable[str] = SOURCES) -> Dict[str, ctypes.CDLL]:
     """Build (in parallel) and load every named kernel library."""
     pending = {n: _start_build(n) for n in names if n not in _libs}
     errors = []
-    for name, (out, tmp, proc) in pending.items():
+    for name, (out, tmp, proc, lock) in pending.items():
         if proc is not None:
             log, _ = proc.communicate()
+            if proc.returncode == 0:
+                os.replace(tmp, out)
+            lock.close()
             if proc.returncode != 0:
                 errors.append(f"nvcc failed for {name}.cu:\n{log}")
                 continue
-            os.replace(tmp, out)
         _libs[name] = ctypes.CDLL(str(out))
     if errors:
         raise RuntimeError("\n".join(errors))

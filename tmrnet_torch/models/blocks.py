@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from tmrnet_torch.kernels.prepared import Prepared
 from tmrnet_torch.ops.nl_attention import nl_attention
 from tmrnet_torch.ops.time_conv import time_conv
+from tmrnet_torch.parallel.mesh import current_shard
 
 # flax LayerNorm's default epsilon (torch's default is 1e-5).
 LAYER_NORM_EPS = 1e-6
@@ -34,14 +35,27 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
             generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """flax nn.Dropout: in training, each element kept with probability
     1 - rate (a Bernoulli mask drawn from `generator`, on x's device) and
-    scaled by 1 / (1 - rate); x itself outside training or at rate 0."""
+    scaled by 1 / (1 - rate); x itself outside training or at rate 0.
+    In a data-parallel train step (`parallel/mesh.py::current_shard`), x
+    is this rank's rows [lo, hi) of the global batch: the mask is drawn
+    at the global batch's shape and its rows [lo, hi) kept, so that a rank
+    masks what a one-process step over the global batch masks there."""
     if not train or rate == 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
     keep = 1.0 - rate
-    mask = torch.empty(x.shape, device=x.device).bernoulli_(
-        keep, generator=generator)
+    shard = current_shard()
+    if shard is None:
+        mask = torch.empty(x.shape, device=x.device).bernoulli_(
+            keep, generator=generator)
+    else:
+        if x.shape[0] != shard.hi - shard.lo:
+            raise ValueError(f"dropout over {x.shape[0]} rows in a shard of "
+                             f"{shard.hi - shard.lo}")
+        mask = torch.empty((shard.size,) + tuple(x.shape[1:]),
+                           device=x.device).bernoulli_(
+            keep, generator=generator)[shard.lo:shard.hi]
     return torch.where(mask.bool(), x / keep, torch.zeros((), dtype=x.dtype,
                                                           device=x.device))
 

@@ -34,12 +34,15 @@ import threading
 from typing import Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from tmrnet_torch.experimental.fused_bottleneck import fused_bottleneck
 from tmrnet_torch.experimental.fused_bottleneck_tiled import fused_bottleneck_tiled
+from tmrnet_torch.device import at_least_f32
+from tmrnet_torch.parallel.mesh import current_shard
 
 EXPANSION = 4
 BN_EPS = 1e-5
@@ -97,25 +100,107 @@ def batch_norm(layer: nn.BatchNorm2d, x: torch.Tensor,
     unbiased variance, so it only fills scratch buffers (momentum 1: the
     batch mean and unbiased variance), and the update is made here, but
     not in a remat block's recomputation, which computes the same batch
-    statistics a second time."""
+    statistics a second time.
+
+    In a data-parallel train step over several processes
+    (`parallel/mesh.py::current_shard`) the statistics are the global
+    batch's, as JAX's SPMD BatchNorm over a batch-sharded input takes them
+    (`_GlobalBatchNorm`); over one rank the local statistics are the
+    global ones, and the step is the one-process step bit for bit."""
     if not train:
         cast = lambda t: t.to(x.dtype)
         return F.batch_norm(x, cast(layer.running_mean),
                             cast(layer.running_var), cast(layer.weight),
                             cast(layer.bias), False, 0.0, BN_EPS)
-    c = x.shape[1]
-    n = x.numel() // c
-    mean = torch.zeros(c, dtype=torch.float32, device=x.device)
-    var = torch.zeros_like(mean)
-    y = F.batch_norm(x, mean, var, layer.weight, layer.bias, True, 1.0, BN_EPS)
+    shard = current_shard()
+    if shard is None or shard.world == 1:
+        c = x.shape[1]
+        n = x.numel() // c
+        mean = torch.zeros(c, dtype=torch.promote_types(x.dtype,
+                                                        torch.float32),
+                           device=x.device)
+        var = torch.zeros_like(mean)
+        y = F.batch_norm(x, mean, var, layer.weight, layer.bias, True, 1.0,
+                         BN_EPS)
+        var = var * ((n - 1) / n)
+    else:
+        y, mean, var = _GlobalBatchNorm.apply(x, layer.weight, layer.bias,
+                                              shard)
     if getattr(_RECOMPUTE, "active", False):
         return y
     with torch.no_grad():
         m = 1.0 - BN_MOMENTUM
         layer.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=m)
-        layer.running_var.mul_(BN_MOMENTUM).add_(var * ((n - 1) / n), alpha=m)
+        layer.running_var.mul_(BN_MOMENTUM).add_(var, alpha=m)
         layer.num_batches_tracked.add_(1)
     return y
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm over the global batch of which x is this rank's
+    part (a shard of several ranks), its statistics and its input
+    gradient's two per-channel reductions summed over the ranks
+    (SyncBatchNorm's scheme, in an autograd Function whose backward makes
+    its own collective).
+
+    Forward: each rank's count, mean and sum of squared deviations (f32,
+    or f64 for f64 input, `torch.var_mean`) go into its own row of a
+    (world, 2C + 1) f64 buffer that one all-reduce sums, so that every
+    rank holds every rank's; they combine into the global mean and biased
+    variance (the parallel variance formula, without the cancellation of
+    a summed sum of squares). Backward: dy's sum and dy * x_hat's sum over
+    the rank's positions, all-reduced, give the input gradient
+    w * rstd * (dy - sum(dy) / N - x_hat * sum(dy * x_hat) / N); the
+    weight's and bias's gradients are the rank's own sums (the train state
+    sums them over the ranks). Under remat the recomputation runs the
+    forward's all-reduce again: every rank recomputes the same blocks in
+    the same order, so the collectives pair up."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, shard):
+        c = x.shape[1]
+        dims = [d for d in range(x.dim()) if d != 1]
+        shape = [1] * x.dim()
+        shape[1] = c
+        n = x.numel() // c
+        xf = at_least_f32(x)
+        var_r, mean_r = torch.var_mean(xf, dim=dims, correction=0)
+        rows = torch.zeros((shard.world, 2 * c + 1), dtype=torch.float64,
+                           device=x.device)
+        rows[shard.rank, :c] = mean_r.double()
+        rows[shard.rank, c:2 * c] = var_r.double() * n
+        rows[shard.rank, 2 * c] = n
+        dist.all_reduce(rows, group=shard.group)
+        means, m2s, counts = rows[:, :c], rows[:, c:2 * c], rows[:, 2 * c:]
+        total = counts.sum()
+        mean64 = (counts * means).sum(0) / total
+        var64 = (m2s + counts * (means - mean64) ** 2).sum(0) / total
+        mean, var = mean64.to(xf.dtype), var64.to(xf.dtype)
+        rstd = torch.rsqrt(var + BN_EPS)
+        y = (xf - mean.view(shape)) * (weight.to(xf.dtype) * rstd).view(shape)\
+            + bias.to(xf.dtype).view(shape)
+        # the count stays on the device: a host read would stall the
+        # stream at every BatchNorm
+        ctx.save_for_backward(x, weight, mean, rstd, total)
+        ctx.group, ctx.dims, ctx.shape = shard.group, dims, shape
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, gy, _mean, _var):
+        x, weight, mean, rstd, total = ctx.saved_tensors
+        dims, shape, c = ctx.dims, ctx.shape, x.shape[1]
+        g = at_least_f32(gy)
+        xhat = (at_least_f32(x) - mean.view(shape)) * rstd.view(shape)
+        sum_g = g.sum(dims)
+        sum_gx = (g * xhat).sum(dims)
+        both = torch.cat([sum_g, sum_gx])
+        dist.all_reduce(both, group=ctx.group)
+        n = total.to(g.dtype)
+        gx = (weight.to(g.dtype) * rstd).view(shape) * (
+            g - (both[:c] / n).view(shape) - xhat * (both[c:] / n).view(shape))
+        return gx.to(x.dtype), sum_gx.to(weight.dtype), \
+            sum_g.to(weight.dtype), None
 
 
 class Bottleneck(nn.Module):

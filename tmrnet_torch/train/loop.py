@@ -19,7 +19,20 @@ model is built with model.remat = train.remat, as JAX's trainers build
 it, :582-583, :772-773). Dropout masks come from a torch generator seeded per step
 from train.seed, the epoch and the step (`step_generator`), where JAX
 folds epoch * 100003 + step into its key: the same schedule of seeds, not
-the same masks. JAX's `mesh=` raises: the port trains on one card.
+the same masks.
+
+`mesh=` (a `parallel/mesh.py::DataMesh`, one process a card) trains
+data-parallel as JAX's trainers do over a mesh that spans processes
+(`_BatchFeed` :116-179, `_global_stop` :181-206): every rank derives the
+same seeded batches and assembles only its rows of each
+(`ClipLoader(local_rows=)`), gathers the memory windows of those rows
+alone, starts from rank 0's weights and sums its gradients with the
+others' (`train/state.py`); the metrics are summed over the ranks before
+they are read, the val pass gathers the ranks' predictions and losses and
+takes the labels from `ds.clip_labels`, a preemption check runs over every
+rank every `_STOP_CHECK_EVERY` steps and after each epoch, and rank 0
+writes the checkpoints (`utils/checkpoint.py`). An n-rank run computes
+what a one-process run over the same global batches computes.
 
 And `build_lfb`, port of `tmrnet_tpu/train/loop.py::build_lfb` (:589-684),
 `framewise_transform_for_video_build` (:687-700), `load_video_frames`
@@ -32,7 +45,10 @@ fill the same bank, one row per clip position:
 - video: per video, `VideoInference.bank_features` (the extractor's
   backbone once per frame, its LSTM over every sliding window);
   `build_lfb_video` takes the videos' frames or zero-arg loaders of them.
-Both run on one card (JAX's `mesh=` waits for multi-GPU work).
+Under `mesh=`, the clip engine runs each rank over its rows of every batch
+and gathers the bank rows; the video engine partitions the videos over
+the ranks (`eval/distributed.py::run_lfb_distributed`). Rank 0 writes the
+cache.
 """
 
 from __future__ import annotations
@@ -55,6 +71,9 @@ from tmrnet_torch.eval.infer import (VideoInference, corpus_lengths,
                                      load_video, load_weights)
 from tmrnet_torch.memory.lfb import (FeatureBank, gather_memory_windows,
                                      load_bank, save_bank, update_bank)
+from tmrnet_torch.parallel.mesh import (DataMesh, all_gather_host,
+                                        all_reduce_host, broadcast_module,
+                                        process_local_bounds)
 from tmrnet_torch.train.losses import balanced_class_weights
 from tmrnet_torch.train.optim import (make_optimizer, make_schedule,
                                       set_learning_rate, slow_modules_for_head)
@@ -68,7 +87,8 @@ def build_lfb(cfg: ExperimentConfig,
               extractor_state_dict: Mapping[str, torch.Tensor],
               ds: ClipDataset, cache_path: Optional[str] = None,
               force: bool = False, engine: str = "clip", device="cuda",
-              fused_kernel: str = "block") -> FeatureBank:
+              fused_kernel: str = "block",
+              mesh: Optional[DataMesh] = None) -> FeatureBank:
     """The bank of a dataset from the frozen extractor's weights (head
     `lfb`: trunk and LSTM), f32, on `device`. The `.npz` at `cache_path`
     (default `memory.cache_path`) is read instead where it exists, under
@@ -78,10 +98,25 @@ def build_lfb(cfg: ExperimentConfig,
     transform; 'video' runs its backbone once per frame and needs a
     deterministic frame-wise transform (`EvalTransform` crop types 1/2/3).
     The two give the same features up to rounding. fused_kernel as in
-    `ClipInference`."""
+    `ClipInference`.
+
+    mesh: data-parallel over processes, on the mesh's device (`device` is
+    not read). The clip engine runs each rank over its rows
+    `process_local_bounds` of every batch of `data.batch_clips` and gathers
+    the rows; the video engine partitions the videos
+    (`eval/distributed.py::run_lfb_distributed`). Every rank returns the
+    whole bank; rank 0 writes the cache."""
     path = cache_path or cfg.memory.cache_path
+    if mesh is not None:
+        device = mesh.device
     if path and os.path.exists(path) and cfg.memory.load_cached and not force:
         return load_bank(path, device=device)
+    if engine == "video" and mesh is not None:
+        from tmrnet_torch.eval.distributed import run_lfb_distributed
+
+        return run_lfb_distributed(cfg, extractor_state_dict, ds,
+                                   cache_path=path, mesh=mesh,
+                                   fused_kernel=fused_kernel)
     if engine == "video":
         tf = framewise_transform_for_video_build(ds)
         videos = ds.manifest.videos
@@ -100,15 +135,30 @@ def build_lfb(cfg: ExperimentConfig,
     bank = FeatureBank.create(ds.seq_len, ds.manifest.video_lengths,
                               cfg.model.hidden_dim, device=dev)
     d = cfg.data
+    local = (None if mesh is None else
+             process_local_bounds(d.batch_clips, mesh.rank, mesh.world))
     loader = ClipLoader(ds, d.batch_clips, shuffle=False,
                         num_workers=d.num_workers, prefetch=d.prefetch,
-                        use_processes=d.use_process_workers)
+                        use_processes=d.use_process_workers, local_rows=local)
+    mine = []
     with torch.inference_mode():
         for clips, _, rows, pad in device_prefetch(loader.epoch(0), device=dev,
                                                    array_indices=(0, 2)):
             b = len(rows) - pad
-            update_bank(bank.features, rows[:b], model(prep(clips))[:b])
-    if path:
+            if mesh is None:
+                update_bank(bank.features, rows[:b], model(prep(clips))[:b])
+            else:
+                mine.append((rows, b, model(prep(clips))))
+        if mine:
+            # one gather of every rank's rows of every batch, (world,
+            # batches, B / world, hidden); each batch's real rows written
+            got = all_gather_host(torch.stack([v for _, _, v in mine])
+                                  .float().cpu().numpy(), mesh)
+            for j, (rows, b, _) in enumerate(mine):
+                values = got[:, j].reshape(len(rows), -1)[:b]
+                update_bank(bank.features, rows[:b],
+                            torch.from_numpy(values).to(dev))
+    if path and (mesh is None or mesh.rank == 0):
         save_bank(path, bank)
     return bank
 
@@ -227,26 +277,74 @@ def _make_memory_fn(cfg: ExperimentConfig, ds: Optional[ClipDataset],
     return fn
 
 
+# The preemption check over the ranks is a host collective, so under a
+# mesh it runs every K steps (and after each epoch): a stop lags K steps
+# at most, well inside any SIGTERM grace (JAX's cadence, loop.py:186).
+_STOP_CHECK_EVERY = 8
+
+
+def _global_stop(stop: Optional[dict], mesh: Optional[DataMesh] = None
+                 ) -> bool:
+    """The preemption flag: this process's, or under a mesh any rank's (a
+    MAX over the ranks, which every rank calls at the same boundaries; a
+    SIGTERM that reaches one rank alone then stops them all at one step,
+    where a local check would leave that rank in the checkpoint's
+    collective while the others train on)."""
+    flag = bool(stop is not None and stop.get("stop"))
+    if mesh is not None:
+        flag = bool(all_reduce_host(np.asarray([flag], np.int32), mesh,
+                                    "max")[0])
+        if flag and stop is not None:
+            stop["stop"] = True         # a peer's preemption, adopted
+    return flag
+
+
+def _sums(acc, mesh: Optional[DataMesh]) -> Tuple[float, int, int]:
+    """The running (loss, correct, count) on the host, summed over the
+    ranks under a mesh."""
+    got = np.asarray([float(acc[0]), float(acc[1]), float(acc[2])])
+    if mesh is not None:
+        got = all_reduce_host(got, mesh)
+    return float(got[0]), int(got[1]), int(got[2])
+
+
+def _gather_rows(mesh: Optional[DataMesh], *arrays: np.ndarray):
+    """Each array's global batches from every rank's rows: (batches,
+    B / world, ...) on each rank -> (batches, B, ...), the ranks' rows in
+    order. Without a mesh, the arrays as they are."""
+    if mesh is None:
+        return arrays
+    out = []
+    for a in arrays:
+        g = all_gather_host(a, mesh)          # (world, batches, rows, ...)
+        g = np.moveaxis(g, 0, 1)
+        out.append(g.reshape((g.shape[0], -1) + g.shape[3:]))
+    return tuple(out)
+
+
 def _run_epoch_train(train_step, state: TrainState, loader: ClipLoader,
                      epoch: int, seed: int, device: torch.device,
                      memory_fn: Optional[Callable] = None,
                      log: Optional[MetricLogger] = None, log_every: int = 50,
                      minibatch_val: Optional[Callable] = None,
                      minibatch_val_every: int = 0, log_images_every: int = 0,
-                     stop: Optional[dict] = None):
+                     stop: Optional[dict] = None,
+                     mesh: Optional[DataMesh] = None):
     """One epoch of train steps. Returns (mean loss, accuracy, whether a
     preemption signal stopped it); the running sums stay on the card
-    between logs."""
+    between logs. Under a mesh the loader gives this rank's rows of each
+    batch, whose memory windows alone are gathered."""
     acc = None
     interrupted = False
     prev_loss, prev_count = 0.0, 0
     timer = Timer()
+    lo, hi = loader.local_rows or (0, loader.batch)
     batches = device_prefetch(loader.epoch(epoch), device=device,
                               array_indices=(0, 1))
     for i, (clips, labels, rows, pad) in enumerate(batches):
         gen = step_generator(seed, epoch, i, device)
         if memory_fn is not None:
-            m = train_step(state, clips, memory_fn(rows), labels, gen)
+            m = train_step(state, clips, memory_fn(rows[lo:hi]), labels, gen)
         else:
             m = train_step(state, clips, labels, gen)
         got = (m["loss"], m["correct"], m["count"])
@@ -256,7 +354,7 @@ def _run_epoch_train(train_step, state: TrainState, loader: ClipLoader,
             log.log_images(state.step, "train/input_sequence",
                            clips[0].cpu().numpy())
         if log is not None and (i + 1) % log_every == 0:
-            tot_loss, tot_count = float(acc[0]), int(acc[2])
+            tot_loss, _, tot_count = _sums(acc, mesh)
             n = max(tot_count - prev_count, 1)
             log.log(state.step, {"loss": (tot_loss - prev_loss) / n,
                                  "fps": timer.fps}, prefix="train/")
@@ -266,44 +364,64 @@ def _run_epoch_train(train_step, state: TrainState, loader: ClipLoader,
             vm = minibatch_val(state)
             if log is not None:
                 log.log(state.step, vm, prefix="val_minibatch/")
-        if stop is not None and stop.get("stop"):
-            # the step in flight is applied: leave at this boundary so the
-            # caller checkpoints a consistent state
-            interrupted = True
-            break
+        if stop is not None:
+            due = (mesh is None
+                   or i % _STOP_CHECK_EVERY == _STOP_CHECK_EVERY - 1)
+            if due and _global_stop(stop, mesh):
+                # the step in flight is applied: leave at this boundary so
+                # the caller checkpoints a consistent state
+                interrupted = True
+                break
     batches.close()
     if acc is None:
         return 0.0, 0.0, interrupted
-    count = max(int(acc[2]), 1)
-    return float(acc[0]) / count, int(acc[1]) / count, interrupted
+    loss, correct, count = _sums(acc, mesh)
+    count = max(count, 1)
+    return loss / count, correct / count, interrupted
+
+
+def _eval_batch(eval_step, state, clips, labels, rows, memory_fn, lo, hi):
+    if memory_fn is not None:
+        m = eval_step(state, clips, memory_fn(rows[lo:hi]), labels)
+    else:
+        m = eval_step(state, clips, labels)
+    return m["losses"].cpu().numpy(), m["preds"].cpu().numpy()
 
 
 def _run_epoch_eval(eval_step, state: TrainState, loader: ClipLoader,
                     device: torch.device,
-                    memory_fn: Optional[Callable] = None):
+                    memory_fn: Optional[Callable] = None,
+                    mesh: Optional[DataMesh] = None):
     """A full pass over the loader. Returns (mean loss, accuracy, preds,
-    labels, rows) over the real rows (a padded batch's repeats dropped)."""
-    loss_sum, correct, count = 0.0, 0, 0
-    all_preds, all_labels, all_rows = [], [], []
+    labels, rows) over the real rows (a padded batch's repeats dropped).
+    Under a mesh, each rank scores its rows of each batch; the ranks'
+    losses and predictions are gathered once at the end, and the labels
+    are the dataset's (`ds.clip_labels`)."""
+    lo, hi = loader.local_rows or (0, loader.batch)
+    losses, preds, all_labels, all_rows = [], [], [], []
     for clips, labels, rows, pad in device_prefetch(
             loader.epoch(0), device=device, array_indices=(0, 1)):
-        if memory_fn is not None:
-            m = eval_step(state, clips, memory_fn(rows), labels)
-        else:
-            m = eval_step(state, clips, labels)
+        ls, ps = _eval_batch(eval_step, state, clips, labels, rows,
+                             memory_fn, lo, hi)
+        losses.append(ls)
+        preds.append(ps)
         b = len(rows) - pad
-        losses = m["losses"][:b].cpu().numpy()
-        preds = m["preds"][:b].cpu().numpy()
-        labels = labels[:b].cpu().numpy()
-        loss_sum += float(losses.sum())
-        correct += int((preds == labels).sum())
-        count += b
-        all_preds.append(preds)
-        all_labels.append(labels)
+        all_labels.append(labels[:b].cpu().numpy() if mesh is None
+                          else loader.ds.clip_labels[rows[:b]])
         all_rows.append(rows[:b])
-    cat = lambda xs: np.concatenate(xs) if xs else np.zeros(0, np.int64)
-    return (loss_sum / max(count, 1), correct / max(count, 1),
-            cat(all_preds), cat(all_labels), cat(all_rows))
+    if not all_rows:
+        empty = np.zeros(0, np.int64)
+        return 0.0, 0.0, empty, empty, empty
+    losses, preds = _gather_rows(mesh, np.stack(losses), np.stack(preds))
+    loss_sum, correct, count = 0.0, 0, 0
+    for ls, ps, labels, rows in zip(losses, preds, all_labels, all_rows):
+        b = len(rows)
+        loss_sum += float(ls[:b].sum())
+        correct += int((ps[:b] == labels).sum())
+        count += b
+    preds = np.concatenate([ps[:len(r)] for ps, r in zip(preds, all_rows)])
+    return (loss_sum / max(count, 1), correct / max(count, 1), preds,
+            np.concatenate(all_labels), np.concatenate(all_rows))
 
 
 def _fit(cfg: ExperimentConfig, model_cfg, train_ds: ClipDataset,
@@ -311,11 +429,12 @@ def _fit(cfg: ExperimentConfig, model_cfg, train_ds: ClipDataset,
          bank: Optional[FeatureBank], slow_modules,
          init_state_dict: Optional[Mapping[str, torch.Tensor]] = None,
          log: Optional[MetricLogger] = None,
-         val_bank: Optional[FeatureBank] = None, device="cuda"
+         val_bank: Optional[FeatureBank] = None, device="cuda",
+         mesh: Optional[DataMesh] = None
          ) -> Tuple[TrainState, List[EpochStats]]:
     from tmrnet_torch.models.tmrnet import init_state_dict as fresh_init
 
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     t = cfg.train
     for name, b in (("bank", bank), ("val_bank", val_bank)):
         if b is not None and b.features.device != dev:
@@ -325,16 +444,20 @@ def _fit(cfg: ExperimentConfig, model_cfg, train_ds: ClipDataset,
         init_state_dict = fresh_init(model_cfg, t.seed)
     model = load_weights(model_cfg, init_state_dict, dev, "block")
     state = TrainState(model, make_optimizer(t, model, slow_modules),
-                       grad_accum=t.grad_accum, grad_clip=t.grad_clip)
+                       grad_accum=t.grad_accum, grad_clip=t.grad_clip,
+                       mesh=mesh)
 
     ckpt = CheckpointManager(t.checkpoint_dir, keep=t.keep_checkpoints,
-                             use_async=t.async_checkpoint)
+                             use_async=t.async_checkpoint, mesh=mesh)
     start_epoch = 0
     resume_meta: Dict = {}
+    ckpt.barrier()          # no rank reads while another still writes
     if t.resume and ckpt.latest_step() is not None:
         state = ckpt.restore(state)
         resume_meta = ckpt.metadata(ckpt.latest_step()).get("metrics", {})
         start_epoch = int(resume_meta.get("epoch", -1)) + 1
+    if mesh is not None:
+        broadcast_module(state.model, mesh)     # rank 0's weights on all
 
     class_weights = (balanced_class_weights(train_ds.manifest.flat_labels(),
                                             model_cfg.num_classes)
@@ -344,15 +467,19 @@ def _fit(cfg: ExperimentConfig, model_cfg, train_ds: ClipDataset,
             if cfg.data.device_normalize else None)
     train_step, eval_step = make_steps(class_weights, "sum",
                                        label_smoothing=t.label_smoothing,
-                                       prep=prep)
+                                       prep=prep, mesh=mesh)
     d = cfg.data
+    local = (None if mesh is None else
+             process_local_bounds(d.batch_clips, mesh.rank, mesh.world))
     train_loader = ClipLoader(train_ds, d.batch_clips, shuffle=True,
                               num_workers=d.num_workers, prefetch=d.prefetch,
                               seed=t.seed, drop_remainder=True,
-                              use_processes=d.use_process_workers)
+                              use_processes=d.use_process_workers,
+                              local_rows=local)
     val_loader = (ClipLoader(val_ds, d.batch_clips, shuffle=False,
                              num_workers=d.num_workers, prefetch=d.prefetch,
-                             use_processes=d.use_process_workers)
+                             use_processes=d.use_process_workers,
+                             local_rows=local)
                   if val_ds is not None else None)
 
     schedule = make_schedule(t)
@@ -379,23 +506,26 @@ def _fit(cfg: ExperimentConfig, model_cfg, train_ds: ClipDataset,
 
     minibatch_val = None
     if t.val_minibatch_every and val_ds is not None:
-        vb_clips, vb_labels, vb_rows, vb_pad = next(iter(device_prefetch(
+        vb_clips, vb_dlabels, vb_rows, vb_pad = next(iter(device_prefetch(
             val_loader.epoch(0), device=dev, array_indices=(0, 1))))
+        b = len(vb_rows) - vb_pad
+        vb_labels = (vb_dlabels[:b].cpu().numpy() if mesh is None
+                     else val_ds.clip_labels[vb_rows[:b]])
+        lo, hi = local or (0, d.batch_clips)
 
         def minibatch_val(st):
-            args = (vb_clips,) + ((val_memory_fn(vb_rows),) if use_memory
-                                  else ())
-            m = eval_step(st, *args, vb_labels)
-            b = len(vb_rows) - vb_pad
-            preds = m["preds"][:b].cpu().numpy()
-            return {"loss": float(m["losses"][:b].sum()) / max(b, 1),
-                    "acc": float((preds == vb_labels[:b].cpu().numpy())
-                                 .mean())}
+            losses, preds = _gather_rows(mesh, *(a[None] for a in _eval_batch(
+                eval_step, st, vb_clips, vb_dlabels, vb_rows, val_memory_fn,
+                lo, hi)))
+            return {"loss": float(losses[0, :b].sum()) / max(b, 1),
+                    "acc": float((preds[0, :b] == vb_labels).mean())}
 
     stop = {"stop": False}
     restore_sigs = []
     if t.preempt_save:
         def _on_preempt(signum, frame):
+            # this process's own signals only: a peer's stop adopted by
+            # _global_stop must not make a first local one interrupt
             stop["signals"] = stop.get("signals", 0) + 1
             if stop["signals"] > 1:     # the second signal interrupts
                 raise KeyboardInterrupt
@@ -410,10 +540,10 @@ def _fit(cfg: ExperimentConfig, model_cfg, train_ds: ClipDataset,
         return _epoch_loop(cfg, state, stop, start_epoch, train_step,
                            eval_step, train_loader, val_loader, dev,
                            memory_fn, val_memory_fn, log, minibatch_val,
-                           schedule, tracker, ckpt, [])
+                           schedule, tracker, ckpt, [], mesh)
     finally:
         # an async save, the preemption's too, is durable before the
-        # trainer returns
+        # trainer returns (on every rank: rank 0's write, waited for)
         ckpt.wait()
         for sig, prev in restore_sigs:
             signal.signal(sig, prev)
@@ -422,7 +552,8 @@ def _fit(cfg: ExperimentConfig, model_cfg, train_ds: ClipDataset,
 def _epoch_loop(cfg, state, stop, start_epoch, train_step, eval_step,
                 train_loader, val_loader, dev, memory_fn, val_memory_fn,
                 log, minibatch_val, schedule, tracker,
-                ckpt: CheckpointManager, history: List[EpochStats]):
+                ckpt: CheckpointManager, history: List[EpochStats],
+                mesh: Optional[DataMesh] = None):
     """The epochs of `_fit`, inside the signal handlers. Returns (the
     state, the history)."""
     from tmrnet_torch.eval.metrics import classification_metrics
@@ -438,7 +569,7 @@ def _epoch_loop(cfg, state, stop, start_epoch, train_step, eval_step,
         tr_loss, tr_acc, interrupted = _run_epoch_train(
             train_step, state, train_loader, epoch, t.seed, dev, memory_fn,
             log, t.log_every, minibatch_val, t.val_minibatch_every,
-            t.log_images_every, stop)
+            t.log_images_every, stop, mesh)
         if interrupted:
             # marked for the epoch's replay (epoch = the last completed
             # one): resume restarts this epoch from these weights
@@ -450,7 +581,7 @@ def _epoch_loop(cfg, state, stop, start_epoch, train_step, eval_step,
             break
         if val_loader is not None:
             va_loss, va_acc, va_preds, va_labels, _ = _run_epoch_eval(
-                eval_step, state, val_loader, dev, val_memory_fn)
+                eval_step, state, val_loader, dev, val_memory_fn, mesh)
             if log is not None and va_preds.size:
                 cmm = classification_metrics(va_labels, va_preds, ncls)
                 for c in range(ncls):
@@ -476,7 +607,7 @@ def _epoch_loop(cfg, state, stop, start_epoch, train_step, eval_step,
                            "train_acc": tr_acc, "val_loss": va_loss,
                            **plateau()},
                   is_best=is_best)
-        if stop.get("stop"):
+        if _global_stop(stop, mesh):
             # the signal came in the val pass or the bookkeeping: this
             # epoch is complete and saved, resume goes on with the next
             if log is not None:
@@ -490,37 +621,45 @@ def _epoch_loop(cfg, state, stop, start_epoch, train_step, eval_step,
     return state, history
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("mesh= is not ported: the port trains on "
-                                  "one card")
+def _check_mesh(mesh) -> Optional[DataMesh]:
+    if mesh is not None and not isinstance(mesh, DataMesh):
+        raise NotImplementedError(
+            f"mesh={type(mesh).__name__}: the trainers take a data mesh "
+            f"over processes (parallel/mesh.py::make_mesh); tensor "
+            f"parallelism is not ported")
+    return mesh
 
 
 def train_stage1(cfg: ExperimentConfig, train_ds: ClipDataset,
                  val_ds: Optional[ClipDataset] = None,
                  init_state_dict: Optional[Mapping[str, torch.Tensor]] = None,
-                 mesh=None, log: Optional[MetricLogger] = None,
+                 mesh: Optional[DataMesh] = None,
+                 log: Optional[MetricLogger] = None,
                  device="cuda") -> Tuple[TrainState, List[EpochStats]]:
     """Stage-1 memory-bank model training (head stage1) from
     `init_state_dict` (default: fresh flax-distributed weights at
-    train.seed) on `device`. Returns (the train state, the history)."""
-    _no_mesh(mesh)
+    train.seed) on `device`, or data-parallel over `mesh` on its device.
+    Returns (the train state, the history)."""
+    _check_mesh(mesh)
     model_cfg = dataclasses.replace(cfg.model, head="stage1",
                                     remat=cfg.train.remat)
     return _fit(cfg, model_cfg, train_ds, val_ds, use_memory=False, bank=None,
                 slow_modules=slow_modules_for_head("stage1"),
-                init_state_dict=init_state_dict, log=log, device=device)
+                init_state_dict=init_state_dict, log=log, device=device,
+                mesh=mesh)
 
 
 def train_stage2(cfg: ExperimentConfig, train_ds: ClipDataset,
                  bank: FeatureBank, val_ds: Optional[ClipDataset] = None,
                  val_bank: Optional[FeatureBank] = None,
                  init_state_dict: Optional[Mapping[str, torch.Tensor]] = None,
-                 mesh=None, log: Optional[MetricLogger] = None,
+                 mesh: Optional[DataMesh] = None,
+                 log: Optional[MetricLogger] = None,
                  device="cuda") -> Tuple[TrainState, List[EpochStats]]:
     """TMRNet (or only-non-local) head training over a built bank; train
-    and val read their own banks (val_bank defaults to bank)."""
-    _no_mesh(mesh)
+    and val read their own banks (val_bank defaults to bank). Under a mesh
+    every rank holds the whole banks on its device."""
+    _check_mesh(mesh)
     if val_ds is not None and val_bank is None:
         val_bank = bank
     head = cfg.model.head if cfg.model.head in ("tmr", "nl_only") else "tmr"
@@ -529,4 +668,4 @@ def train_stage2(cfg: ExperimentConfig, train_ds: ClipDataset,
     return _fit(cfg, model_cfg, train_ds, val_ds, use_memory=True, bank=bank,
                 slow_modules=slow_modules_for_head(head),
                 init_state_dict=init_state_dict, log=log, val_bank=val_bank,
-                device=device)
+                device=device, mesh=mesh)

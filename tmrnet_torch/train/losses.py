@@ -34,7 +34,8 @@ def weighted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                            label_smoothing: float = 0.0) -> torch.Tensor:
     """CE over (..., num_classes) logits in f32 with per-class weights.
     'sum' is torch's CrossEntropyLoss(weight=, reduction='sum'); 'mean' the
-    weighted mean (sum / the sum of the sample weights); 'none' per sample.
+    weighted mean (sum / the sum of the sample weights); 'none' per sample;
+    'weight' the sum of the sample weights alone (what 'mean' divides by).
     Label smoothing mixes the one-hot target with the uniform one."""
     num_classes = logits.shape[-1]
     logp = F.log_softmax(logits.float(), dim=-1)
@@ -53,6 +54,8 @@ def weighted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
         return per_sample.sum()
     if reduction == "mean":
         return per_sample.sum() / torch.clamp(w.sum(), min=1e-12)
+    if reduction == "weight":
+        return w.sum()
     if reduction == "none":
         return per_sample
     raise ValueError(f"unknown reduction {reduction!r}")

@@ -8,6 +8,14 @@ optimizer steps on every k-th call of `apply_gradients`, on the running
 mean of the k micro-batches' gradients (optax.MultiSteps' Welford mean),
 and the global-norm clip acts on what reaches the optimizer. The model's
 BatchNorm statistics update in its forward, on every micro-step.
+
+With a data mesh (`mesh`), the gradients that reach the optimizer are
+summed over the ranks, once per optimizer step (after the accumulation,
+before the clip): a plain all-reduce of the gradients laid end to end
+(`parallel/mesh.py::all_reduce_sum_`), a sum and not
+DistributedDataParallel's mean, since the loss sums over the global
+batch. The clip then sees the global gradient, as JAX's global-view
+gradient is clipped.
 """
 
 from __future__ import annotations
@@ -17,6 +25,7 @@ from typing import List, Optional
 
 import torch
 
+from tmrnet_torch.parallel.mesh import DataMesh, all_reduce_sum_
 from tmrnet_torch.train.optim import clip_by_global_norm_
 
 
@@ -27,6 +36,7 @@ class TrainState:
     step: int = 0
     grad_accum: int = 1
     grad_clip: float = 0.0
+    mesh: Optional[DataMesh] = None
     # micro-steps since the last optimizer step, and their mean gradients
     mini_step: int = 0
     acc_grads: Optional[List[torch.Tensor]] = None
@@ -53,6 +63,8 @@ class TrainState:
                 return
             grads = self.acc_grads
             self.acc_grads, self.mini_step = None, 0
+        if self.mesh is not None:
+            all_reduce_sum_(grads, self.mesh)
         if self.grad_clip > 0:
             clip_by_global_norm_(grads, self.grad_clip)
         for p, g in zip(params, grads):

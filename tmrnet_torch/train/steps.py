@@ -11,6 +11,13 @@ the card until the loop fetches them.
 Stage 1: train_step(state, clips, labels, generator), eval_step(state,
 clips, labels). Stage 2: the same with the (B, window, hidden) memory after
 the clips.
+
+With a data mesh (`parallel/mesh.py`), a train step's clips are this
+rank's rows of the global batch: the forward and backward run inside
+`batch_shard` (BatchNorm on the global batch's statistics, dropout masks
+of the global batch's shape), a 'mean' loss divides by the sample
+weights summed over the ranks, and the state sums the gradients over the
+ranks (`TrainState.mesh`). Its metrics are this rank's.
 """
 
 from __future__ import annotations
@@ -20,13 +27,16 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from tmrnet_torch.parallel.mesh import (DataMesh, all_reduce_sum_,
+                                        batch_shard, shard_of)
 from tmrnet_torch.train.losses import weighted_cross_entropy
 from tmrnet_torch.train.state import TrainState
 
 
 def _make_steps(class_weights, loss_reduction: str = "sum",
                 label_smoothing: float = 0.0,
-                prep: Optional[Callable] = None) -> Tuple[Callable, Callable]:
+                prep: Optional[Callable] = None,
+                mesh: Optional[DataMesh] = None) -> Tuple[Callable, Callable]:
     weights = {}
 
     def w_on(device):
@@ -42,8 +52,18 @@ def _make_steps(class_weights, loss_reduction: str = "sum",
         out = state.model(clips, *inputs[1:], train=train, generator=generator)
         logits = out[:, -1, :] if out.dim() == 3 else out
         w = w_on(logits.device)
-        loss = weighted_cross_entropy(logits, labels, w, loss_reduction,
-                                      label_smoothing)
+        if train and mesh is not None and loss_reduction == "mean":
+            # the global batch's weighted mean: this rank's sum over the
+            # weights of every rank's samples
+            total = weighted_cross_entropy(logits.detach(), labels, w,
+                                           "weight")
+            all_reduce_sum_([total], mesh)
+            loss = (weighted_cross_entropy(logits, labels, w, "sum",
+                                           label_smoothing)
+                    / torch.clamp(total, min=1e-12))
+        else:
+            loss = weighted_cross_entropy(logits, labels, w, loss_reduction,
+                                          label_smoothing)
         return logits, loss, w
 
     def counts(logits, labels):
@@ -53,8 +73,10 @@ def _make_steps(class_weights, loss_reduction: str = "sum",
 
     def train_step(state: TrainState, *args) -> Dict[str, torch.Tensor]:
         *inputs, labels, generator = args
-        logits, loss, _ = forward(state, inputs, labels, True, generator)
-        loss.backward()
+        shard = None if mesh is None else shard_of(mesh, labels.shape[0])
+        with batch_shard(shard):
+            logits, loss, _ = forward(state, inputs, labels, True, generator)
+            loss.backward()
         state.apply_gradients()
         _, correct, count = counts(logits.detach(), labels)
         return {"loss": loss.detach(), "correct": correct, "count": count}
@@ -78,18 +100,23 @@ def _make_steps(class_weights, loss_reduction: str = "sum",
 
 def make_stage1_steps(class_weights=None, loss_reduction: str = "sum",
                       label_smoothing: float = 0.0,
-                      prep: Optional[Callable] = None
+                      prep: Optional[Callable] = None,
+                      mesh: Optional[DataMesh] = None
                       ) -> Tuple[Callable, Callable]:
     """Steps for MemoryBankModel: train_step(state, clips, labels,
     generator), eval_step(state, clips, labels). prep: the clips' cast and
-    normalization on the card (DevicePrep), for the uint8 feed."""
-    return _make_steps(class_weights, loss_reduction, label_smoothing, prep)
+    normalization on the card (DevicePrep), for the uint8 feed. mesh: the
+    data mesh the clips are a rank's rows of (the state's too)."""
+    return _make_steps(class_weights, loss_reduction, label_smoothing, prep,
+                       mesh)
 
 
 def make_stage2_steps(class_weights=None, loss_reduction: str = "sum",
                       label_smoothing: float = 0.0,
-                      prep: Optional[Callable] = None
+                      prep: Optional[Callable] = None,
+                      mesh: Optional[DataMesh] = None
                       ) -> Tuple[Callable, Callable]:
     """Steps for TMRNet: train_step(state, clips, memory, labels,
     generator), eval_step(state, clips, memory, labels)."""
-    return _make_steps(class_weights, loss_reduction, label_smoothing, prep)
+    return _make_steps(class_weights, loss_reduction, label_smoothing, prep,
+                       mesh)

@@ -31,6 +31,16 @@ thread writes the step directory and then its sidecar. A best waits for
 its step's write before it is copied, and `wait()` blocks until the write
 is durable (a writer's error is raised there). Until its rename a step
 is a `.tmp` directory that `all_steps` does not list.
+
+`mesh=` (data parallelism over processes, `parallel/mesh.py`): every rank
+holds the same state, and rank 0 alone writes, prunes and promotes the
+best; the others read the shared directory. Every rank calls `save`,
+`wait`, `barrier` and `restore` at the same points. `wait` is a
+collective (a MAX over the ranks of whether a write failed), so every
+rank waits on rank 0's background write, and a failed write raises on
+every rank: at the start of each save and restore, before a best is
+promoted, and before the trainer returns. A synchronous save ends with
+the same collective, after which the step is on disk for every rank.
 """
 
 from __future__ import annotations
@@ -55,24 +65,39 @@ def _tree_map(fn, tree):
 
 class CheckpointManager:
     def __init__(self, directory: str, keep: int = 3,
-                 use_async: bool = False):
+                 use_async: bool = False, mesh=None):
         self.dir = os.path.abspath(directory)
         self.keep = keep
         self.use_async = use_async
+        self.mesh = mesh
+        self.primary = mesh is None or mesh.rank == 0
         self._writer: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
         os.makedirs(self.dir, exist_ok=True)
 
     def wait(self) -> None:
         """Block until the write in flight is durable (at once when none
-        is); raise the writer's error, once."""
+        is); raise the writer's error, once. Under a mesh, every rank
+        waits for rank 0's write, and its error raises on every rank."""
         if self._writer is not None:
             self._writer.join()
             self._writer = None
-        if self._error is not None:
-            err, self._error = self._error, None
+        err, self._error = self._error, None
+        if self.barrier(failed=err is not None) and err is None:
+            raise RuntimeError("rank 0's checkpoint write failed")
+        if err is not None:
             raise RuntimeError("the background checkpoint write failed"
                                ) from err
+
+    def barrier(self, failed: bool = False) -> bool:
+        """Under a mesh, wait for every rank; True where any rank says
+        `failed`. Without one, `failed` as given."""
+        if self.mesh is None:
+            return failed
+        from tmrnet_torch.parallel.mesh import all_reduce_host
+
+        return bool(all_reduce_host(np.asarray([int(failed)], np.int32),
+                                    self.mesh, "max")[0])
 
     # -- paths ------------------------------------------------------------
     def _step_dir(self, step: int) -> str:
@@ -155,16 +180,41 @@ class CheckpointManager:
         it)."""
         self.wait()
         meta = {"step": step, "metrics": metrics or {}}
-        if self.use_async:
+        path = self._step_dir(step)
+        if not self.use_async:
+            self._on_primary(lambda: (
+                self._write(step, state.model.state_dict(),
+                            state.state_dict(), meta),
+                self._promote_and_prune(step, meta, is_best)))
+            return path
+        if self.primary:
             self._writer = threading.Thread(
                 target=self._write_async, name=f"checkpoint-{step}",
                 args=(step, *self._snapshot(state), meta))
             self._writer.start()
-            if is_best:
-                self.wait()
-        else:
-            self._write(step, state.model.state_dict(), state.state_dict(),
-                        meta)
+        if is_best:
+            self.wait()
+            self._on_primary(lambda: self._promote_and_prune(step, meta, True))
+        elif self.primary:
+            self._gc(pending=step)
+        return path
+
+    def _on_primary(self, fn) -> None:
+        """fn() on rank 0 (the only rank without a mesh), then every rank
+        waits for it; its error raises there and on every other rank."""
+        err = None
+        if self.primary:
+            try:
+                fn()
+            except BaseException as e:
+                err = e
+        if self.barrier(failed=err is not None) and err is None:
+            raise RuntimeError("rank 0's checkpoint write failed")
+        if err is not None:
+            raise err
+
+    def _promote_and_prune(self, step: int, meta: Dict,
+                           is_best: bool) -> None:
         path = self._step_dir(step)
         if is_best:
             # stage the whole copy, then swap: a kill at any point leaves a
@@ -180,7 +230,6 @@ class CheckpointManager:
             os.replace(staged, self.best_dir)
             os.replace(staged + ".json", self.best_dir + ".json")
         self._gc(pending=step if self._writer is not None else None)
-        return path
 
     def _gc(self, pending: Optional[int] = None) -> None:
         """Drop all but the newest `keep` steps. `pending`: the step whose

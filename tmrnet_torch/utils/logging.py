@@ -3,8 +3,11 @@
 Port of `tmrnet_tpu/utils/logging.py` (`MetricLogger` :18-139, `Timer`
 :142-151): a line on stdout per call, a `metrics.jsonl` under the log
 directory, TensorBoard scalars where `torch.utils.tensorboard` imports
-(:36-44), sample frames as images and a confusion matrix per epoch. The
-port runs in one process, so the logger always writes.
+(:36-44), sample frames as images and a confusion matrix per epoch.
+Under data parallelism over processes (`torch.distributed` initialized
+before the logger is made, as the CLI does), every rank computes the same
+numbers and rank 0 alone writes files; each rank still prints its lines
+unless quiet, as JAX's processes do (:20-31).
 """
 
 from __future__ import annotations
@@ -20,6 +23,10 @@ import numpy as np
 class MetricLogger:
     def __init__(self, log_dir: Optional[str] = None,
                  use_tensorboard: bool = True, quiet: bool = False):
+        import torch.distributed as dist
+
+        if dist.is_initialized() and dist.get_rank() != 0:
+            log_dir = None      # one writer of metrics.jsonl and the events
         self.log_dir = log_dir
         self.quiet = quiet
         self._jsonl = None
