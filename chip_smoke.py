@@ -186,6 +186,27 @@ Phases, in order; any failure exits nonzero:
    files as two ranks sharing the card over gloo under mesh.multihost:
    the predictions equal 4f's exactly, the softmax and the bank within
    2e-2; the launches of every rank, as path "multi";
+4l. the artifact slice (`run_artifact_slice`): (a) the clip step exported
+   through `torch.export` at the width of phase 4 (`eval/saved.py::
+   export_inference`, uint8 wire, batch 32), saved, loaded back and held
+   against ClipInference's eager model on phase 4's requests and windows
+   within 2e-2 with the argmax rule (0 expected), 12 fused_bottleneck, 1
+   time_conv and 1 nl_attention launches a call, the export's seconds,
+   the artifact's bytes, both paths' p50 ms a call; the tiled export's
+   call, 10 fused_bottleneck_tiled and 2 fused_bottleneck launches; (b)
+   `python -m tmrnet_torch export-model --stream` as a subprocess from
+   4e's `.pth` (the same seed, folded, 4 slots), then `serve --artifact`
+   and `serve --torch-ckpt` through `tmrnet_torch.cli.main`, 2 streams
+   for 14 ticks: the same rows and launches, probabilities within 2e-2
+   and the argmax rule, each command's seconds to ready; (c)
+   `export-model --stream --slots 2` from 4f's `.pth`, then `stream --artifact` over 4f's videos against `stream
+   --torch-ckpt --max-streams 2`: the same rows and launches (24 / 1 / 1
+   a step), every step's softmax within 2e-2 with the argmax rule, both
+   step p50s; (d) `doctor --smoke --artifact --lfb --checkpoint` through
+   `tmrnet_torch.cli.main` over (a)'s artifact, 4f's bank and 4g's
+   checkpoint: exit 0, no FAIL line; (e) the host's µs a call of each
+   `torch.ops.tmrnet` op against its direct `*_cuda` launch at the stream
+   step's shapes;
 5. the int8 gate (tmrnet_torch.experimental.int8_gate) at B = 128 over the
    four stages: the int8 bottleneck chain through the kernels equal to the
    same chain through the plain versions, 2 int8_matmul and 1 int8_conv3x3
@@ -200,6 +221,7 @@ It needs a CUDA card and the rest of the repository beside it.
 import argparse
 import contextlib
 import dataclasses
+import io
 import json
 import os
 import queue
@@ -3086,20 +3108,23 @@ def slot_schedule(lengths, slots):
 
 
 class StreamCalls:
-    """While inside, StreamingInference.step and reset_streams record the
-    launches of every call and, for a step, its start and end (to a
-    synchronize after it) on the host's clock and its probabilities, kept
-    on the card and copied to the host on leaving."""
+    """While inside, the `step` and `reset_streams` of `cls` (default
+    StreamingInference) record the launches of every call and, for a step,
+    its start and end (to a synchronize after it) on the host's clock and
+    its probabilities, kept on the card and copied to the host on
+    leaving."""
 
-    def __init__(self, torch):
+    def __init__(self, torch, cls=None):
+        from tmrnet_torch.eval.stream import StreamingInference
+
         self.torch = torch
+        self.cls = cls or StreamingInference
 
     def __enter__(self):
-        from tmrnet_torch.eval.stream import StreamingInference
         from tmrnet_torch.kernels.build import LAUNCHES
 
         self.steps, self.resets = [], []
-        self.orig = (StreamingInference.step, StreamingInference.reset_streams)
+        self.orig = (self.cls.step, self.cls.reset_streams)
 
         def recorded(fn, calls, is_step):
             def call(engine, *args, **kw):
@@ -3116,15 +3141,12 @@ class StreamCalls:
                 return out
             return call
 
-        StreamingInference.step = recorded(self.orig[0], self.steps, True)
-        StreamingInference.reset_streams = recorded(self.orig[1], self.resets,
-                                                    False)
+        self.cls.step = recorded(self.orig[0], self.steps, True)
+        self.cls.reset_streams = recorded(self.orig[1], self.resets, False)
         return self
 
     def __exit__(self, *exc):
-        from tmrnet_torch.eval.stream import StreamingInference
-
-        StreamingInference.step, StreamingInference.reset_streams = self.orig
+        self.cls.step, self.cls.reset_streams = self.orig
         self.steps = [(launched, dt, probs.float().cpu().numpy(), t0, t1)
                       for launched, dt, probs, t0, t1 in self.steps]
 
@@ -3835,6 +3857,384 @@ def run_multi_slice(torch, seed, card, kept):
     return {"multi": counts}, numbers, ok and good
 
 
+# Phase 4l: the calls of each path timed in (a), the host-cost calls of
+# each op in (e) (a synchronize every OP_SYNC, outside the timed part),
+# and the ticks of the two daemons in (b); the launches of one clip
+# artifact call on each fused path.
+ARTIFACT_CALLS, OP_CALLS, OP_SYNC, ARTIFACT_TICKS = 10, 1000, 50, 14
+CLIP_LAUNCHES = {"fused_bottleneck": 12, "time_conv": 1, "nl_attention": 1}
+TILED_LAUNCHES = {"fused_bottleneck_tiled": 10, "fused_bottleneck": 2,
+                  "time_conv": 1, "nl_attention": 1}
+
+
+def p50_ms(torch, fn, calls=ARTIFACT_CALLS):
+    """The median of `calls` host-clock times of fn() to a synchronize."""
+    fn()
+    times = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)) * 1e3
+
+
+def artifact_clip(torch, seed, card, tmp):
+    """Phase 4l (a): the clip step exported at full width on the card
+    (ResNet-50 folded, bf16, head tmr, uint8 wire, batch CLIPS, window 30,
+    hidden 512), saved and loaded back, against ClipInference's eager
+    model on the phase-4 requests and their windows; launches per call;
+    the export's seconds, the artifact's bytes, both paths' p50 ms a call;
+    then the tiled export, whose call launches #4. Returns (counts by
+    path, numbers, the artifact's path, ok)."""
+    from tmrnet_torch.eval.infer import ClipInference
+    from tmrnet_torch.eval.saved import (export_inference, load_artifact,
+                                         save_artifact)
+    from tmrnet_torch.kernels.build import LAUNCHES, reset_launches
+
+    setup = slice_setup(torch, seed)
+    ecfg, state, bank = setup["ecfg"], setup["state"], setup["bank"]
+    t0 = time.perf_counter()
+    program, meta = export_inference(ecfg, state, CLIPS, "cuda")
+    export_s = time.perf_counter() - t0
+    path = os.path.join(tmp, "clip.pt2")
+    nbytes = save_artifact(path, program, meta)
+    # what the program holds: its constants' bytes by dtype, whether the
+    # sources of the prepared copies stayed, and its layout-copy nodes
+    held = list(program.constants.items()) + list(program.state_dict.items())
+    by_dtype = {}
+    for _, t in held:
+        key = str(t.dtype).replace("torch.", "")
+        by_dtype[key] = by_dtype.get(key, 0) + t.numel() * t.element_size()
+    sources = [k for k, _ in held if k in (
+        "model.time_conv.conv_k7.weight",
+        "model.backbone.layer4_1.conv2.weight")]
+    nodes = [str(n.target) for n in program.graph.nodes
+             if n.op == "call_function"]
+    print(f"artifact clip: {len(held)} constants, MB by dtype "
+          f"{ {k: round(v / 1e6, 2) for k, v in by_dtype.items()} }, "
+          f"prepared copies' sources held {sources}; {len(nodes)} op nodes, "
+          f"{sum('permute' in x for x in nodes)} permute, "
+          f"{sum('_to_copy' in x or 'aten.to' in x for x in nodes)} casts")
+    del program
+    t0 = time.perf_counter()
+    art = load_artifact(path)
+    load_s = time.perf_counter() - t0
+    engine = ClipInference(ecfg, state, bank, device="cuda")
+    calls = [(torch.from_numpy(clips).cuda(), torch.from_numpy(
+        engine.window_rows(rows, setup["first_rows"])).cuda())
+        for clips, _, rows, _ in setup["requests"]]
+    memory = lambda idx: bank.features[idx].float()
+    torch.cuda.synchronize()
+    reset_launches()
+    got = [art(clips, memory(idx)) for clips, idx in calls]
+    torch.cuda.synchronize()
+    counts = {"artifact-clip": dict(LAUNCHES)}
+    want = {k: v * len(calls) for k, v in CLIP_LAUNCHES.items()}
+    ok = counts["artifact-clip"] == want
+    print(f"artifact clip: exported in {export_s:.2f} s, {nbytes / 1e6:.1f} "
+          f"MB, loaded in {load_s:.2f} s; launches {counts['artifact-clip']} "
+          f"over {len(calls)} calls (want {want}) {'ok' if ok else 'FAIL'}")
+    eager = [engine.infer(clips, idx) for clips, idx in calls]
+    preds = torch.cat([p for p, _ in got]).cpu().numpy()
+    probs = torch.cat([p for _, p in got]).cpu().numpy()
+    want_preds = torch.cat([p for p, _ in eager]).cpu().numpy()
+    want_probs = torch.cat([p for _, p in eager]).cpu().numpy()
+    diff = float(np.abs(probs - want_probs).max())
+    ok &= probs_close("clip artifact vs ClipInference (eager)", probs,
+                      want_probs)
+    ok &= argmax_agrees("clip artifact vs ClipInference (eager)", preds,
+                        want_preds, want_probs, min_decided=1)
+    clips, idx = calls[0]
+    numbers = {"export_s": export_s, "bytes": nbytes, "load_s": load_s,
+               "max_abs_diff": diff,
+               "artifact_ms_p50": p50_ms(torch, lambda: art(clips,
+                                                            memory(idx))),
+               "eager_ms_p50": p50_ms(torch, lambda: engine.infer(clips,
+                                                                  idx))}
+    print(f"artifact clip: max |artifact - eager| {diff:.4g} (0 expected), "
+          f"p50 a call of {CLIPS} clips: artifact "
+          f"{numbers['artifact_ms_p50']:.3f} ms, eager "
+          f"{numbers['eager_ms_p50']:.3f} ms on {card}")
+    del art, engine
+    t0 = time.perf_counter()
+    program, _ = export_inference(ecfg, state, CLIPS, "cuda",
+                                  fused_kernel="tiled")
+    numbers["tiled_export_s"] = time.perf_counter() - t0
+    tiled = program.module()
+    torch.cuda.synchronize()
+    reset_launches()
+    with torch.inference_mode():
+        _, tiled_probs = tiled(clips, memory(idx))
+    torch.cuda.synchronize()
+    counts["artifact-tiled"] = dict(LAUNCHES)
+    ok_t = counts["artifact-tiled"] == TILED_LAUNCHES
+    print(f"artifact tiled: exported in {numbers['tiled_export_s']:.2f} s; "
+          f"launches {counts['artifact-tiled']} a call (want "
+          f"{TILED_LAUNCHES}) {'ok' if ok_t else 'FAIL'}")
+    ok &= ok_t and probs_close("tiled artifact vs the block artifact",
+                               tiled_probs.cpu().numpy(), probs[:CLIPS])
+    del program, tiled, setup, calls
+    torch.cuda.empty_cache()
+    return counts, numbers, path, ok
+
+
+class ReadyClock(io.StringIO):
+    """stderr of an in-process `serve`: the seconds from its creation to
+    the daemon's {"ready": true} line."""
+
+    def __init__(self):
+        super().__init__()
+        self.t0, self.ready = time.perf_counter(), None
+
+    def write(self, text):
+        if self.ready is None and '"ready": true' in text:
+            self.ready = time.perf_counter() - self.t0
+        return super().write(text)
+
+
+def artifact_serve(seed, card, tmp):
+    """Phase 4l (b): `python -m tmrnet_torch export-model --stream` as a
+    subprocess from phase 4e's reference `.pth` (the same seed) with
+    model.folded=true and 4e's slot count, then `serve --artifact` and
+    `serve --torch-ckpt` in this process over the same ticks
+    (`serve_rows`: streams P and Q for ARTIFACT_TICKS ticks): the rows
+    equal, the probabilities within TOL with the argmax rule, the same
+    launches (STEP_LAUNCHES a tick and the warm-up's); each daemon's
+    seconds from its command's start to ready. Returns (counts by path,
+    numbers, ok)."""
+    cfg, paths, _ = serve_setup(seed, tmp)
+    art = os.path.join(tmp, "stream.pt2")
+    cmd = [sys.executable, "-m", "tmrnet_torch", "export-model", "--config",
+           paths["config"], "--set", "model.folded=true", "--torch-ckpt",
+           paths["tmr"], "--extractor-torch-ckpt", paths["lfb"], "--stream",
+           "--slots", str(SERVE_SLOTS), "--out", art]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=TEST_TIMEOUT)
+    numbers = {"export_model_s": time.perf_counter() - t0}
+    line = out.stdout.strip().splitlines()[-1] if out.stdout.strip() else ""
+    print(f"  export-model --stream (subprocess): exit {out.returncode} in "
+          f"{numbers['export_model_s']:.2f} s: {line}")
+    if out.returncode != 0:
+        print(out.stderr[-4000:])
+        return {}, numbers, False
+    numbers["stream_bytes"] = json.loads(line)["bytes"]
+    events = os.path.join(tmp, "events.jsonl")
+    with open(events, "w") as f:
+        for t in range(ARTIFACT_TICKS):
+            for sid, v in (("P", 0), ("Q", 1)):
+                f.write(json.dumps({"id": sid, "image": os.path.join(
+                    tmp, f"v{v}.npy#{t}")}) + "\n")
+            f.write(json.dumps({"step": True}) + "\n")
+    rows, counts, ok = {}, {}, True
+    for name, extra in (("artifact", ["--artifact", art]),
+                        ("torch-ckpt", ["--config", paths["config"],
+                                        "--torch-ckpt", paths["tmr"],
+                                        "--extractor-torch-ckpt",
+                                        paths["lfb"], "--slots",
+                                        str(SERVE_SLOTS)])):
+        with contextlib.redirect_stderr(ReadyClock()) as clock:
+            rows[name], counts[f"artifact-serve-{name}"], _ = serve_rows(
+                ["serve", *extra, "--input", events, "--probs"])
+        numbers[f"{name}_ready_s"] = clock.ready
+        ok &= clock.ready is not None
+    got, want = rows["artifact"], rows["torch-ckpt"]
+    key = lambda r: {k: r.get(k) for k in ("id", "frame", "valid")}
+    same = [key(r) for r in got] == [key(r) for r in want]
+    ticks = times(ARTIFACT_TICKS + 1, STEP_LAUNCHES)    # and the warm-up
+    launched = counts["artifact-serve-artifact"]
+    ok &= (same and len(got) == 2 * ARTIFACT_TICKS and launched == ticks
+           and counts["artifact-serve-torch-ckpt"] == ticks)
+    print(f"artifact serve: {len(got)} rows each, ids/frames/valid equal "
+          f"{same}, launches {launched} (torch-ckpt "
+          f"{counts['artifact-serve-torch-ckpt']}, want {ticks}); command "
+          f"start to ready: serve --artifact {numbers['artifact_ready_s']} "
+          f"s, serve --torch-ckpt {numbers['torch-ckpt_ready_s']} s on "
+          f"{card}")
+    valid = [(g, w) for g, w in zip(got, want) if w["valid"]]
+    if ok and valid:
+        g_probs = np.array([g["probs"] for g, _ in valid], np.float32)
+        w_probs = np.array([w["probs"] for _, w in valid], np.float32)
+        numbers["max_abs_diff"] = float(np.abs(g_probs - w_probs).max())
+        ok &= probs_close("serve --artifact vs serve --torch-ckpt", g_probs,
+                          w_probs)
+        ok &= argmax_agrees("serve --artifact vs serve --torch-ckpt",
+                            np.array([g["pred"] for g, _ in valid]),
+                            np.array([w["pred"] for _, w in valid]), w_probs,
+                            min_decided=1)
+    return ({"artifact-serve": launched}, numbers,
+            ok and bool(valid))
+
+
+def artifact_stream_cli(torch, card, tmp, test_dir):
+    """Phase 4l (c): `export-model --stream --slots SCORE_SLOTS` from phase
+    4f's `.pth` (folded), then `stream --artifact` over 4f's packed videos
+    against `stream --torch-ckpt --max-streams SCORE_SLOTS`, both through
+    `tmrnet_torch.cli.main` here: the same rows, every step's softmax
+    within TOL with the argmax rule, the same launches (STEP_LAUNCHES a
+    step); both paths' step p50. Returns (counts by path, numbers, ok)."""
+    from tmrnet_torch.eval.saved import ArtifactStreamEngine
+
+    src = lambda name: os.path.join(test_dir, name)
+    art, outs = os.path.join(tmp, "stream_cli.pt2"), {}
+    weights = ["--torch-ckpt", src("tmr.pth"), "--extractor-torch-ckpt",
+               src("lfb.pth")]
+    common = ["--config", src("cfg.json"), "--set", "model.folded=true"]
+    _, counts_export, export_s = run_cli(
+        ["export-model", *common, *weights, "--stream", "--slots",
+         str(SCORE_SLOTS), "--out", art])
+    runs = {}
+    for name, cls, extra in (
+            ("artifact", ArtifactStreamEngine, ["--artifact", art]),
+            ("torch-ckpt", None, [*weights, "--max-streams",
+                                  str(SCORE_SLOTS)])):
+        outs[name] = os.path.join(tmp, f"stream_{name}.jsonl")
+        with StreamCalls(torch, cls) as calls:
+            lines, launched, dt = run_cli(["stream", *common, "--manifest",
+                                           src("m.pkl"), *extra, "--out",
+                                           outs[name]])
+        with open(outs[name]) as f:
+            rows = [json.loads(line) for line in f]
+        runs[name] = (rows, launched, calls, json.loads(lines[-1]))
+    rows, launched, calls, summary = runs["artifact"]
+    w_rows, w_launched, w_calls, w_summary = runs["torch-ckpt"]
+    key = lambda r: (r["video"], r["frame"], r["valid"])
+    same = [key(r) for r in rows] == [key(r) for r in w_rows]
+    steps_ok = all(c[0] == STEP_LAUNCHES for c in calls.steps)
+    ok = (same and launched == w_launched and steps_ok
+          and len(calls.steps) == len(w_calls.steps) == summary["steps"]
+          and summary["predictions"] == w_summary["predictions"])
+    print(f"artifact stream: export-model --stream in {export_s:.2f} s; "
+          f"stream --artifact {len(rows)} rows, {len(calls.steps)} steps, "
+          f"launches {launched} (torch-ckpt {w_launched}, each step "
+          f"{STEP_LAUNCHES}: {steps_ok}), rows' video/frame/valid equal "
+          f"{same} {'ok' if ok else 'FAIL'}")
+    # every step's softmax, every slot's (a valid row's pred is its argmax)
+    probs = np.concatenate([c[2] for c in calls.steps])
+    w_probs = np.concatenate([c[2] for c in w_calls.steps])
+    ok &= probs_close("stream --artifact vs --torch-ckpt, every step's "
+                      "softmax", probs, w_probs)
+    ok &= argmax_agrees("stream --artifact vs --torch-ckpt, every step",
+                        probs.argmax(-1), w_probs.argmax(-1), w_probs,
+                        min_decided=1)
+    step_ms = lambda c: float(np.percentile([x[1] for x in c.steps], 50)) * 1e3
+    numbers = {"export_s": export_s, "max_abs_diff": float(
+        np.abs(probs - w_probs).max()), "artifact_step_ms_p50":
+        step_ms(calls), "eager_step_ms_p50": step_ms(w_calls)}
+    print(f"artifact stream: step p50 ({SCORE_SLOTS} slots) artifact "
+          f"{numbers['artifact_step_ms_p50']:.3f} ms, eager "
+          f"{numbers['eager_step_ms_p50']:.3f} ms; max |diff| "
+          f"{numbers['max_abs_diff']:.4g} on {card}")
+    return ({"artifact-export": counts_export, "artifact-stream": launched},
+            numbers, ok)
+
+
+def artifact_doctor(card, clip_art, test_dir, train_dir):
+    """Phase 4l (d): `doctor --smoke --artifact --lfb --checkpoint` through
+    `tmrnet_torch.cli.main` here, over (a)'s artifact, 4f's clip bank and
+    4g's stage-2 checkpoint: exit 0, no FAIL line."""
+    lines, _, dt = run_cli(["doctor", "--smoke", "--artifact", clip_art,
+                            "--lfb", os.path.join(test_dir, "bank_clip.npz"),
+                            "--checkpoint", os.path.join(train_dir, "ck2")])
+    fails = [x for x in lines if x.startswith("[FAIL]")]
+    ok = not fails and lines[-1].startswith("doctor: ")
+    print(f"artifact doctor: exit 0 in {dt:.2f} s, {len(fails)} FAIL lines "
+          f"on {card} {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def op_costs(torch, seed, card):
+    """Phase 4l (e): the host's cost of a call of each op against its
+    direct `*_cuda` launch at the stream step's shapes (head B = STREAMS,
+    bottlenecks N = STREAMS at stage 1), OP_CALLS calls each in turns (op,
+    direct, direct, op), median µs from the call to its return."""
+    from tmrnet_torch.experimental.fused_bottleneck import (
+        fused_bottleneck, fused_bottleneck_cuda)
+    from tmrnet_torch.experimental.fused_bottleneck_tiled import (
+        fused_bottleneck_tiled, fused_bottleneck_tiled_cuda)
+    from tmrnet_torch.ops.nl_attention import (nl_attention_cuda,
+                                               nl_attention_op)
+    from tmrnet_torch.ops.time_conv import time_conv_cuda, time_conv_op
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rand = lambda *shape, dtype=torch.bfloat16: torch.randn(
+        *shape, generator=gen, device="cuda").to(dtype)
+    f32 = torch.float32
+    head = [rand(STREAMS, HIDDEN), rand(STREAMS, WINDOW, HIDDEN),
+            rand(STREAMS, WINDOW, HIDDEN)]
+    conv = [rand(STREAMS, WINDOW, HIDDEN)] + [
+        t for k in (3, 5, 7) for t in (rand(k, HIDDEN, HIDDEN) * 0.02,
+                                       rand(HIDDEN, dtype=f32))]
+    h, c, p, _ = STAGES[0]
+    block = [rand(STREAMS, h, h, c), rand(c, p) * 0.05, rand(p, dtype=f32),
+             rand(3, 3, p, p) * 0.05, rand(p, dtype=f32), rand(p, c) * 0.05,
+             rand(c, dtype=f32)]
+    cases = (("nl_attention", nl_attention_op, nl_attention_cuda, head),
+             ("time_conv", time_conv_op, time_conv_cuda, conv),
+             ("fused_bottleneck", fused_bottleneck, fused_bottleneck_cuda,
+              block),
+             ("fused_bottleneck_tiled", fused_bottleneck_tiled,
+              fused_bottleneck_tiled_cuda, block))
+
+    def host_us(fn, args):
+        times = []
+        for i in range(OP_CALLS // 2):
+            t0 = time.perf_counter()
+            fn(*args)
+            times.append(time.perf_counter() - t0)
+            if i % OP_SYNC == OP_SYNC - 1:
+                torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        return times
+
+    numbers = {}
+    with torch.inference_mode():
+        for name, op, direct, args in cases:
+            op(*args), direct(*args)
+            t = {"op": [], "direct": []}
+            for kind in ("op", "direct", "direct", "op"):
+                t[kind] += host_us(op if kind == "op" else direct, args)
+            numbers[name] = {k: float(np.median(v)) * 1e6
+                             for k, v in t.items()}
+            numbers[name]["added_us"] = (numbers[name]["op"]
+                                         - numbers[name]["direct"])
+            print(f"  {name}: host µs a call, torch.ops.tmrnet "
+                  f"{numbers[name]['op']:.2f}, direct *_cuda "
+                  f"{numbers[name]['direct']:.2f} (median of {OP_CALLS} "
+                  f"each)")
+    print(f"op costs: on {card}")
+    del head, conv, block
+    torch.cuda.empty_cache()
+    return numbers
+
+
+def run_artifact_slice(torch, seed, card, kept):
+    """Phase 4l: the deployable artifacts on the card. (a) `artifact_clip`,
+    (b) `artifact_serve`, (c) `artifact_stream_cli`, (d)
+    `artifact_doctor`, (e) `op_costs`. Returns (counts by path, numbers,
+    ok)."""
+    t0 = time.perf_counter()
+    numbers = {}
+    with phase_dir("artifact") as tmp:
+        counts, numbers["clip"], clip_art, ok = artifact_clip(torch, seed,
+                                                              card, tmp)
+        serve_counts, numbers["serve"], ok_b = artifact_serve(seed, card,
+                                                              tmp)
+        counts.update(serve_counts)
+        stream_counts, numbers["stream"], ok_c = artifact_stream_cli(
+            torch, card, tmp, kept["test"])
+        counts.update(stream_counts)
+        ok_d = artifact_doctor(card, clip_art, kept["test"], kept["train"])
+    numbers["ops_us"] = op_costs(torch, seed, card)
+    ok = ok and ok_b and ok_c and ok_d
+    numbers["seconds"] = time.perf_counter() - t0
+    print(f"artifact slice: {json.dumps(numbers)} in "
+          f"{numbers['seconds']:.1f} s on {card} {'ok' if ok else 'FAIL'}")
+    return counts, numbers, ok
+
+
 def run_gate(torch, seed, card):
     """Phase 5: the int8 gate at B = 128 over the four stages: the int8
     bottleneck chain through the kernels against the same chain through the
@@ -3987,10 +4387,13 @@ def main():
         multi_counts, _, ok_multi = run_multi_slice(torch, args.seed, card,
                                                     kept)
         by_path.update(multi_counts)
+        artifact_counts, _, ok_artifact = run_artifact_slice(
+            torch, args.seed, card, kept)
+        by_path.update(artifact_counts)
     by_path["gate"], ok_gate = run_gate(torch, args.seed, card)
     ok = (ok_block and ok_tiled and ok_paths and ok_video and ok_stream
           and ok_serve and ok_test and ok_train and ok_options and ok_resnest
-          and ok_score and ok_multi and ok_gate)
+          and ok_score and ok_multi and ok_artifact and ok_gate)
     for rec in records:
         rec["launches_by_path"] = {p: c[rec["name"]] for p, c in by_path.items()
                                    if rec["name"] in c}

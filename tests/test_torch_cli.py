@@ -167,8 +167,8 @@ def test_port_serve_cli_refuses(files, tmp_path, capsys):
     with pytest.raises(SystemExit, match="crop"):
         cli.main(base + ["--torch-ckpt", str(d / "model.pth"), "--set",
                          "data.test_crop_type=5"])
-    # --ckpt and --torch-ckpt exclude each other, as do the two extractor
-    # flags; --artifact is not a serve flag: argparse errors
+    # --ckpt, --torch-ckpt and --artifact exclude each other, as do the two
+    # extractor flags: argparse errors
     for extra in (["--ckpt", "x"], ["--artifact", "x"],
                   ["--extractor-ckpt", "x", "--extractor-torch-ckpt", "y"]):
         with pytest.raises(SystemExit) as exc:

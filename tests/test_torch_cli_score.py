@@ -450,10 +450,19 @@ def test_m2cai_preset_scores_eight_phases():
 
 def test_scoring_commands_refuse(files, streams, tmp_path, monkeypatch):
     stream = _base(files, "stream") + ["--out", str(tmp_path / "s.jsonl")]
-    # stream --artifact, which the port lacks: an argparse error
+    # stream --artifact takes the model from the artifact: beside
+    # --torch-ckpt an argparse error; a file that does not load exits and
+    # names `doctor --artifact`
     with pytest.raises(SystemExit) as exc:
         cli.main(stream + ["--artifact", "a.tmrx"])
     assert exc.value.code == 2
+    artifact_only = [a for a in stream if a not in (
+        "--torch-ckpt", str(files / "tiny_model.pth"),
+        "--extractor-torch-ckpt", str(files / "tiny_extractor.pth"))]
+    (tmp_path / "a.tmrx").write_bytes(b"not an artifact")
+    with pytest.raises(SystemExit, match="doctor --artifact"):
+        cli.main(artifact_only + ["--artifact", str(tmp_path / "a.tmrx"),
+                                  *PORT_ARGS])
     # mesh.multihost streams as rank 0 of a one-process group: from --set
     # with an explicit rendezvous, and from a JAX config JSON under
     # torchrun's environment (env://); the rows, grouped by video, equal

@@ -63,7 +63,8 @@ def test_importing_the_port_leaves_jax_out():
             "tmrnet_torch.utils.checkpoint, "
             "tmrnet_torch.utils.logging, tmrnet_torch.parallel, "
             "tmrnet_torch.parallel.mesh, tmrnet_torch.eval.distributed, "
-            "tmrnet_torch.entry; "
+            "tmrnet_torch.entry, tmrnet_torch.eval.saved, "
+            "tmrnet_torch.kernels.library; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -170,6 +171,26 @@ def test_entry_points_need_cuda_unless_cpu(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         StreamingInference(cfg, restored, ext)
     StreamingInference(cfg, restored, ext, device="cpu")
+    # export-model (and the export it runs) refuses before reading
+    # anything; doctor's device check fails, and the command exits 1,
+    # unless --device cpu; serve --artifact runs where --device says
+    from tmrnet_torch.eval.saved import export_inference
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        export_inference(cfg, restored, 1)
+    art = str(tmp_path / "a.pt2")
+    argv = ["export-model", "--config", str(tmp_path / "cfg.json"),
+            "--torch-ckpt", str(tmp_path / "m.pth"), "--stream", "--slots",
+            "1", "--out", art]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(argv)
+    assert cli.main(argv + ["--device", "cpu"]) == 0
+    argv = ["serve", "--artifact", art, "--input", str(tmp_path / "in.jsonl")]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(argv)
+    assert cli.main(argv + ["--device", "cpu"]) == 0
+    assert cli.main(["doctor"]) == 1
+    assert cli.main(["doctor", "--device", "cpu"]) == 0
 
 
 def test_engine_refuses_a_bank_on_another_device():

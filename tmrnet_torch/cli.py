@@ -15,28 +15,39 @@
   export      predictions -> <video>-phase.txt trees (export_phase_copy.py)
   evaluate    relaxed-boundary protocol scoring (MATLAB Main.m, in Python)
   export-ckpt the port's checkpoint -> reference-format .pth
+  export-model the clip or stream step -> a torch.export artifact (.pt2,
+              weights held as constants) that `stream --artifact` and
+              `serve --artifact` run with no model code or checkpoint
+  doctor      preflight of a host: versions, the card, nvcc, the native
+              preprocess, and (when pointed at them) a manifest,
+              checkpoint, bank, artifact or mesh, and the kernels
 
 Port of `tmrnet_tpu/cli.py` (`load_config` :48-57, `_phase_names` :68,
 `_load_manifest` :74, `_clip_labels` :145, `_dataset` :153-175,
 `cmd_manifest` :314-347, `cmd_train_bank` :479-515, `cmd_build_lfb`
 :517-575, `cmd_train_tmr` :577-630, `cmd_test` :632-824, `cmd_stream`
 :843-1038, `cmd_serve` :1041-1152, `cmd_parity` :1155-1214, `cmd_export`
-:1217-1262, `cmd_evaluate` :1265-1320, `cmd_export_ckpt` :1323-1340, their
-parsers). Weights come from the port's own checkpoints (`--ckpt`,
-`--stage1-ckpt`, `--extractor-ckpt`: `utils/checkpoint.py`) or from
+:1217-1262, `cmd_evaluate` :1265-1320, `cmd_export_ckpt` :1323-1340,
+`_stream_artifact_engine` :827-840, `cmd_export_model` :1343-1393,
+`cmd_doctor` :1421-1600, their parsers). Weights come from the port's
+own checkpoints (`--ckpt`, `--stage1-ckpt`, `--extractor-ckpt`:
+`utils/checkpoint.py`) or from
 reference-format `.pth` files (`--torch-ckpt`, `--extractor-torch-ckpt`,
 `--torch-init`; `_restore_variables` :233-275 and `_extractor_for`
 :122-142). `test`, `stream` and `serve` take the model from `--ckpt` or
 `--torch-ckpt` and the frozen extractor from a stage-1 checkpoint
 (`--extractor-ckpt`), an extractor `.pth` (`--extractor-torch-ckpt`) or,
-with neither, the model's trunk and LSTM. Entry points that run a model
-run on the card unless `--device cpu` asks for the CPU; `manifest`,
-`export`, `evaluate` and `export-ckpt` touch no card and take no
-`--device`. Not ported: video-direct datasets (`--videos`; the card's
-machine has no decoder), Orbax checkpoints, tensor parallelism
-(`mesh.model_parallel`), `stream --artifact` and the subcommands
-`prepare`, `stats`, `pack`, `synth`, `migrate`, `doctor` and
-`export-model`.
+with neither, the model's trunk and LSTM; or from an `export-model
+--stream` artifact (`--artifact`), whose sidecar's config replaces the
+loaded one. Entry points that run a model run on the card unless `--device
+cpu` asks for the CPU (an artifact runs on the device it was exported on,
+which `--device` must name); `doctor` fails its device check without a
+card unless `--device cpu`; `manifest`, `export`, `evaluate` and
+`export-ckpt` touch no card and take no `--device`. Not ported:
+video-direct datasets (`--videos`; the card's machine has no decoder),
+Orbax checkpoints, tensor parallelism (`mesh.model_parallel`), `--artifact`
+under `mesh.multihost`, and the subcommands `prepare`, `stats`, `pack`,
+`synth` and `migrate`.
 
 Data parallelism across processes (`_mesh_for`, JAX :85-119): under
 `--set mesh.multihost=true` each process joins a `torch.distributed`
@@ -581,13 +592,38 @@ def cmd_test(args) -> int:
     return 0
 
 
-def _refuse_unported_stream(args) -> None:
-    """`stream --artifact` (an export-model artifact, which the port lacks)
-    is an argparse error, raised before anything is read."""
-    if args.artifact:
-        args.parser.error("--artifact is not ported: the port has no "
-                          "export-model artifacts; pass --ckpt or "
-                          "--torch-ckpt")
+def _stream_artifact_engine(args, cfg: ExperimentConfig):
+    """(the `ArtifactStreamEngine` of --artifact, the config it was
+    exported with, which replaces `cfg`). The artifact holds both trunks,
+    so an extractor flag is an error, and runs on the one device it was
+    exported on: `--device` must name its kind, and `mesh.multihost` is
+    refused. A file that does not load exits and names `doctor
+    --artifact`."""
+    from tmrnet_torch.device import resolve_device
+    from tmrnet_torch.eval.saved import ArtifactStreamEngine, load_artifact
+
+    device = resolve_device(args.device)
+    if args.extractor_ckpt or args.extractor_torch_ckpt:
+        raise SystemExit("--artifact holds the extractor too; drop "
+                         "--extractor-ckpt / --extractor-torch-ckpt")
+    if cfg.mesh.multihost:
+        raise SystemExit("--artifact runs on the one device it was exported "
+                         "on; mesh.multihost is not supported with it")
+    try:
+        engine = ArtifactStreamEngine(load_artifact(args.artifact))
+    except ValueError:
+        raise
+    except Exception as e:
+        raise SystemExit(
+            f"--artifact {args.artifact}: not a loadable artifact ({e}); "
+            "preflight with `doctor --artifact` -- re-export if the torch "
+            "version changed (the sidecar records the producer)")
+    if engine.device.type != device.type:
+        raise SystemExit(f"--artifact {args.artifact} was exported for "
+                         f"{engine.device}; --device is {device}")
+    if engine.meta.get("config"):
+        cfg = ExperimentConfig.from_json(json.dumps(engine.meta["config"]))
+    return engine, cfg
 
 
 def cmd_stream(args) -> int:
@@ -602,8 +638,9 @@ def cmd_stream(args) -> int:
     partitioned over the ranks (`eval/distributed.py::partition_videos`),
     each rank streams its own on its card, and rank 0 writes the gathered
     rows grouped by video in manifest order (the interleaving of a
-    one-process run's steps is a rank's own)."""
-    _refuse_unported_stream(args)
+    one-process run's steps is a rank's own). With --artifact the model
+    is the exported step (`eval/saved.py`) over its slot count; surplus
+    slots idle on blank frames."""
     from collections import deque
 
     from tmrnet_torch.data.pipeline import load_frame
@@ -611,7 +648,11 @@ def cmd_stream(args) -> int:
     from tmrnet_torch.eval.stream import StreamingInference
 
     cfg = load_config(args)
-    device, mesh = _mesh_for(cfg, args, batch=0)
+    engine = mesh = None
+    if args.artifact:
+        engine, cfg = _stream_artifact_engine(args, cfg)
+    else:
+        device, mesh = _mesh_for(cfg, args, batch=0)
     if cfg.data.test_crop_type not in (1, 2, 3):
         raise SystemExit(
             "stream needs a deterministic frame-wise crop (test_crop_type "
@@ -621,11 +662,13 @@ def cmd_stream(args) -> int:
     n_videos = len(m.videos)
     if n_videos == 0:
         raise SystemExit("manifest has no videos")
-    state = restore_state(cfg, cfg.model.head, args.torch_ckpt, args.ckpt)
-    state, extractor = folded_weights(
-        cfg, state, extractor_for(cfg, state, args))
-    engine = StreamingInference(cfg, state, extractor, device=device)
-    del state, extractor
+    if engine is None:
+        state = restore_state(cfg, cfg.model.head, args.torch_ckpt,
+                              args.ckpt)
+        state, extractor = folded_weights(
+            cfg, state, extractor_for(cfg, state, args))
+        engine = StreamingInference(cfg, state, extractor, device=device)
+        del state, extractor
 
     tf = eval_transform(cfg)
     seq = cfg.data.sequence_length
@@ -642,7 +685,8 @@ def cmd_stream(args) -> int:
     # bounds the decoded videos held in host memory.
     n_mine = max(len(my_videos), 1)
     max_streams = n_mine if args.max_streams < 0 else args.max_streams
-    num_slots = min(max_streams or n_mine, n_mine)
+    num_slots = (engine.slots if args.artifact
+                 else min(max_streams or n_mine, n_mine))
     stream = engine.init_state(num_slots)
 
     # A video is decoded, only its streamed prefix, when its slot starts,
@@ -742,7 +786,9 @@ def cmd_serve(args) -> int:
     """Serving daemon: JSONL protocol on stdin/stdout, or over TCP with
     --listen, over B stream slots (eval/serve.py). Streams join on their
     first frame, leave on "end", and any number of them multiplex onto the
-    fixed slots; `{"step": true}` runs one tick."""
+    fixed slots; `{"step": true}` runs one tick. With --artifact the
+    model, the slot count and the config are the artifact's
+    (`eval/saved.py`)."""
     if args.listen and args.input != "-":
         # fail before the (slow) weight restore and engine build
         raise SystemExit("--listen and --input are exclusive "
@@ -751,18 +797,29 @@ def cmd_serve(args) -> int:
     from tmrnet_torch.eval.serve import serve_loop
     from tmrnet_torch.eval.stream import StreamingInference
 
-    device = resolve_device(args.device)
     cfg = load_config(args)
+    engine, num_slots = None, args.slots
+    if args.artifact:
+        engine, cfg = _stream_artifact_engine(args, cfg)
+        num_slots = engine.slots
+        if args.slots not in (0, num_slots):
+            print(json.dumps({"note": f"--slots {args.slots} ignored: the "
+                              f"artifact was exported with {num_slots} "
+                              "slots"}), file=sys.stderr, flush=True)
+    else:
+        device = resolve_device(args.device)
     if cfg.data.test_crop_type not in (1, 2, 3):
         raise SystemExit(
             "serve needs a deterministic frame-wise crop (test_crop_type "
             f"1/2/3, got {cfg.data.test_crop_type}): multi-crop and per-clip "
             "random crops have no streaming equivalent")
-    state = restore_state(cfg, cfg.model.head, args.torch_ckpt, args.ckpt)
-    state, extractor = folded_weights(
-        cfg, state, extractor_for(cfg, state, args))
-    engine = StreamingInference(cfg, state, extractor, device=device)
-    del state, extractor
+    if engine is None:
+        state = restore_state(cfg, cfg.model.head, args.torch_ckpt,
+                              args.ckpt)
+        state, extractor = folded_weights(
+            cfg, state, extractor_for(cfg, state, args))
+        engine = StreamingInference(cfg, state, extractor, device=device)
+        del state, extractor
 
     server = None
     if args.listen:
@@ -796,7 +853,7 @@ def cmd_serve(args) -> int:
     in_f = sys.stdin if args.input == "-" else open(args.input)
     try:
         summary = serve_loop(
-            engine, args.slots,
+            engine, num_slots,
             server.lines() if server is not None else in_f,
             server if server is not None else sys.stdout,
             frame_loader(cfg),
@@ -1009,6 +1066,280 @@ def cmd_export_ckpt(args) -> int:
     return 0
 
 
+def cmd_export_model(args) -> int:
+    """The inference step with the weights held in it, exported through
+    `torch.export` (`eval/saved.py`): a deployment host runs it with
+    torch and the port's kernels, no model code and no checkpoint load.
+    The reference re-instantiates the model from source and loads a .pth
+    every run (`test_..._2fc_copy.py:371-379`). --stream exports the serve
+    daemon's step (both trunks, the rings, the head), which `serve
+    --artifact` and `stream --artifact` run; BN folds there under --set
+    model.folded=true, as `serve` folds it."""
+    from tmrnet_torch.device import resolve_device
+    from tmrnet_torch.eval.saved import (export_inference, export_stream,
+                                         save_artifact)
+
+    device = resolve_device(args.device)
+    cfg = load_config(args)
+    head = cfg.model.head
+    if args.stream:
+        if head not in ("tmr", "nl_only"):
+            raise SystemExit(f"--stream needs a memory head (tmr/nl_only), "
+                             f"got {head!r}")
+        if args.fold_bn:
+            raise SystemExit("--fold-bn is not supported with --stream; "
+                             "fold the stream step's two trunks with --set "
+                             "model.folded=true, as serve does")
+        state = restore_state(cfg, head, args.torch_ckpt, args.ckpt)
+        state, extractor = folded_weights(
+            cfg, state, extractor_for(cfg, state, args))
+        batch = args.slots
+        program, meta = export_stream(cfg, state, extractor, batch, device)
+    else:
+        if args.fold_bn:
+            # BN is an affine map at inference: folded into the convs, the
+            # artifact holds no BN op (models/fold_bn.py)
+            cfg = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                        folded=True))
+        state, = folded_weights(
+            cfg, restore_state(cfg, head, args.torch_ckpt, args.ckpt))
+        batch = args.batch or cfg.eval.batch_clips
+        program, meta = export_inference(cfg, state, batch, device)
+    nbytes = save_artifact(args.out, program, meta)
+    print(json.dumps({"out": args.out, "bytes": nbytes, "head": head,
+                      "kind": meta.get("kind", "clip"), "batch": batch,
+                      "device": meta["device"], "inputs": meta["inputs"]}))
+    return 0
+
+
+def doctor_smoke(device) -> List:
+    """(op, max |op - plain|, max |plain|) for each of the four ops of
+    `torch.ops.tmrnet` launched once on `device` at a small legal shape
+    (bf16, seeded), against its plain version in f32 on the CPU."""
+    import torch
+
+    from tmrnet_torch.experimental.fused_bottleneck import fused_bottleneck
+    from tmrnet_torch.experimental.fused_bottleneck_tiled import \
+        fused_bottleneck_tiled
+    from tmrnet_torch.ops.nl_attention import nl_attention_op
+    from tmrnet_torch.ops.time_conv import time_conv_op
+
+    gen = torch.Generator().manual_seed(0)
+    rand = lambda *shape, scale=1.0: torch.randn(*shape, generator=gen) * scale
+    weights = lambda c, p: (rand(c, p, scale=c ** -0.5), rand(p, scale=0.1),
+                            rand(3, 3, p, p, scale=(9 * p) ** -0.5),
+                            rand(p, scale=0.1), rand(p, c, scale=p ** -0.5),
+                            rand(c, scale=0.1))
+    conv = [t for k in (3, 5, 7)
+            for t in (rand(k, 512, 512, scale=(k * 512) ** -0.5),
+                      rand(512, scale=0.1))]
+    block = (torch.relu(rand(2, 14, 14, 256)), *weights(256, 64))
+    cases = (("nl_attention", nl_attention_op,
+              (rand(4, 512), rand(4, 30, 512), rand(4, 30, 512))),
+             ("time_conv", time_conv_op, (rand(4, 30, 512), *conv)),
+             ("fused_bottleneck", fused_bottleneck, block),
+             ("fused_bottleneck_tiled", fused_bottleneck_tiled, block))
+    out = []
+    for name, op, inputs in cases:
+        # activations and weights in bf16, biases (1-D) in f32
+        inputs = [t if t.dim() == 1 else t.bfloat16() for t in inputs]
+        want = op(*[t.float() for t in inputs])
+        got = op(*[t.to(device) for t in inputs]).float().cpu()
+        out.append((name, float((got - want).abs().max()),
+                    float(want.abs().max())))
+    return out
+
+
+def cmd_doctor(args) -> int:
+    """A host's preflight before a long job or a deployment: versions, the
+    card, nvcc, the native preprocess, and (when pointed at them) a
+    manifest, a checkpoint, a bank, an artifact or the config's mesh, and
+    with --smoke the kernels built and each op against its plain version.
+    One `[status] check: detail` line each; exit 1 iff a check FAILs,
+    warns are advisory. The reference has no equivalent."""
+    import platform
+    import subprocess
+
+    import torch
+
+    counts = {"ok": 0, "warn": 0, "FAIL": 0}
+
+    def add(status: str, name: str, detail: str) -> None:
+        counts[status] += 1
+        print(f"[{status:>4}] {name}: {detail}", flush=True)
+
+    on_cpu = args.device == "cpu"
+    add("ok", "versions",
+        f"python {platform.python_version()}, torch {torch.__version__}, "
+        f"cuda {torch.version.cuda}, numpy {np.__version__}")
+    if torch.cuda.is_available():
+        props = torch.cuda.get_device_properties(0)
+        add("ok", "devices", f"{torch.cuda.device_count()} x cuda "
+            f"({props.name}, sm_{props.major}{props.minor})")
+    elif on_cpu:
+        add("ok", "devices", "no CUDA card; the CPU path (--device cpu)")
+    else:
+        add("FAIL", "devices", "CUDA is not available; pass --device cpu "
+            "to check this host's CPU path")
+
+    from tmrnet_torch.kernels.build import _nvcc
+
+    try:
+        nvcc = _nvcc()
+        out = subprocess.run([nvcc, "--version"], capture_output=True,
+                             text=True, timeout=60).stdout
+        release = [line for line in out.splitlines() if "release" in line]
+        add("ok", "nvcc", f"{nvcc}: {(release or ['?'])[-1].strip()}")
+    except (RuntimeError, OSError, subprocess.SubprocessError) as e:
+        add("warn" if on_cpu else "FAIL", "nvcc",
+            f"{e} -- the kernels are built with it at first use")
+
+    from tmrnet_torch.data import native
+
+    try:
+        native.load_library()
+        add("ok", "native", "libtmrnet_data built with g++ and loadable")
+    except (RuntimeError, OSError) as e:
+        add("warn", "native", f"C++ preprocess unavailable ({e}); "
+            "data.use_native_preproc=true raises under "
+            "data.device_normalize=false")
+
+    if args.manifest:
+        try:
+            from tmrnet_torch.data.manifests import load_pickle_manifest
+            from tmrnet_torch.data.packed import (packed_file_of,
+                                                  split_packed_path)
+
+            vids = list(load_manifest(args.manifest).videos)
+            if not args.manifest.endswith(".csv"):
+                # a two-split pickle carries train and val: check both
+                val = load_pickle_manifest(args.manifest)[1]
+                if val is not None:
+                    vids += list(val.videos)
+            det = (f"{len(vids)} videos, "
+                   f"{sum(len(v.frame_paths) for v in vids)} frames")
+            missing = sum(1 for v in vids if v.frame_paths and not
+                          os.path.exists(packed_file_of(v.frame_paths[0])
+                                         or v.frame_paths[0]))
+            # every packed index against its pack's length (a header
+            # read): one out of range would fail mid-epoch
+            bad_packs = []
+            for v in vids:
+                packs = {}
+                for p in v.frame_paths:
+                    if packed_file_of(p):
+                        f, idx = split_packed_path(p)
+                        packs.setdefault(f, []).append(idx)
+                for f, idxs in packs.items():
+                    if os.path.exists(f):
+                        n = int(np.load(f, mmap_mode="r").shape[0])
+                        if max(idxs) >= n:
+                            bad_packs.append(
+                                f"{v.video_id} ({os.path.basename(f)}: "
+                                f"frame {max(idxs)} >= {n})")
+            if bad_packs:
+                add("FAIL", "manifest",
+                    f"{det}; packed index out of range for "
+                    f"{len(bad_packs)} video(s): {bad_packs[:3]} -- the "
+                    "manifest and packs are out of sync (re-run pack)")
+            elif missing:
+                add("warn", "manifest",
+                    f"{det}; first frame missing on disk for {missing} "
+                    f"video(s) -- paths may be relative to another root")
+            else:
+                add("ok", "manifest", det)
+        except Exception as e:      # a check must report, not crash doctor
+            add("FAIL", "manifest", f"{args.manifest}: {e}")
+
+    if args.checkpoint:
+        try:
+            from tmrnet_torch.utils.checkpoint import CheckpointManager
+
+            if not os.path.isdir(args.checkpoint):
+                raise FileNotFoundError("not a directory")
+            cm = CheckpointManager(args.checkpoint)
+            step = cm.latest_step()
+            if step is None:
+                add("warn", "checkpoint",
+                    f"{args.checkpoint}: no steps found")
+            else:
+                meta = json.dumps(cm.metadata(step))
+                add("ok", "checkpoint",
+                    f"latest step {step}, meta {meta[:120]}")
+        except Exception as e:
+            add("FAIL", "checkpoint", f"{args.checkpoint}: {e}")
+
+    if args.lfb:
+        try:
+            from tmrnet_torch.memory.lfb import load_bank
+
+            bank = load_bank(args.lfb, device="cpu")   # .npz or g_LFB .pkl
+            add("ok", "lfb", f"bank ({bank.num_rows}, {bank.feature_dim}) "
+                f"{bank.features.dtype}")
+        except Exception as e:
+            add("FAIL", "lfb", f"{args.lfb}: {e}")
+
+    if args.artifact:
+        try:
+            from tmrnet_torch.eval.saved import load_artifact
+
+            art = load_artifact(args.artifact)
+            m = art.meta
+            if m.get("kind") == "stream":
+                ident = (f"kind=stream slots={m.get('slots')} "
+                         f"seq={m.get('seq')} window={m.get('window')}")
+            else:
+                ident = f"head={art.head or '?'}"
+            ins = m.get("inputs") or [
+                {"shape": list(shape), "dtype": str(dtype)}
+                for shape, dtype in art.inputs]
+            det = (f"{ident} device={art.device} "
+                   f"torch={m.get('torch_version', '?')} inputs={ins}")
+            if not m:
+                add("warn", "artifact", det + " -- sidecar .json missing "
+                    "(calling convention unknown to loaders)")
+            else:
+                add("ok", "artifact", det)
+        except Exception as e:
+            add("FAIL", "artifact", f"{args.artifact}: {e}")
+
+    if args.mesh:
+        try:
+            device, mesh = _mesh_for(load_config(args), args, batch=0)
+            if mesh is None:
+                add("ok", "mesh", f"one process on {device} (no mesh)")
+            else:
+                add("ok", "mesh", f"{mesh.world} processes over "
+                    f"{mesh.backend}, this one rank {mesh.rank} on "
+                    f"{mesh.device}")
+        except Exception as e:
+            add("FAIL", "mesh", str(e))
+
+    if args.smoke:
+        import time
+
+        try:
+            from tmrnet_torch.device import resolve_device
+            from tmrnet_torch.kernels.build import SOURCES, build_all
+
+            device = resolve_device(args.device)
+            if device.type == "cuda":
+                t0 = time.perf_counter()
+                build_all()
+                add("ok", "smoke", f"built the {len(SOURCES)} kernel "
+                    f"libraries in {time.perf_counter() - t0:.1f} s")
+            for name, err, scale in doctor_smoke(device):
+                add("ok" if err <= 2e-2 * scale else "FAIL", "smoke",
+                    f"{name} on {device}: max |op - plain| {err:.3g}, "
+                    f"limit 2e-2 x max |plain| = {2e-2 * scale:.3g}")
+        except Exception as e:
+            add("FAIL", "smoke", f"{type(e).__name__}: {e}")
+
+    print(f"doctor: {counts['ok']} ok, {counts['warn']} warn, "
+          f"{counts['FAIL']} fail")
+    return 1 if counts["FAIL"] else 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="python -m tmrnet_torch",
                                      description=__doc__.splitlines()[0])
@@ -1038,11 +1369,17 @@ def build_parser() -> argparse.ArgumentParser:
                          "split)")
     sp.set_defaults(fn=cmd_manifest)
 
-    def weights_args(sp, torch_help):
+    def weights_args(sp, torch_help, artifact=False):
         g = sp.add_mutually_exclusive_group(required=True)
         g.add_argument("--ckpt", help="the port's checkpoint dir (its best, "
                                       "else its newest step)")
         g.add_argument("--torch-ckpt", help=torch_help)
+        if artifact:
+            g.add_argument("--artifact",
+                           help="run from an export-model --stream artifact "
+                                "instead of model code and checkpoints (the "
+                                "slot count and the data pipeline come from "
+                                "its sidecar)")
 
     def extractor_args(sp):
         g = sp.add_mutually_exclusive_group()
@@ -1124,10 +1461,9 @@ def build_parser() -> argparse.ArgumentParser:
                                        "(one frame/stream/step, JSONL out)")
     config_args(sp)
     sp.add_argument("--manifest", required=True)
-    weights_args(sp, "reference-format .pth of the model (head model.head)")
+    weights_args(sp, "reference-format .pth of the model (head model.head)",
+                 artifact=True)
     extractor_args(sp)
-    sp.add_argument("--artifact", help="not ported (an export-model stream "
-                                       "artifact): an error")
     sp.add_argument("--max-steps", type=int, default=0,
                     help="cap the number of streamed frames per video")
     sp.add_argument("--max-streams", type=int, default=64,
@@ -1136,16 +1472,18 @@ def build_parser() -> argparse.ArgumentParser:
                          "host memory; -1 = one slot per video)")
     sp.add_argument("--out", default="./stream_preds.jsonl")
     device_arg(sp)
-    sp.set_defaults(fn=cmd_stream, parser=sp)
+    sp.set_defaults(fn=cmd_stream)
 
     sp = sub.add_parser("serve", help="serving daemon: JSONL frame events "
                                       "on stdin -> predictions on stdout")
     config_args(sp)
-    weights_args(sp, "reference-format .pth of the model (head model.head)")
+    weights_args(sp, "reference-format .pth of the model (head model.head)",
+                 artifact=True)
     extractor_args(sp)
     device_arg(sp)
     sp.add_argument("--slots", type=int, default=16,
-                    help="stream slots (max concurrent streams)")
+                    help="stream slots (max concurrent streams); an "
+                         "artifact's own count replaces it")
     sp.add_argument("--probs", action="store_true",
                     help="include per-class probabilities in output rows")
     sp.add_argument("--input", default="-",
@@ -1263,6 +1601,53 @@ def build_parser() -> argparse.ArgumentParser:
                          "newest step)")
     sp.add_argument("--out", required=True, help="output .pth path")
     sp.set_defaults(fn=cmd_export_ckpt)
+
+    sp = sub.add_parser("export-model",
+                        help="export the inference step through "
+                             "torch.export (weights held in the artifact; "
+                             "runs with torch and the port's kernels)")
+    config_args(sp)
+    weights_args(sp, "reference-format .pth of the model (head model.head)")
+    sp.add_argument("--out", required=True,
+                    help="artifact path (.pt2; the sidecar <out>.json "
+                         "carries the calling convention)")
+    sp.add_argument("--batch", type=int, default=0,
+                    help="exported batch size (fixed shape; default "
+                         "eval.batch_clips). Export one artifact per "
+                         "deployed batch size")
+    sp.add_argument("--fold-bn", action="store_true",
+                    help="fold BatchNorm into the conv weights before "
+                         "export (the artifact holds no BN op)")
+    sp.add_argument("--stream", action="store_true",
+                    help="export the serve daemon's per-tick stream step "
+                         "instead of the clip step (run it with `serve "
+                         "--artifact <out>` or `stream --artifact <out>`)")
+    sp.add_argument("--slots", type=int, default=16,
+                    help="--stream: the slot count the artifact takes "
+                         "(default 16)")
+    extractor_args(sp)
+    sp.add_argument("--device", default="cuda",
+                    help="the device the artifact runs on: cuda (default) "
+                         "or cpu")
+    sp.set_defaults(fn=cmd_export_model)
+
+    sp = sub.add_parser("doctor", help="host preflight: versions, the "
+                                       "card, nvcc, artifacts")
+    config_args(sp)
+    sp.add_argument("--manifest", help="check a manifest pickle/CSV (every "
+                                       "packed index against its pack)")
+    sp.add_argument("--checkpoint", help="check a port checkpoint directory")
+    sp.add_argument("--lfb", help="check a feature bank (.npz or g_LFB "
+                                  ".pkl)")
+    sp.add_argument("--artifact", help="load an export-model artifact and "
+                                       "report its calling convention")
+    sp.add_argument("--mesh", action="store_true",
+                    help="set up the config's mesh and report it")
+    sp.add_argument("--smoke", action="store_true",
+                    help="build the kernels and run each of the four ops "
+                         "once against its plain version")
+    device_arg(sp)
+    sp.set_defaults(fn=cmd_doctor)
     return parser
 
 

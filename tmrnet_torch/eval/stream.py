@@ -12,7 +12,11 @@ row, and a stream with no previous clip reads its own feature: the clamped
 windows of `memory_window_rows`) and scores through `TMRNet.head`.
 Outputs equal `VideoInference.run_video`'s from the stream's first full
 clip (frame seq-1) on; earlier steps report valid=False. A step returns a
-new state; the state passed in is left as it was.
+new state; the state passed in is left as it was. `step` does the host's
+part (frames to the card, the active mask, inference mode) and calls
+`_step_impl`, which takes tensors on the card only, as JAX's does
+(`tmrnet_tpu/eval/stream.py:147`): `eval/saved.py::export_stream`
+exports it. `reset_state` is the slot reset, weight-free.
 """
 
 from __future__ import annotations
@@ -37,6 +41,15 @@ class StreamState:
     tmr_ring: torch.Tensor   # (B, seq, F) TMR-trunk backbone features
     bank_ring: torch.Tensor  # (B, window, hidden) LFB features, newest first
     count: torch.Tensor      # (B,) int32 frames seen
+
+
+def reset_state(state: StreamState, mask: torch.Tensor) -> StreamState:
+    """The state with the slots where mask (B,) bool is True zeroed: rings
+    and counts, a fresh stream each."""
+    z = lambda t: torch.where(mask.view(-1, *([1] * (t.dim() - 1))),
+                              torch.zeros_like(t), t)
+    return StreamState(ext_ring=z(state.ext_ring), tmr_ring=z(state.tmr_ring),
+                       bank_ring=z(state.bank_ring), count=z(state.count))
 
 
 class StreamingInference:
@@ -83,12 +96,7 @@ class StreamingInference:
         """Slots where mask (B,) is True restart as fresh streams (rings
         and counts zero), so a finished stream's slot takes a new video
         without touching the others."""
-        m = self._mask(mask)
-        z = lambda t: torch.where(m.view(-1, *([1] * (t.dim() - 1))),
-                                  torch.zeros_like(t), t)
-        return StreamState(ext_ring=z(state.ext_ring),
-                           tmr_ring=z(state.tmr_ring),
-                           bank_ring=z(state.bank_ring), count=z(state.count))
+        return reset_state(state, self._mask(mask))
 
     @torch.inference_mode()
     def step(self, state: StreamState, frames, active=None
@@ -109,7 +117,15 @@ class StreamingInference:
                     (b,), dtype=torch.bool, device=self.device)
         else:
             act = self._mask(active)
-        x = self.prep(frames.to(self.device))
+        return self._step_impl(state, frames.to(self.device), act)
+
+    def _step_impl(self, state: StreamState, frames: torch.Tensor,
+                   act: torch.Tensor
+                   ) -> Tuple[StreamState, torch.Tensor, torch.Tensor,
+                              torch.Tensor]:
+        """One step on tensors on the card: frames (B, H, W, 3) of the
+        wire's dtype, act (B,) bool."""
+        x = self.prep(frames)
         a3 = act[:, None, None]
 
         def push(ring, feats):

@@ -6,9 +6,10 @@ pallas_call at :71); the CUDA kernel is `csrc/fused_bottleneck.cu`, whose
 header says what bounds it and how it is built.
 
 x (N, H, W, C); w1 (C, P), w2 (3, 3, P, P) HWIO, w3 (P, C); biases are the
-BN-folded shifts. `fused_bottleneck` takes the kernel for CUDA tensors and
-the plain version for CPU tensors; anything else raises. `plan_bottleneck`
-decides how the kernel cuts a call into blocks.
+BN-folded shifts. The op `torch.ops.tmrnet.fused_bottleneck`
+(`kernels/library.py`), which `fused_bottleneck` calls, takes the kernel
+for CUDA tensors and the plain version for CPU tensors; anything else
+raises. `plan_bottleneck` decides how the kernel cuts a call into blocks.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from tmrnet_torch.kernels import build
+from tmrnet_torch.kernels import build, library
 from tmrnet_torch.kernels.build import LAUNCHES
 
 # Shared memory a Hopper block may opt into.
@@ -208,10 +209,18 @@ def fused_bottleneck_cuda(x, w1, b1, w2, b2, w3, b3):
     return out
 
 
-def fused_bottleneck(x, w1, b1, w2, b2, w3, b3):
-    """relu(x + W3 . relu(conv3x3(relu(W1 . x + b1)) + b2) + b3), NHWC."""
-    if x.device.type == "cpu":
-        return fused_bottleneck_plain(x, w1, b1, w2, b2, w3, b3)
+def _fused_bottleneck_fake(x, w1, b1, w2, b2, w3, b3):
     if x.device.type == "cuda":
-        return fused_bottleneck_cuda(x, w1, b1, w2, b2, w3, b3)
-    raise ValueError(f"fused_bottleneck: unsupported device {x.device}")
+        plan_bottleneck(*check_operands("fused_bottleneck_cuda", x, w1, b1,
+                                        w2, b2, w3, b3))
+    return torch.empty_like(x)
+
+
+BOTTLENECK_SCHEMA = ("(Tensor x, Tensor w1, Tensor b1, Tensor w2, Tensor b2, "
+                     "Tensor w3, Tensor b3) -> Tensor")
+fused_bottleneck = library.define(
+    "fused_bottleneck", BOTTLENECK_SCHEMA, fused_bottleneck_cuda,
+    fused_bottleneck_plain, _fused_bottleneck_fake)
+"""fused_bottleneck(x, w1, b1, w2, b2, w3, b3): relu(x + W3 . relu(conv3x3(
+relu(W1 . x + b1)) + b2) + b3), NHWC; the op
+`torch.ops.tmrnet.fused_bottleneck`."""

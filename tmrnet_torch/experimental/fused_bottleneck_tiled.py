@@ -11,8 +11,10 @@ DMA.
 It computes the same function as `fused_bottleneck` (both are held to
 `fused_bottleneck_reference` in JAX), so its plain version is
 `fused_bottleneck_plain`. Unlike the TPU kernel it takes any H and N: the
-last H tile may be partial. `fused_bottleneck_tiled` takes the kernel for
-CUDA tensors and the plain version for CPU tensors; anything else raises.
+last H tile may be partial. The op `torch.ops.tmrnet.fused_bottleneck_tiled`
+(`kernels/library.py`), which `fused_bottleneck_tiled` calls, takes the
+kernel for CUDA tensors and the plain version for CPU tensors; anything
+else raises.
 `plan_bottleneck_tiled` decides how the kernel cuts a call into blocks;
 `tiled_blocks`, `chunk_boxes` and `tiled_layout_bytes` say what a block
 copies and where it keeps it, as the kernel computes them.
@@ -30,10 +32,11 @@ import torch
 from tmrnet_torch.experimental.fused_bottleneck import (
     _SMEM_BLOCK_MAX,
     _SMS,
+    BOTTLENECK_SCHEMA,
     check_operands,
     fused_bottleneck_plain,
 )
-from tmrnet_torch.kernels import build
+from tmrnet_torch.kernels import build, library
 from tmrnet_torch.kernels.build import LAUNCHES
 
 # The kernel's block: 8 warps (two warpgroups) whose register tiles make one
@@ -206,10 +209,15 @@ def fused_bottleneck_tiled_cuda(x, w1, b1, w2, b2, w3, b3):
     return out
 
 
-def fused_bottleneck_tiled(x, w1, b1, w2, b2, w3, b3):
-    """relu(x + W3 . relu(conv3x3(relu(W1 . x + b1)) + b2) + b3), NHWC."""
-    if x.device.type == "cpu":
-        return fused_bottleneck_plain(x, w1, b1, w2, b2, w3, b3)
+def _fused_bottleneck_tiled_fake(x, w1, b1, w2, b2, w3, b3):
     if x.device.type == "cuda":
-        return fused_bottleneck_tiled_cuda(x, w1, b1, w2, b2, w3, b3)
-    raise ValueError(f"fused_bottleneck_tiled: unsupported device {x.device}")
+        plan_bottleneck_tiled(*check_operands(
+            "fused_bottleneck_tiled_cuda", x, w1, b1, w2, b2, w3, b3))
+    return torch.empty_like(x)
+
+
+fused_bottleneck_tiled = library.define(
+    "fused_bottleneck_tiled", BOTTLENECK_SCHEMA, fused_bottleneck_tiled_cuda,
+    fused_bottleneck_plain, _fused_bottleneck_tiled_fake)
+"""fused_bottleneck_tiled(x, w1, b1, w2, b2, w3, b3): the same function as
+`fused_bottleneck`, NHWC; the op `torch.ops.tmrnet.fused_bottleneck_tiled`."""

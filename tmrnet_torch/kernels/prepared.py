@@ -8,6 +8,12 @@ reused while it is compared against. The copies carry no gradient.
 
 A module keeps its `Prepared` beside its parameters; a function handed bare
 tensors keeps its copies beside them through `copy_beside`.
+
+Under `torch.export` the sources are fake tensors, with no storage to
+compare: `get` hands back the copies it holds, which the export made from
+the real weights by running its step once before tracing
+(`eval/saved.py`), so that the exported program holds them as constants
+instead of tracing the layout ops into every call.
 """
 
 from __future__ import annotations
@@ -27,7 +33,9 @@ class Prepared:
 
     def get(self, sources: Sequence[torch.Tensor], make: Callable):
         """make(*sources), or what it returned last time if no source
-        changed since."""
+        changed since (under export: whenever there is one)."""
+        if torch.compiler.is_exporting():
+            return make(*sources) if self._held is None else self._held[2]
         if self._held is not None:
             held, versions, out = self._held
             if len(held) == len(sources) and all(

@@ -133,9 +133,13 @@ class TimeConv(nn.Module):
         return self._prepared.get(params, make)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (B, W, F) -> (B, W, F)."""
-        cdt = self.compute_dtype
+        """x: (B, W, F) -> (B, W, F); with grad disabled the kernel reads
+        the prepared copies alone (an export holds those, not the
+        parameters)."""
+        xc = x.to(self.compute_dtype).contiguous()
+        if not torch.is_grad_enabled():
+            return time_conv(xc, *self.kernel_args()).to(x.dtype)
         weights = [p for conv in (self.conv_k3, self.conv_k5, self.conv_k7)
                    for p in (conv.weight.permute(2, 1, 0), conv.bias)]
-        return time_conv(x.to(cdt).contiguous(), *weights,
+        return time_conv(xc, *weights,
                          prepared=self.kernel_args()).to(x.dtype)

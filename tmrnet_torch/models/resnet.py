@@ -42,6 +42,7 @@ from torch.utils.checkpoint import checkpoint
 from tmrnet_torch.experimental.fused_bottleneck import fused_bottleneck
 from tmrnet_torch.experimental.fused_bottleneck_tiled import fused_bottleneck_tiled
 from tmrnet_torch.device import at_least_f32
+from tmrnet_torch.kernels.prepared import Prepared
 from tmrnet_torch.parallel.mesh import current_shard
 
 EXPANSION = 4
@@ -224,15 +225,23 @@ class Bottleneck(nn.Module):
             self.bn3 = nn.BatchNorm2d(out_feats, eps=BN_EPS)
             if self.projection:
                 self.downsample_bn = nn.BatchNorm2d(out_feats, eps=BN_EPS)
+        self._prepared = {}     # the fused kernel's copies, by dtype
 
     def fused_weights(self, dtype: torch.dtype):
         """(w1 (C, P), b1, w2 (3, 3, P, P), b2, w3 (P, C), b3) for the
-        fused kernel: weights in `dtype`, biases in f32."""
-        w = lambda layer, perm: layer.weight.permute(*perm).to(dtype).contiguous()
-        b = lambda layer: layer.bias.float().contiguous()
-        return (w(self.conv1, (2, 3, 1, 0))[0, 0], b(self.conv1),
-                w(self.conv2, (2, 3, 1, 0)), b(self.conv2),
-                w(self.conv3, (2, 3, 1, 0))[0, 0], b(self.conv3))
+        fused kernel: weights in `dtype`, biases in f32; copies made once
+        and made again only when a parameter changed (`kernels.prepared`)."""
+        def make(*params):
+            w = lambda t: t.permute(2, 3, 1, 0).to(dtype).contiguous()
+            w1, b1, w2, b2, w3, b3 = params
+            return (w(w1)[0, 0], b1.float().contiguous(), w(w2),
+                    b2.float().contiguous(), w(w3)[0, 0],
+                    b3.float().contiguous())
+
+        params = [t for layer in (self.conv1, self.conv2, self.conv3)
+                  for t in (layer.weight, layer.bias)]
+        prepared = self._prepared.setdefault(dtype, Prepared())
+        return prepared.get(params, make)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """x: (N, C, H, W) in channels_last memory; train: BatchNorm on the

@@ -1,7 +1,15 @@
 """Hand-written Hopper kernels outside the backbone, each with its plain
 PyTorch version: `nl_attention`, `time_conv` and `int8_matmul` (CUDA C++),
-and the int8 quantizers."""
+and the int8 quantizers.
 
+Importing this package registers the main path's four bf16 kernels as the
+`torch.library` ops `torch.ops.tmrnet.*` (`kernels/library.py`), the
+backbone's two among them, which a loaded export needs."""
+
+from tmrnet_torch.experimental.fused_bottleneck import fused_bottleneck  # noqa: F401
+from tmrnet_torch.experimental.fused_bottleneck_tiled import (  # noqa: F401
+    fused_bottleneck_tiled,
+)
 from tmrnet_torch.ops.nl_attention import nl_attention  # noqa: F401
 from tmrnet_torch.ops.quant import (  # noqa: F401
     int8_matmul,

@@ -6,12 +6,14 @@ whose header says what bounds it and how it is built: one block per row,
 k and v brought into shared memory by two bulk copies, math in f32, output
 in q's dtype.
 
-`nl_attention` takes the kernel for CUDA tensors and the plain version for
-CPU tensors; anything else raises. One launch takes any B: the kernel's row
-offsets are 64-bit. It is a `torch.autograd.Function`: the forward
-launches the kernel (or runs the plain version) once, and the backward
-recomputes the plain version in f32 from the saved q, k and v, with no
-second launch, for dq, dk and dv.
+The op `torch.ops.tmrnet.nl_attention` (`kernels/library.py`) takes the
+kernel for CUDA tensors and the plain version for CPU tensors; anything
+else raises. One launch takes any B: the kernel's row offsets are 64-bit.
+`nl_attention` calls the op; where autograd records (grad enabled and an
+input that requires it) it goes through `NLAttentionFunction`, whose
+forward calls the op once and whose backward recomputes the plain version
+in f32 from the saved q, k and v, with no second launch, for dq, dk and
+dv.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import functools
 import torch
 
 from tmrnet_torch.device import at_least_f32
-from tmrnet_torch.kernels import build
+from tmrnet_torch.kernels import build, library
 from tmrnet_torch.kernels.build import LAUNCHES
 
 # Shared memory a Hopper block may opt into.
@@ -78,10 +80,10 @@ def _entries():
     return run, smem
 
 
-def nl_attention_cuda(q: torch.Tensor, k: torch.Tensor,
-                      v: torch.Tensor) -> torch.Tensor:
-    """Launch csrc/nl_attention.cu. q (B, F); k, v (B, W, F); all
-    contiguous, 16-byte aligned CUDA tensors of one dtype (bf16 or f32)."""
+def check_nl_attention_operands(q, k, v) -> int:
+    """The kernel's checks of its operands, but their alignment: q (B, F);
+    k, v (B, W, F); contiguous CUDA tensors of one dtype (bf16 or f32) on
+    one device; B > 0. Returns the block's shared-memory bytes."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
             raise ValueError(f"nl_attention_cuda: {name} is not on CUDA")
@@ -89,20 +91,28 @@ def nl_attention_cuda(q: torch.Tensor, k: torch.Tensor,
             raise TypeError(f"nl_attention_cuda: {name} dtype {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"nl_attention_cuda: {name} is not contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"nl_attention_cuda: {name} is not 16-byte "
-                             f"aligned, which the bulk copies need")
     if q.dim() != 2 or k.dim() != 3 or k.shape != v.shape \
             or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[1]:
         raise ValueError(f"nl_attention_cuda: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     if not (q.device == k.device == v.device):
         raise ValueError("nl_attention_cuda: tensors on different devices")
+    if q.shape[0] == 0:
+        raise ValueError("nl_attention_cuda: empty batch")
+    return check_nl_attention_shape(k.shape[1], q.shape[1], q.element_size())
+
+
+def nl_attention_cuda(q: torch.Tensor, k: torch.Tensor,
+                      v: torch.Tensor) -> torch.Tensor:
+    """Launch csrc/nl_attention.cu. q (B, F); k, v (B, W, F); all
+    contiguous, 16-byte aligned CUDA tensors of one dtype (bf16 or f32)."""
+    want = check_nl_attention_operands(q, k, v)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"nl_attention_cuda: {name} is not 16-byte "
+                             f"aligned, which the bulk copies need")
     b, f = q.shape
     w = k.shape[1]
-    if b == 0:
-        raise ValueError("nl_attention_cuda: empty batch")
-    want = check_nl_attention_shape(w, f, q.element_size())
     run, smem_of = _entries()
     smem = smem_of(w, f, q.element_size())
     if smem != want:
@@ -117,18 +127,25 @@ def nl_attention_cuda(q: torch.Tensor, k: torch.Tensor,
     return out
 
 
+def _nl_attention_fake(q, k, v):
+    if q.device.type == "cuda":
+        check_nl_attention_operands(q, k, v)
+    return torch.empty_like(q)
+
+
+nl_attention_op = library.define(
+    "nl_attention", "(Tensor q, Tensor k, Tensor v) -> Tensor",
+    nl_attention_cuda, nl_attention_plain, _nl_attention_fake)
+
+
 class NLAttentionFunction(torch.autograd.Function):
-    """Forward: the kernel (CUDA) or the plain version (CPU). Backward: the
-    plain version in f32 from the saved inputs."""
+    """Forward: the op, once. Backward: the plain version in f32 from the
+    saved inputs."""
 
     @staticmethod
     def forward(ctx, q, k, v):
         ctx.save_for_backward(q, k, v)
-        if q.device.type == "cpu":
-            return nl_attention_plain(q, k, v)
-        if q.device.type == "cuda":
-            return nl_attention_cuda(q, k, v)
-        raise ValueError(f"nl_attention: unsupported device {q.device}")
+        return nl_attention_op(q, k, v)
 
     @staticmethod
     def backward(ctx, grad):
@@ -150,4 +167,7 @@ def nl_attention(q: torch.Tensor, k: torch.Tensor,
                  v: torch.Tensor) -> torch.Tensor:
     """softmax(q k^T / sqrt(F)) v; q (B, F), k/v (B, W, F) -> (B, F),
     differentiable in q, k and v."""
-    return NLAttentionFunction.apply(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return NLAttentionFunction.apply(q, k, v)
+    return nl_attention_op(q, k, v)

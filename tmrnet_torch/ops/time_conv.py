@@ -5,14 +5,16 @@ Port of the Pallas TPU kernel `tmrnet_tpu/ops/time_conv.py::time_conv_fused`
 header says what bounds it and how it is built.
 
 x (B, W, C); weights in the flax layout (k, Cin, Cout); biases (C,).
-`time_conv` takes the kernel for CUDA tensors and the plain version for CPU
-tensors; anything else raises. It is a `torch.autograd.Function`: the
-forward launches the kernel (or runs the plain version) once, and the
-backward recomputes the block in plain f32 ops from the saved inputs
-(`time_conv_plain`, in the flax module's nesting of the max), with no
-second launch. A caller whose weights are not in the kernel's layout and dtype
-(a module's f32 parameters) passes `prepared`, copies that are, and the
-weights themselves for the gradient. `plan_time_conv` decides how the kernel cuts
+The op `torch.ops.tmrnet.time_conv` (`kernels/library.py`) takes the
+kernel for CUDA tensors and the plain version for CPU tensors; anything
+else raises. `time_conv` calls the op; where autograd records (grad
+enabled and an input that requires it) it goes through `TimeConvFunction`,
+whose forward calls the op once and whose backward recomputes the block in
+plain f32 ops from the saved inputs (`time_conv_plain`, in the flax
+module's nesting of the max), with no second launch. A caller whose
+weights are not in the kernel's layout and dtype (a module's f32
+parameters) passes `prepared`, copies that are, and the weights themselves
+for the gradient. `plan_time_conv` decides how the kernel cuts
 a launch into blocks. The kernel's offsets are 32-bit, so one launch takes
 at most `time_conv_max_rows(W, C)` rows of B; a call past that launches
 once per piece of at most that many rows (rows are independent along B, so
@@ -29,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from tmrnet_torch.device import at_least_f32
-from tmrnet_torch.kernels import build
+from tmrnet_torch.kernels import build, library
 from tmrnet_torch.kernels.build import LAUNCHES
 
 # Shared memory a Hopper block may opt into.
@@ -156,11 +158,10 @@ def run_in_pieces(launch, x: torch.Tensor, rows: int) -> torch.Tensor:
     return out
 
 
-def time_conv_cuda(x, w3, b3, w5, b5, w7, b7):
-    """Launch csrc/time_conv.cu under `plan_time_conv`, once per piece of at
-    most `time_conv_max_rows` rows of B. x (B, W, C) bf16; w_k (k, C, C)
+def check_time_conv_operands(x, w3, b3, w5, b5, w7, b7):
+    """The kernel's checks of its operands: x (B, W, C) bf16; w_k (k, C, C)
     bf16; b_k (C,) f32; C a multiple of 64; all contiguous on one CUDA
-    device."""
+    device. Returns (rows of B a launch takes, the plan)."""
     if x.device.type != "cuda":
         raise ValueError("time_conv_cuda: x is not on CUDA")
     if x.dim() != 3:
@@ -176,6 +177,16 @@ def time_conv_cuda(x, w3, b3, w5, b5, w7, b7):
     for k, wk, bk in ((3, w3, b3), (5, w5, b5), (7, w7, b7)):
         _check(f"w{k}", wk, x.device, torch.bfloat16, (k, c, c))
         _check(f"b{k}", bk, x.device, torch.float32, (c,))
+    return rows, plan
+
+
+def time_conv_cuda(x, w3, b3, w5, b5, w7, b7):
+    """Launch csrc/time_conv.cu under `plan_time_conv`, once per piece of at
+    most `time_conv_max_rows` rows of B. x (B, W, C) bf16; w_k (k, C, C)
+    bf16; b_k (C,) f32; C a multiple of 64; all contiguous on one CUDA
+    device."""
+    rows, plan = check_time_conv_operands(x, w3, b3, w5, b5, w7, b7)
+    w, c = x.shape[1:]
     run, smem_of = _entries()
     smem = smem_of(c, plan.kc, plan.ck)
     if smem != plan.smem:
@@ -193,23 +204,27 @@ def time_conv_cuda(x, w3, b3, w5, b5, w7, b7):
     return run_in_pieces(launch, x, rows)
 
 
-def _time_conv_forward(x, w3, b3, w5, b5, w7, b7):
-    if x.device.type == "cpu":
-        return time_conv_plain(x, w3, b3, w5, b5, w7, b7)
+def _time_conv_fake(x, w3, b3, w5, b5, w7, b7):
     if x.device.type == "cuda":
-        return time_conv_cuda(x, w3, b3, w5, b5, w7, b7)
-    raise ValueError(f"time_conv: unsupported device {x.device}")
+        check_time_conv_operands(x, w3, b3, w5, b5, w7, b7)
+    return torch.empty_like(x)
+
+
+time_conv_op = library.define(
+    "time_conv", "(Tensor x, Tensor w3, Tensor b3, Tensor w5, Tensor b5, "
+    "Tensor w7, Tensor b7) -> Tensor", time_conv_cuda, time_conv_plain,
+    _time_conv_fake)
 
 
 class TimeConvFunction(torch.autograd.Function):
-    """Forward: the kernel (CUDA) or the plain version (CPU), on `prepared`
-    where given, else on the weights. Backward: `time_conv_plain` in f32
-    from the saved x and weights."""
+    """Forward: the op, once, on `prepared` where given, else on the
+    weights. Backward: `time_conv_plain` in f32 from the saved x and
+    weights."""
 
     @staticmethod
     def forward(ctx, x, prepared, *weights):
         ctx.save_for_backward(x, *weights)
-        return _time_conv_forward(x, *(prepared or weights))
+        return time_conv_op(x, *(prepared or weights))
 
     @staticmethod
     def backward(ctx, grad):
@@ -232,4 +247,7 @@ def time_conv(x, w3, b3, w5, b5, w7, b7, prepared=None):
     """(B, W, C) -> (B, W, C); the branch-wise max of the TimeConv block,
     differentiable in x and the weights. prepared: (w3, b3, w5, b5, w7, b7)
     in the kernel's layout and dtypes, run in place of the weights."""
-    return TimeConvFunction.apply(x, prepared, w3, b3, w5, b5, w7, b7)
+    weights = (w3, b3, w5, b5, w7, b7)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *weights)):
+        return TimeConvFunction.apply(x, prepared, *weights)
+    return time_conv_op(x, *(prepared or weights))
