@@ -207,13 +207,35 @@ Phases, in order; any failure exits nonzero:
    checkpoint: exit 0, no FAIL line; (e) the host's µs a call of each
    `torch.ops.tmrnet` op against its direct `*_cuda` launch at the stream
    step's shapes;
+4m. the synth slice (`run_synth_slice`), in its own directory: (a)
+   `synth --train 2 --val 1 --test 1 --hw 250 --seed 0` through
+   `tmrnet_torch.cli.main` in this process, its JSON line's `videos`,
+   `ambiguous_phases` and `frame_only_ceiling`, and its packs and
+   annotations byte-equal to `write_synthetic_dataset` called again; (b)
+   `manifest --stride 1` a split, then `stats --no-resize --population`
+   and `stats --no-resize` over the train pickle, each within 1e-6 of
+   numpy's own statistics of those frames; (c) `pack` of the train/val
+   pickle into another directory, its `.npy` files byte-equal to synth's,
+   the same ids, labels and splits; (d) the learning-efficacy study
+   (`python -m tmrnet_torch.experimental.efficacy_study --full-scale`:
+   ResNet-50, 224² crops, hidden 512, bf16; `model.folded=true` on `test`
+   and `build-lfb`, `data.use_flip=false`) in this process over (a)'s
+   data, one epoch a stage, head tmr: exact launches per command (the
+   stage-1 `test` 12 fused_bottleneck a batch of 64 clips, `build-lfb`
+   12 a video, `train-tmr` 1 time_conv and 1 nl_attention a train step
+   and a val batch, the tmr `test` the corpus engine's), rows with JAX's
+   keys, accuracies in [0, 1], finite val losses and each arm's protocol
+   table; no accuracy gate;
 5. the int8 gate (tmrnet_torch.experimental.int8_gate) at B = 128 over the
    four stages: the int8 bottleneck chain through the kernels equal to the
    same chain through the plain versions, 2 int8_matmul and 1 int8_conv3x3
    launches per chain, and the gate's rows (bf16 ms, int8 ms, rates,
    speedups);
-6. a JSON line of per-kernel numbers, the card's name and power limit, and
-   last the line {"ok": true, "device": {...}}.
+6. a JSON line of every phase's ok and seconds and the phases that
+   failed (a phase that raises is recorded as failed and the next one
+   runs), a JSON line of per-kernel numbers, the card's name and power
+   limit, and last the line {"ok": true, "device": {...}}; where a phase
+   failed, no such line, the failed phases named on stderr and exit 1.
 
 It needs a CUDA card and the rest of the repository beside it.
 """
@@ -4235,6 +4257,289 @@ def run_artifact_slice(torch, seed, card, kept):
     return counts, numbers, ok
 
 
+# Phase 4m, the synth slice: `synth`'s videos a split, frame side and
+# seed; the efficacy study's flags (the full width on the card); the
+# study's clips a batch (its data.batch_clips) and epochs a stage.
+SYNTH_SPLITS = {"train": 2, "val": 1, "test": 1}
+SYNTH_HW, SYNTH_SEED, SYNTH_BATCH, SYNTH_EPOCHS = 250, 0, 16, 1
+SYNTH_STUDY = ["--full-scale"]
+STATS_TOL = 1e-6
+
+
+def synth_want(torch, lengths):
+    """The launches of each command of the study at full width, by the
+    rules of 4f and 4g: `train-bank` none (unfolded); the stage-1 `test`
+    12 fused_bottleneck a batch of 64 clips (the clip engine, folded);
+    `build-lfb` 12 a trunk chunk of each video with a clip (the video
+    engine, folded); `train-tmr` 1 time_conv and 1 nl_attention a train
+    step (whole batches of SYNTH_BATCH) and a val batch; the tmr `test`
+    the corpus engine's. `lengths`: frames of each video by split."""
+    from tmrnet_torch.eval.infer import plan_trunk_chunk
+    from tmrnet_torch.models.resnet import ResNet
+
+    free, _ = torch.cuda.mem_get_info()
+    chunk = plan_trunk_chunk(
+        ResNet((3, 4, 6, 3), 64).activation_elements(IMG, IMG), 2,
+        free + torch.cuda.memory_reserved() - torch.cuda.memory_allocated())
+    clips = {s: sum(max(0, n - SEQ + 1) for n in ns)
+             for s, ns in lengths.items()}
+    steps = clips["train"] // SYNTH_BATCH
+    val_batches = -(-clips["val"] // SYNTH_BATCH)
+    test = lengths["test"]
+    corpus_chunk = min(4096, sum(test))
+    return {
+        "train-bank": {},
+        "test:stage1": {"fused_bottleneck": 12 * -(-clips["test"]
+                                                  // TEST_BATCH)},
+        **{f"build-lfb:{s}": {"fused_bottleneck": 12 * sum(
+            -(-n // chunk) for n in lengths[s] if n >= SEQ)}
+           for s in ("train", "val")},
+        "train-tmr": {k: SYNTH_EPOCHS * (steps + val_batches)
+                      for k in ("time_conv", "nl_attention")},
+        "test:tmr": video_counts(
+            -(-sum(test) // corpus_chunk) * -(-corpus_chunk // chunk),
+            corpus_head_calls(test), "block"),
+    }
+
+
+@contextlib.contextmanager
+def counted_study(torch, study, record):
+    """While inside, the study's `run_cli` records each command's
+    launches: (command[:head or split], launches) into `record`."""
+    from tmrnet_torch.kernels.build import LAUNCHES, reset_launches
+
+    orig = study.run_cli
+
+    def run(argv, device="cuda", clock=None):
+        argv = [str(a) for a in argv]
+        key = argv[0]
+        if key == "test":
+            key += ":" + next(a.split("=", 1)[1] for a in argv
+                              if a.startswith("model.head="))
+        elif key == "build-lfb":
+            key += ":" + os.path.basename(
+                argv[argv.index("--manifest") + 1])[: -len(".pkl")]
+        torch.cuda.synchronize()
+        reset_launches()
+        out = orig(argv, device, clock)
+        torch.cuda.synchronize()
+        record.append((key, {k: v for k, v in LAUNCHES.items() if v}))
+        return out
+
+    study.run_cli = run
+    try:
+        yield
+    finally:
+        study.run_cli = orig
+
+
+def synth_files(root):
+    """{relative path: bytes} of the `.npy` and `.txt` files under root."""
+    out = {}
+    for d, _, names in os.walk(root):
+        for n in names:
+            if n.endswith((".npy", ".txt")):
+                p = os.path.join(d, n)
+                with open(p, "rb") as f:
+                    out[os.path.relpath(p, root)] = f.read()
+    return out
+
+
+def numpy_stats(files, per_image):
+    """numpy's own channel mean and std, in [0, 1], of the frames of the
+    packed videos `files`: per image averaged, or of all pixels pooled."""
+    means, stds, n = [], [], 0
+    s, ss = np.zeros(3), np.zeros(3)
+    for f in files:
+        x = np.load(f)
+        x = x.reshape(len(x), -1, 3) / 255.0
+        if per_image:
+            means.append(x.mean(axis=1))
+            stds.append(x.std(axis=1))
+        else:
+            n += x.shape[0] * x.shape[1]
+            s += x.sum(axis=(0, 1))
+            ss += (x * x).sum(axis=(0, 1))
+    if per_image:
+        return (np.concatenate(means).mean(axis=0),
+                np.concatenate(stds).mean(axis=0))
+    mean = s / n
+    return mean, np.sqrt(ss / n - mean * mean)
+
+
+def synth_host(tmp):
+    """4m (a)-(c): `synth`, `manifest --stride 1` a split, `stats` both
+    ways and `pack` of the train/val pickle, through `tmrnet_torch.cli.
+    main` in this process, against `write_synthetic_dataset` called again,
+    numpy's own statistics and synth's files. Returns (lengths by split,
+    seconds, ok)."""
+    from tmrnet_torch import cli
+    from tmrnet_torch.data.manifests import (load_pickle_manifest,
+                                             save_pickle_manifest)
+    from tmrnet_torch.data.synthetic import (frame_only_ceiling,
+                                             write_synthetic_dataset)
+
+    seconds, ok = {}, True
+    ds = os.path.join(tmp, "ds")
+    lines, _, seconds["synth"] = run_cli(
+        ["synth", "--out-dir", ds, *[x for s, n in SYNTH_SPLITS.items()
+                                      for x in (f"--{s}", str(n))],
+         "--hw", str(SYNTH_HW), "--seed", str(SYNTH_SEED)])
+    line = json.loads(lines[-1])
+    want = {"videos": sum(SYNTH_SPLITS.values()),
+            "ambiguous_phases": [1, 3, 4, 6],
+            "frame_only_ceiling": round(frame_only_ceiling(7, SEQ,
+                                                           (15, 25)), 4)}
+    t0 = time.perf_counter()
+    write_synthetic_dataset(os.path.join(tmp, "again"), SYNTH_SPLITS,
+                            seed=SYNTH_SEED, hw=SYNTH_HW)
+    seconds["write again"] = time.perf_counter() - t0
+    files = synth_files(ds)
+    good = ({k: line[k] for k in want} == want
+            and files == synth_files(os.path.join(tmp, "again"))
+            and len([f for f in files if f.endswith(".npy")])
+            == want["videos"])
+    print(f"  (a) synth: {json.dumps({k: line[k] for k in want})} (want "
+          f"{json.dumps(want)}), {len(files)} files byte-equal to "
+          f"write_synthetic_dataset called again "
+          f"{'ok' if good else 'FAIL'}")
+    ok &= good
+
+    lengths = {}
+    for s in SYNTH_SPLITS:
+        run_cli(["manifest", "--frames", f"{ds}/frames-{s}", "--annotations",
+                 f"{ds}/annotations", "--stride", "1", "--out",
+                 f"{ds}/{s}.pkl"])
+        lengths[s] = load_pickle_manifest(f"{ds}/{s}.pkl")[0].video_lengths
+    train_files = sorted(os.path.join(ds, "frames-train", f)
+                         for f in os.listdir(os.path.join(ds, "frames-train")))
+    for flag, per_image in (("--population", False), (None, True)):
+        lines, _, dt = run_cli(["stats", "--manifest", f"{ds}/train.pkl",
+                                "--no-resize", *([flag] if flag else [])])
+        got = json.loads(lines[-1])
+        mean, std = numpy_stats(train_files, per_image)
+        err = max(float(np.abs(np.asarray(got["mean"]) - mean).max()),
+                  float(np.abs(np.asarray(got["std"]) - std).max()))
+        good = (got["frames"] == sum(lengths["train"])
+                and err <= STATS_TOL)
+        name = "population" if flag else "per image"
+        seconds[f"stats {name}"] = dt
+        print(f"  (b) stats --no-resize ({name}) over {got['frames']} "
+              f"frames against numpy's: max |diff| {err:.3g} (limit "
+              f"{STATS_TOL}) {'ok' if good else 'FAIL'}")
+        ok &= good
+
+    train, _ = load_pickle_manifest(f"{ds}/train.pkl")
+    val, _ = load_pickle_manifest(f"{ds}/val.pkl")
+    save_pickle_manifest(f"{ds}/trainval.pkl", train, val)
+    _, _, seconds["pack"] = run_cli(
+        ["pack", "--manifest", f"{ds}/trainval.pkl", "--out-dir",
+         os.path.join(tmp, "packed"), "--manifest-out",
+         os.path.join(tmp, "packed.pkl")])
+    packed = synth_files(os.path.join(tmp, "packed"))
+    orig = {os.path.basename(k): v for k, v in files.items()
+            if k.startswith(("frames-train", "frames-val"))}
+    got = load_pickle_manifest(os.path.join(tmp, "packed.pkl"))
+    good = packed == orig and len(packed) == len(train.videos) + len(
+        val.videos)
+    for m, src in zip(got, (train, val)):
+        good &= ([v.video_id for v in m.videos]
+                 == [v.video_id for v in src.videos]
+                 and np.array_equal(m.flat_labels(), src.flat_labels())
+                 and all(p.startswith(os.path.join(tmp, "packed"))
+                         for p in m.flat_paths()))
+    print(f"  (c) pack of the train/val pickle: {len(packed)} .npy files "
+          f"byte-equal to synth's, the same ids, labels and splits "
+          f"{'ok' if good else 'FAIL'}")
+    return lengths, seconds, ok and good
+
+
+def synth_study(torch, work, lengths):
+    """4m (d): the efficacy study in this process over (a)'s data (its
+    manifests found, so it writes none), one epoch a stage, head tmr:
+    each command's launches against `synth_want`, JAX's row keys, finite
+    losses, accuracies in [0, 1] and each arm's protocol table. Returns
+    (launches summed, each command's launches, seconds, ok)."""
+    from tmrnet_torch.experimental import efficacy_study as study
+
+    want = synth_want(torch, lengths)
+    record = []
+    argv = ["--work", work, *SYNTH_STUDY, "--seeds", "0",
+            "--epochs1", str(SYNTH_EPOCHS), "--epochs2", str(SYNTH_EPOCHS),
+            "--heads", "tmr", *[x for s, n in SYNTH_SPLITS.items()
+                                for x in (f"--{s}-videos", str(n))]]
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with counted_study(torch, study, record), contextlib.redirect_stdout(out):
+        rc = study.main(argv)
+    dt = time.perf_counter() - t0
+    lines = out.getvalue().strip().splitlines()
+    for line in lines:
+        print(f"    {line}")
+    head = json.loads(lines[0])["study"]
+    rows = [json.loads(x) for x in lines[1:3]]
+    clock = json.loads(lines[3])["seconds"]
+    keys = {"arm", "seed", "clip_accuracy", "protocol_accuracy",
+            "protocol_jaccard"}
+    good = (rc == 0 and [r["arm"] for r in rows] == ["stage1", "tmr"]
+            and all(set(r) == keys and 0 <= r["clip_accuracy"] <= 1
+                    and 0 <= r["protocol_accuracy"] <= 100
+                    and 0 <= r["protocol_jaccard"] <= 100 for r in rows))
+    for arm, ck in (("stage1", "ckpt-stage1-s0"), ("tmr", "ckpt-tmr-s0")):
+        with open(os.path.join(work, ck, "best.json")) as f:
+            best = json.load(f)["metrics"]
+        with open(os.path.join(work, f"protocol-{arm}-s0.json")) as f:
+            rep = json.load(f)
+        good &= (np.isfinite(best["val_loss"]) and 0 <= best["val_acc"] <= 1
+                 and len(rep["jaccard_per_phase"]) == CLASSES
+                 and rep["mean_accuracy"] == [r for r in rows if r["arm"]
+                                              == arm][0]["protocol_accuracy"])
+        print(f"  (d) {arm}: val_loss {best['val_loss']:.6g}, val_acc "
+              f"{best['val_acc']:.4f}, protocol accuracy "
+              f"{rep['mean_accuracy']:.2f} / Jaccard {rep['mean_jaccard']:.2f}"
+              f" over {rep['videos']}")
+    print(f"  (d) the study ({json.dumps(head)}): rows with JAX's keys, "
+          f"accuracies in [0, 1], finite losses, protocol tables "
+          f"{'ok' if good else 'FAIL'} in {dt:.1f} s")
+    counts, total = {}, {}
+    for key, got in record:
+        counts.setdefault(key, {})
+        for k, v in got.items():
+            counts[key][k] = counts[key].get(k, 0) + v
+            total[k] = total.get(k, 0) + v
+    for key, w in want.items():
+        g = counts.get(key, {})
+        print(f"  {key}: launches {g} (want {w}) "
+              f"{'ok' if g == w else 'FAIL'}")
+        good &= g == w
+    rest = {k: v for k, v in counts.items() if k not in want and v}
+    if rest:
+        print(f"  launches outside the study's model commands {rest} FAIL")
+        good = False
+    return total, counts, clock, good
+
+
+def run_synth_slice(torch, seed, card):
+    """Phase 4m: synthetic data and the learning-efficacy study at full
+    width. (a)-(c) `synth_host`, (d) `synth_study`. Returns (counts by
+    path, numbers, ok)."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    numbers = {}
+    with phase_dir("synth") as tmp:
+        lengths, numbers["host_s"], ok = synth_host(tmp)
+        total, numbers["launches"], numbers["study_s"], ok_d = synth_study(
+            torch, os.path.join(tmp, "ds"), lengths)
+    numbers["seconds"] = time.perf_counter() - t0
+    good = all(total.get(k, 0) > 0 for k in ("fused_bottleneck", "time_conv",
+                                             "nl_attention"))
+    print(f"synth slice: {json.dumps(numbers)} ({sum(map(len, lengths.values()))} "
+          f"videos of {lengths} frames) on {card} "
+          f"{'ok' if ok and ok_d and good else 'FAIL'}")
+    torch.cuda.empty_cache()
+    return {"synth": total}, numbers, ok and ok_d and good
+
+
 def run_gate(torch, seed, card):
     """Phase 5: the int8 gate at B = 128 over the four stages: the int8
     bottleneck chain through the kernels against the same chain through the
@@ -4271,6 +4576,44 @@ def run_gate(torch, seed, card):
         print("gate row: " + json.dumps(row))
     print(f"gate: on {card}")
     return counts, ok
+
+
+class Phases:
+    """Each phase's ok and seconds, in order, and the seconds since the
+    card was found. A phase is a callable whose result ends in its ok; one
+    that raises is printed with its traceback, recorded as failed, and
+    gives None, and the script goes on (a phase that needs its result
+    fails in turn)."""
+
+    def __init__(self):
+        self.rows, self.t0 = {}, time.perf_counter()
+
+    def run(self, name, fn):
+        t0 = time.perf_counter()
+        try:
+            result = fn()
+            ok = bool(result[-1])
+        except (Exception, SystemExit):
+            import traceback
+
+            traceback.print_exc()
+            print(f"chip_smoke: phase {name} raised", file=sys.stderr)
+            result, ok = None, False
+        self.rows[name] = {"ok": ok,
+                           "seconds": round(time.perf_counter() - t0, 3)}
+        return result
+
+    @property
+    def ok(self):
+        return all(r["ok"] for r in self.rows.values())
+
+    def failed(self):
+        return [n for n, r in self.rows.items() if not r["ok"]]
+
+    def report(self):
+        print(json.dumps({"phases": self.rows, "failed": self.failed(),
+                          "seconds": round(time.perf_counter() - self.t0,
+                                           3)}))
 
 
 def main():
@@ -4326,87 +4669,111 @@ def main():
 
     card = card_line()
     print(f"card: {card}")
-    t0 = time.perf_counter()
-    build_all()
-    print(f"build: {time.perf_counter() - t0:.1f} s")
+    phases = Phases()
+    seed = args.seed
+    phases.run("2 build", lambda: (build_all(), True))
 
     print("kernels vs plain versions (bf16 kernel, f32 plain):")
-    records, ok = check_kernels(torch, args.seed)
-    print("kernels vs plain versions at the engines' shapes:")
-    ok &= check_engine_shapes(torch, args.seed, records)
-    ok &= check_time_conv_split(torch, args.seed, records)
-    print("int8 kernels vs plain versions (bit for bit):")
-    int8_records, ok8 = check_int8_kernels(torch, args.seed)
-    records += int8_records
-    if not (ok and ok8):
-        print("chip_smoke: a kernel disagrees with its plain version",
+
+    def kernels():
+        records, ok = check_kernels(torch, seed)
+        print("kernels vs plain versions at the engines' shapes:")
+        ok &= check_engine_shapes(torch, seed, records)
+        ok &= check_time_conv_split(torch, seed, records)
+        print("int8 kernels vs plain versions (bit for bit):")
+        int8_records, ok8 = check_int8_kernels(torch, seed)
+        return records + int8_records, ok and ok8
+
+    checked = phases.run("3 kernels", kernels)
+    if not phases.ok:
+        phases.report()
+        print(f"chip_smoke: failed phases: {', '.join(phases.failed())} (a "
+              f"kernel did not build or disagrees with its plain version)",
               file=sys.stderr)
         return 1
-    setup = slice_setup(torch, args.seed)
+    records = checked[0]
     by_path = {}
-    block_counts, _, block_scores, ok_block = run_slice(
-        torch, setup, card, "block",
-        {"fused_bottleneck": 12, "time_conv": 1, "nl_attention": 1})
-    by_path["block"] = block_counts
-    tiled_counts, _, tiled_scores, ok_tiled = run_slice(
-        torch, setup, card, "tiled",
+    setup = phases.run("4 setup", lambda: (slice_setup(torch, seed), True))
+    block = phases.run("4 block", lambda: run_slice(
+        torch, setup[0], card, "block",
+        {"fused_bottleneck": 12, "time_conv": 1, "nl_attention": 1}))
+    tiled = phases.run("4b tiled", lambda: run_slice(
+        torch, setup[0], card, "tiled",
         {"fused_bottleneck_tiled": 10, "fused_bottleneck": 2, "time_conv": 1,
-         "nl_attention": 1})
-    by_path["tiled"] = tiled_counts
-    diff = float(np.abs(tiled_scores - block_scores).max())
-    ok_paths = bool(diff <= TOL)
-    print(f"tiled slice vs block slice: probs max_abs_diff {diff:.4g} over "
-          f"{len(tiled_scores)} clips (limit {TOL}) "
-          f"{'ok' if ok_paths else 'FAIL'}")
-    del setup
+         "nl_attention": 1}))
+
+    def paths():
+        diff = float(np.abs(tiled[2] - block[2]).max())
+        ok = bool(diff <= TOL)
+        print(f"tiled slice vs block slice: probs max_abs_diff {diff:.4g} "
+              f"over {len(tiled[2])} clips (limit {TOL}) "
+              f"{'ok' if ok else 'FAIL'}")
+        return ok,
+
+    phases.run("4b tiled vs block", paths)
+    for name, res in (("block", block), ("tiled", tiled)):
+        if res:
+            by_path[name] = res[0]
+    del setup, block, tiled
     torch.cuda.empty_cache()
-    video_counts_, video_engine, ok_video = run_video_slice(torch, args.seed, card)
-    by_path.update(video_counts_)
-    by_path["stream"], ok_stream = run_stream_slice(torch, args.seed, card,
-                                                    video_engine)
-    del video_engine
+    video = phases.run("4c video", lambda: run_video_slice(torch, seed, card))
+    if video:
+        by_path.update(video[0])
+    stream = phases.run("4d stream", lambda: run_stream_slice(
+        torch, seed, card, video[1]))
+    by_path["stream"] = stream[0] if stream else {}
+    del video
     torch.cuda.empty_cache()
-    by_path["serve"], ok_serve = run_serve_slice(torch, args.seed, card)
+    serve = phases.run("4e serve", lambda: run_serve_slice(torch, seed, card))
+    by_path["serve"] = serve[0] if serve else {}
     os.makedirs(ROOT_TMP, exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="kept-", dir=ROOT_TMP) as root:
         kept = {"root": root}       # 4f, 4g and 4h's directories, for 4i, 4k
-        test_counts, ok_test = run_test_slice(torch, args.seed, card, kept)
-        by_path.update(test_counts)
-        train_counts, _, ok_train = run_train_slice(torch, args.seed, card,
-                                                    kept)
-        by_path.update(train_counts)
-        options_counts, _, ok_options = run_options_slice(
-            torch, args.seed, card, kept["train"])
-        by_path.update(options_counts)
-        resnest_counts, ok_resnest = run_resnest_slice(torch, args.seed, card,
-                                                       kept)
-        by_path.update(resnest_counts)
-        score_counts, _, ok_score = run_score_slice(torch, args.seed, card,
-                                                    kept)
-        by_path.update(score_counts)
-        multi_counts, _, ok_multi = run_multi_slice(torch, args.seed, card,
-                                                    kept)
-        by_path.update(multi_counts)
-        artifact_counts, _, ok_artifact = run_artifact_slice(
-            torch, args.seed, card, kept)
-        by_path.update(artifact_counts)
-    by_path["gate"], ok_gate = run_gate(torch, args.seed, card)
-    ok = (ok_block and ok_tiled and ok_paths and ok_video and ok_stream
-          and ok_serve and ok_test and ok_train and ok_options and ok_resnest
-          and ok_score and ok_multi and ok_artifact and ok_gate)
-    for rec in records:
-        rec["launches_by_path"] = {p: c[rec["name"]] for p, c in by_path.items()
-                                   if rec["name"] in c}
-        rec["launches"] = sum(rec["launches_by_path"].values())
-        ok &= rec["launches"] > 0
+        for name, fn in (
+                ("4f test", lambda: run_test_slice(torch, seed, card, kept)),
+                ("4g train", lambda: run_train_slice(torch, seed, card,
+                                                     kept)),
+                ("4j options", lambda: run_options_slice(
+                    torch, seed, card, kept["train"])),
+                ("4h resnest", lambda: run_resnest_slice(torch, seed, card,
+                                                         kept)),
+                ("4i score", lambda: run_score_slice(torch, seed, card,
+                                                     kept)),
+                ("4k multi", lambda: run_multi_slice(torch, seed, card,
+                                                     kept)),
+                ("4l artifact", lambda: run_artifact_slice(torch, seed, card,
+                                                           kept))):
+            res = phases.run(name, fn)
+            if res:
+                by_path.update(res[0])
+    synth = phases.run("4m synth", lambda: run_synth_slice(torch, seed, card))
+    if synth:
+        by_path.update(synth[0])
+    gate = phases.run("5 gate", lambda: run_gate(torch, seed, card))
+    by_path["gate"] = gate[0] if gate else {}
+
+    def launches():
+        ok = True
+        for rec in records:
+            rec["launches_by_path"] = {p: c[rec["name"]]
+                                       for p, c in by_path.items()
+                                       if rec["name"] in c}
+            rec["launches"] = sum(rec["launches_by_path"].values())
+            if rec["launches"] == 0:
+                print(f"{rec['name']}: no launch on any path FAIL")
+                ok = False
+        return ok,
+
+    phases.run("6 launches", launches)
+    phases.report()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launches_by_path", "stages", "shapes", "engine_shapes")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in records]}))
     print(card)
-    if not ok:
-        print("chip_smoke: a slice, an engine or the gate failed",
+    if not phases.ok:
+        print(f"chip_smoke: failed phases: {', '.join(phases.failed())}",
               file=sys.stderr)
         return 1
     print(json.dumps({"ok": True, "device": {

@@ -64,7 +64,9 @@ def test_importing_the_port_leaves_jax_out():
             "tmrnet_torch.utils.logging, tmrnet_torch.parallel, "
             "tmrnet_torch.parallel.mesh, tmrnet_torch.eval.distributed, "
             "tmrnet_torch.entry, tmrnet_torch.eval.saved, "
-            "tmrnet_torch.kernels.library; "
+            "tmrnet_torch.kernels.library, tmrnet_torch.data.synthetic, "
+            "tmrnet_torch.data.stats, "
+            "tmrnet_torch.experimental.efficacy_study; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -301,3 +303,35 @@ def test_trainers_need_cuda_unless_cpu(no_cuda, tmp_path):
     plain = TrainTransform(32, 40, False)(clip, 0, 1)
     assert native.dtype == np.float32 and native.shape == (2, 32, 32, 3)
     np.testing.assert_allclose(native, plain, rtol=0, atol=1e-6)
+
+
+def test_host_commands_and_the_study_without_cuda(no_cuda, tmp_path):
+    """synth, manifest, stats and pack run without a card and take no
+    --device; the efficacy study on the card (its default) refuses before
+    it writes anything, and runs its first command on the CPU when asked."""
+    from tmrnet_torch import cli
+    from tmrnet_torch.experimental import efficacy_study
+
+    d = str(tmp_path / "ds")
+    steps = [["synth", "--out-dir", d, "--train", "1", "--val", "0",
+              "--test", "1", "--hw", "8", "--dur-min", "2", "--dur-max", "3"],
+             ["manifest", "--frames", f"{d}/frames-train", "--annotations",
+              f"{d}/annotations", "--stride", "1", "--out", f"{d}/m.pkl"],
+             ["stats", "--manifest", f"{d}/m.pkl", "--no-resize"],
+             ["stats", "--manifest", f"{d}/m.pkl", "--population"],
+             ["pack", "--manifest", f"{d}/m.pkl", "--out-dir", f"{d}/p",
+              "--manifest-out", f"{d}/p.csv"]]
+    for argv in steps:
+        assert cli.main(argv) == 0, argv
+        with pytest.raises(SystemExit):
+            cli.main(argv + ["--device", "cpu"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        efficacy_study.main(["--work", str(tmp_path / "w"), "--full-scale"])
+    assert not (tmp_path / "w").exists()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        efficacy_study.run_study(str(tmp_path / "w"),
+                                 scale=efficacy_study.FULL_SCALE)
+    assert not (tmp_path / "w").exists()
+    assert efficacy_study.run_cli(["synth", "--out-dir", str(tmp_path / "c"),
+                                   "--train", "1", "--val", "0", "--test",
+                                   "0", "--hw", "8"], device="cpu")

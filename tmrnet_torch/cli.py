@@ -1,6 +1,10 @@
 """Command line of the port: `python -m tmrnet_torch <command>`.
 
   manifest    frames dir + phase annotations -> manifest pickle/CSV
+  synth       the synthetic memory-dependent dataset of the
+              learning-efficacy study -> packed videos + annotations
+  pack        a manifest's frames -> per-video raw .npy + its manifest
+  stats       channel mean/std of a manifest's frames (meanStd tool)
   train-bank  stage-1 memory-bank training (trunk + LSTM + fc)
   build-lfb   the frozen extractor's feature bank of a manifest -> .npz
   train-tmr   stage-2 TMRNet / only-non-local training over a bank
@@ -24,7 +28,8 @@
 
 Port of `tmrnet_tpu/cli.py` (`load_config` :48-57, `_phase_names` :68,
 `_load_manifest` :74, `_clip_labels` :145, `_dataset` :153-175,
-`cmd_manifest` :314-347, `cmd_train_bank` :479-515, `cmd_build_lfb`
+`cmd_manifest` :314-347, `cmd_synth` :349-401, `cmd_pack` :404-448,
+`cmd_stats` :451-476, `cmd_train_bank` :479-515, `cmd_build_lfb`
 :517-575, `cmd_train_tmr` :577-630, `cmd_test` :632-824, `cmd_stream`
 :843-1038, `cmd_serve` :1041-1152, `cmd_parity` :1155-1214, `cmd_export`
 :1217-1262, `cmd_evaluate` :1265-1320, `cmd_export_ckpt` :1323-1340,
@@ -42,12 +47,14 @@ with neither, the model's trunk and LSTM; or from an `export-model
 loaded one. Entry points that run a model run on the card unless `--device
 cpu` asks for the CPU (an artifact runs on the device it was exported on,
 which `--device` must name); `doctor` fails its device check without a
-card unless `--device cpu`; `manifest`, `export`, `evaluate` and
-`export-ckpt` touch no card and take no `--device`. Not ported:
-video-direct datasets (`--videos`; the card's machine has no decoder),
-Orbax checkpoints, tensor parallelism (`mesh.model_parallel`), `--artifact`
-under `mesh.multihost`, and the subcommands `prepare`, `stats`, `pack`,
-`synth` and `migrate`.
+card unless `--device cpu`; `manifest`, `synth`, `pack`, `stats`,
+`export`, `evaluate` and `export-ckpt` touch no card and take no
+`--device`. Not ported: video-direct datasets (`--videos`; the card's
+machine has no decoder), Orbax checkpoints, tensor parallelism
+(`mesh.model_parallel`), `--artifact` under `mesh.multihost`, and the
+subcommands `prepare` and `migrate`. The learning-efficacy study that
+drives `synth` through `evaluate` is `python -m
+tmrnet_torch.experimental.efficacy_study`.
 
 Data parallelism across processes (`_mesh_for`, JAX :85-119): under
 `--set mesh.multihost=true` each process joins a `torch.distributed`
@@ -334,6 +341,131 @@ def cmd_manifest(args) -> int:
     else:
         save_pickle_manifest(args.out, m)
     print(f"wrote {args.out}")
+    return 0
+
+
+def cmd_synth(args) -> int:
+    """Write the synthetic memory-dependent dataset of the learning-efficacy
+    study (`data/synthetic.py`): packed `.npy` video splits and phase
+    annotations, which `manifest --stride 1` and every command after it
+    read unchanged; a JSON line with the task's memoryless ceiling."""
+    from tmrnet_torch.data.synthetic import (MULTISCALE_PAIR, MULTISCALE_SEQ,
+                                             MULTISCALE_SPEC,
+                                             MULTISCALE_WINDOW,
+                                             ambiguous_phases,
+                                             check_multiscale_spec,
+                                             frame_only_ceiling,
+                                             multiscale_frame_only_ceiling,
+                                             multiscale_pair_ceiling,
+                                             write_synthetic_dataset)
+
+    splits = {"train": args.train, "val": args.val, "test": args.test}
+    splits = {k: v for k, v in splits.items() if v > 0}
+    if not splits:
+        raise SystemExit("nothing to generate: all of --train/--val/--test "
+                         "are 0")
+    dur = (args.dur_min, args.dur_max)
+    if args.task == "multiscale":
+        check_multiscale_spec()
+        out = write_synthetic_dataset(args.out_dir, splits, seed=args.seed,
+                                      hw=args.hw, task="multiscale")
+        print(json.dumps({
+            "out": out,
+            "videos": sum(splits.values()),
+            "task": "multiscale",
+            "num_phases": len(MULTISCALE_SPEC),
+            "seq": MULTISCALE_SEQ,
+            "window": MULTISCALE_WINDOW,
+            "designed_pair": list(MULTISCALE_PAIR),
+            "pair_ceiling_setwise": multiscale_pair_ceiling(),
+            "frame_only_ceiling": round(multiscale_frame_only_ceiling(), 4),
+        }))
+        return 0
+    out = write_synthetic_dataset(args.out_dir, splits, seed=args.seed,
+                                  num_phases=args.phases, dur_range=dur,
+                                  hw=args.hw)
+    print(json.dumps({
+        "out": out,
+        "videos": sum(splits.values()),
+        "ambiguous_phases": ambiguous_phases()[: args.phases],
+        "frame_only_ceiling": round(
+            frame_only_ceiling(args.phases, args.seq, dur), 4),
+    }))
+    return 0
+
+
+def cmd_pack(args) -> int:
+    """Pack a manifest's frames into per-video raw uint8 `.npy` files and a
+    manifest whose paths read them back (`<file>.npy#<idx>`,
+    `data/packed.py`): image trees where cv2 decodes them, packed
+    manifests anywhere. A pickle keeps its split structure; a `.csv` holds
+    one split."""
+    from tmrnet_torch.data.manifests import (load_csv_manifest,
+                                             load_pickle_manifest,
+                                             save_csv_manifest,
+                                             save_pickle_manifest)
+    from tmrnet_torch.data.packed import pack_manifest, split_packed_path
+
+    if args.manifest.endswith(".csv"):
+        splits = [load_csv_manifest(args.manifest)]
+    else:
+        primary, secondary = load_pickle_manifest(args.manifest)
+        splits = [primary] + ([secondary] if secondary is not None else [])
+    ids = [v.video_id for m in splits for v in m.videos]
+    if len(set(ids)) != len(ids):
+        dup = sorted({i for i in ids if ids.count(i) > 1})
+        raise SystemExit(f"video ids shared across splits {dup}: their "
+                         "packed .npy files would collide")
+    packed = [pack_manifest(m, args.out_dir, workers=args.workers or None)
+              for m in splits]
+    if args.manifest_out.endswith(".csv"):
+        if len(packed) > 1:
+            raise SystemExit("a CSV manifest holds one split; pack the "
+                             "6-list pickle to a .pkl instead")
+        save_csv_manifest(args.manifest_out, packed[0])
+    else:
+        save_pickle_manifest(args.manifest_out, packed[0],
+                             packed[1] if len(packed) > 1 else None)
+    files = sorted({split_packed_path(p)[0]
+                    for m in packed for p in m.flat_paths()})
+    print(json.dumps({
+        "videos": sum(len(m.videos) for m in packed),
+        "frames": sum(m.num_frames for m in packed),
+        "packed_files": len(files),
+        "bytes": sum(os.path.getsize(f) for f in files),
+        "manifest": args.manifest_out,
+    }))
+    return 0
+
+
+def cmd_stats(args) -> int:
+    """Channel mean and std of a manifest's frames (its train split, every
+    --subsample-th frame): the reference's mean of per-image statistics
+    over 224x224 PIL resizes, or with --population the statistics of all
+    pixels pooled; --no-resize takes the frames as they are."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tmrnet_torch.data.pipeline import load_frame
+    from tmrnet_torch.data.stats import channel_stats, resize_224
+
+    paths = load_manifest(args.manifest).flat_paths()[:: max(1, args.subsample)]
+
+    def load(p):
+        img = load_frame(p)
+        return img if args.no_resize else resize_224(img)
+
+    workers = args.workers or min(len(paths) or 1, os.cpu_count() or 1)
+    per_image = not args.population
+    if workers > 1:
+        # the decode releases the GIL; the accumulator consumes in order
+        with ThreadPoolExecutor(max_workers=workers) as pool:
+            mean, std = channel_stats(pool.map(load, paths, chunksize=16),
+                                      per_image=per_image)
+    else:
+        mean, std = channel_stats((load(p) for p in paths),
+                                  per_image=per_image)
+    print(json.dumps({"mean": mean.tolist(), "std": std.tolist(),
+                      "frames": len(paths)}))
     return 0
 
 
@@ -1368,6 +1500,57 @@ def build_parser() -> argparse.ArgumentParser:
                     help="first N videos to the train split (0 = single "
                          "split)")
     sp.set_defaults(fn=cmd_manifest)
+
+    sp = sub.add_parser("synth", help="generate the synthetic memory-"
+                                      "dependent dataset (efficacy study)")
+    sp.add_argument("--out-dir", required=True)
+    sp.add_argument("--train", type=int, default=8,
+                    help="train-split videos (frames-train/)")
+    sp.add_argument("--val", type=int, default=2)
+    sp.add_argument("--test", type=int, default=4)
+    sp.add_argument("--task", choices=("pairs", "multiscale"),
+                    default="pairs",
+                    help="'pairs' = the memory-required task; 'multiscale' "
+                         "= the 12-phase tmr-vs-nl_only ranking task "
+                         "(fixed spec; run with memory.window="
+                         "MULTISCALE_WINDOW and data.sequence_length="
+                         "MULTISCALE_SEQ from data/synthetic.py)")
+    sp.add_argument("--phases", type=int, default=7)
+    sp.add_argument("--dur-min", type=int, default=15,
+                    help="min frames per phase")
+    sp.add_argument("--dur-max", type=int, default=25)
+    sp.add_argument("--hw", type=int, default=32, help="frame side length")
+    sp.add_argument("--seq", type=int, default=10,
+                    help="clip length, only for the printed frame-only "
+                         "ceiling estimate")
+    sp.add_argument("--seed", type=int, default=0)
+    sp.set_defaults(fn=cmd_synth)
+
+    sp = sub.add_parser("pack", help="frames -> per-video raw .npy "
+                                     "(zero-decode reads)")
+    sp.add_argument("--manifest", required=True,
+                    help="source manifest (pickle or CSV; image files, which "
+                         "need cv2, or packed frames)")
+    sp.add_argument("--out-dir", required=True,
+                    help="directory for the <video_id>.npy packs")
+    sp.add_argument("--manifest-out", required=True,
+                    help="where to write the packed manifest (.pkl keeps "
+                         "the source's split structure; .csv for one split)")
+    sp.add_argument("--workers", type=int, default=0,
+                    help="videos packed in parallel (0 = min(8, cores))")
+    sp.set_defaults(fn=cmd_pack)
+
+    sp = sub.add_parser("stats", help="channel mean/std (meanStd tool)")
+    sp.add_argument("--workers", type=int, default=0,
+                    help="parallel frame decodes (0 = one per core)")
+    sp.add_argument("--manifest", required=True)
+    sp.add_argument("--subsample", type=int, default=1)
+    sp.add_argument("--no-resize", action="store_true",
+                    help="skip the reference's 224x224 resize step (PIL's)")
+    sp.add_argument("--population", action="store_true",
+                    help="population std over all pixels instead of the "
+                         "reference's mean of per-image stds")
+    sp.set_defaults(fn=cmd_stats)
 
     def weights_args(sp, torch_help, artifact=False):
         g = sp.add_mutually_exclusive_group(required=True)
