@@ -226,6 +226,27 @@ Phases, in order; any failure exits nonzero:
    and a val batch, the tmr `test` the corpus engine's), rows with JAX's
    keys, accuracies in [0, 1], finite val losses and each arm's protocol
    table; no accuracy gate;
+4n. the reference slice (`run_reference_slice`), in its own directory:
+   (a) `python -m tmrnet_torch migrate --cmd '...'` for a command line of
+   each of the 17 reference scripts `migrate` knows, as subprocesses
+   started together: each exits 0 and every command it prints parses
+   through the port's parser with its --set keys resolved; (b) `synth` at
+   4m's sizes, then the port's translation of
+   `train_singlenet_phase_1fc.py -t 160 -e 1 --sgdadjust 0` and
+   `train_non-local_mutiConv_resnet.py -t 160 -e 1 --LFB_l 30` (train-bank,
+   build-lfb, train-tmr at full width) through `tmrnet_torch.cli.main`,
+   the placeholders replaced by synth's pickles, `data.use_flip=false`,
+   `model.folded=true` on build-lfb: finite losses, launches by 4m's
+   rules (12 fused_bottleneck a trunk chunk of a video, 1 time_conv and 1
+   nl_attention a train step); (c) `prepare` and `train-bank --videos`
+   where no decoder imports exit naming imageio+pyav and cv2 and write
+   nothing; then one epoch of `train_stage1`, the clip-engine bank
+   (folded) and one epoch of `train_stage2` over a `VideoClipDataset`
+   whose reader serves (b)'s frames from memory: finite losses, the first
+   batch on the card the host's [0, 1] clips cast to bf16, launches (12
+   fused_bottleneck a bank batch, 1 time_conv and 1 nl_attention a step
+   and a val batch), the bank's first 8 rows within 2e-2 of the CPU's f32
+   build;
 5. the int8 gate (tmrnet_torch.experimental.int8_gate) at B = 128 over the
    four stages: the int8 bottleneck chain through the kernels equal to the
    same chain through the plain versions, 2 int8_matmul and 1 int8_conv3x3
@@ -4540,6 +4561,429 @@ def run_synth_slice(torch, seed, card):
     return {"synth": total}, numbers, ok and ok_d and good
 
 
+# Phase 4n, the reference command lines and video-direct datasets: one
+# reference command a script that `migrate` knows (a), how long each
+# `python -m tmrnet_torch migrate` may take; the two training commands
+# (b) translates and runs; the bank rows (c) holds against the CPU.
+MIGRATE_CASES = (
+    "python train_singlenet_phase_1fc.py -t 160 -e 1 --sgdadjust 0",
+    "python train_memorybank.py --csv_train tr.csv --csv_valid va.csv "
+    "--train_bs 100 --epochs 5",
+    "python test-new-ds.py --mount_point /videos -t 90",
+    "python train_non-local_mutiConv_resnet.py -t 160 -e 1 --LFB_l 30",
+    "python train_non-local_mutiConv_resnest.py --LFB_l 40 -g 1",
+    "python train_only_non-local_pretrained.py --LFB_l 40",
+    "python test-resnet.py --mount_point /videos -t 90",
+    "python test_singlenet_phase_non-local_pretrained_2fc_copy.py -n m.pth "
+    "-t 1600 -c 3",
+    "python test_singlenet_phase_non-local_pretrained_2fc_copy_mutiConv6_3"
+    ".py --csv t.csv --model m.pth --lfb_model lfb.pth",
+    "python test_singlenet_phase_non-local_pretrained_2fc_copy_mutiConv6"
+    "_resnest.py -n r.pth",
+    "python export_phase_copy.py -n preds.pkl",
+    "python update_get_paths_labels.py --data /d --test_label t.pkl",
+    "python get_paths_labels.py",
+    "python meanStd.py",
+    "python video2frame_cutmargin.py",
+    "octave Main.m",
+    "octave Main_m2cai.m",
+)
+STAGE1_REF, STAGE2_REF = MIGRATE_CASES[0], MIGRATE_CASES[3]
+MIGRATE_TIMEOUT, VIDEO_ROWS = 120, 8
+# (c)'s learning rates a stage and gradient clip: docs/QUALITY.md's
+# full-scale recipe (the losses are sums over the batch; at 0.01 the
+# second stage's loss went to NaN on the card).
+VIDEO_LR1, VIDEO_LR2, VIDEO_CLIP = 0.003, 0.001, 5.0
+# Arguments appended to every command of (b) that takes them (a CPU
+# rehearsal adds --device cpu and a tiny model here).
+REF_EXTRA = []
+
+
+def migrate_card():
+    """4n (a): `python -m tmrnet_torch migrate --cmd '...'` for each of
+    MIGRATE_CASES, as subprocesses started together: each exits 0 and
+    every command it prints parses through the port's parser with
+    resolvable --set keys. Returns (commands parsed, ok)."""
+    import importlib.util
+    import shlex
+
+    from tmrnet_torch import cli
+
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "tmrnet_torch", "migrate", "--cmd", case],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for case in MIGRATE_CASES]
+    ok, parsed = True, 0
+    try:
+        for case, p in zip(MIGRATE_CASES, procs):
+            out, err = p.communicate(timeout=MIGRATE_TIMEOUT)
+            cmds = [x for x in out.splitlines() if x and not x.startswith("#")]
+            good = p.returncode == 0 and bool(cmds)
+            for cmd in cmds:
+                tokens = shlex.split(cmd)
+                try:
+                    args = cli.build_parser().parse_args(tokens[3:])
+                    if (getattr(args, "set", None)
+                            or getattr(args, "preset", None)):
+                        cli.load_config(args)
+                    good &= tokens[:3] == ["python", "-m", "tmrnet_torch"]
+                    parsed += 1
+                except (Exception, SystemExit) as e:
+                    print(f"    {cmd}: {e!r}")
+                    good = False
+            if not good:
+                print(f"  (a) migrate --cmd {case!r}: rc {p.returncode} "
+                      f"{err.strip()[-300:]} FAIL")
+            ok &= good
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    jax_here = importlib.util.find_spec("jax") is not None
+    print(f"  (a) migrate over {len(MIGRATE_CASES)} reference scripts as "
+          f"subprocesses: {parsed} commands parsed by the port's parser "
+          f"with their --set keys resolved (JAX importable here: "
+          f"{jax_here}) {'ok' if ok else 'FAIL'}")
+    return parsed, ok
+
+
+def reference_workflow(torch, tmp):
+    """4n (b): `synth` at 4m's sizes, `manifest` a split, then the port's
+    translation of STAGE1_REF (train-bank) and STAGE2_REF (build-lfb,
+    train-tmr) run through `tmrnet_torch.cli.main` in this process, the
+    placeholders replaced by synth's train/val pickle, the stage-1
+    checkpoint and the bank, with data.use_flip=false and, on build-lfb,
+    model.folded=true; outputs under `tmp`. Launches by 4m's rules
+    (`synth_want`). Returns (lengths by split, launches by command,
+    seconds by command, ok)."""
+    import shlex
+
+    from tmrnet_torch.data.manifests import (load_pickle_manifest,
+                                             save_pickle_manifest)
+    from tmrnet_torch.migrate import STAGE1_CKPT, translate
+
+    ds = os.path.join(tmp, "ds")
+    out = lambda name: os.path.join(tmp, name)
+    seconds, counts = {}, {}
+    _, _, seconds["synth"] = run_cli(
+        ["synth", "--out-dir", ds, *[x for s, n in SYNTH_SPLITS.items()
+                                      for x in (f"--{s}", str(n))],
+         "--hw", str(SYNTH_HW), "--seed", str(SYNTH_SEED)])
+    lengths, splits = {}, {}
+    for s in SYNTH_SPLITS:
+        run_cli(["manifest", "--frames", f"{ds}/frames-{s}", "--annotations",
+                 f"{ds}/annotations", "--stride", "1", "--out",
+                 f"{ds}/{s}.pkl"])
+        splits[s] = load_pickle_manifest(f"{ds}/{s}.pkl")[0]
+        lengths[s] = splits[s].video_lengths
+    save_pickle_manifest(out("trainval.pkl"), splits["train"], splits["val"])
+    subs = {"train_val_paths_labels.pkl": out("trainval.pkl"),
+            STAGE1_CKPT: out("ck1"), "./LFB/lfb.npz": out("bank.npz")}
+    cmds = (translate(shlex.split(STAGE1_REF))["commands"]
+            + translate(shlex.split(STAGE2_REF))["commands"])
+    ok = [shlex.split(c)[3] for c in cmds] == ["train-bank", "build-lfb",
+                                               "train-tmr"]
+    for i, cmd in enumerate(cmds):
+        argv = [subs.get(t, t) for t in shlex.split(cmd)[3:]]
+        name = argv[0]
+        argv += ["--set", "data.use_flip=false", *REF_EXTRA]
+        if name == "build-lfb":
+            argv += ["--set", "model.folded=true"]
+        else:
+            argv += ["--set", f"train.checkpoint_dir={out(f'ck{i + 1}')}",
+                     "--log-dir", out(f"log{i + 1}")]
+        print(f"  (b) {' '.join(shlex.quote(a) for a in argv)}")
+        lines, counts[name], seconds[name] = run_cli(argv)
+        if name != "build-lfb":
+            with open(out(f"ck{i + 1}/best.json")) as f:
+                best = json.load(f)["metrics"]
+            good = (np.isfinite(best["val_loss"]) and lines
+                    and lines[-1].startswith("best epoch"))
+            print(f"  (b) {name}: {lines[-1] if lines else ''}, val_loss "
+                  f"{best['val_loss']:.6g} {'ok' if good else 'FAIL'}")
+            ok &= bool(good)
+    full = synth_want(torch, lengths)
+    train_clips = sum(max(0, n - SEQ + 1) for n in lengths["train"])
+    want = {"train-bank": {}, "build-lfb": full["build-lfb:train"],
+            "train-tmr": {k: SYNTH_EPOCHS * (train_clips // SYNTH_BATCH)
+                          for k in ("time_conv", "nl_attention")}}
+    for name, w in want.items():
+        g = {k: v for k, v in counts.get(name, {}).items() if v}
+        print(f"  (b) {name}: launches {g} (want {w}) "
+              f"{'ok' if g == w else 'FAIL'}")
+        ok &= g == w
+    return lengths, counts, seconds, ok
+
+
+def frame_reader_class():
+    """A `VideoClipReader` that serves videos held in memory (the card's
+    machine has no decoder): each clip the frames a decoder would give,
+    centre-cropped to `side` where given."""
+    from tmrnet_torch.data.video import VideoClipReader
+
+    class FrameReader(VideoClipReader):
+        def __init__(self, videos, seq_len, side=None):
+            super().__init__([f"memory:{i}" for i in range(len(videos))],
+                             [len(v) for v in videos], seq_len, stride=1,
+                             error_policy="raise")
+            self.videos, self.side = videos, side
+
+        def read_clip(self, clip_index):
+            v, start = self.locate(clip_index)
+            clip = self.videos[v][start:start + self.seq_len]
+            if self.side:
+                h, w = clip.shape[1:3]
+                y, x = (h - self.side) // 2, (w - self.side) // 2
+                clip = clip[:, y:y + self.side, x:x + self.side]
+            return np.ascontiguousarray(clip)
+
+    return FrameReader
+
+
+@contextlib.contextmanager
+def without_decoders():
+    """While inside, cv2, pyav and imageio fail to import (they already do
+    on a host without them)."""
+    names = ("cv2", "av", "imageio", "imageio.v3")
+    saved = {n: sys.modules.get(n, "absent") for n in names}
+    for n in names:
+        sys.modules[n] = None
+    try:
+        yield
+    finally:
+        for n, m in saved.items():
+            if m == "absent":
+                del sys.modules[n]
+            else:
+                sys.modules[n] = m
+
+
+def decoder_refusals(tmp):
+    """4n (c), the refusals: `prepare --pack` and `train-bank --videos`
+    through `tmrnet_torch.cli.main` where no decoder imports exit naming
+    imageio+pyav and cv2, and write nothing. Returns ok."""
+    from tmrnet_torch import cli
+    from tmrnet_torch.data.video import available_decoders
+
+    found = available_decoders()
+    vids = os.path.join(tmp, "videos")
+    os.makedirs(vids)
+    open(os.path.join(vids, "video01.mp4"), "wb").close()
+    writes = [os.path.join(tmp, n) for n in ("prepared", "ck", "log")]
+    ok = True
+    for argv in (["prepare", "--videos", vids, "--out", writes[0], "--pack"],
+                 ["train-bank", "--videos", vids, "--annotations", vids,
+                  "--set", f"train.checkpoint_dir={writes[1]}", "--log-dir",
+                  writes[2], *REF_EXTRA]):
+        with without_decoders():
+            try:
+                cli.main(argv)
+                msg = "exited 0"
+            except SystemExit as e:
+                msg = str(e)
+        good = ("imageio+pyav" in msg and "cv2" in msg
+                and not any(os.path.exists(p) for p in writes))
+        print(f"  (c) {argv[0]} without a decoder (decoders here: {found}): "
+              f"{msg[:100]!r}..., nothing written {'ok' if good else 'FAIL'}")
+        ok &= good
+    return ok
+
+
+def video_direct_epochs(torch, tmp, lengths, device="cuda"):
+    """4n (c): `VideoClipDataset` over FrameReader (b)'s synth videos:
+    `train_stage1` one epoch (VideoTrainTransform: crop scale 1 on 224²
+    centre crops where cv2 is missing, so no resize runs), the bank of the
+    train and val videos by `build_lfb(engine="clip")` with the folded
+    extractor (VideoEvalTransform: 224² centre crops of the 250² frames),
+    `train_stage2` one epoch over it; full width, bf16. Checks finite
+    losses, the first train batch on the card equal to the host's [0, 1]
+    clips cast to bf16, the launches by (b)'s rules, and the bank's first
+    VIDEO_ROWS rows within TOL of the same rows built on the CPU in f32.
+    Returns (launches summed, seconds by step, ok)."""
+    from tmrnet_torch import cli
+    from tmrnet_torch.config import (DataConfig, ExperimentConfig,
+                                     MemoryConfig, TrainConfig)
+    from tmrnet_torch.data.device_feed import DevicePrep
+    from tmrnet_torch.data.manifests import load_pickle_manifest
+    from tmrnet_torch.data.packed import split_packed_path
+    from tmrnet_torch.data.pipeline import ClipLoader, VideoClipDataset
+    from tmrnet_torch.data.transforms import (VideoEvalTransform,
+                                              VideoTrainTransform)
+    from tmrnet_torch.data.video import available_decoders
+    from tmrnet_torch.kernels.build import LAUNCHES, reset_launches
+    from tmrnet_torch.train.loop import build_lfb, train_stage1, train_stage2
+
+    FrameReader = frame_reader_class()
+    videos, labels = {}, {}
+    for s in ("train", "val"):
+        m = load_pickle_manifest(os.path.join(tmp, "ds", f"{s}.pkl"))[0]
+        videos[s] = [np.load(split_packed_path(v.frame_paths[0])[0])
+                     for v in m.videos]
+        labels[s] = [np.asarray(v.labels, np.int64) for v in m.videos]
+    side = videos["train"][0].shape[1]
+    resize = "cv2" in available_decoders()
+    scale = (0.2, 1.0) if resize else (1.0, 1.0)
+    train_ds = {s: VideoClipDataset(
+        FrameReader(videos[s], SEQ, None if resize else IMG), labels[s],
+        transform=VideoTrainTransform(IMG, scale=scale)) for s in videos}
+    eval_ds = {s: VideoClipDataset(FrameReader(videos[s], SEQ), labels[s],
+                                   transform=VideoEvalTransform(IMG))
+               for s in videos}
+    model = train_model_config("stage1", device)
+    cfg = ExperimentConfig(
+        data=DataConfig(sequence_length=SEQ, crop_size=IMG, resize=side,
+                        batch_clips=SYNTH_BATCH, device_normalize=True,
+                        use_flip=False, num_workers=4),
+        model=model, memory=MemoryConfig(window=WINDOW),
+        train=TrainConfig(epochs=1, lr=VIDEO_LR1, grad_clip=VIDEO_CLIP,
+                          log_every=1000,
+                          checkpoint_dir=os.path.join(tmp, "vck1")))
+    clips = {s: ds.num_clips for s, ds in train_ds.items()}
+    steps, val_batches = (clips["train"] // SYNTH_BATCH,
+                          -(-clips["val"] // SYNTH_BATCH))
+    want = {"train_stage1": {},
+            "build_lfb": {"fused_bottleneck": 12 * sum(
+                -(-n // SYNTH_BATCH) for n in clips.values())},
+            "train_stage2": {"time_conv": steps + val_batches,
+                             "nl_attention": steps + val_batches}}
+    counts, seconds, total, ok = {}, {}, {}, True
+
+    def counted(name, fn):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        counts[name] = {k: v for k, v in LAUNCHES.items() if v}
+        return out
+
+    first = []
+    orig = DevicePrep.__call__
+
+    def recording(self, frames):
+        out = orig(self, frames)
+        if not first:
+            first.append((frames.detach().clone(), out.detach().clone()))
+        return out
+
+    DevicePrep.__call__ = recording
+    try:
+        state, hist1 = counted("train_stage1", lambda: train_stage1(
+            cfg, train_ds["train"], eval_ds["val"], device=device))
+    finally:
+        DevicePrep.__call__ = orig
+    host = next(iter(ClipLoader(train_ds["train"], SYNTH_BATCH, shuffle=True,
+                                num_workers=1, seed=cfg.train.seed,
+                                drop_remainder=True).epoch(0)))[0]
+    sent, prepared = first[0]
+    want_in = torch.from_numpy(host).to(prepared.device)
+    cdt = prepared.dtype
+    good = (host.dtype == np.float32 and 0 <= host.min()
+            and host.max() <= 1 and torch.equal(sent, want_in)
+            and torch.equal(prepared, want_in.to(cdt)))
+    print(f"  (c) the first train batch on {prepared.device}: the host's "
+          f"{tuple(host.shape)} float32 clips in [{host.min():.3f}, "
+          f"{host.max():.3f}] cast to {cdt}, not normalized again "
+          f"{'ok' if good else 'FAIL'}")
+    ok &= good
+    sd = state.model.state_dict()
+    extractor = cli.extractor_state(cfg, sd)
+    del state, sd
+    folded = cfg.replace(model=dataclasses.replace(model, head="lfb",
+                                                   folded=True))
+    ext_folded, = cli.folded_weights(folded, extractor)
+    banks = counted("build_lfb", lambda: {s: build_lfb(
+        folded, ext_folded, eval_ds[s], force=True, engine="clip",
+        cache_path=os.path.join(tmp, f"vbank_{s}.npz"), device=device)
+        for s in eval_ds})
+    cfg2 = cfg.replace(
+        model=dataclasses.replace(model, head="tmr"),
+        train=dataclasses.replace(cfg.train, lr=VIDEO_LR2,
+                                  checkpoint_dir=os.path.join(tmp, "vck2")))
+    init = cli.init_with(cfg2, "tmr", extractor)
+    _, hist2 = counted("train_stage2", lambda: train_stage2(
+        cfg2, train_ds["train"], banks["train"], eval_ds["val"],
+        banks["val"], init_state_dict=init, device=device))
+    for name, hist in (("train_stage1", hist1), ("train_stage2", hist2)):
+        h = hist[-1]
+        good = len(hist) == 1 and all(np.isfinite([h.train_loss,
+                                                   h.val_loss]))
+        print(f"  (c) {name}: one epoch, train_loss {h.train_loss:.6g}, "
+              f"val_loss {h.val_loss:.6g}, val_acc {h.val_acc:.4f} "
+              f"{'ok' if good else 'FAIL'}")
+        ok &= good
+    for name, w in want.items():
+        g = counts[name]
+        print(f"  (c) {name}: launches {g} (want {w}) "
+              f"{'ok' if g == w else 'FAIL'}")
+        ok &= g == w
+        for k, v in g.items():
+            total[k] = total.get(k, 0) + v
+
+    # the first VIDEO_ROWS rows of the train bank against the CPU in f32
+    n = SEQ + VIDEO_ROWS - 1
+    ds8 = VideoClipDataset(FrameReader([videos["train"][0][:n]], SEQ),
+                           [labels["train"][0][:n]],
+                           transform=VideoEvalTransform(IMG))
+    cpu_cfg = cfg.replace(
+        model=dataclasses.replace(model, head="lfb", compute_dtype="float32"),
+        data=dataclasses.replace(cfg.data, batch_clips=VIDEO_ROWS))
+    t0 = time.perf_counter()
+    cpu = build_lfb(cpu_cfg, {k: v.float().cpu() for k, v in
+                              extractor.items()}, ds8, force=True,
+                    engine="clip", device="cpu",
+                    cache_path=os.path.join(tmp, "vbank_cpu.npz"))
+    seconds["cpu rows"] = time.perf_counter() - t0
+    got = banks["train"].features[:VIDEO_ROWS].float().cpu()
+    err = float((got - cpu.features).abs().max())
+    good = (cpu.num_rows == VIDEO_ROWS and bool(torch.isfinite(got).all())
+            and err <= TOL)
+    print(f"  (c) the bank's first {VIDEO_ROWS} rows (folded, "
+          f"{model.compute_dtype}, on {device}) against the CPU's f32 "
+          f"unfolded build: max |diff| {err:.4g} (limit {TOL}) "
+          f"{'ok' if good else 'FAIL'}")
+    ok &= good
+    return total, seconds, ok
+
+
+def run_reference_slice(torch, seed, card, device="cuda"):
+    """Phase 4n: the reference command lines and video-direct datasets.
+    (a) `migrate_card`, (b) `reference_workflow`, (c) `decoder_refusals`
+    and `video_direct_epochs`. Returns (counts by path, numbers, ok)."""
+    t0 = time.perf_counter()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    numbers = {}
+    with phase_dir("reference") as tmp:
+        t = time.perf_counter()
+        numbers["migrate_commands"], ok = migrate_card()
+        numbers["migrate_s"] = time.perf_counter() - t
+        lengths, counts_b, numbers["commands_s"], ok_b = reference_workflow(
+            torch, tmp)
+        ok &= ok_b
+        ok &= decoder_refusals(tmp)
+        counts_c, numbers["video_direct_s"], ok_c = video_direct_epochs(
+            torch, tmp, lengths, device)
+        ok &= ok_c
+    total_b = {}
+    for got in counts_b.values():
+        for k, v in got.items():
+            total_b[k] = total_b.get(k, 0) + v
+    numbers["seconds"] = time.perf_counter() - t0
+    good = all(total_b.get(k, 0) > 0 and counts_c.get(k, 0) > 0
+               for k in ("fused_bottleneck", "time_conv", "nl_attention"))
+    print(f"reference slice: {json.dumps(numbers)} ({lengths} frames) on "
+          f"{card} {'ok' if ok and good else 'FAIL'}")
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return ({"reference": total_b, "videodirect": counts_c}, numbers,
+            ok and good)
+
+
 def run_gate(torch, seed, card):
     """Phase 5: the int8 gate at B = 128 over the four stages: the int8
     bottleneck chain through the kernels against the same chain through the
@@ -4749,6 +5193,10 @@ def main():
     synth = phases.run("4m synth", lambda: run_synth_slice(torch, seed, card))
     if synth:
         by_path.update(synth[0])
+    ref = phases.run("4n reference", lambda: run_reference_slice(
+        torch, seed, card))
+    if ref:
+        by_path.update(ref[0])
     gate = phases.run("5 gate", lambda: run_gate(torch, seed, card))
     by_path["gate"] = gate[0] if gate else {}
 

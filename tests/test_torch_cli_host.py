@@ -1,8 +1,8 @@
 """The host commands `synth`, `stats` and `pack` through `tmrnet_torch.cli.
 main` against `tmrnet_tpu.cli.main` on the same inputs: equal JSON lines
 (output paths aside), byte-equal files, statistics within 1e-6 (and equal
-to numpy's own over the frames), and the same refusals. None of them takes
-`--device`."""
+to numpy's own over the frames), and the same refusals. None of them, nor
+`prepare` and `migrate`, takes `--device`."""
 
 import json
 import os
@@ -277,7 +277,8 @@ def test_refusals_equal(synth, tmp_path):
         assert not (tmp_path / pkg / "z").exists()
 
 
-@pytest.mark.parametrize("command", ["synth", "pack", "stats"])
+@pytest.mark.parametrize("command", ["synth", "pack", "stats", "prepare",
+                                     "migrate"])
 def test_host_commands_take_no_device(command):
     with pytest.raises(SystemExit) as e:
         with _Capture():

@@ -217,8 +217,8 @@ def test_port_cli_refuses(files, runs):
         with pytest.raises(SystemExit, match="cross-video"):
             cli.main(base + ["--engine", engine, "--set",
                              "memory.compat_cross_video=true"])
-    # --videos is not ported; --ckpt (a port checkpoint) and --torch-ckpt
-    # exclude each other
+    # test takes no --videos, --videos excludes build-lfb's --manifest,
+    # and --ckpt (a port checkpoint) and --torch-ckpt exclude each other
     for command, flag in (("test", "--videos"), ("test", "--ckpt"),
                           ("build-lfb", "--videos"), ("build-lfb", "--ckpt")):
         with pytest.raises(SystemExit) as exc:

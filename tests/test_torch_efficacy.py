@@ -2,7 +2,8 @@
 efficacy_study.py`) on the CPU at tiny width: its mechanics at one epoch a
 stage (JAX's arms and row keys, the protocol table, the summary), its
 multi-scale scores against JAX's `multiscale_metrics` on the same files,
-its refusal of the tiny model on the card, and (marked slow, as JAX's
+its refusal of the tiny model on the card, a quick check that the tmr
+head learns above stage 1, and (marked slow, as JAX's
 `tests/test_efficacy.py`) the twin of JAX's learning test."""
 
 import json
@@ -105,6 +106,29 @@ def test_tiny_model_refused_on_the_card(tmp_path):
     assert study.card_sets("cuda") == ("data.use_flip=false",)
     assert study.folded_sets("cuda") == ["--set", "model.folded=true"]
     assert study.card_sets("cpu") == () and study.folded_sets("cpu") == []
+
+
+def test_memory_head_above_stage1_quick(tmp_path):
+    """The routine check that the two stages still learn the task: the
+    study's command line at tiny width on the CPU (2 / 1 / 1 videos, one
+    stage-1 epoch and four of the head, ~5 s), where the tmr head reads
+    0.98-1.00 and stage 1 0.38-0.50 at 1 to 8 threads. Holds the head
+    0.15 above stage 1 in clip accuracy and above it in the protocol's;
+    the slow twin below keeps JAX's full gates."""
+    work = tmp_path / "q"
+    with _Capture() as cap:
+        rc = study.main(["--work", str(work), "--seeds", "0", "--epochs1",
+                         "1", "--epochs2", "4", "--heads", "tmr",
+                         "--train-videos", "2", "--val-videos", "1",
+                         "--test-videos", "1", "--device", "cpu"])
+    assert rc == 0
+    rows = [json.loads(x) for x in cap.readouterr().out.strip()
+            .splitlines()[1:3]]
+    by = {r["arm"]: r for r in rows}
+    s1, tmr = by["stage1"], by["tmr"]
+    assert s1["clip_accuracy"] > 1 / 7, f"stage1 learned nothing: {s1}"
+    assert tmr["clip_accuracy"] >= s1["clip_accuracy"] + 0.15, (s1, tmr)
+    assert tmr["protocol_accuracy"] > s1["protocol_accuracy"], (s1, tmr)
 
 
 @pytest.mark.slow

@@ -3,6 +3,7 @@ its entry points refuse to run without CUDA unless asked for the CPU."""
 
 import ast
 import dataclasses
+import os
 import pathlib
 import subprocess
 import sys
@@ -65,7 +66,8 @@ def test_importing_the_port_leaves_jax_out():
             "tmrnet_torch.parallel.mesh, tmrnet_torch.eval.distributed, "
             "tmrnet_torch.entry, tmrnet_torch.eval.saved, "
             "tmrnet_torch.kernels.library, tmrnet_torch.data.synthetic, "
-            "tmrnet_torch.data.stats, "
+            "tmrnet_torch.data.stats, tmrnet_torch.migrate, "
+            "tmrnet_torch.data.video, tmrnet_torch.data.cutmargin, "
             "tmrnet_torch.experimental.efficacy_study; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
@@ -240,10 +242,24 @@ def test_trainers_need_cuda_unless_cpu(no_cuda, tmp_path):
         train_stage1(cfg, ds)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_stage2(cfg, ds, bank)
+    listed = []
+    real = os.listdir
     for argv in (["train-bank", "--train-manifest", "m.pkl"],
-                 ["train-tmr", "--train-manifest", "m.pkl", "--lfb", "b"]):
-        with pytest.raises(RuntimeError, match="device='cpu'"):
-            cli.main(argv)
+                 ["train-tmr", "--train-manifest", "m.pkl", "--lfb", "b"],
+                 ["train-bank", "--videos", str(tmp_path), "--annotations",
+                  str(tmp_path)],
+                 ["train-tmr", "--videos", str(tmp_path), "--annotations",
+                  str(tmp_path), "--lfb", "b"],
+                 ["build-lfb", "--videos", str(tmp_path), "--annotations",
+                  str(tmp_path), "--ckpt", str(tmp_path), "--out", "b"]):
+        # before a video directory is listed
+        os.listdir = lambda p=".": listed.append(p) or real(p)
+        try:
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                cli.main(argv)
+        finally:
+            os.listdir = real
+    assert listed == []
     _, hist = train_stage1(cfg, ds, device="cpu")
     assert len(hist) == 1
     state, hist = train_stage2(
@@ -306,8 +322,8 @@ def test_trainers_need_cuda_unless_cpu(no_cuda, tmp_path):
 
 
 def test_host_commands_and_the_study_without_cuda(no_cuda, tmp_path):
-    """synth, manifest, stats and pack run without a card and take no
-    --device; the efficacy study on the card (its default) refuses before
+    """synth, manifest, stats, pack, migrate and prepare run without a
+    card and take no --device; the efficacy study on the card (its default) refuses before
     it writes anything, and runs its first command on the CPU when asked."""
     from tmrnet_torch import cli
     from tmrnet_torch.experimental import efficacy_study
@@ -320,11 +336,25 @@ def test_host_commands_and_the_study_without_cuda(no_cuda, tmp_path):
              ["stats", "--manifest", f"{d}/m.pkl", "--no-resize"],
              ["stats", "--manifest", f"{d}/m.pkl", "--population"],
              ["pack", "--manifest", f"{d}/m.pkl", "--out-dir", f"{d}/p",
-              "--manifest-out", f"{d}/p.csv"]]
+              "--manifest-out", f"{d}/p.csv"],
+             ["migrate", "--cmd", "python train_non-local_mutiConv_resnet.py "
+              "-t 90"],
+             ["migrate", "--", "octave", "Main.m"]]
+    cv2 = pytest.importorskip("cv2")
+    (tmp_path / "v").mkdir()
+    w = cv2.VideoWriter(str(tmp_path / "v" / "video1.mp4"),
+                        cv2.VideoWriter_fourcc(*"mp4v"), 25, (32, 32))
+    for i in range(30):
+        w.write(np.full((32, 32, 3), 40 + i, np.uint8))
+    w.release()
+    steps += [["prepare", "--videos", str(tmp_path / "v"), "--out",
+               str(tmp_path / f"frames{i}"), "--size", "24", *extra]
+              for i, extra in enumerate(([], ["--pack"]))]
     for argv in steps:
         assert cli.main(argv) == 0, argv
         with pytest.raises(SystemExit):
-            cli.main(argv + ["--device", "cpu"])
+            # after the command's name: migrate's tokens take the rest
+            cli.main(argv[:1] + ["--device", "cpu"] + argv[1:])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         efficacy_study.main(["--work", str(tmp_path / "w"), "--full-scale"])
     assert not (tmp_path / "w").exists()

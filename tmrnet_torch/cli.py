@@ -1,5 +1,7 @@
 """Command line of the port: `python -m tmrnet_torch <command>`.
 
+  prepare     videos -> 1-fps cut-margin frames (PNG trees or packed
+              .npy videos); needs a decoder (imageio+pyav or cv2)
   manifest    frames dir + phase annotations -> manifest pickle/CSV
   synth       the synthetic memory-dependent dataset of the
               learning-efficacy study -> packed videos + annotations
@@ -25,19 +27,20 @@
   doctor      preflight of a host: versions, the card, nvcc, the native
               preprocess, and (when pointed at them) a manifest,
               checkpoint, bank, artifact or mesh, and the kernels
+  migrate     a reference command line -> the equivalent commands of the
+              port, with notes
 
 Port of `tmrnet_tpu/cli.py` (`load_config` :48-57, `_phase_names` :68,
 `_load_manifest` :74, `_clip_labels` :145, `_dataset` :153-175,
-`cmd_manifest` :314-347, `cmd_synth` :349-401, `cmd_pack` :404-448,
-`cmd_stats` :451-476, `cmd_train_bank` :479-515, `cmd_build_lfb`
+`_video_dataset` :177-232, `cmd_prepare` :277-310, `cmd_manifest`
+:314-347, `cmd_synth` :349-401, `cmd_pack` :404-448, `cmd_stats` :451-476, `cmd_train_bank` :479-515, `cmd_build_lfb`
 :517-575, `cmd_train_tmr` :577-630, `cmd_test` :632-824, `cmd_stream`
 :843-1038, `cmd_serve` :1041-1152, `cmd_parity` :1155-1214, `cmd_export`
 :1217-1262, `cmd_evaluate` :1265-1320, `cmd_export_ckpt` :1323-1340,
 `_stream_artifact_engine` :827-840, `cmd_export_model` :1343-1393,
-`cmd_doctor` :1421-1600, their parsers). Weights come from the port's
-own checkpoints (`--ckpt`, `--stage1-ckpt`, `--extractor-ckpt`:
-`utils/checkpoint.py`) or from
-reference-format `.pth` files (`--torch-ckpt`, `--extractor-torch-ckpt`,
+`cmd_migrate` :1396-1418, `cmd_doctor` :1421-1600, their parsers).
+Weights come from the port's own checkpoints (`--ckpt`, `--stage1-ckpt`,
+`--extractor-ckpt`: `utils/checkpoint.py`) or from reference-format `.pth` files (`--torch-ckpt`, `--extractor-torch-ckpt`,
 `--torch-init`; `_restore_variables` :233-275 and `_extractor_for`
 :122-142). `test`, `stream` and `serve` take the model from `--ckpt` or
 `--torch-ckpt` and the frozen extractor from a stage-1 checkpoint
@@ -47,12 +50,17 @@ with neither, the model's trunk and LSTM; or from an `export-model
 loaded one. Entry points that run a model run on the card unless `--device
 cpu` asks for the CPU (an artifact runs on the device it was exported on,
 which `--device` must name); `doctor` fails its device check without a
-card unless `--device cpu`; `manifest`, `synth`, `pack`, `stats`,
-`export`, `evaluate` and `export-ckpt` touch no card and take no
-`--device`. Not ported: video-direct datasets (`--videos`; the card's
-machine has no decoder), Orbax checkpoints, tensor parallelism
-(`mesh.model_parallel`), `--artifact` under `mesh.multihost`, and the
-subcommands `prepare` and `migrate`. The learning-efficacy study that
+card unless `--device cpu`; `prepare`, `manifest`, `synth`, `pack`,
+`stats`, `export`, `evaluate`, `export-ckpt` and `migrate` touch no card
+and take no `--device`. `train-bank`, `build-lfb` and `train-tmr` train
+or build straight from video files with `--videos DIR --annotations DIR`
+(`--val-videos DIR` for the trainers' val set): clips decode on the host,
+float32 in [0, 1] with no mean or std, which the card casts and does not
+normalize. `prepare` and `--videos` need a decoder, imageio+pyav or cv2,
+and exit naming both where neither imports, before they list a directory
+(the card's machine has none: prepare elsewhere with `--pack`). Not
+ported: Orbax checkpoints, tensor parallelism (`mesh.model_parallel`) and
+`--artifact` under `mesh.multihost`. The learning-efficacy study that
 drives `synth` through `evaluate` is `python -m
 tmrnet_torch.experimental.efficacy_study`.
 
@@ -266,6 +274,76 @@ def train_dataset(cfg: ExperimentConfig, manifest):
     return ClipDataset(manifest, d.sequence_length, transform=tf)
 
 
+VIDEO_SUFFIXES = (".mp4", ".avi", ".mkv")
+
+
+def require_decoder() -> None:
+    """Exit naming both decoders where neither imageio+pyav nor cv2
+    imports; called before any directory is listed or file probed."""
+    from tmrnet_torch.data.video import NoDecoderError
+    from tmrnet_torch.data.video import require_decoder as require
+
+    try:
+        require()
+    except NoDecoderError as e:
+        raise SystemExit(str(e))
+
+
+def video_dataset(cfg: ExperimentConfig, videos_dir: str,
+                  annotation_root: Optional[str], train: bool):
+    """The video-direct dataset of a directory of videos (the fork's
+    HystDataset direction, `test-resnet.py:139-203`): clips decode
+    straight from the files, every data.source_fps // data.fps-th frame;
+    labels from the phase annotations at source fps. A video keeps the
+    contiguous annotated prefix of its sampled frames (the reader decodes
+    frames 0..n-1 in order, so a gap would shift every later label):
+    one whose annotations miss frame 0 is skipped, one whose annotations
+    end early is truncated, each with a warning on stderr."""
+    from tmrnet_torch.data.manifests import _natural_key, read_phase_annotation
+    from tmrnet_torch.data.pipeline import VideoClipDataset
+    from tmrnet_torch.data.transforms import (VideoEvalTransform,
+                                              VideoTrainTransform)
+    from tmrnet_torch.data.video import VideoClipReader, probe_num_frames
+
+    require_decoder()
+    if not annotation_root:
+        raise SystemExit("--videos requires --annotations <dir>")
+    d = cfg.data
+    stride = max(1, d.source_fps // d.fps)
+    name_to_id = {n: i for i, n in enumerate(d.phase_names)}
+    paths, counts, labels = [], [], []
+    for fname in sorted(os.listdir(videos_dir), key=_natural_key):
+        if not fname.endswith(VIDEO_SUFFIXES):
+            continue
+        vid = os.path.splitext(fname)[0]
+        ann_path = os.path.join(annotation_root, f"{vid}-phase.txt")
+        if not os.path.exists(ann_path):
+            continue
+        ann = read_phase_annotation(ann_path, name_to_id)
+        raw = probe_num_frames(os.path.join(videos_dir, fname))
+        n_sampled = -(-raw // stride)
+        n = 0
+        while n < n_sampled and stride * n in ann:
+            n += 1
+        if n == 0:
+            print(f"warning: {fname}: annotations do not cover frame 0; "
+                  f"skipping video", file=sys.stderr)
+            continue
+        if n < n_sampled:
+            print(f"warning: {fname}: annotations end at sampled frame "
+                  f"{n}/{n_sampled}; truncating", file=sys.stderr)
+        paths.append(os.path.join(videos_dir, fname))
+        counts.append(n)
+        labels.append(np.asarray([ann[stride * k] for k in range(n)],
+                                 np.int64))
+    if not paths:
+        raise SystemExit(f"no annotated videos found under {videos_dir}")
+    reader = VideoClipReader(paths, counts, d.sequence_length, stride=stride)
+    tf = (VideoTrainTransform(d.crop_size) if train
+          else VideoEvalTransform(d.crop_size))
+    return VideoClipDataset(reader, labels, transform=tf)
+
+
 def frame_loader(cfg: ExperimentConfig):
     """The daemon's frame loader: a path (`<file>.npy#<idx>` or an image
     file) -> one transformed frame, uint8 under `data.device_normalize`,
@@ -307,6 +385,47 @@ def _mesh_for(cfg: ExperimentConfig, args, batch: Optional[int] = None,
 def _writes(mesh) -> bool:
     """Whether this process writes the outputs: rank 0, or no mesh."""
     return mesh is None or mesh.rank == 0
+
+
+def cmd_prepare(args) -> int:
+    """Decode each video under --videos, keep every --stride-th frame, cut
+    its black margins and resize it to --size² (cv2's INTER_AREA): a PNG
+    tree a video (frame<25*k>.png, the reference's layout) or, with
+    --pack, one raw uint8 `<video>.npy` (`data/packed.py`), which
+    `manifest --frames` reads alike. Videos run on --workers threads;
+    the lines print in the videos' order."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tmrnet_torch.data.manifests import _natural_key
+    from tmrnet_torch.data.video import extract_frames, extract_frames_packed
+
+    require_decoder()
+    videos = sorted((f for f in os.listdir(args.videos)
+                     if f.endswith(VIDEO_SUFFIXES)), key=_natural_key)
+    if args.pack:
+        os.makedirs(args.out, exist_ok=True)
+
+    def one(v: str):
+        name = os.path.splitext(v)[0]
+        src = os.path.join(args.videos, v)
+        if args.pack:
+            out = os.path.join(args.out, name + ".npy")
+            n = extract_frames_packed(src, out, stride=args.stride,
+                                      size=args.size,
+                                      cut_margin=not args.no_cutmargin)
+            return name, n, out
+        out = os.path.join(args.out, name)
+        written = extract_frames(src, out, stride=args.stride,
+                                 size=args.size,
+                                 cut_margin=not args.no_cutmargin)
+        return name, len(written), out
+
+    # the decode and the resize release the GIL, so threads scale
+    workers = args.workers or min(len(videos) or 1, os.cpu_count() or 1)
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        for name, n, out in pool.map(one, videos):
+            print(f"{name}: {n} frames -> {out}")
+    return 0
 
 
 def cmd_manifest(args) -> int:
@@ -470,21 +589,29 @@ def cmd_stats(args) -> int:
 
 
 def cmd_build_lfb(args) -> int:
-    """The bank of a manifest from the extractor's weights (head lfb: a
-    `.pth`, or the trunk and LSTM of a port checkpoint, `--ckpt`), built
-    by the video engine (default; one backbone pass per frame) or the clip
-    engine, which crop types outside 1/2/3 fall back to. Under
-    mesh.multihost the clip engine splits each batch over the ranks and
-    the video engine the videos; rank 0 writes the bank."""
+    """The bank of a manifest, or of the videos under --videos, from the
+    extractor's weights (head lfb: a `.pth`, or the trunk and LSTM of a
+    port checkpoint, `--ckpt`), built by the video engine (default for a
+    manifest; one backbone pass per frame) or the clip engine, which crop
+    types outside 1/2/3 and --videos fall back to. Under mesh.multihost
+    the clip engine splits each batch over the ranks and the video engine
+    the videos; rank 0 writes the bank."""
     from tmrnet_torch.train.loop import build_lfb
 
     cfg = load_config(args)
+    if not (args.manifest or args.videos):
+        raise SystemExit("build-lfb needs --manifest or --videos")
     if args.engine is None:
-        args.engine = ("clip" if cfg.data.test_crop_type not in (1, 2, 3)
+        args.engine = ("clip" if args.videos
+                       or cfg.data.test_crop_type not in (1, 2, 3)
                        else "video")
+    if args.engine == "video" and args.videos:
+        # before the dataset's probe and the weights' load
+        raise SystemExit("build-lfb --engine video needs a frame manifest")
     device, mesh = _mesh_for(cfg, args, batch=(
         0 if args.engine == "video" else cfg.data.batch_clips))
-    ds = dataset(cfg, load_manifest(args.manifest))
+    ds = (video_dataset(cfg, args.videos, args.annotations, False)
+          if args.videos else dataset(cfg, load_manifest(args.manifest)))
     state = restore_state(cfg, "lfb", args.torch_ckpt, args.ckpt)
     extractor, = folded_weights(cfg, extractor_state(cfg, state))
     del state
@@ -510,19 +637,43 @@ def _finish_training(hist, mesh=None) -> int:
     return 0
 
 
+def _check_val_flags(args) -> None:
+    """A trainer's val set comes from the source of its train set: frame
+    manifests with --val-manifest, videos with --val-videos."""
+    if args.videos and args.val_manifest:
+        raise SystemExit("--val-manifest takes a frame manifest; with "
+                         "--videos pass --val-videos DIR")
+    if args.val_videos and not args.videos:
+        raise SystemExit("--val-videos needs --videos (the train set's "
+                         "videos)")
+
+
+def _video_train_val(cfg: ExperimentConfig, args):
+    """A trainer's (train, val or None) video-direct datasets."""
+    return (video_dataset(cfg, args.videos, args.annotations, True),
+            video_dataset(cfg, args.val_videos, args.annotations, False)
+            if args.val_videos else None)
+
+
 def cmd_train_bank(args) -> int:
     """Stage-1 training on a manifest's train split, validated on
-    --val-manifest (or the manifest's second split, else the same clips);
-    fresh flax-distributed weights, or a reference `.pth` over them
-    (--torch-init)."""
+    --val-manifest (or the manifest's second split, else the same clips),
+    or on the videos under --videos, validated on --val-videos (no val set
+    without it); fresh flax-distributed weights, or a reference `.pth`
+    over them (--torch-init)."""
     from tmrnet_torch.train.loop import train_stage1
     from tmrnet_torch.utils.logging import MetricLogger
 
     cfg = load_config(args)
+    _check_val_flags(args)
     device, mesh = _mesh_for(cfg, args)     # before the logger
-    path = args.train_manifest or cfg.data.manifest_path
-    train_ds = train_dataset(cfg, load_manifest(path))
-    val_ds = dataset(cfg, load_manifest(args.val_manifest or path, "val"))
+    if args.videos:
+        train_ds, val_ds = _video_train_val(cfg, args)
+    else:
+        path = args.train_manifest or cfg.data.manifest_path
+        train_ds = train_dataset(cfg, load_manifest(path))
+        val_ds = dataset(cfg, load_manifest(args.val_manifest or path,
+                                            "val"))
     init = None
     if args.torch_init:
         init = init_with(cfg, "stage1", reference_weights(cfg, "stage1",
@@ -535,8 +686,9 @@ def cmd_train_bank(args) -> int:
 
 def cmd_train_tmr(args) -> int:
     """Stage-2 training of model.head (tmr, or nl_only) over the train
-    split's bank (--lfb), validated on --val-manifest over --val-lfb;
-    from a fresh init with a stage-1 checkpoint's trunk and LSTM
+    split's bank (--lfb), validated on --val-manifest over --val-lfb, or
+    on the videos under --videos, validated on --val-videos; from a fresh
+    init with a stage-1 checkpoint's trunk and LSTM
     transplanted (--stage1-ckpt) or a reference `.pth` over it
     (--torch-init)."""
     from tmrnet_torch.memory.lfb import load_bank
@@ -544,6 +696,7 @@ def cmd_train_tmr(args) -> int:
     from tmrnet_torch.utils.logging import MetricLogger
 
     cfg = load_config(args)
+    _check_val_flags(args)
     device, mesh = _mesh_for(cfg, args)     # before the logger
     head = cfg.model.head if cfg.model.head in ("tmr", "nl_only") else "tmr"
     if (device.type == "cuda" and head == "tmr"
@@ -552,13 +705,16 @@ def cmd_train_tmr(args) -> int:
             f"model.compute_dtype={cfg.model.compute_dtype} with head tmr: "
             f"time_conv's kernel takes bf16 only on the card; train with "
             f"model.compute_dtype=bfloat16, or on the CPU (--device cpu)")
-    train_m = load_manifest(args.train_manifest or cfg.data.manifest_path)
-    train_ds = train_dataset(cfg, train_m)
-    val_ds = (dataset(cfg, load_manifest(args.val_manifest, "val"))
-              if args.val_manifest else None)
+    if args.videos:
+        train_ds, val_ds = _video_train_val(cfg, args)
+    else:
+        train_ds = train_dataset(cfg, load_manifest(
+            args.train_manifest or cfg.data.manifest_path))
+        val_ds = (dataset(cfg, load_manifest(args.val_manifest, "val"))
+                  if args.val_manifest else None)
     bank = load_bank(args.lfb, device=device,
                      seq_len=cfg.data.sequence_length,
-                     video_lengths=train_m.video_lengths)
+                     video_lengths=train_ds.manifest.video_lengths)
     val_bank = load_bank(args.val_lfb, device=device) if args.val_lfb else None
     init = None
     if args.torch_init:
@@ -1282,6 +1438,37 @@ def doctor_smoke(device) -> List:
     return out
 
 
+def cmd_migrate(args) -> int:
+    """Print the port's command(s) for a reference command line, the notes
+    first as `#` lines (`migrate.py`)."""
+    import shlex
+
+    from tmrnet_torch.migrate import MigrateError, translate
+
+    tokens = list(args.tokens or [])
+    if tokens and tokens[0] == "--":
+        tokens = tokens[1:]
+    if args.cmd and tokens:
+        raise SystemExit(f"pass the reference command once, as --cmd '...' "
+                         f"or as the tokens after --, not both (got "
+                         f"{tokens!r} beside --cmd)")
+    if args.cmd:
+        tokens = shlex.split(args.cmd)
+    if not tokens:
+        raise SystemExit("pass the reference command: migrate -- python "
+                         "train_non-local_mutiConv_resnet.py -t 90 ... "
+                         "(or --cmd '...')")
+    try:
+        out = translate(tokens)
+    except MigrateError as e:
+        raise SystemExit(str(e))
+    for note in out["notes"]:
+        print(f"# {note}")
+    for cmd in out["commands"]:
+        print(cmd)
+    return 0
+
+
 def cmd_doctor(args) -> int:
     """A host's preflight before a long job or a deployment: versions, the
     card, nvcc, the native preprocess, and (when pointed at them) a
@@ -1488,6 +1675,20 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
 
+    sp = sub.add_parser("prepare", help="videos -> 1-fps cut-margin frames")
+    sp.add_argument("--videos", required=True)
+    sp.add_argument("--out", required=True)
+    sp.add_argument("--stride", type=int, default=25)
+    sp.add_argument("--size", type=int, default=250)
+    sp.add_argument("--no-cutmargin", action="store_true")
+    sp.add_argument("--pack", action="store_true",
+                    help="write one raw uint8 <video>.npy per video instead "
+                         "of a PNG tree (data/packed.py); `manifest "
+                         "--frames` walks packs and directories alike")
+    sp.add_argument("--workers", type=int, default=0,
+                    help="videos extracted in parallel (0 = one per core)")
+    sp.set_defaults(fn=cmd_prepare)
+
     sp = sub.add_parser("manifest", help="frames dir -> manifest pickle/CSV")
     config_args(sp)
     sp.add_argument("--frames", help="default: data.data_root")
@@ -1552,6 +1753,21 @@ def build_parser() -> argparse.ArgumentParser:
                          "reference's mean of per-image stds")
     sp.set_defaults(fn=cmd_stats)
 
+    def video_args(sp, source, videos_help, val=False):
+        """--videos in a group with the frame-manifest flag `source`, which
+        it replaces; --val-videos beside the trainers' --val-manifest."""
+        g = sp.add_mutually_exclusive_group()
+        g.add_argument(source[0], help=source[1])
+        g.add_argument("--videos", metavar="DIR", help=videos_help + " "
+                       "(needs imageio+pyav or cv2 to decode)")
+        if val:
+            sp.add_argument("--val-videos", metavar="DIR",
+                            help="with --videos: the val set's videos "
+                                 "(default: no val set)")
+        sp.add_argument("--annotations", metavar="DIR",
+                        help="phase annotations (<video>-phase.txt), "
+                             "required with --videos")
+
     def weights_args(sp, torch_help, artifact=False):
         g = sp.add_mutually_exclusive_group(required=True)
         g.add_argument("--ckpt", help="the port's checkpoint dir (its best, "
@@ -1576,8 +1792,10 @@ def build_parser() -> argparse.ArgumentParser:
 
     sp = sub.add_parser("train-bank", help="stage-1 memory-bank training")
     config_args(sp)
-    sp.add_argument("--train-manifest",
-                    help="default: data.manifest_path (its train split)")
+    video_args(sp, ("--train-manifest", "default: data.manifest_path (its "
+                                        "train split)"),
+               "train straight from the video files under DIR instead of "
+               "a frame manifest", val=True)
     sp.add_argument("--val-manifest",
                     help="default: the train manifest's second split")
     sp.add_argument("--torch-init", help="reference .pth to initialize from")
@@ -1587,20 +1805,24 @@ def build_parser() -> argparse.ArgumentParser:
 
     sp = sub.add_parser("build-lfb", help="build the feature bank")
     config_args(sp)
-    sp.add_argument("--manifest", required=True)
+    video_args(sp, ("--manifest", "the frame manifest (pickle or CSV)"),
+               "build from the video files under DIR instead of a frame "
+               "manifest (the clip engine)")
     weights_args(sp, "reference-format .pth of the extractor (head lfb)")
     sp.add_argument("--engine", choices=["clip", "video"], default=None,
                     help="'video' builds the bank at one backbone pass per "
                          "frame (crop types 1/2/3); default: video, falling "
-                         "back to clip for other crop types")
+                         "back to clip for other crop types and --videos")
     sp.add_argument("--out", required=True)
     device_arg(sp)
     sp.set_defaults(fn=cmd_build_lfb)
 
     sp = sub.add_parser("train-tmr", help="stage-2 TMRNet training")
     config_args(sp)
-    sp.add_argument("--train-manifest",
-                    help="default: data.manifest_path (its train split)")
+    video_args(sp, ("--train-manifest", "default: data.manifest_path (its "
+                                        "train split)"),
+               "train straight from the video files under DIR instead of "
+               "a frame manifest", val=True)
     sp.add_argument("--val-manifest")
     sp.add_argument("--lfb", required=True,
                     help="the train split's bank (.npz, or a g_LFB .pkl "
@@ -1814,6 +2036,16 @@ def build_parser() -> argparse.ArgumentParser:
                          "or cpu")
     sp.set_defaults(fn=cmd_export_model)
 
+    sp = sub.add_parser("migrate", help="reference command line -> the "
+                                        "port's equivalent command(s)")
+    sp.add_argument("--cmd", help="the reference command as one quoted "
+                                  "string (instead of the tokens)")
+    sp.add_argument("tokens", nargs=argparse.REMAINDER,
+                    help="the reference command, e.g. migrate -- python "
+                         "train_non-local_mutiConv_resnet.py -t 90 -e 25 "
+                         "--LFB_l 30")
+    sp.set_defaults(fn=cmd_migrate)
+
     sp = sub.add_parser("doctor", help="host preflight: versions, the "
                                        "card, nvcc, artifacts")
     config_args(sp)
@@ -1834,14 +2066,20 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+def _in_group() -> bool:
+    """Whether this process is in a torch.distributed group; no group can
+    exist where torch.distributed was never imported, and the host
+    commands (`migrate`, `prepare`, ...) never import torch."""
+    dist = sys.modules.get("torch.distributed")
+    return dist is not None and dist.is_available() and dist.is_initialized()
+
+
 def main(argv: Optional[List[str]] = None) -> int:
-    import torch.distributed as dist
-
-    from tmrnet_torch.parallel.mesh import shutdown
-
     args = build_parser().parse_args(argv)
-    joined = dist.is_initialized()
+    joined = _in_group()
     rc = args.fn(args)
-    if not joined and dist.is_initialized():
+    if not joined and _in_group():
+        from tmrnet_torch.parallel.mesh import shutdown
+
         shutdown()      # the group this command joined (mesh.multihost)
     return rc

@@ -3,8 +3,8 @@ prefetching clip loader.
 
 Port of `tmrnet_tpu/data/pipeline.py` (`load_frame` :29-44, `ClipDataset`
 :47-121, `_assemble_batch` :124-142, `ClipLoader` :154-242,
-`array_frame_loader` :314). The unit of work is a clip row (one bank
-position): its frames are loaded (through an LRU cache, since consecutive
+`VideoClipDataset` :244-313, `array_frame_loader` :314). The unit of work
+is a clip row (one bank position): its frames are loaded (through an LRU cache, since consecutive
 clips share seq_len - 1 frames), transformed as `(clip, epoch, row)`, and
 batched to (B, T, H, W, 3), or (B, ncrops, T, H, W, 3) for multi-crop. A
 padded last batch repeats its last row with label -1. Workers are threads
@@ -20,7 +20,7 @@ import functools
 import multiprocessing
 import queue
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
-from typing import Callable, Iterator, List, Optional, Tuple
+from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -230,6 +230,93 @@ class ClipLoader:
                 b = next(it, None)
                 if b is not None:
                     futs.put(submit(b))
+
+
+@dataclasses.dataclass
+class VideoClipDataset:
+    """ClipDataset's interface over video files (the fork's video-direct
+    path, the reference's HystDataset, `test-resnet.py:139-203`): row r ->
+    (the clip that `reader` decodes, transformed, and the label of its
+    last frame), from per-video labels at the sampled-frame rate.
+
+    Port of `tmrnet_tpu/data/pipeline.py:244-297`, with `clip_labels`
+    (JAX's has none; the port's trainers read it) from the label arrays
+    alone. It pickles (the reader drops its per-thread cursors), and
+    process workers reach it by the fork as they reach a ClipDataset."""
+
+    reader: "object"  # tmrnet_torch.data.video.VideoClipReader
+    labels: Sequence[np.ndarray]  # per-video labels at sampled-frame rate
+    transform: Optional[Callable] = None
+
+    def __post_init__(self):
+        nf = self.reader.num_frames
+        if len(self.labels) != len(nf):
+            raise ValueError("labels must have one array per video")
+        for lab, n in zip(self.labels, nf):
+            if len(lab) < n:
+                raise ValueError("label array shorter than sampled frames")
+        # the reader's cumulative clip counts are the one source of the
+        # clip-count algebra
+        cpv = np.diff(self.reader._cum)
+        firsts = self.reader._cum[:-1].astype(np.int64)
+        self._first_rows = np.repeat(firsts, cpv)
+        self._clip_labels = None
+
+    @property
+    def seq_len(self) -> int:
+        return self.reader.seq_len
+
+    @property
+    def num_clips(self) -> int:
+        return self.reader.num_clips
+
+    @property
+    def first_rows(self) -> np.ndarray:
+        return self._first_rows
+
+    @property
+    def clip_labels(self) -> np.ndarray:
+        """Per-row last-frame labels from the label arrays (no decode)."""
+        if self._clip_labels is None:
+            cpv = np.diff(self.reader._cum)
+            self._clip_labels = np.concatenate(
+                [np.asarray(lab, np.int64)[self.seq_len - 1:][:c]
+                 for lab, c in zip(self.labels, cpv)]
+            ) if len(cpv) else np.zeros(0, np.int64)
+        return self._clip_labels
+
+    def clip_location(self, row: int) -> Tuple[int, int]:
+        return self.reader.locate(row)
+
+    def get_clip(self, row: int, epoch: int = 0) -> Tuple[np.ndarray, int]:
+        vid, start = self.reader.locate(row)
+        clip = self.reader.read_clip(row)
+        if self.transform is not None:
+            clip = self.transform(clip, epoch, row)
+        label = int(self.labels[vid][start + self.reader.seq_len - 1])
+        return clip, label
+
+    @property
+    def manifest(self) -> "_VideoManifestView":
+        """A manifest-shaped view (video_lengths, flat_labels) for the
+        trainers' class weighting, the bank's layout and the memory
+        windows."""
+        return _VideoManifestView(self)
+
+
+@dataclasses.dataclass
+class _VideoManifestView:
+    ds: VideoClipDataset
+
+    @property
+    def video_lengths(self):
+        return [int(n) for n in self.ds.reader.num_frames]
+
+    def flat_labels(self) -> np.ndarray:
+        return np.concatenate([
+            np.asarray(lab[:n], np.int64)
+            for lab, n in zip(self.ds.labels, self.ds.reader.num_frames)
+        ]) if len(self.ds.labels) else np.zeros(0, np.int64)
 
 
 def array_frame_loader(frames_by_path):

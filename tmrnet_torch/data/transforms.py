@@ -6,7 +6,8 @@ Port of `tmrnet_tpu/data/transforms.py` (`clip_rng` :30, `random_crop`
 `random_horizontal_flip` :81, `random_rotation` :88, `random_resized_crop`
 :105, `five_crop` :128, `ten_crop` :139, `pad_or_crop` :146,
 `resize_clip` :158, the colour jitter :175-212, `normalize` :215,
-`TrainTransform` :225-289, `EvalTransform` :334-392). Clips are (T, H, W,
+`TrainTransform` :225-289, `random_choice_frames`, `VideoTrainTransform`
+and `VideoEvalTransform` :291-331, `EvalTransform` :334-392). Clips are (T, H, W,
 3) uint8 arrays. The resize is cv2's and returns early when the size
 already matches, so prepared 250x250 frames need no cv2 to be resized. The
 rotation and the hue shift are cv2's too: where cv2 is missing they raise
@@ -260,6 +261,49 @@ class TrainTransform:
                 np.asarray(self.mean, np.float32),
                 np.asarray(self.std, np.float32))
         return normalize(clip, self.mean, self.std)
+
+
+def random_choice_frames(clip: np.ndarray, num_frames: int,
+                         rng) -> np.ndarray:
+    """The fork's RandomChoice frame subsampler (`test-resnet.py:258-270`):
+    num_frames indices drawn with replacement, sorted, from the clip
+    (commented out in every published fork transform stack; an opt-in
+    knob with the same semantics)."""
+    if num_frames <= 0:
+        return clip
+    idx = np.sort(rng.integers(0, clip.shape[0], size=num_frames))
+    return clip[idx]
+
+
+@dataclasses.dataclass
+class VideoTrainTransform:
+    """The fork's video-direct train stack (`test-resnet.py:206-236`): the
+    optional RandomChoice frame subsample, a clip-shared
+    RandomResizedCrop(crop_size, scale) and the scaling to float32 [0, 1]
+    (no mean or std; the card casts it and normalizes nothing)."""
+
+    crop_size: int = 224
+    scale: Tuple[float, float] = (0.2, 1.0)
+    base_seed: int = 0
+    num_frames: int = -1  # >0 enables the fork's RandomChoice subsampler
+
+    def __call__(self, clip: np.ndarray, epoch: int, clip_id: int) -> np.ndarray:
+        rng = clip_rng(epoch, clip_id, self.base_seed)
+        clip = random_choice_frames(clip, self.num_frames, rng)
+        clip = random_resized_crop(clip, self.crop_size, rng, self.scale)
+        return clip.astype(np.float32) / 255.0
+
+
+@dataclasses.dataclass
+class VideoEvalTransform:
+    """The fork's video-direct eval stack: a centre pad-or-crop and the
+    scaling to float32 [0, 1]."""
+
+    crop_size: int = 224
+
+    def __call__(self, clip: np.ndarray, epoch: int = 0, clip_id: int = 0
+                 ) -> np.ndarray:
+        return pad_or_crop(clip, self.crop_size).astype(np.float32) / 255.0
 
 
 @dataclasses.dataclass
