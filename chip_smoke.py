@@ -31,7 +31,13 @@ Phases, in order; any failure exits nonzero:
    / 4 / 64, bottlenecks N = 16 / 4 / 2,048 / 400 / 640); and time_conv
    at B = 139,811, W = 30, C = 512,
    one row past one launch's 32-bit limit: 2 launches, the rows at the
-   split and 256 seeded others against the plain version;
+   split and 256 seeded others against the plain version; (d) time_conv's
+   column slices (tensor parallelism over M = 2 and 4 ranks: weights (k,
+   512, 512 / M), the output channels from c0) at B = 8 and 2,582, W = 30:
+   each M's slices side by side equal to the whole call bit for bit, the
+   last slice against the plain version's slice, with its device ms,
+   bound and a cuDNN chain for the same slice under the time_conv
+   record's "slices";
 4. the block slice: full-width TMRNet (ResNet-50, BN folded, hidden 512,
    window 30, 7 classes, bf16) with seeded random weights through the
    weight bridge, a 4096x512 bf16 bank on the card, and ClipInference
@@ -170,8 +176,8 @@ Phases, in order; any failure exits nonzero:
    --torch-ckpt` on the `.pth` bit for bit against `test --ckpt`; the
    commands' seconds beside the card;
 4k. the multi-process slice (`run_multi_slice`), over 4f's and 4g's
-   directories, in ~90 s: (a) `python -m tmrnet_torch train-tmr` for 2
-   epochs over 4g's split as rank 0 of a world of 1 (RANK=0 WORLD_SIZE=1
+   directories, in ~90 s: (a) `python -m tmrnet_torch train-tmr` for 1
+   epoch over 4g's split as rank 0 of a world of 1 (RANK=0 WORLD_SIZE=1
    LOCAL_RANK=0, MASTER_ADDR and MASTER_PORT, `--set mesh.multihost=true`)
    beside the same command without it, both with cuDNN's deterministic
    algorithms: the backend NCCL and the final weights bit for bit equal;
@@ -247,6 +253,35 @@ Phases, in order; any failure exits nonzero:
    fused_bottleneck a bank batch, 1 time_conv and 1 nl_attention a step
    and a val batch), the bank's first 8 rows within 2e-2 of the CPU's f32
    build;
+4o. the mesh slice (`run_mesh_slice`), after 4l, over 4g's directory:
+   (a) two ranks sharing card 0 over gloo as a 1 x 2 grid (`--multi-rank`
+   with `--multi-mp 2`: tensor parallelism, each rank holding its slices
+   of the layers JAX's rules shard), 2 SGD steps (lr 1e-3) at full width
+   (ResNet-50, hidden 512, window 30, 7 classes) over 8 uint8 224x224
+   clips of 10 frames, head tmr in bf16 and stage1 in f32, against the
+   same steps in this process over the whole batch by 4k (b)'s limits
+   (`train/step_check.py`), the whole deltas (each rank's slices
+   gathered) bit-equal across the ranks, each slice of step 1 against
+   the one-process slice (f32: within TENSOR_LIMIT), 1 time_conv (its
+   256-column slice) and 1 nl_attention launch a tmr step on each rank,
+   the ms a step (the one-process tmr steps are 4k (b)'s); (b) then the
+   same two ranks run `train-tmr` for one epoch over 4g's split through
+   `tmrnet_torch.cli.main` as that grid (`--set mesh.multihost=true --set
+   mesh.model_parallel=2`): each rank's mesh line and launches (1
+   time_conv and 1 nl_attention a step and a val batch), finite losses,
+   a checkpoint of whole tensors, then `test --ckpt` on it in this
+   process; (c) the sequence-parallel
+   video pass, `VideoInference(devices=[cuda:0, cuda:0])` (one card a
+   shard where the host has two): run_video on 4c's 1,500-frame video,
+   bank_features at 64 of its positions and run_corpus over 4c's videos
+   on the tiled path, each within 2e-2 of the one-device engine with 4c's
+   argmax rule, the bottleneck launches by card as the chunk plan gives
+   them (`build.LAUNCHES_BY_DEVICE`), and frames/s of both engines. The
+   `kernels` line counts its launches under path "mesh". `python3
+   chip_smoke.py --mesh-only WORLD MP BACKEND` runs (a) alone as a
+   (WORLD / MP) x MP grid, one card a rank where the host has them (2 x 2
+   over NCCL on four cards), and (c) over 2 cards (card 0 twice on one)
+   and over 4 where there are;
 5. the int8 gate (tmrnet_torch.experimental.int8_gate) at B = 128 over the
    four stages: the int8 bottleneck chain through the kernels equal to the
    same chain through the plain versions, 2 int8_matmul and 1 int8_conv3x3
@@ -590,6 +625,88 @@ def check_engine_shapes(torch, seed, records):
             del args
             torch.cuda.empty_cache()
     return all_ok
+
+
+# Phase 3 (d): time_conv's column slices, M = 2 and 4 ranks a model group,
+# at the TP train step's batch and the video engine's.
+SLICE_MS, SLICE_BATCHES = (2, 4), (8, 2582)
+
+
+def check_time_conv_slices(torch, seed, records):
+    """Phase 3 (d): time_conv over the output columns [c0, c0 + C / M) of
+    a (k, 512, 512) layer, the last slice of each M, at B = 8 and 2,582,
+    W = 30, against `time_conv_plain`'s slice (TOL of max |plain|), with
+    the card's time, the bound of the slice's own work and a cuDNN chain
+    for the same slice (conv1d per branch, then the max), recorded under
+    the time_conv record's "slices"; and every M slices side by side equal
+    to the whole-width call bit for bit. Returns ok."""
+    import torch.nn.functional as F
+
+    from tmrnet_torch.experimental.kernel_timing import graph_ms
+    from tmrnet_torch.ops.time_conv import time_conv_cuda, time_conv_plain
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    c = HIDDEN
+    ws = []
+    for ksz in (3, 5, 7):
+        ws += [(torch.randn((ksz, c, c), generator=gen, device=dev)
+                * (1.0 / (ksz * c)) ** 0.5).to(torch.bfloat16),
+               torch.randn((c,), generator=gen, device=dev) * 0.02]
+    rec = next(r for r in records if r["name"] == "time_conv")
+    rec["slices"], ok = [], True
+    cut = lambda t, c0, n: (t[..., c0:c0 + n] if t.dim() == 3
+                            else t[c0:c0 + n]).contiguous()
+    for b in SLICE_BATCHES:
+        x = torch.randn((b, WINDOW, c), generator=gen, device=dev).to(
+            torch.bfloat16)
+        whole = time_conv_cuda(x, *ws)
+        for m in SLICE_MS:
+            cout = c // m
+            parts = [time_conv_cuda(x, *(cut(t, j * cout, cout) for t in ws),
+                                    c0=j * cout) for j in range(m)]
+            same = torch.equal(torch.cat(parts, dim=-1), whole)
+            print(f"  time_conv B={b}: its {m} slices side by side equal the "
+                  f"whole call bit for bit: {same} {'ok' if same else 'FAIL'}")
+            ok &= same
+            c0 = c - cout
+            sl = [cut(t, c0, cout) for t in ws]
+            got = parts[-1]
+            err, good = compare(torch, f"time_conv slice B={b} M={m} "
+                                f"({cout} columns from {c0})", got,
+                                time_conv_plain(x.float(),
+                                                *(t.float() for t in sl),
+                                                c0=c0))
+            ok &= good and tuple(got.shape) == (b, WINDOW, cout)
+            xt = x.transpose(1, 2)
+            xs = xt[:, c0:]
+            wt = [(sl[2 * i].permute(2, 1, 0).contiguous(),
+                   sl[2 * i + 1].to(x.dtype)) for i in range(3)]
+
+            def chain():
+                out = torch.maximum(xs, F.pad(xs, (1, 0))[:, :, :-1])
+                for (w_, b_), ksz in zip(wt, (3, 5, 7)):
+                    out = torch.maximum(out, F.conv1d(xt, w_, b_,
+                                                      padding=ksz // 2))
+                return out.transpose(1, 2)
+
+            rows = b * WINDOW
+            b_ms, b_by = bound(2 * rows * c * cout * 15,
+                               2 * (rows * c + rows * cout + 15 * c * cout)
+                               + 4 * 3 * cout, PEAK_BF16)
+            rec["slices"].append(dict(
+                batch=b, model_parallel=m, cout=cout, c0=c0, max_abs_err=err,
+                ms=time_ms(torch, lambda: time_conv_cuda(x, *sl, c0=c0), 10),
+                device_ms=graph_ms(torch, lambda: time_conv_cuda(
+                    x, *sl, c0=c0)),
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=time_ms(torch, chain, 10)))
+            r = rec["slices"][-1]
+            print(f"    device {r['device_ms']:.5f} ms, eager {r['ms']:.5f} "
+                  f"ms, cuDNN chain {r['library_ms']:.5f} ms, bound "
+                  f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
+        del x
+    return ok
 
 
 def check_time_conv_split(torch, seed, records):
@@ -3496,6 +3613,8 @@ def run_score_slice(torch, seed, card, kept):
 # so the f32 step runs head nl_only and the TMR head's runs in bf16), how
 # long a rank may take, and the determinism (a)'s two runs share.
 MULTI_CLIPS, MULTI_STEPS, MULTI_LR, MULTI_TIMEOUT = 8, 2, 1e-3, 300
+# 4k (a)'s epochs (one checkpoint an epoch; the whole script's time)
+NCCL_EPOCHS = 1
 MULTI_HEADS = (("tmr", "bfloat16"), ("nl_only", "float32"))
 DETERMINISTIC = ("import runpy, sys, torch; "
                  "torch.backends.cudnn.deterministic = True; "
@@ -3562,7 +3681,7 @@ def run_ranks(cmds, timeout=MULTI_TIMEOUT, env=None):
 
 def multi_nccl(torch, card, tmp):
     """Phase 4k (a): `python -m tmrnet_torch train-tmr` over 4g's directory
-    for TMR_EPOCHS epochs as rank 0 of a world of 1 under torchrun's
+    for NCCL_EPOCHS epochs as rank 0 of a world of 1 under torchrun's
     variables and mesh.multihost, beside the same command without it, both
     with cuDNN's deterministic algorithms; the backend must be NCCL and
     the final weights equal bit for bit. Returns ok."""
@@ -3573,7 +3692,7 @@ def multi_nccl(torch, card, tmp):
             "--train-manifest", out("train.pkl"), "--val-manifest",
             out("val.pkl"), "--lfb", out("bank_train.npz"), "--val-lfb",
             out("bank_val.npz"), "--stage1-ckpt", out("ck1"), "--set",
-            f"train.epochs={TMR_EPOCHS}"]
+            f"train.epochs={NCCL_EPOCHS}"]
     env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8", RANK="0",
                WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
                MASTER_PORT=str(free_port()))
@@ -3605,7 +3724,7 @@ def multi_nccl(torch, card, tmp):
                 and all(np.array_equal(x, y) for (_, x), (_, y)
                         in zip(la, lb)))
         ok &= same
-    print(f"  (a) train-tmr, {TMR_EPOCHS} epochs, as one rank "
+    print(f"  (a) train-tmr, {NCCL_EPOCHS} epochs, as one rank "
           f"(RANK=0 WORLD_SIZE=1 LOCAL_RANK=0, mesh.multihost) beside the "
           f"same command without it, at once, in {dt:.1f} s: exits {rcs}, "
           f"mesh {mesh} (want backend nccl), checkpoint steps {steps}, "
@@ -3619,37 +3738,42 @@ def multi_nccl(torch, card, tmp):
 
 def multi_steps(torch, seed, head, dtype, mesh=None):
     """MULTI_STEPS SGD steps of the full-width model (`train_model_config`,
-    dropout 0) with head `head` in `dtype` on the card, over global
-    batches of MULTI_CLIPS clips (this rank's rows under `mesh`): (the
-    losses summed over the ranks, the parameter deltas from the start
-    after each step, the running statistics, launches, each step's ms,
-    and under `mesh` the ms of one all-reduce of gradient-sized tensors,
-    as the state makes it once a step)."""
+    dropout 0) with head `head` (stage 1 or 2) in `dtype` on the card,
+    over global batches of MULTI_CLIPS clips (the rows of this rank's data
+    index under `mesh`, the model's slices under its model axis): (the
+    losses summed over the data ranks, the whole parameters' deltas from
+    the start after each step, the running statistics, launches, each
+    step's ms, under `mesh` the ms of one all-reduce of gradient-sized
+    tensors, as the state makes it once a step, and the shapes of the
+    parameters this rank holds a slice of)."""
     from tmrnet_torch.config import DataConfig, TrainConfig
     from tmrnet_torch.data.device_feed import DevicePrep
     from tmrnet_torch.kernels.build import LAUNCHES, reset_launches
     from tmrnet_torch.models.convert import from_jax_variables, random_variables
     from tmrnet_torch.models.tmrnet import build_model
     from tmrnet_torch.parallel.mesh import all_reduce_host, process_local_bounds
+    from tmrnet_torch.parallel.tensor import shard_model_, shard_of
     from tmrnet_torch.train.optim import make_optimizer, slow_modules_for_head
     from tmrnet_torch.train.state import TrainState
-    from tmrnet_torch.train.steps import make_stage2_steps
+    from tmrnet_torch.train.steps import make_stage1_steps, make_stage2_steps
 
     device = torch.device("cuda", 0) if mesh is None else mesh.device
     cfg = train_model_config(head, "cuda", dtype)
     model = build_model(cfg, device=device)
     model.load_state_dict(from_jax_variables(random_variables(
         train_model_config(head, "cpu"), seed + 21)))
+    before = {k: v.detach().clone() for k, v in model.named_parameters()}
+    shard_model_(model, mesh)
     state = TrainState(model, make_optimizer(
         TrainConfig(optimizer="sgd", lr=MULTI_LR, momentum=0.9,
                     weight_decay=5e-4), model, slow_modules_for_head(head)),
         mesh=mesh)
-    step, _ = make_stage2_steps(prep=DevicePrep(
-        DataConfig(device_normalize=True), cfg.compute_dtype, device),
-        mesh=mesh)
-    before = {k: v.detach().clone() for k, v in model.named_parameters()}
+    stage1 = head == "stage1"
+    step, _ = (make_stage1_steps if stage1 else make_stage2_steps)(
+        prep=DevicePrep(DataConfig(device_normalize=True), cfg.compute_dtype,
+                        device), mesh=mesh)
     lo, hi = ((0, MULTI_CLIPS) if mesh is None else
-              process_local_bounds(MULTI_CLIPS, mesh.rank, mesh.world))
+              process_local_bounds(MULTI_CLIPS, mesh.data_index, mesh.dp))
     losses, ms, deltas = [], [], []
     torch.cuda.synchronize(device)
     reset_launches()
@@ -3658,18 +3782,21 @@ def multi_steps(torch, seed, head, dtype, mesh=None):
             torch, seed + 60 + i, MULTI_CLIPS))
         torch.cuda.synchronize(device)
         t0 = time.perf_counter()
-        m = step(state, clips, memory, labels,
+        m = step(state, *((clips,) if stage1 else (clips, memory)), labels,
                  torch.Generator(device=device).manual_seed(i))
         loss = np.asarray([float(m["loss"])])
         ms.append((time.perf_counter() - t0) * 1e3)
         if mesh is not None:
-            loss = all_reduce_host(loss, mesh)
+            loss = all_reduce_host(loss, mesh, data_only=True)
         losses.append(float(loss[0]))
-        deltas.append({k: (v.detach() - before[k]).float().cpu()
-                       for k, v in model.named_parameters()})
+        whole = state.whole_state()[0]
+        deltas.append({k: (whole[k].detach() - v).float().cpu()
+                       for k, v in before.items()})
     counts = dict(LAUNCHES)
-    stats = {k: v.float().cpu() for k, v in model.state_dict().items()
+    stats = {k: v.float().cpu() for k, v in state.whole_state()[0].items()
              if "running" in k}
+    sliced = {k: list(p.shape) for k, p in model.named_parameters()
+              if shard_of(p) is not None}
     reduce_ms = None
     if mesh is not None:
         from tmrnet_torch.parallel.mesh import all_reduce_sum_
@@ -3684,15 +3811,21 @@ def multi_steps(torch, seed, head, dtype, mesh=None):
         reduce_ms = (time.perf_counter() - t0) / 3 * 1e3
     del state, model, before
     torch.cuda.empty_cache()
-    return losses, deltas, stats, counts, ms, reduce_ms
+    return losses, deltas, stats, counts, ms, reduce_ms, sliced
 
 
-def multi_rank(torch, seed, rank, port, out_dir, world=2, backend="gloo"):
-    """Phase 4k (b), one rank of `world` on card rank % cards (all of
-    them on card 0 on a one-card machine) over `backend`: the steps of
-    each of MULTI_HEADS on its rows; each saves what they leave and
-    prints its losses, launches and step ms, and how long host gathers of
-    a 518 x 512 bank and of (4, 291, 7) softmax rows take."""
+def multi_rank(torch, seed, rank, port, out_dir, world=2, backend="gloo",
+               mp=1, cli_argv=None):
+    """Phase 4k (b) (4o (a) where mp > 1), one rank of `world` on card
+    rank % cards (all of them on card 0 on a one-card machine) over
+    `backend`, as a (world / mp) x mp grid: the steps of each of
+    MULTI_HEADS (MESH_HEADS) on its rows; each saves what they leave and
+    prints its losses, launches, step ms and its sliced parameters'
+    shapes, and (4k) how long host gathers of a 518 x 512 bank and of (4,
+    291, 7) softmax rows take. cli_argv (4o (b)): then a command through
+    `tmrnet_torch.cli.main` on this rank's card, in the group the steps
+    used, with its exit code, launches and seconds in the report."""
+    from tmrnet_torch.config import MeshConfig
     from tmrnet_torch.parallel.mesh import (all_gather_host,
                                             initialize_multihost, make_mesh,
                                             shutdown)
@@ -3703,15 +3836,31 @@ def multi_rank(torch, seed, rank, port, out_dir, world=2, backend="gloo"):
         f"127.0.0.1:{port}", world, rank,
         device=f"cuda:{rank % torch.cuda.device_count()}", backend=backend,
         timeout=MULTI_TIMEOUT)
-    mesh = make_mesh(device=dev)
-    report = {"multi_rank": rank, "backend": mesh.backend, "heads": {}}
-    for head, dtype in MULTI_HEADS:
-        losses, deltas, stats, counts, ms, reduce_ms = multi_steps(
+    mesh = make_mesh(MeshConfig(model_parallel=mp), dev)
+    report = {"multi_rank": rank, "backend": mesh.backend,
+              "index": [mesh.data_index, mesh.model_index], "heads": {}}
+    for head, dtype in (MESH_HEADS if mp > 1 else MULTI_HEADS):
+        losses, deltas, stats, counts, ms, reduce_ms, sliced = multi_steps(
             torch, seed, head, dtype, mesh)
         torch.save({"deltas": deltas, "stats": stats},
                    os.path.join(out_dir, f"rank{rank}_{head}.pt"))
         report["heads"][head] = {"losses": losses, "launches": counts,
-                                 "step_ms": ms, "grad_reduce_ms": reduce_ms}
+                                 "step_ms": ms, "grad_reduce_ms": reduce_ms,
+                                 "sliced": sliced}
+    if cli_argv:
+        from tmrnet_torch import cli
+        from tmrnet_torch.kernels.build import LAUNCHES, reset_launches
+
+        torch.cuda.synchronize(dev)
+        reset_launches()
+        t0 = time.perf_counter()
+        rc = cli.main(cli_argv + ["--device", str(dev)])
+        report["cli"] = {"rc": rc, "launches": dict(LAUNCHES),
+                         "seconds": time.perf_counter() - t0}
+    if mp > 1:
+        print(json.dumps(report), flush=True)
+        shutdown()
+        return 0
     gathers = {}
     for name, shape in (("bank 518x512", (518, 512)),
                         ("probs 4x291x7", (4, 291, 7))):
@@ -3727,7 +3876,8 @@ def multi_rank(torch, seed, rank, port, out_dir, world=2, backend="gloo"):
     return 0
 
 
-def multi_train(torch, seed, card, tmp, world=2, backend="gloo"):
+def multi_train(torch, seed, card, tmp, world=2, backend="gloo", mp=1,
+                cli_argv=None, refs=None):
     """Phase 4k (b): `world` ranks over `backend` (by default two sharing
     the card over gloo: NCCL refuses two ranks on one device; with
     `--multi-only` one card a rank over NCCL) take MULTI_STEPS steps of
@@ -3743,30 +3893,51 @@ def multi_train(torch, seed, card, tmp, world=2, backend="gloo"):
     amplifies that (on the CPU at 32x32, weights perturbed by 1e-7
     relative move its head's deltas by 0.107, against 3.5e-5 after the
     first step). The two ranks' deltas equal; the launches of each rank.
-    Returns (launches of both ranks, numbers, ok)."""
+    With mp > 1 (phase 4o (a)) the ranks form a (world / mp) x mp grid and
+    take MESH_HEADS' steps, their whole deltas (each rank's slices
+    gathered) held by the same rules, and bit-equal across the ranks:
+    every replicated parameter's and every slice's; cli_argv: a command
+    each rank then runs (4o (b)), whose reports and `mesh` lines land in
+    the numbers. refs: the one-process steps by (seed, head, dtype), read
+    and filled (4o (a) reuses 4k (b)'s tmr steps). Returns (launches of
+    all ranks, numbers, ok)."""
     from tmrnet_torch.train.step_check import (AGG_LIMITS, TENSOR_LIMIT,
                                                aggregate, distance,
                                                rounding_only, worst_by_group)
 
     port = free_port()
+    tag = "(a)" if mp > 1 else "(b)"
+    heads = MESH_HEADS if mp > 1 else MULTI_HEADS
     t0 = time.perf_counter()
     rcs, outs, errs = run_ranks([
         [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
          "--multi-rank", str(r), "--multi-port", str(port), "--multi-dir",
-         tmp, "--multi-world", str(world), "--multi-backend", backend]
+         tmp, "--multi-world", str(world), "--multi-backend", backend,
+         "--multi-mp", str(mp)]
+        + (["--multi-cli", json.dumps(cli_argv)] if cli_argv else [])
         for r in range(world)])
     dt = time.perf_counter() - t0
     if any(rcs):
         for e in errs:
             print(e[-3000:])
-        print(f"  (b) {world} ranks over {backend} exited {rcs} FAIL")
+        print(f"  {tag} {world} ranks over {backend} exited {rcs} FAIL")
         return {}, {}, False
     reports = [json_lines(o, "multi_rank")[-1] for o in outs]
     ok, counts, numbers = True, {}, {"ranks_s": dt}
-    for head, dtype in MULTI_HEADS:
+    if mp > 1:
+        numbers["index"] = [r["index"] for r in reports]
+    if cli_argv:
+        numbers["cli"] = [r["cli"] for r in reports]
+        numbers["mesh_lines"] = [json_lines(e, "mesh")[-1]["mesh"]
+                                 for e in errs]
+    refs = {} if refs is None else refs
+    for head, dtype in heads:
         t1 = time.perf_counter()
-        want = multi_steps(torch, seed, head, dtype)
-        w_losses, w_deltas, w_stats, w_counts, w_ms, _ = want
+        reused = (seed, head, dtype) in refs
+        if not reused:
+            refs[(seed, head, dtype)] = multi_steps(torch, seed, head, dtype)
+        want = refs[(seed, head, dtype)]
+        w_losses, w_deltas, w_stats, w_counts, w_ms = want[:5]
         got = [torch.load(os.path.join(tmp, f"rank{r}_{head}.pt"))
                for r in range(world)]
         same = all(torch.equal(a[k], b[k]) for other in got[1:] for a, b in
@@ -3777,7 +3948,8 @@ def multi_train(torch, seed, card, tmp, world=2, backend="gloo"):
                        / max(float(w.abs().max()), 1e-12))
                  for k, w in w_stats.items())
         want_launch = ({"time_conv": MULTI_STEPS, "nl_attention": MULTI_STEPS}
-                       if head == "tmr" else {"nl_attention": MULTI_STEPS})
+                       if head == "tmr" else {} if head == "stage1"
+                       else {"nl_attention": MULTI_STEPS})
         launches = [r["heads"][head]["launches"] for r in reports]
         counts = add_counts(counts, *launches)
         aggs = [aggregate(g, w) for g, w in zip(got[0]["deltas"], w_deltas)]
@@ -3785,6 +3957,24 @@ def multi_train(torch, seed, card, tmp, world=2, backend="gloo"):
                   if not rounding_only(k)}
                  for g, ws in zip(got[0]["deltas"], w_deltas)]
         worst = [worst_by_group(d) for d in dists]
+        # each slice of a sliced parameter (from its rank) against the
+        # same slice of the one-process step's delta
+        slices = {}
+        for k, shape in (reports[0]["heads"][head].get("sliced") or {}).items():
+            d = next(i for i, (a, b) in enumerate(zip(shape, w_deltas[0][k]
+                                                      .shape)) if a != b)
+            n = shape[d]
+            for j in range(mp):
+                slices[f"{k}[{j}]"] = distance(
+                    k, got[0]["deltas"][0][k].narrow(d, j * n, n),
+                    w_deltas[0][k].narrow(d, j * n, n))
+        if slices:
+            print(f"  {tag} {head}: step 1's delta of each rank's slice vs "
+                  f"the one-process slice {json.dumps(slices)}")
+        if dtype == "float32":
+            good_slices = all(v <= TENSOR_LIMIT for v in slices.values())
+        else:
+            good_slices = all(np.isfinite(v) for v in slices.values())
         if dtype == "float32":
             good = (rel <= STEP_F32_TOL and st <= STEP_F32_TOL
                     and all(d <= TENSOR_LIMIT for d in dists[0].values()))
@@ -3796,22 +3986,34 @@ def multi_train(torch, seed, card, tmp, world=2, backend="gloo"):
                     and all(aggs[0][g] <= limits[g] for g in aggs[0]))
             rule = (f"losses within {STEP_LOSS_TOL}, statistics within {TOL}, "
                     f"step 1's aggregates within {json.dumps(limits)}")
-        good &= same and all(c == want_launch for c in launches)
+        good &= same and good_slices and all(c == want_launch
+                                             for c in launches)
         ms = [r["heads"][head]["step_ms"] for r in reports]
         reduce_ms = [r["heads"][head]["grad_reduce_ms"] for r in reports]
         numbers[head] = {"rank_step_ms": ms, "one_process_step_ms": w_ms,
                          "grad_reduce_ms": reduce_ms, "aggregates": aggs}
-        print(f"  (b) {head} {dtype}, {world} ranks x {MULTI_CLIPS // world} "
-              f"clips over {backend} against one process x {MULTI_CLIPS}: "
+        if mp > 1:
+            numbers[head]["sliced"] = [r["heads"][head]["sliced"]
+                                       for r in reports]
+            print(f"  {tag} {head}: each rank's sliced parameters "
+                  f"{numbers[head]['sliced']}")
+        print(f"  {tag} {head} {dtype}, {world} ranks as a "
+              f"{world // mp} x {mp} grid, {MULTI_CLIPS // (world // mp)} "
+              f"clips a data rank, over {backend} against one process x "
+              f"{MULTI_CLIPS}: "
               f"losses {losses} vs {w_losses} (rel {rel:.3g}), running "
               f"stats /max {st:.3g}, aggregates by step {json.dumps(aggs)}, "
               f"worst tensors by step {worst}; {rule}; "
               f"the ranks' deltas equal: {same}; launches per rank "
               f"{launches} (want {want_launch}); step ms per rank {ms} (of "
               f"which one all-reduce of the gradients, ms {reduce_ms}), one "
-              f"process {w_ms} (its steps {time.perf_counter() - t1:.1f} s) "
+              f"process {w_ms} (its steps "
+              f"{'those of 4k (b)' if reused else f'{time.perf_counter() - t1:.1f} s'}) "
               f"{'ok' if good else 'FAIL'}")
         ok &= good
+    if mp > 1:
+        print(f"  {tag} ranks' run {dt:.1f} s on {card}")
+        return counts, numbers, ok
     numbers["gather_ms"] = [r["gather_ms"] for r in reports]
     print(f"  (b) host gathers over the CPU group, ms per call per rank "
           f"{numbers['gather_ms']}; ranks' run {dt:.1f} s on {card}")
@@ -3879,15 +4081,17 @@ def multi_eval(torch, card, tdir, tmp):
     return counts, seconds, ok
 
 
-def run_multi_slice(torch, seed, card, kept):
+def run_multi_slice(torch, seed, card, kept, refs=None):
     """Phase 4k: the multi-process slice, over the directories 4f and 4g
-    leave in `kept`: (a) `multi_nccl`, (b) `multi_train`, (c)
-    `multi_eval`. Returns (counts by path, numbers, ok)."""
+    leave in `kept`: (a) `multi_nccl`, (b) `multi_train` (its one-process
+    steps kept in `refs`), (c) `multi_eval`. Returns (counts by path,
+    numbers, ok)."""
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     ok = multi_nccl(torch, card, kept["train"])
     with phase_dir("multi") as tmp:
-        train_counts, numbers, ok_b = multi_train(torch, seed, card, tmp)
+        train_counts, numbers, ok_b = multi_train(torch, seed, card, tmp,
+                                                  refs=refs)
         eval_counts, numbers["commands_s"], ok_c = multi_eval(
             torch, card, kept["test"], tmp)
     ok &= ok_b and ok_c
@@ -3898,6 +4102,268 @@ def run_multi_slice(torch, seed, card, kept):
           f"{numbers['seconds']:.1f} s on {card} "
           f"{'ok' if ok and good else 'FAIL'}")
     return {"multi": counts}, numbers, ok and good
+
+
+# Phase 4o, the mesh slice: the heads of (a) and their dtypes (time_conv's
+# kernel takes bf16 only; stage 1 in f32 holds each tensor); the model
+# axis of (a) and (b); the sequence-parallel shards of (c); the frames of
+# bank_features' positions in (c).
+MESH_HEADS = (("tmr", "bfloat16"), ("stage1", "float32"))
+MESH_MP, MESH_SHARDS, MESH_POSITIONS = 2, 2, 64
+
+
+def workflow_argv(tdir, tmp):
+    """Phase 4o (b)'s command: `train-tmr` for one epoch over 4g's split
+    (the directory `tdir`) as the grid, under mesh.multihost with a model
+    axis of MESH_MP, its checkpoints under tmp/ck_tp."""
+    src = lambda name: os.path.join(tdir, name)
+    return ["train-tmr", "--config", src("train_cfg.json"),
+            "--train-manifest", src("train.pkl"), "--val-manifest",
+            src("val.pkl"), "--lfb", src("bank_train.npz"), "--val-lfb",
+            src("bank_val.npz"), "--stage1-ckpt", src("ck1"), "--set",
+            "train.epochs=1", "--set",
+            f"train.checkpoint_dir={os.path.join(tmp, 'ck_tp')}",
+            "--log-dir", os.path.join(tmp, "log_tp"), "--set",
+            "mesh.multihost=true", "--set", f"mesh.model_parallel={MESH_MP}"]
+
+
+def mesh_workflow(torch, card, tdir, tmp, ranks):
+    """Phase 4o (b): `workflow_argv`'s `train-tmr`, which (a)'s two ranks
+    ran after their steps through `tmrnet_torch.cli.main` in the 1 x 2
+    grid they share the card in (`ranks`: (a)'s numbers, with each rank's
+    report and `mesh` line), then `test --ckpt` in this process on its
+    checkpoint: both exit 0, each rank's mesh line names its model index,
+    each rank launches 1 time_conv and 1 nl_attention a train step and a
+    val batch, the epoch's losses are finite, and the checkpoint holds
+    whole tensors (the one-process model's shapes), which `test` reads.
+    Returns (launches, seconds, ok)."""
+    from tmrnet_torch.config import ExperimentConfig
+    from tmrnet_torch.models.convert import from_jax_variables
+    from tmrnet_torch.models.tmrnet import state_shapes
+    from tmrnet_torch.utils.checkpoint import CheckpointManager
+
+    src = lambda name: os.path.join(tdir, name)
+    ck = os.path.join(tmp, "ck_tp")
+    _, _, steps, val_batches = train_split()
+    want = {"time_conv": steps + val_batches,
+            "nl_attention": steps + val_batches}
+    reports, meshes = ranks.get("cli"), ranks.get("mesh_lines")
+    if not reports:
+        print("  (b) train-tmr over the grid: no rank report FAIL")
+        return {}, {}, False
+    rcs = [r["rc"] for r in reports]
+    launches = [r["launches"] for r in reports]
+    seconds = {"train-tmr": [r["seconds"] for r in reports]}
+    counts = add_counts(*launches)
+    good = (rcs == [0] * MESH_MP
+            and [m["model_index"] for m in meshes] == list(range(MESH_MP))
+            and all(c == want for c in launches))
+    metrics = latest_metrics(ck)
+    finite = all(np.isfinite(metrics.get(k, np.nan))
+                 for k in ("val_loss", "val_acc", "train_acc"))
+    saved = CheckpointManager._load(CheckpointManager(ck)._step_dir(
+        CheckpointManager(ck).latest_step()))
+    got = {k: tuple(v.shape) for k, v in
+           from_jax_variables(saved["variables"]).items()}
+    with open(src("train_cfg.json")) as f:
+        cfg = ExperimentConfig.from_json(f.read())
+    shapes = state_shapes(dataclasses.replace(cfg.model, head="tmr"))
+    drop = lambda d: {k: v for k, v in d.items()
+                      if not k.endswith("num_batches_tracked")}
+    whole = drop(got) == drop(shapes)
+    print(f"  (b) train-tmr, 1 epoch over a 1 x {MESH_MP} grid of gloo "
+          f"ranks on one card (the ranks of (a)), seconds per rank "
+          f"{seconds['train-tmr']}: exits {rcs}, mesh lines {meshes}, "
+          f"launches per rank {launches} (want {want}), latest metrics "
+          f"{metrics} (finite: {finite}), checkpoint of whole tensors: "
+          f"{whole} {'ok' if good and finite and whole else 'FAIL'}")
+    ok = good and finite and whole
+    lines, test_counts, seconds["test"] = run_cli(
+        ["test", "--config", src("train_cfg.json"), "--set",
+         "model.folded=true", "--manifest", src("val.pkl"), "--ckpt", ck,
+         "--lfb", src("bank_val.npz"), "--out",
+         os.path.join(tmp, "preds_tp.npz")])
+    acc = json.loads(lines[-1])["clip_accuracy"]
+    good = bool(np.isfinite(acc)) and test_counts.get("time_conv", 0) > 0
+    print(f"  (b) one-process test --ckpt on the grid's checkpoint: clip "
+          f"accuracy {acc}, launches {test_counts}, {seconds['test']:.1f} s "
+          f"{'ok' if good else 'FAIL'}")
+    return add_counts(counts, test_counts), seconds, ok and good
+
+
+def sp_want(engine, blocks, fused_kernel, even_only):
+    """The bottleneck launches by (kernel, card) of the trunks over frame
+    blocks of `blocks` frames in the sequence-parallel pass: each trunk
+    chunk of a block cut into the shards (a block that does not divide
+    whole on the first card, where even_only), each shard's identity
+    blocks on its card, for both trunks."""
+    per_trunk = ({"fused_bottleneck": 12} if fused_kernel == "block" else
+                 {"fused_bottleneck_tiled": 10, "fused_bottleneck": 2})
+    want = {}
+    first = engine.shards[0][0].index
+    for b in blocks:
+        step = engine.trunk_chunk(b, (IMG, IMG))
+        for i in range(0, b, step):
+            n = min(step, b - i)
+            if even_only and b % len(engine.shards):
+                parts = [(first, n)]
+            else:
+                sizes = [len(a) for a in np.array_split(np.arange(n),
+                                                        len(engine.shards))]
+                parts = [(d.index, m) for (d, _, _), m in
+                         zip(engine.shards, sizes) if m]
+            for dev, _ in parts:
+                for k, v in per_trunk.items():
+                    want[(k, dev)] = want.get((k, dev), 0) + 2 * v
+    return want
+
+
+def mesh_sp(torch, seed, card, devices):
+    """Phase 4o (c): the sequence-parallel pass at full width over
+    `devices`, against the one-device engine in this call: run_video on
+    4c's 1,500-frame video (block path), bank_features at 64 of its
+    positions, and run_corpus over 4c's videos (tiled path), each within
+    TOL with 4c's argmax rule, the bottleneck launches by card as the
+    chunk plan gives them, and frames/s of both engines, each timed call
+    after one uncounted call of the same shapes (a card's first call of a
+    shape picks its cuDNN algorithms). Returns (launches by kernel,
+    numbers, ok)."""
+    from tmrnet_torch.eval.infer import VideoInference
+    from tmrnet_torch.kernels.build import (LAUNCHES, LAUNCHES_BY_DEVICE,
+                                            reset_launches)
+
+    ecfg, weights = engine_setup(seed)
+    rng = np.random.default_rng(seed + 3)
+    lengths = VIDEO_LENGTHS
+    videos = [rng.integers(0, 256, (n, IMG, IMG, 3), dtype=np.uint8)
+              for n in lengths]
+    ok, counts, numbers = True, {}, {"devices": [str(d) for d in devices]}
+    engines = {}
+    for kernel in ("block", "tiled"):
+        engines[kernel] = (
+            VideoInference(ecfg, *weights, fused_kernel=kernel),
+            VideoInference(ecfg, *weights, fused_kernel=kernel,
+                           devices=devices))
+        for e in engines[kernel]:               # warm-up, not counted
+            e.run_corpus([videos[0][:64], videos[2]], chunk=64)
+    torch.cuda.synchronize()
+
+    def timed(fn):
+        for d in set(devices):
+            torch.cuda.synchronize(d)
+        reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        for d in set(devices):
+            torch.cuda.synchronize(d)
+        return out, time.perf_counter() - t0, dict(LAUNCHES), {
+            f"{k}@cuda:{d}": v for (k, d), v in LAUNCHES_BY_DEVICE.items()}
+
+    one, sp = engines["block"]
+    for e in (one, sp):                 # the timed call's shapes, uncounted
+        e.run_video(videos[0])
+    (w_preds, w_probs), w_dt, _, _ = timed(lambda: one.run_video(videos[0]))
+    (preds, probs), dt, got, by_dev = timed(lambda: sp.run_video(videos[0]))
+    counts = add_counts(counts, got)
+    want = {f"{k}@cuda:{d}": v for (k, d), v in
+            sp_want(sp, [lengths[0]], "block", False).items()}
+    good = (by_dev == want and got.get("time_conv") == 1
+            and got.get("nl_attention") == 1)
+    numbers["run_video"] = {"frames_s": lengths[0] / dt,
+                            "one_device_frames_s": lengths[0] / w_dt,
+                            "trunk_chunk": sp.trunk_chunk(lengths[0],
+                                                          (IMG, IMG))}
+    print(f"  (c) run_video {lengths[0]} frames over {numbers['devices']}: "
+          f"{lengths[0] / dt:.1f} frames/s (one device "
+          f"{lengths[0] / w_dt:.1f}), trunk chunk "
+          f"{numbers['run_video']['trunk_chunk']}; bottleneck launches by "
+          f"card {by_dev} (want {want}), {got} "
+          f"{'ok' if good else 'FAIL'}")
+    ok &= probs_close("SP run_video vs one device", probs, w_probs) and good
+    ok &= argmax_agrees("SP run_video vs one device", preds, w_preds,
+                        w_probs, min_decided=1)
+
+    k = lengths[0] - SEQ + 1
+    positions = torch.from_numpy(np.unique(np.concatenate(
+        [[0, 1, k - 1], rng.choice(np.arange(2, k - 1),
+                                   min(MESH_POSITIONS - 3, k - 3),
+                                   replace=False)])))
+    feats, _, _, _ = timed(lambda: sp.bank_features(videos[0]))
+    w_feats = one.bank_features(videos[0])
+    ok &= compare(torch, f"SP bank_features vs one device at "
+                  f"{len(positions)} positions",
+                  feats[positions.to(feats.device)],
+                  w_feats[positions.to(w_feats.device)])[1]
+
+    one, sp = engines["tiled"]
+    total = sum(lengths)
+    chunk = min(2048, total)
+    blocks = [chunk] * -(-total // chunk)
+    for e in (one, sp):
+        e.run_corpus(videos, chunk=chunk)
+    w_corpus, w_dt, _, _ = timed(lambda: one.run_corpus(videos, chunk=chunk))
+    corpus, dt, got, by_dev = timed(lambda: sp.run_corpus(videos,
+                                                          chunk=chunk))
+    counts = add_counts(counts, got)
+    want = {f"{k}@cuda:{d}": v for (k, d), v in
+            sp_want(sp, blocks, "tiled", True).items()}
+    good = by_dev == want
+    numbers["run_corpus"] = {"frames_s": total / dt,
+                             "one_device_frames_s": total / w_dt}
+    print(f"  (c) run_corpus {lengths} in blocks of {chunk} over "
+          f"{numbers['devices']}: {total / dt:.1f} frames/s (one device "
+          f"{total / w_dt:.1f}); bottleneck launches by card {by_dev} "
+          f"(want {want}) {'ok' if good else 'FAIL'}")
+    ok &= good
+    for i, n in enumerate(lengths):
+        if n < SEQ:
+            ok &= corpus[i][1].shape == (0, CLASSES)
+            continue
+        ok &= probs_close(f"SP run_corpus vs one device, video {i}",
+                          corpus[i][1], w_corpus[i][1])
+        ok &= argmax_agrees(f"SP run_corpus vs one device, video {i}",
+                            corpus[i][0], w_corpus[i][0], w_corpus[i][1],
+                            min_decided=1)
+    del engines, videos
+    torch.cuda.empty_cache()
+    return counts, numbers, ok
+
+
+def sp_devices(torch, shards=MESH_SHARDS):
+    """The SP pass's devices: one card a shard where the host has them,
+    else card 0 for every shard."""
+    n = torch.cuda.device_count()
+    return [torch.device("cuda", i if n >= shards else 0)
+            for i in range(shards)]
+
+
+def run_mesh_slice(torch, seed, card, kept, refs=None):
+    """Phase 4o: the mesh slice, over 4g's directory: (a) a 1 x 2 grid's
+    train steps (`multi_train` with a model axis of 2; the one-process tmr
+    steps those of 4k (b) where `refs` holds them), whose ranks then run
+    (b)'s command, checked by `mesh_workflow`, (c) `mesh_sp`. Returns
+    (counts by path, numbers, ok)."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    numbers = {}
+    with phase_dir("mesh") as tmp:
+        train_counts, numbers["steps"], ok = multi_train(
+            torch, seed, card, tmp, world=MESH_MP, mp=MESH_MP,
+            cli_argv=workflow_argv(kept["train"], tmp), refs=refs)
+        flow_counts, numbers["workflow_s"], ok_b = mesh_workflow(
+            torch, card, kept["train"], tmp, numbers["steps"])
+    sp_counts, numbers["sp"], ok_c = mesh_sp(torch, seed, card,
+                                             sp_devices(torch))
+    ok &= ok_b and ok_c
+    counts = add_counts(train_counts, flow_counts, sp_counts)
+    good = all(counts.get(k, 0) > 0 for k in (
+        "time_conv", "nl_attention", "fused_bottleneck",
+        "fused_bottleneck_tiled"))
+    numbers["seconds"] = time.perf_counter() - t0
+    print(f"mesh slice: launches over every rank and card {counts}, "
+          f"{numbers['seconds']:.1f} s on {card} "
+          f"{'ok' if ok and good else 'FAIL'}")
+    return {"mesh": counts}, numbers, ok and good
 
 
 # Phase 4l: the calls of each path timed in (a), the host-cost calls of
@@ -5060,6 +5526,35 @@ class Phases:
                                            3)}))
 
 
+def mesh_only(torch, seed, world, mp, backend):
+    """`--mesh-only WORLD MP BACKEND`: phase 4o (a) as a (WORLD / MP) x MP
+    grid over BACKEND, one card a rank where the host has them, and (c)
+    over 2 cards (card 0 twice on a one-card host) and over 4 where it has
+    them; one JSON line of the numbers,
+    the card's line. Returns the exit code."""
+    from tmrnet_torch.kernels.build import build_all
+
+    card = card_line()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    os.makedirs(ROOT_TMP, exist_ok=True)
+    build_all()
+    world, mp = int(world), int(mp)
+    with phase_dir("mesh") as tmp:
+        counts, numbers, ok = multi_train(torch, seed, card, tmp, world,
+                                          backend, mp)
+    sp = {}
+    for n in (2, 4):
+        if n == 2 or torch.cuda.device_count() >= n:
+            c, sp[n], good = mesh_sp(torch, seed, card, sp_devices(torch, n))
+            counts = add_counts(counts, c)
+            ok &= good
+    print(json.dumps({"mesh_only": [world, mp, backend], "launches": counts,
+                      "numbers": numbers, "sp": sp, "ok": ok}))
+    print(card)
+    return 0 if ok else 1
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5074,6 +5569,16 @@ def main():
                         help=argparse.SUPPRESS)
     parser.add_argument("--multi-backend", default="gloo",
                         help=argparse.SUPPRESS)
+    parser.add_argument("--multi-mp", type=int, default=1,
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--multi-cli", help=argparse.SUPPRESS)
+    parser.add_argument("--mesh-only", nargs=3,
+                        metavar=("WORLD", "MP", "BACKEND"),
+                        help="only phase 4o (a) over WORLD ranks as a "
+                             "(WORLD / MP) x MP grid, one card a rank where "
+                             "there are enough, over BACKEND (nccl or gloo), "
+                             "and (c) over 2 cards (card 0 twice on one) "
+                             "and 4 where there are, then exit")
     parser.add_argument("--multi-only", nargs=2, metavar=("WORLD", "BACKEND"),
                         help="only phase 4k (b) over WORLD ranks, one card a "
                              "rank where there are enough, over BACKEND "
@@ -5092,7 +5597,9 @@ def main():
     if args.multi_rank is not None:     # a rank of phase 4k (b)
         return multi_rank(torch, args.seed, args.multi_rank, args.multi_port,
                           args.multi_dir, args.multi_world,
-                          args.multi_backend)
+                          args.multi_backend, args.multi_mp,
+                          json.loads(args.multi_cli) if args.multi_cli
+                          else None)
     if args.multi_only:
         card = card_line()
         world, backend = int(args.multi_only[0]), args.multi_only[1]
@@ -5106,6 +5613,8 @@ def main():
                           "numbers": numbers, "ok": ok}))
         print(card)
         return 0 if ok else 1
+    if args.mesh_only:
+        return mesh_only(torch, args.seed, *args.mesh_only)
     from tmrnet_torch.kernels.build import build_all
 
     torch.backends.cudnn.allow_tf32 = False
@@ -5124,6 +5633,8 @@ def main():
         print("kernels vs plain versions at the engines' shapes:")
         ok &= check_engine_shapes(torch, seed, records)
         ok &= check_time_conv_split(torch, seed, records)
+        print("time_conv's column slices (tensor parallelism):")
+        ok &= check_time_conv_slices(torch, seed, records)
         print("int8 kernels vs plain versions (bit for bit):")
         int8_records, ok8 = check_int8_kernels(torch, seed)
         return records + int8_records, ok and ok8
@@ -5171,6 +5682,7 @@ def main():
     serve = phases.run("4e serve", lambda: run_serve_slice(torch, seed, card))
     by_path["serve"] = serve[0] if serve else {}
     os.makedirs(ROOT_TMP, exist_ok=True)
+    refs = {}       # 4k (b)'s one-process steps, for 4o (a)
     with tempfile.TemporaryDirectory(prefix="kept-", dir=ROOT_TMP) as root:
         kept = {"root": root}       # 4f, 4g and 4h's directories, for 4i, 4k
         for name, fn in (
@@ -5184,9 +5696,11 @@ def main():
                 ("4i score", lambda: run_score_slice(torch, seed, card,
                                                      kept)),
                 ("4k multi", lambda: run_multi_slice(torch, seed, card,
-                                                     kept)),
+                                                     kept, refs)),
                 ("4l artifact", lambda: run_artifact_slice(torch, seed, card,
-                                                           kept))):
+                                                           kept)),
+                ("4o mesh", lambda: run_mesh_slice(torch, seed, card,
+                                                   kept, refs))):
             res = phases.run(name, fn)
             if res:
                 by_path.update(res[0])
@@ -5216,7 +5730,8 @@ def main():
     phases.report()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "launches_by_path", "stages", "shapes", "engine_shapes")
+            "launches_by_path", "stages", "shapes", "engine_shapes",
+            "slices")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in records]}))
     print(card)

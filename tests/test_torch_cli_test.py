@@ -288,3 +288,36 @@ def test_clip_engine_builds_a_missing_bank(files, runs, capsys):
     with np.load(runs["port"] / "built_preds.npz") as z, \
             np.load(runs["port"] / "clip.npz") as w:
         np.testing.assert_array_equal(z["scores"], w["scores"])
+
+
+def test_sequence_parallel_commands_equal_one_device(files, runs):
+    """`--set mesh.data_parallel=2` without mesh.multihost: `build-lfb
+    --engine video` and `test --engine video|corpus` run the
+    sequence-parallel pass over two CPU shards and write the one-device
+    runs' outputs (1e-6)."""
+    out = runs["port"] / "sp"
+    out.mkdir()
+    sp = ["--set", "mesh.data_parallel=2"]
+    cfg = ["--config", str(files / "cfg.json")]
+    assert cli.main(["build-lfb", *cfg, "--manifest", str(runs["port"] /
+                                                          "m.pkl"),
+                     "--torch-ckpt", str(files / "extractor.pth"),
+                     "--engine", "video", "--out", str(out / "bank.npz"),
+                     *PORT_ARGS, *sp]) == 0
+    with np.load(out / "bank.npz") as got, \
+            np.load(runs["port"] / "bank_video.npz") as want:
+        np.testing.assert_allclose(got["features"], want["features"],
+                                   rtol=1e-6, atol=1e-6)
+    for name in ("video", "corpus"):
+        assert cli.main(["test", *cfg, "--manifest", str(runs["port"] /
+                                                         "m.pkl"),
+                         "--torch-ckpt", str(files / "model.pth"),
+                         "--extractor-torch-ckpt",
+                         str(files / "extractor.pth"), *TESTS[name],
+                         "--out", str(out / f"{name}.npz"), *PORT_ARGS,
+                         *sp]) == 0
+        with np.load(out / f"{name}.npz") as got, \
+                np.load(runs["port"] / f"{name}.npz") as want:
+            np.testing.assert_array_equal(got["preds"], want["preds"])
+            np.testing.assert_allclose(got["scores"], want["scores"],
+                                       rtol=1e-6, atol=1e-6)

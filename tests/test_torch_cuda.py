@@ -127,6 +127,39 @@ def test_time_conv_kernel_repeats_bit_for_bit(gen, b, w, c):
         assert torch.equal(time_conv_cuda(x, *ws), first)
 
 
+# Column slices of a layer (tensor parallelism over M ranks): each slice
+# against the plain version's slice, and the M slices side by side equal
+# to the whole call bit for bit (each output column's arithmetic is the
+# same); plans with x staged once and in two buffers (C = 2048).
+@pytest.mark.parametrize("b,w,c,m", [(8, 30, 512, 2), (8, 30, 512, 4),
+                                     (2582, 30, 512, 2), (3, 11, 192, 3),
+                                     (2, 17, 2048, 4), (2, 70, 256, 2)])
+def test_time_conv_kernel_column_slices(gen, b, w, c, m):
+    x = _randn(gen, (b, w, c))
+    ws = _tc_weights(gen, c)
+    cout = c // m
+    parts = []
+    for j in range(m):
+        c0 = j * cout
+        sl = [t[..., c0:c0 + cout].contiguous() if t.dim() == 3
+              else t[c0:c0 + cout].contiguous() for t in ws]
+        reset_launches()
+        parts.append(time_conv_cuda(x, *sl, c0=c0))
+        assert dict(LAUNCHES) == {"time_conv": 1}
+        _close(parts[-1], time_conv_plain(x.float(), *(t.float() for t in sl),
+                                          c0=c0))
+    assert torch.equal(torch.cat(parts, dim=-1), time_conv_cuda(x, *ws))
+
+
+def test_time_conv_kernel_refuses_a_slice_off_the_tiles(gen):
+    x = _randn(gen, (2, 3, 128))
+    ws = [t[..., :64].contiguous() if t.dim() == 3 else t[:64].contiguous()
+          for t in _tc_weights(gen, 128)]
+    for c0 in (32, 96):
+        with pytest.raises(ValueError, match="column slice"):
+            time_conv_cuda(x, *ws, c0=c0)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_nl_attention_kernel_repeats_bit_for_bit(gen, dtype):
     q, k, v = (_randn(gen, s, dtype=dtype)

@@ -126,18 +126,20 @@ def test_time_conv_split_equals_the_whole_call(rows):
     assert sum(pieces) == 11
 
 
-def rehearse(x, ws, bs, plan):
-    """csrc/time_conv.cu's index arithmetic in numpy (f64)."""
+def rehearse(x, ws, bs, plan, c0=0):
+    """csrc/time_conv.cu's index arithmetic in numpy (f64); ws (k, C,
+    Cout), bs (Cout,): the output channels [c0, c0 + Cout)."""
     b, w, c = x.shape
+    cout = ws[0].shape[2]
     m_all = b * w
     xf = x.reshape(m_all, c).astype(np.float64)
-    out = np.full((m_all, c), np.nan)
+    out = np.full((m_all, cout), np.nan)
     kc_, ck, lead = plan.kc, plan.ck, NSTAGE - 2
     nck, nkc = c // ck, ck // kc_
     seq = [(br, j, tap, kc) for br in range(3) for j in range(nck)
            for tap in range(3 + 2 * br) for kc in range(nkc)]
     buf_of = lambda br, j: (br * nck + j) & 1 if nck > 1 else 0
-    gx, gy = time_conv_grid(b, w, plan)
+    gx, gy = time_conv_grid(b, w, plan, cout)
     rows = np.arange(BM)
     for bx in range(gx):
         for by in range(gy):
@@ -169,8 +171,8 @@ def rehearse(x, ws, bs, plan):
                 if g + lead < len(seq):
                     issue(g + lead)    # into the stage of chunk g - 2
                 xb = xs[buf_of(br, j)]
-                if br == 0 and tap == 0 and kc == 0 and j == n0 // ck:
-                    cin = n0 % ck
+                if br == 0 and tap == 0 and kc == 0 and j == (c0 + n0) // ck:
+                    cin = (c0 + n0) % ck
                     cur = xb[rows + HALO, cin:cin + BN]
                     prev = np.where((t_of > 0)[:, None],
                                     xb[rows + HALO - 1, cin:cin + BN], 0.0)
@@ -188,7 +190,7 @@ def rehearse(x, ws, bs, plan):
                     best = np.maximum(best, acc + bs[br][n0:n0 + BN])
             keep = m0 + rows < m_all
             out[m0 + rows[keep], n0:n0 + BN] = best[keep]
-    return out.reshape(b, w, c)
+    return out.reshape(b, w, cout)
 
 
 # Default plans at small shapes (W = 1; sequences straddling a 64-row

@@ -15,7 +15,9 @@ without the mesh. Over packed videos, a tiny model in f32 and reference
   `--engine clip` (each batch split over the ranks) within 1e-6;
 - `stream --max-streams 2` over 2 ranks: rank 0's JSONL equal byte for
   byte to a one-rank run's under mesh.multihost (rows grouped by video),
-  and per video to the one-process run's rows.
+  and per video to the one-process run's rows;
+- and one training command over a grid: `train-bank --set
+  mesh.model_parallel=2` over 2 ranks (1 x 2) against one process.
 """
 
 import json
@@ -215,3 +217,44 @@ def test_cli_stream_over_ranks_equals_one_process(files, tmp_path):
         assert (s["predictions"], s["clip_accuracy"], s["streams"]) == (
             one["predictions"], one["clip_accuracy"], one["streams"])
     assert one["predictions"] == sum(max(0, n - SEQ + 1) for n in LENGTHS)
+
+
+def test_cli_train_bank_over_a_grid_equals_one_process(files, tmp_path):
+    """The counterpart of JAX's `test_cli_train_bank_explicit_mesh`:
+    `train-bank --set mesh.model_parallel=2` as two gloo ranks (a 1 x 2
+    grid under mesh.multihost) trains, each rank's mesh line names its
+    model index, rank 0 alone prints the summary, and the checkpoint's
+    metrics equal one process's run (1e-5) and its weights are whole."""
+    from tmrnet_torch.models.convert import from_jax_variables
+    from tmrnet_torch.utils.checkpoint import CheckpointManager
+
+    def argv(name):
+        return ["train-bank", "--config", str(files / "cfg.json"),
+                "--train-manifest", str(files / "m.pkl"), "--device",
+                "cpu", "--set", "train.epochs=1", "--set",
+                f"train.checkpoint_dir={tmp_path / name}", "--log-dir",
+                str(tmp_path / f"log_{name}")]
+
+    one_process(argv("one"))
+    outs = ranks(argv("grid") + ["--set", "mesh.model_parallel=2"], 2)
+    meshes = [json.loads(ln)["mesh"] for o in outs for ln in o.splitlines()
+              if ln.startswith('{"mesh"')]
+    assert sorted(m["model_index"] for m in meshes) == [0, 1]
+    assert all(m["shape"] == {"data": 1, "model": 2} for m in meshes)
+    assert ["best epoch" in o for o in outs] == [True, False]
+    grid, one = (CheckpointManager(str(tmp_path / n)) for n in ("grid",
+                                                                "one"))
+    assert grid.all_steps() == one.all_steps()
+    got = grid.metadata(grid.latest_step())["metrics"]
+    want = one.metadata(one.latest_step())["metrics"]
+    for k in ("val_acc", "train_acc", "val_loss"):
+        assert got[k] == pytest.approx(want[k], rel=1e-5), k
+    saved = from_jax_variables(CheckpointManager._load(
+        grid._step_dir(grid.latest_step()))["variables"])
+    ref = from_jax_variables(CheckpointManager._load(
+        one._step_dir(one.latest_step()))["variables"])
+    assert {k: v.shape for k, v in saved.items()} == {
+        k: v.shape for k, v in ref.items()}
+    for k, v in saved.items():
+        np.testing.assert_allclose(v.numpy(), ref[k].numpy(), rtol=1e-4,
+                                   atol=1e-5, err_msg=k)

@@ -137,12 +137,15 @@ def global_batch(seed, head):
 
 
 def run_case(name, mesh=None, dtype=torch.float32):
-    """A case's STEPS micro-steps over the global batches (this rank's
-    rows under a mesh): (the summed loss of each, the final state dict).
-    dtype float64: the same steps with the model and its inputs in f64."""
+    """A case's STEPS micro-steps over the global batches (the rows of
+    this rank's data index under a mesh, the model's slices under its
+    model axis): (the loss of each summed over the data ranks, the final
+    whole state dict). dtype float64: the same steps with the model and
+    its inputs in f64."""
     from tmrnet_torch.data.device_feed import DevicePrep
     from tmrnet_torch.parallel.mesh import (all_reduce_host,
                                             process_local_bounds)
+    from tmrnet_torch.parallel.tensor import shard_model_
     from tmrnet_torch.train.loop import step_generator
 
     head, reduction, accum, clip, drop = CASES[name]
@@ -155,6 +158,7 @@ def run_case(name, mesh=None, dtype=torch.float32):
         for module in model.modules():
             if hasattr(module, "compute_dtype"):
                 module.compute_dtype = dtype
+    shard_model_(model, mesh)
     state = TrainState(model, make_optimizer(TrainConfig(**TRAIN), model,
                                              slow_modules_for_head(head)),
                        grad_accum=accum, grad_clip=clip, mesh=mesh)
@@ -162,7 +166,7 @@ def run_case(name, mesh=None, dtype=torch.float32):
     step, _ = make(CLASS_WEIGHTS, reduction, prep=DevicePrep(
         DataConfig(device_normalize=True), dtype, "cpu"), mesh=mesh)
     lo, hi = (0, B) if mesh is None else process_local_bounds(
-        B, mesh.rank, mesh.world)
+        B, mesh.data_index, mesh.dp)
     losses = []
     for i in range(STEPS):
         args, labels = global_batch(40 + i, head)
@@ -170,9 +174,9 @@ def run_case(name, mesh=None, dtype=torch.float32):
                  step_generator(0, 0, i, torch.device("cpu")))
         loss = m["loss"].detach().numpy().astype(np.float64)
         if mesh is not None:
-            loss = all_reduce_host(loss, mesh)
+            loss = all_reduce_host(loss, mesh, data_only=True)
         losses.append(float(loss))
-    return losses, {k: v.clone() for k, v in model.state_dict().items()}
+    return losses, {k: v.clone() for k, v in state.whole_state()[0].items()}
 
 
 @pytest.fixture(scope="module")

@@ -2,9 +2,11 @@
 it has them: `partition_videos`, `process_local_bounds`,
 `gather_video_results` in one process, `ClipLoader(local_rows=)` against
 JAX's local-row batches, the mesh's checks and refusals (a failed
-rendezvous raises, `data_parallel` must be the world size,
-`model_parallel > 1` is refused, the engines refuse a mesh over several
-processes, `_mesh_for` an indivisible batch), the kernel build's lock
+rendezvous raises, `data_parallel` must be the world size over
+`model_parallel`, the engines refuse a mesh over several
+processes, `_mesh_for` an indivisible batch, the in-process N > 1 of the
+clip engine, `stream` and the trainers), `doctor --mesh` against JAX's,
+the kernel build's lock
 between two processes (a stand-in `nvcc`), and `dryrun_multichip(2)` and
 `(3)`."""
 
@@ -186,16 +188,14 @@ def test_rendezvous_failures_raise():
 
 
 def test_refusals_of_what_is_not_ported(monkeypatch):
-    """Tensor parallelism (model_parallel > 1) is refused by name; the
-    engines refuse a mesh over several processes; _mesh_for exits on a
-    global batch that does not divide over the ranks."""
+    """The engines refuse a mesh over several processes; _mesh_for exits on
+    a global batch that does not divide over the ranks; in one process,
+    mesh.data_parallel=N > 1 (the video engines' sequence-parallel pass)
+    is refused by name by the clip engine, `stream` and the trainers, and
+    mesh.model_parallel > 1 without mesh.multihost by every command."""
     from tmrnet_torch.eval.infer import ClipInference
     from tmrnet_torch.eval.stream import StreamingInference
 
-    with pytest.raises(NotImplementedError, match="item 3b"):
-        MeshConfig(model_parallel=2)
-    with pytest.raises(NotImplementedError, match="item 3b"):
-        apply_override(ExperimentConfig(), "mesh.model_parallel=2")
     two = DataMesh(None, None, 0, 2, torch.device("cpu"))
     require_single_controller(DataMesh(None, None, 0, 1,
                                        torch.device("cpu")), "x")
@@ -209,12 +209,56 @@ def test_refusals_of_what_is_not_ported(monkeypatch):
                          "data.batch_clips=3")
     args = type("Args", (), {"device": "cpu"})()
     ranks = types.SimpleNamespace(rank=0, world=2, backend="gloo",
-                                  device=torch.device("cpu"))
+                                  device=torch.device("cpu"), data_index=0,
+                                  model_index=0, dp=2,
+                                  shape={"data": 2, "model": 1})
     monkeypatch.setattr(distributed, "local_eval_mesh",
                         lambda cfg, device: ranks)
     with pytest.raises(SystemExit, match="divisible by the 2"):
         cli._mesh_for(cfg, args)
     assert cli._mesh_for(cfg, args, batch=0) == (ranks.device, ranks)
+    sp = apply_override(ExperimentConfig(), "mesh.data_parallel=2")
+    for argv in (["test", "--manifest", "m.pkl", "--torch-ckpt", "t.pth",
+                  "--engine", "clip"],
+                 ["build-lfb", "--manifest", "m.pkl", "--torch-ckpt",
+                  "t.pth", "--engine", "clip", "--out", "b.npz"],
+                 ["stream", "--manifest", "m.pkl", "--torch-ckpt", "t.pth",
+                  "--out", "s.jsonl"],
+                 ["train-bank", "--train-manifest", "m.pkl"],
+                 ["train-tmr", "--train-manifest", "m.pkl", "--lfb",
+                  "b.npz"]):
+        with pytest.raises(SystemExit, match="sequence-parallel pass of"):
+            cli.main(argv + ["--device", "cpu", "--set",
+                             "mesh.data_parallel=2"])
+    assert cli._sp_devices(sp, args, "test") == [torch.device("cpu")] * 2
+    # N above the visible cards exits (one card, as it would be seen)
+    import tmrnet_torch.device
+
+    monkeypatch.setattr(tmrnet_torch.device, "resolve_device",
+                        lambda d: torch.device(d))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    cuda = type("Args", (), {"device": "cuda"})()
+    with pytest.raises(SystemExit, match="1 are visible"):
+        cli._sp_devices(sp, cuda, "test")
+    with pytest.raises(SystemExit, match="mesh.multihost=true"):
+        cli._mesh_for(apply_override(ExperimentConfig(),
+                                     "mesh.model_parallel=2"), args)
+
+
+def test_doctor_mesh_and_smoke(capsys):
+    """The port's counterpart of JAX's `test_doctor_mesh_and_smoke`: `doctor
+    --mesh --smoke` with a 4 x 2 grid prints the grid as JAX does and
+    exits 0 (on the CPU: the grid needs its processes, which `doctor`
+    names)."""
+    assert cli.main(["doctor", "--mesh", "--smoke", "--device", "cpu",
+                     "--set", "mesh.data_parallel=4",
+                     "--set", "mesh.model_parallel=2"]) == 0
+    out = capsys.readouterr().out
+    assert "'data': 4" in out and "'model': 2" in out
+    assert "8 processes" in out and "FAIL" not in out
+    assert cli.main(["doctor", "--mesh", "--device", "cpu", "--set",
+                     "mesh.data_parallel=2"]) == 0
+    assert "sequence-parallel pass" in capsys.readouterr().out
 
 
 def test_kernel_build_is_locked_between_processes(tmp_path):

@@ -59,25 +59,36 @@ float32 in [0, 1] with no mean or std, which the card casts and does not
 normalize. `prepare` and `--videos` need a decoder, imageio+pyav or cv2,
 and exit naming both where neither imports, before they list a directory
 (the card's machine has none: prepare elsewhere with `--pack`). Not
-ported: Orbax checkpoints, tensor parallelism (`mesh.model_parallel`) and
-`--artifact` under `mesh.multihost`. The learning-efficacy study that
+ported: Orbax checkpoints and `--artifact` under `mesh.multihost`. The learning-efficacy study that
 drives `synth` through `evaluate` is `python -m
 tmrnet_torch.experimental.efficacy_study`.
 
-Data parallelism across processes (`_mesh_for`, JAX :85-119): under
-`--set mesh.multihost=true` each process joins a `torch.distributed`
-group (torchrun's environment, or `mesh.coordinator`,
-`mesh.num_processes` and `mesh.process_id` together) and drives one
-card, cuda:(LOCAL_RANK % cards) (gloo ranks on the CPU with `--device
-cpu`): `train-bank` and `train-tmr` train on each rank's rows of every
-global batch of data.batch_clips (which must divide over the ranks),
-`build-lfb` builds each rank's rows (clip engine) or videos (video
-engine), `test --engine corpus` and `stream` partition the videos. Rank 0
-writes every output file and prints the summary line; the outputs equal
-a one-process run's. For example
+The (data x model) grid across processes (`_mesh_for`, JAX :85-119):
+under `--set mesh.multihost=true` each process joins a
+`torch.distributed` group (torchrun's environment, or
+`mesh.coordinator`, `mesh.num_processes` and `mesh.process_id` together)
+and drives one card, cuda:(LOCAL_RANK % cards) (gloo ranks on the CPU
+with `--device cpu`): `train-bank` and `train-tmr` train on the rows of
+each rank's data index of every global batch of data.batch_clips (which
+must divide over the data ranks), with `--set mesh.model_parallel=M` over
+M ranks a model group, each holding its slices of the layers that JAX's
+tensor-parallel rules shard (`parallel/tensor.py`); `build-lfb` builds
+each rank's rows (clip engine) or videos (video engine), `test --engine
+corpus` and `stream` partition the videos: they take every rank as a data
+rank, since the engines replicate the weights (JAX's do, `infer.py
+:231-236`). Rank 0 writes every output file and prints the summary line;
+the outputs equal a one-process run's. For example
 
     torchrun --nproc-per-node 8 -m tmrnet_torch train-tmr ... \
-        --set mesh.multihost=true
+        --set mesh.multihost=true --set mesh.model_parallel=2
+
+Without mesh.multihost every command runs on one card, except that `--set
+mesh.data_parallel=N` (N > 1) runs `test --engine video|corpus` and
+`build-lfb --engine video` as the sequence-parallel pass over cuda:0 ..
+cuda:N-1 (`eval/infer.py::VideoInference(devices=)`; N CPU shards with
+`--device cpu`); the clip engine, `stream` and the trainers refuse it,
+and N above the visible cards exits. JAX builds a mesh over every
+visible device by itself; the port takes N explicitly.
 
 Config: --config <json> loads an ExperimentConfig (a JSON written by either
 package; fields the port lacks are skipped, and a `config_ignored` line on
@@ -355,31 +366,80 @@ def frame_loader(cfg: ExperimentConfig):
 
 
 def _mesh_for(cfg: ExperimentConfig, args, batch: Optional[int] = None,
-              what: str = "data.batch_clips"):
-    """(the command's device, its data mesh or None). Under
-    mesh.multihost: join the process group before any other CUDA call
+              what: str = "data.batch_clips", grid: bool = False):
+    """(the command's device, its mesh or None). Under mesh.multihost: join
+    the process group before any other CUDA call
     (`eval/distributed.py::local_eval_mesh`), the device is the rank's, a
-    `mesh` line on stderr names the rank, the world, the backend and the
-    device; a global batch `batch` (default data.batch_clips; 0: none)
-    that does not divide over the ranks exits. Else: --device, and no
-    mesh."""
+    `mesh` line on stderr names the rank, the world, the backend, the
+    device and the rank's data and model indexes; a global batch `batch`
+    (default data.batch_clips; 0: none) that does not divide over the data
+    ranks (every rank, unless `grid`: the trainers') exits. Else: --device,
+    and no mesh; mesh.model_parallel > 1 then exits, as the grid runs over
+    processes."""
     from tmrnet_torch.device import resolve_device
 
     if not cfg.mesh.multihost:
+        if cfg.mesh.model_parallel > 1:
+            raise SystemExit(
+                f"mesh.model_parallel={cfg.mesh.model_parallel}: the grid "
+                f"runs one process a card; launch the ranks with --set "
+                f"mesh.multihost=true (torchrun ... -m tmrnet_torch ...)")
         return resolve_device(args.device), None
     from tmrnet_torch.eval.distributed import local_eval_mesh
 
-    mesh = local_eval_mesh(cfg, args.device)
+    try:
+        mesh = local_eval_mesh(cfg, args.device)
+    except ValueError as e:
+        raise SystemExit(str(e))
     print(json.dumps({"mesh": {"rank": mesh.rank, "world": mesh.world,
                                "backend": mesh.backend,
-                               "device": str(mesh.device)}}),
+                               "device": str(mesh.device),
+                               "data_index": mesh.data_index,
+                               "model_index": mesh.model_index,
+                               "shape": mesh.shape}}),
           file=sys.stderr, flush=True)
     if batch is None:
         batch = cfg.data.batch_clips
-    if batch and batch % mesh.world:
+    ranks = mesh.dp if grid else mesh.world
+    if batch and batch % ranks:
         raise SystemExit(f"{what}={batch} must be divisible by the "
-                         f"{mesh.world} processes; adjust {what}")
+                         f"{ranks} {'data ranks' if grid else 'processes'}; "
+                         f"adjust {what}")
     return mesh.device, mesh
+
+
+def _sp_devices(cfg: ExperimentConfig, args, what: str,
+                allowed: bool = True):
+    """The sequence-parallel pass's devices under --set
+    mesh.data_parallel=N (N > 1) without mesh.multihost: cuda:0 ..
+    cuda:N-1, or N CPU shards with --device cpu; None without the
+    setting (or under multihost, where N is the data axis of the grid).
+    `what` (a command that does not run the pass) refuses it by name, and
+    N above the visible cards exits."""
+    from tmrnet_torch.device import resolve_device
+
+    n = cfg.mesh.data_parallel
+    if cfg.mesh.multihost or n in (-1, 1):
+        return None
+    if not allowed:
+        raise SystemExit(
+            f"{what} runs on one card in one process: mesh.data_parallel={n} "
+            f"without mesh.multihost is the sequence-parallel pass of `test "
+            f"--engine video|corpus` and `build-lfb --engine video` only "
+            f"(launch ranks with --set mesh.multihost=true for the grid)")
+    if n < 1:
+        raise SystemExit(f"mesh.data_parallel={n}: want -1 or N >= 1")
+    dev = resolve_device(args.device)
+    if dev.type == "cpu":
+        return [dev] * n
+    import torch
+
+    have = torch.cuda.device_count()
+    if n > have:
+        raise SystemExit(f"mesh.data_parallel={n}: the sequence-parallel "
+                         f"pass takes one card a shard, and {have} are "
+                         f"visible")
+    return [torch.device("cuda", i) for i in range(n)]
 
 
 def _writes(mesh) -> bool:
@@ -608,6 +668,8 @@ def cmd_build_lfb(args) -> int:
     if args.engine == "video" and args.videos:
         # before the dataset's probe and the weights' load
         raise SystemExit("build-lfb --engine video needs a frame manifest")
+    devices = _sp_devices(cfg, args, f"build-lfb --engine {args.engine}",
+                          allowed=args.engine == "video")
     device, mesh = _mesh_for(cfg, args, batch=(
         0 if args.engine == "video" else cfg.data.batch_clips))
     ds = (video_dataset(cfg, args.videos, args.annotations, False)
@@ -616,7 +678,8 @@ def cmd_build_lfb(args) -> int:
     extractor, = folded_weights(cfg, extractor_state(cfg, state))
     del state
     bank = build_lfb(cfg, extractor, ds, cache_path=args.out, force=True,
-                     engine=args.engine, device=device, mesh=mesh)
+                     engine=args.engine, device=device, mesh=mesh,
+                     devices=devices)
     if _writes(mesh):
         print(f"bank: {bank.num_rows} rows x {bank.feature_dim} -> "
               f"{args.out}")
@@ -666,7 +729,8 @@ def cmd_train_bank(args) -> int:
 
     cfg = load_config(args)
     _check_val_flags(args)
-    device, mesh = _mesh_for(cfg, args)     # before the logger
+    _sp_devices(cfg, args, "train-bank", allowed=False)
+    device, mesh = _mesh_for(cfg, args, grid=True)     # before the logger
     if args.videos:
         train_ds, val_ds = _video_train_val(cfg, args)
     else:
@@ -697,7 +761,8 @@ def cmd_train_tmr(args) -> int:
 
     cfg = load_config(args)
     _check_val_flags(args)
-    device, mesh = _mesh_for(cfg, args)     # before the logger
+    _sp_devices(cfg, args, "train-tmr", allowed=False)
+    device, mesh = _mesh_for(cfg, args, grid=True)     # before the logger
     head = cfg.model.head if cfg.model.head in ("tmr", "nl_only") else "tmr"
     if (device.type == "cuda" and head == "tmr"
             and cfg.model.compute_dtype != "bfloat16"):
@@ -734,11 +799,12 @@ def cmd_train_tmr(args) -> int:
 
 
 def _video_engine_results(cfg, state, extractor, manifest, device,
-                          mesh=None):
+                          mesh=None, devices=None):
     """`test --engine video|corpus`: every video's (preds, probs) from a
     VideoInference, the whole set as one stream (eval.corpus), same-bucket
     groups of eval.video_batch videos, or one video at a time; under a
-    mesh, the corpus engine over each rank's videos, gathered."""
+    mesh, the corpus engine over each rank's videos, gathered; over
+    `devices`, the sequence-parallel pass."""
     from tmrnet_torch.data.pipeline import load_frame
     from tmrnet_torch.eval.distributed import run_corpus_distributed
     from tmrnet_torch.eval.infer import VideoInference
@@ -753,7 +819,8 @@ def _video_engine_results(cfg, state, extractor, manifest, device,
         return run_corpus_distributed(
             cfg, state, extractor, [len(v) for v in videos],
             lambda i: load_video(videos[i]), mesh=mesh)
-    engine = VideoInference(cfg, state, extractor, device=device)
+    engine = VideoInference(cfg, state, extractor, device=device,
+                            devices=devices)
     if cfg.eval.corpus:
         return engine.run_corpus([(lambda v=v: load_video(v)) for v in videos],
                                  lengths=[len(v) for v in videos],
@@ -830,6 +897,8 @@ def cmd_test(args) -> int:
                 "--engine video builds per-video memory windows; the "
                 "reference cross-video quirk (memory.compat_cross_video) "
                 "requires --engine clip")
+    devices = _sp_devices(cfg, args, f"test --engine {args.engine}",
+                          allowed=args.engine == "video")
     device, mesh = _mesh_for(cfg, args, batch=0)
     m = load_manifest(args.manifest)
     seq = cfg.data.sequence_length
@@ -839,7 +908,7 @@ def cmd_test(args) -> int:
         state, extractor = folded_weights(
             cfg, state, extractor_for(cfg, state, args))
         results = _video_engine_results(cfg, state, extractor, m, device,
-                                        mesh)
+                                        mesh, devices)
         preds = np.concatenate([r[0] for r in results])
         res = InferenceResult(
             preds=preds, scores=np.concatenate([r[1] for r in results]),
@@ -936,6 +1005,7 @@ def cmd_stream(args) -> int:
     from tmrnet_torch.eval.stream import StreamingInference
 
     cfg = load_config(args)
+    _sp_devices(cfg, args, "stream", allowed=False)
     engine = mesh = None
     if args.artifact:
         engine, cfg = _stream_artifact_engine(args, cfg)
@@ -1469,6 +1539,33 @@ def cmd_migrate(args) -> int:
     return 0
 
 
+def mesh_report(cfg: ExperimentConfig, args) -> str:
+    """doctor --mesh: the grid as JAX prints it ({'data': dp, 'model':
+    M}); under mesh.multihost this rank's place in it, after joining the
+    group; without, how the configured grid runs."""
+    m = cfg.mesh
+    if m.multihost:
+        _, mesh = _mesh_for(cfg, args, batch=0, grid=True)
+        return (f"{mesh.shape} over {mesh.world} processes over "
+                f"{mesh.backend}, this one rank {mesh.rank} (data "
+                f"{mesh.data_index}, model {mesh.model_index}) on "
+                f"{mesh.device}")
+    mp = max(1, m.model_parallel)
+    if m.data_parallel in (-1, 1) and mp == 1:
+        return (f"one process on {_mesh_for(cfg, args, batch=0)[0]} (no "
+                f"mesh)")
+    dp = max(1, m.data_parallel)
+    shape = {"data": dp, "model": mp}
+    text = (f"{shape} over {dp * mp} processes, one a card: launch them "
+            f"with --set mesh.multihost=true (torchrun --nproc-per-node "
+            f"{dp * mp})")
+    if mp == 1:
+        devices = _sp_devices(cfg, args, "doctor")
+        text += (f"; in one process, the sequence-parallel pass of the "
+                 f"video engines over {[str(d) for d in devices]}")
+    return text
+
+
 def cmd_doctor(args) -> int:
     """A host's preflight before a long job or a deployment: versions, the
     card, nvcc, the native preprocess, and (when pointed at them) a
@@ -1624,14 +1721,8 @@ def cmd_doctor(args) -> int:
 
     if args.mesh:
         try:
-            device, mesh = _mesh_for(load_config(args), args, batch=0)
-            if mesh is None:
-                add("ok", "mesh", f"one process on {device} (no mesh)")
-            else:
-                add("ok", "mesh", f"{mesh.world} processes over "
-                    f"{mesh.backend}, this one rank {mesh.rank} on "
-                    f"{mesh.device}")
-        except Exception as e:
+            add("ok", "mesh", mesh_report(load_config(args), args))
+        except (Exception, SystemExit) as e:
             add("FAIL", "mesh", str(e))
 
     if args.smoke:

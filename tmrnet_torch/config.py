@@ -220,14 +220,20 @@ class EvalConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Data parallelism across processes (`parallel/mesh.py`): one process
-    a card, `torch.distributed` between them (NCCL on cards, gloo on the
-    CPU). The axis names are JAX's and name nothing in the port."""
+    """The (data x model) grid across processes (`parallel/mesh.py`): one
+    process a card, `torch.distributed` between them (NCCL on cards, gloo
+    on the CPU); tensor parallelism over the model axis
+    (`parallel/tensor.py`). Without multihost, data_parallel N > 1 is the
+    video engines' sequence-parallel pass over N local cards
+    (`eval/infer.py::VideoInference(devices=)`). The axis names are JAX's
+    and name nothing in the port."""
 
     data_axis: str = "data"
     model_axis: str = "model"
-    # -1: every process on the data axis; else the world size itself.
+    # -1: every process over M on the data axis; else the world size / M.
     data_parallel: int = -1
+    # M: ranks of one model group, each holding a slice of the parameters
+    # that the TP rules shard.
     model_parallel: int = 1
     # Rendezvous with the other processes (init_process_group) when True.
     multihost: bool = False
@@ -237,13 +243,6 @@ class MeshConfig:
     coordinator: str = ""
     num_processes: int = -1
     process_id: int = -1
-
-    def __post_init__(self):
-        if self.model_parallel > 1:
-            raise NotImplementedError(
-                f"mesh.model_parallel={self.model_parallel}: tensor "
-                f"parallelism is not ported (ROADMAP.md queue 1 item 3b); "
-                f"the port is data parallel only")
 
 
 @dataclass(frozen=True)

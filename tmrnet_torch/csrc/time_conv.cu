@@ -3,6 +3,15 @@
 // per sequence; the causal branch is max(x[t], x[t-1]) with x[-1] = 0.
 // bf16 in and out, f32 accumulation, one rounding at the end.
 //
+// A column slice (tensor parallelism, tmrnet_torch/parallel/tensor.py):
+// weights (k, Cin, Cout) and biases (Cout,) of the output channels
+// c0 .. c0 + Cout of a layer over all Cin input channels; the identity and
+// causal branches read x's channels c0 + n; the output is (B, W, Cout).
+// The whole width is the slice c0 = 0, Cout = Cin, with the same
+// arithmetic. A block's tile is the same; only where it reads a weight
+// row (Cout apart), x's channel for the causal branch and where it writes
+// (Cout apart) move.
+//
 // Replaces the Pallas TPU kernel tmrnet_tpu/ops/time_conv.py::time_conv_fused
 // (:76-97, pallas_call at :82).
 //
@@ -14,7 +23,7 @@
 // it waits on is each chunk's fixed steps: the copy wait, a block barrier,
 // ldmatrix and the wgmma chain. The design:
 // - One warpgroup (128 threads) owns a tile of BM = 64 rows of M = B W by
-//   BN = 64 columns of C and keeps it as a wgmma f32 accumulator in
+//   BN = 64 output columns and keeps it as a wgmma f32 accumulator in
 //   registers (wgmma_rs<64>, wgmma_tile.cuh), A from registers through
 //   ldmatrix, B from shared memory in the 128-byte-swizzle layout.
 // - A from a staged window tile. The block's x rows m0 - 3 .. m0 + BM + 2 of
@@ -91,7 +100,7 @@ time_conv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w3,
                  const bf16* __restrict__ w5, const bf16* __restrict__ w7,
                  const float* __restrict__ b3, const float* __restrict__ b5,
                  const float* __restrict__ b7, bf16* __restrict__ out, int M,
-                 int W, int C, int CK) {
+                 int W, int C, int Cout, int c0, int CK) {
   using namespace wgmma;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   // the swizzle atoms of B must be 1 KB aligned in the shared window
@@ -121,19 +130,19 @@ time_conv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w3,
   };
 
   // Issue this thread's copies of one chunk into ring stage st: KC rows of
-  // the tap's (Cin, Cout) weight, columns n0 .. n0 + BN; with a region's
+  // the tap's (C, Cout) weight, columns n0 .. n0 + BN; with a region's
   // first chunk, the region's x tile.
   auto issue = [&](const Cursor& c, int st) {
     bf16* sb = reinterpret_cast<bf16*>(smem + st * L.b_stage);
     const bf16* wk = c.br == 0 ? w3 : c.br == 1 ? w5 : w7;
-    const bf16* src = wk + ((size_t)c.tap * C + c.ck * CK + c.kc * KC) * C + n0;
+    const bf16* src = wk + ((size_t)c.tap * C + c.ck * CK + c.kc * KC) * Cout + n0;
 #pragma unroll
     for (int i = 0; i < KC * BN / 8 / THREADS; ++i) {
       // a warp copies 4 rows x 128 bytes: 4 whole rows of a swizzle atom
       const int v = tid + i * THREADS;
       const int k = ((v >> 3) & 3) + 4 * (v >> 5);
       const int n = 8 * (v & 7);
-      cp_async16(&sb[b_chunk_offset(k, n, KC)], src + (size_t)k * C + n, true);
+      cp_async16(&sb[b_chunk_offset(k, n, KC)], src + (size_t)k * Cout + n, true);
     }
     if (c.tap == 0 && c.kc == 0 && (nck > 1 || c.br == 0)) {
       bf16* xb = xbuf(c);
@@ -160,9 +169,9 @@ time_conv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w3,
   float acc[BN / 2], best[BN / 2];
 
   // best = max(x[t], x[t-1]), x[-1] = 0, from the staged chunk holding
-  // columns n0 .. n0 + BN.
+  // x's channels c0 + n0 .. c0 + n0 + BN.
   auto seed = [&](const bf16* xb) {
-    const int cin = n0 % CK;
+    const int cin = (c0 + n0) % CK;
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
       const int r = erow + 8 * hf;
@@ -227,7 +236,8 @@ time_conv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w3,
       }
       cp_async_commit();  // an empty group keeps the count uniform
       const bf16* xb = xbuf(cons);
-      if (cons.br == 0 && cons.tap == 0 && cons.kc == 0 && cons.ck == n0 / CK)
+      if (cons.br == 0 && cons.tap == 0 && cons.kc == 0 &&
+          cons.ck == (c0 + n0) / CK)
         seed(xb);
       const int d = cons.tap - (1 + cons.br);  // the tap's offset, -k/2 .. k/2
       const int ts = a_t + d;
@@ -270,7 +280,7 @@ stream_done:
   for (int hf = 0; hf < 2; ++hf) {
     const int m = m0 + erow + 8 * hf;
     if (m >= M) continue;
-    bf16* dst = out + (size_t)m * C + n0 + ecol;
+    bf16* dst = out + (size_t)m * Cout + n0 + ecol;
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j)
       *reinterpret_cast<unsigned*>(dst + 8 * j) =
@@ -281,15 +291,16 @@ stream_done:
 template <int KC>
 int launch(const void* x, const void* w3, const void* w5, const void* w7,
            const void* b3, const void* b5, const void* b7, void* out, int M,
-           int W, int C, int CK, int smem, cudaStream_t stream) {
+           int W, int C, int Cout, int c0, int CK, int smem,
+           cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       time_conv_kernel<KC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((M + BM - 1) / BM, C / BN);
+  dim3 grid((M + BM - 1) / BM, Cout / BN);
   time_conv_kernel<KC><<<grid, THREADS, smem, stream>>>(
       (const bf16*)x, (const bf16*)w3, (const bf16*)w5, (const bf16*)w7,
       (const float*)b3, (const float*)b5, (const float*)b7, (bf16*)out, M, W,
-      C, CK);
+      C, Cout, c0, CK);
   return (int)cudaGetLastError();
 }
 
@@ -302,23 +313,28 @@ extern "C" int tmr_time_conv_smem(int C, int KC, int CK) {
   return tmr::tc::Layout(C, KC, CK).total;
 }
 
-// x, out: (B, W, C) bf16; w3/w5/w7: (k, C, C) bf16 (flax layout, contiguous);
-// b3/b5/b7: (C,) f32. KC in {64, 128}; CK a multiple of KC dividing C;
-// B W C < 2^31. Returns cudaErrorInvalidValue for a plan outside those,
-// else cudaGetLastError().
+// x: (B, W, C) bf16; w3/w5/w7: (k, C, Cout) bf16 (flax layout,
+// contiguous); b3/b5/b7: (Cout,) f32; out: (B, W, Cout) bf16, the output
+// channels c0 .. c0 + Cout (Cout = C, c0 = 0: the whole width). KC in
+// {64, 128}; CK a multiple of KC dividing C; Cout and c0 multiples of 64,
+// c0 + Cout <= C; B W C < 2^31. Returns cudaErrorInvalidValue for a plan
+// outside those, else cudaGetLastError().
 extern "C" int tmr_time_conv(const void* x, const void* w3, const void* w5,
                              const void* w7, const void* b3, const void* b5,
                              const void* b7, void* out, int B, int W, int C,
-                             int KC, int CK, void* stream) {
+                             int Cout, int c0, int KC, int CK, void* stream) {
   using namespace tmr::tc;
   const long long M = (long long)B * W;
   if ((KC != 64 && KC != 128) || B < 1 || W < 1 || CK < KC || CK % KC ||
-      C % CK || M * C > 0x7fffffff)
+      C % CK || M * C > 0x7fffffff || Cout < BN || Cout % BN || c0 < 0 ||
+      c0 % BN || c0 + Cout > C)
     return (int)cudaErrorInvalidValue;
   const int smem = tmr_time_conv_smem(C, KC, CK);
   if (smem > 232448) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (KC == 64)
-    return launch<64>(x, w3, w5, w7, b3, b5, b7, out, (int)M, W, C, CK, smem, s);
-  return launch<128>(x, w3, w5, w7, b3, b5, b7, out, (int)M, W, C, CK, smem, s);
+    return launch<64>(x, w3, w5, w7, b3, b5, b7, out, (int)M, W, C, Cout, c0,
+                      CK, smem, s);
+  return launch<128>(x, w3, w5, w7, b3, b5, b7, out, (int)M, W, C, Cout, c0,
+                     CK, smem, s);
 }

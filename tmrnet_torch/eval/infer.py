@@ -21,10 +21,22 @@ positions at once. Where JAX pads each video to a length bucket (one XLA
 program per bucket), the port runs the true length: windows only look back,
 so the outputs are the same. The trunk runs over chunks of at most
 `trunk_chunk` frames (`plan_trunk_chunk` picks it from the card's limits).
+
+The sequence-parallel pass, JAX's `VideoInference(mesh=)` (:205-242,
+`corpus_features` :531-546) in one process over local cards:
+`VideoInference(devices=[...])` keeps a replica of both trunks on each
+listed device (a device may repeat: one replica serves each repeat), cuts
+each trunk chunk's frames into contiguous shards, one a device, launches
+each shard on its device and gathers the features on the first, where the
+LSTMs and the head run. A corpus block that does not divide over the
+devices runs whole on the first, as JAX leaves such a block unsharded
+(:537-538). JAX's pass is single-controller, and so is this one: a mesh
+over several processes is still refused.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Iterable, List, Mapping, Optional, Sequence, Tuple
 
@@ -220,6 +232,16 @@ LIVE_ACTIVATIONS = 4
 MEMORY_SHARE = 0.5
 
 
+def _available_bytes(device: torch.device) -> Optional[int]:
+    """What the card can still allocate (free plus what PyTorch holds
+    unused); None off a card."""
+    if device.type != "cuda":
+        return None
+    free, _ = torch.cuda.mem_get_info(device)
+    return (free + torch.cuda.memory_reserved(device)
+            - torch.cuda.memory_allocated(device))
+
+
 def plan_trunk_chunk(frame_elements: int, itemsize: int,
                      available_bytes: Optional[int] = None) -> int:
     """The auto trunk chunk: the largest power of two of frames whose
@@ -273,13 +295,23 @@ class VideoInference:
     backbone_chunk (default cfg.eval.backbone_chunk): frames per trunk
     launch; 0 = auto (`trunk_chunk`), -1 = all of a call's frames at once,
     > 0 = that many. mesh as in `ClipInference`.
+    devices: the sequence-parallel pass over these devices (the first is
+    the engine's; `device` is not read); one device, or None, is the
+    one-device engine.
     """
 
     def __init__(self, cfg: ExperimentConfig,
                  state_dict: Mapping[str, torch.Tensor],
                  extractor_state_dict: Mapping[str, torch.Tensor],
                  device="cuda", fused_kernel: str = "block",
-                 backbone_chunk: Optional[int] = None, mesh=None):
+                 backbone_chunk: Optional[int] = None, mesh=None,
+                 devices: Optional[Sequence] = None):
+        if devices:
+            if mesh is not None:
+                raise ValueError("VideoInference takes a mesh or devices, "
+                                 "not both")
+            devices = [resolve_device(d) for d in devices]
+            device = devices[0]
         self.device = _engine_device(mesh, device, "VideoInference")
         self.cfg = cfg
         self.seq = cfg.data.sequence_length
@@ -296,6 +328,24 @@ class VideoInference:
                                    fused_kernel))
         self.prep = DevicePrep(cfg.data, self.cdt, self.device)
         self._chunks = {}
+        # The sequence-parallel shards: (device, its prep, {id of a trunk
+        # on the first device: its replica there}), one a listed device.
+        self.shards = None
+        if devices and len(devices) > 1:
+            replicas = {self.device: (self.prep, {
+                id(m.backbone): m.backbone
+                for m in (self.extractor, self.model)})}
+            for d in devices:
+                if d not in replicas:
+                    ext = load_weights(
+                        dataclasses.replace(cfg.model, head="lfb"),
+                        extractor_state_dict, d, fused_kernel)
+                    mod = (ext if cfg.model.head == "lfb" else load_weights(
+                        cfg.model, state_dict, d, fused_kernel))
+                    replicas[d] = (DevicePrep(cfg.data, self.cdt, d), {
+                        id(self.extractor.backbone): ext.backbone,
+                        id(self.model.backbone): mod.backbone})
+            self.shards = [(d, *replicas[d]) for d in devices]
 
     @staticmethod
     def bucket_frames(n: int) -> int:
@@ -310,21 +360,21 @@ class VideoInference:
         """Frames per trunk launch for a call of n frames of frame_hw. Auto
         (backbone_chunk 0) is `plan_trunk_chunk` with the card's allocatable
         memory (free plus what PyTorch holds unused), decided once per frame
-        size."""
+        size; in the sequence-parallel pass, a shard's plan on the card with
+        the least times the shards (a card's shards run one after another)."""
         if self.backbone_chunk > 0:
             return self.backbone_chunk
         if self.backbone_chunk < 0:
             return max(n, 1)
         key = tuple(int(s) for s in frame_hw)
         if key not in self._chunks:
-            available = None
-            if self.device.type == "cuda":
-                free, _ = torch.cuda.mem_get_info(self.device)
-                available = (free + torch.cuda.memory_reserved(self.device)
-                             - torch.cuda.memory_allocated(self.device))
-            self._chunks[key] = plan_trunk_chunk(
+            devices = ([self.device] if self.shards is None else
+                       list(dict.fromkeys(d for d, _, _ in self.shards)))
+            per = min(plan_trunk_chunk(
                 self.model.backbone.activation_elements(*key),
-                self.cdt.itemsize, available)
+                self.cdt.itemsize, _available_bytes(d)) for d in devices)
+            self._chunks[key] = per * (1 if self.shards is None
+                                       else len(self.shards))
         return self._chunks[key]
 
     def _stage(self, frames) -> torch.Tensor:
@@ -342,15 +392,37 @@ class VideoInference:
         a view of feats."""
         return feats.unfold(0, self.seq, 1).transpose(1, 2)
 
-    def _backbone_all_frames(self, backbone, frames: torch.Tensor
-                             ) -> torch.Tensor:
+    def _backbone_all_frames(self, backbone, frames: torch.Tensor,
+                             shard: bool = True) -> torch.Tensor:
         """Input prep + trunk over all N frames on the device, in chunks of
         `trunk_chunk` frames, prep inside each chunk (so no normalized copy
-        of the whole video is made) -> (N, F)."""
+        of the whole video is made) -> (N, F). In the sequence-parallel
+        pass (unless `shard` is False) each chunk is cut into the shards."""
         n = frames.shape[0]
         step = self.trunk_chunk(n, frames.shape[1:3])
-        return torch.cat([backbone(self.prep(frames[i:i + step]))
+        run = (self._sharded_trunk if self.shards is not None and shard
+               else lambda b, f: b(self.prep(f)))
+        return torch.cat([run(backbone, frames[i:i + step])
                           for i in range(0, n, step)])
+
+    def _sharded_trunk(self, backbone, frames: torch.Tensor) -> torch.Tensor:
+        """One chunk's frames in contiguous shards, each through the trunk's
+        replica on its device, the features gathered in order on the first
+        device. Every shard's frames are copied to its card before any
+        trunk is launched (a copy from the first card queues behind the
+        work already on it), then every trunk is launched before any is
+        waited on, each with its card current (the kernels launch on the
+        current card)."""
+        parts = [(dev, prep, trunks, part.to(dev))
+                 for (dev, prep, trunks), part in zip(
+                     self.shards, torch.tensor_split(frames, len(self.shards)))
+                 if part.shape[0]]
+        feats = []
+        for dev, prep, trunks, part in parts:
+            with (torch.cuda.device(dev) if dev.type == "cuda"
+                  else contextlib.nullcontext()):
+                feats.append(trunks[id(backbone)](prep(part)))
+        return torch.cat([f.to(self.device) for f in feats])
 
     def _embed(self, model, windows: torch.Tensor) -> torch.Tensor:
         """The LSTM of `model` over (C, seq, F) windows -> the last step
@@ -378,16 +450,23 @@ class VideoInference:
         return self._embed(self.extractor, self._window_features(feats))
 
     @torch.inference_mode()
-    def corpus_features(self, blocks: Iterable) -> Tuple[torch.Tensor,
-                                                          torch.Tensor]:
+    def corpus_features(self, blocks: Iterable, even_only: bool = True
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Both trunks over an iterable of (n, H, W, 3) frame blocks (host
         or device) -> (extractor, tmr) per-frame features, concatenated on
-        the device."""
+        the device. In the sequence-parallel pass a block whose frames do
+        not divide over the devices runs whole on the first (unless not
+        `even_only`: `run_videos`, whose videos JAX pads to buckets that
+        divide, shards every block)."""
         fe, ft = [], []
         for block in blocks:
             block = self._stage(block)
-            fe.append(self._backbone_all_frames(self.extractor.backbone, block))
-            ft.append(self._backbone_all_frames(self.model.backbone, block))
+            shard = self.shards is not None and (
+                not even_only or block.shape[0] % len(self.shards) == 0)
+            fe.append(self._backbone_all_frames(self.extractor.backbone,
+                                                block, shard))
+            ft.append(self._backbone_all_frames(self.model.backbone, block,
+                                                shard))
         return torch.cat(fe), torch.cat(ft)
 
     @torch.inference_mode()
@@ -480,7 +559,7 @@ class VideoInference:
         ns = [int(f.shape[0]) for f in frames_list]
         chunk = self.trunk_chunk(sum(ns), frames_list[0].shape[1:3])
         fe, ft = self.corpus_features(self._frame_blocks(
-            frames_list, ns, chunk, pad_last=False))
+            frames_list, ns, chunk, pad_last=False), even_only=False)
         return self.corpus_heads(fe, ft, ns)
 
     def run_video(self, frames) -> Tuple[np.ndarray, np.ndarray]:

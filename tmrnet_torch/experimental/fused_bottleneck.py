@@ -22,7 +22,6 @@ import torch
 import torch.nn.functional as F
 
 from tmrnet_torch.kernels import build, library
-from tmrnet_torch.kernels.build import LAUNCHES
 
 # Shared memory a Hopper block may opt into.
 _SMEM_BLOCK_MAX = 232448
@@ -205,7 +204,7 @@ def fused_bottleneck_cuda(x, w1, b1, w2, b2, w3, b3):
     err = fn(q(x), q(w1), q(b1), q(w2), q(b2), q(w3), q(b3), q(out),
              n, h, w, c, p, *args, build.stream_ptr(x.device))
     build.check(err, "fused_bottleneck")
-    LAUNCHES["fused_bottleneck"] += 1
+    build.count("fused_bottleneck", x.device)
     return out
 
 

@@ -37,7 +37,6 @@ from tmrnet_torch.experimental.fused_bottleneck import (
     fused_bottleneck_plain,
 )
 from tmrnet_torch.kernels import build, library
-from tmrnet_torch.kernels.build import LAUNCHES
 
 # The kernel's block: 8 warps (two warpgroups) whose register tiles make one
 # bm x nb = 512 x 64, 256 x 128, 128 x 256 or 64 x 512 block tile; K chunks
@@ -205,7 +204,7 @@ def fused_bottleneck_tiled_cuda(x, w1, b1, w2, b2, w3, b3):
     err = fn(q(x), q(w1), q(b1), q(w2), q(b2), q(w3), q(b3), q(out),
              n, h, w, c, p, *args, build.stream_ptr(x.device))
     build.check(err, "fused_bottleneck_tiled")
-    LAUNCHES["fused_bottleneck_tiled"] += 1
+    build.count("fused_bottleneck_tiled", x.device)
     return out
 
 

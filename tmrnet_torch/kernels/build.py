@@ -15,7 +15,10 @@ Every C entry point returns `cudaGetLastError()` after its launch;
 `check()` raises when that is not 0 (cudaSuccess).
 
 `LAUNCHES` counts kernel launches by name: each wrapper adds one where it
-launches its kernel, and nowhere else.
+launches its kernel, and nowhere else. The bottleneck kernels, which the
+video engines' sequence-parallel pass runs on several cards, count
+through `count`, which also adds one to `LAUNCHES_BY_DEVICE[(name, card
+index)]`.
 """
 
 from __future__ import annotations
@@ -37,12 +40,20 @@ SOURCES = ("nl_attention", "time_conv", "fused_bottleneck",
            "fused_bottleneck_tiled", "int8_matmul", "int8_conv3x3")
 
 LAUNCHES: collections.Counter = collections.Counter()
+LAUNCHES_BY_DEVICE: collections.Counter = collections.Counter()
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+    LAUNCHES_BY_DEVICE.clear()
+
+
+def count(name: str, device) -> None:
+    """One launch of kernel `name` on `device` (a CUDA device)."""
+    LAUNCHES[name] += 1
+    LAUNCHES_BY_DEVICE[(name, device.index)] += 1
 
 
 def _nvcc() -> str:

@@ -1,6 +1,8 @@
 """The namespace `tmrnet`: the main path's four bf16 kernels as
 `torch.library` ops, `torch.ops.tmrnet.{nl_attention, time_conv,
-fused_bottleneck, fused_bottleneck_tiled}`.
+fused_bottleneck, fused_bottleneck_tiled}`, and `time_conv_slice`, the
+time_conv kernel over a column slice (tensor parallelism; its own op, so
+that `time_conv`'s schema, which exported artifacts hold, is unchanged).
 
 Each op has three implementations, registered by the module of its kernel
 (`ops/nl_attention.py`, `ops/time_conv.py`,

@@ -6,6 +6,11 @@ the compute dtype (h and c stay in it, as in JAX), from zeros or from a
 given `initial_state`. Gates are ordered i, f, g, o; parameters are named
 as in the flax module (weight_ih (4H, In), weight_hh (4H, H), bias_ih,
 bias_hh).
+
+Under tensor parallelism (`parallel/tensor.py`) weight_ih is row-parallel:
+each rank of the model group projects its slice of the input features by
+its columns of weight_ih, the partial projections are summed over the
+group, and the biases are added once, after the sum.
 """
 
 from __future__ import annotations
@@ -14,6 +19,8 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
+
+from tmrnet_torch.parallel.tensor import shard_of, split, sum_partials
 
 
 class LSTM(nn.Module):
@@ -35,7 +42,11 @@ class LSTM(nn.Module):
         None -> (outputs (B, T, H), (h, c) after the last step)."""
         cdt = self.compute_dtype
         b, t, _ = x.shape
-        x_proj = torch.einsum("btd,gd->btg", x.to(cdt), self.weight_ih.to(cdt))
+        shard = shard_of(self.weight_ih)
+        xc = x.to(cdt) if shard is None else split(x.to(cdt), shard)
+        x_proj = torch.einsum("btd,gd->btg", xc, self.weight_ih.to(cdt))
+        if shard is not None:
+            x_proj = sum_partials(x_proj, shard)
         x_proj = x_proj + (self.bias_ih + self.bias_hh).to(cdt)
         w_hh_t = self.weight_hh.to(cdt).t()
         if initial_state is None:

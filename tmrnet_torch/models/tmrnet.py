@@ -27,10 +27,12 @@ from torch.nn.modules.batchnorm import _BatchNorm
 
 from tmrnet_torch.config import ModelConfig
 from tmrnet_torch.device import resolve_device, torch_dtype
-from tmrnet_torch.models.blocks import NLBlock, TimeConv, dense, dropout
+from tmrnet_torch.models.blocks import (NLBlock, TimeConv, column_linear,
+                                        dense, dropout, row_linear)
 from tmrnet_torch.models.lstm import LSTM
 from tmrnet_torch.models.resnest import ResNeSt, SplitAttention
 from tmrnet_torch.models.resnet import ResNet
+from tmrnet_torch.parallel.tensor import shard_of
 
 HEADS = ("stage1", "lfb", "tmr", "nl_only")
 
@@ -115,9 +117,17 @@ class TMRNet(nn.Module):
         if self.time_conv is not None:
             lt = self.time_conv(lt)
         y = torch.cat([st, self.nl_block(st, lt, train, generator)], dim=-1)
-        # Reference order: fc_h_c -> dropout -> relu -> fc_c.
-        y = dropout(dense(self.fc_h_c, y), self.dropout, train, generator)
-        return dense(self.fc_c, torch.relu(y))
+        # Reference order: fc_h_c -> dropout -> relu -> fc_c. Under tensor
+        # parallelism fc_h_c is column-parallel and fc_c row-parallel: the
+        # rank's columns of fc_h_c feed its rows of fc_c, one sum after.
+        shard = shard_of(self.fc_h_c.weight)
+        y = column_linear(self.fc_h_c, y, keep_slice=True)
+        cols = None
+        if shard is not None:
+            whole = y.shape[-1] * shard.size
+            cols = (*shard.bounds(whole), whole)
+        y = dropout(y, self.dropout, train, generator, cols)
+        return row_linear(self.fc_c, torch.relu(y))
 
     def forward(self, clips: torch.Tensor, long_feature: torch.Tensor,
                 train: bool = False,

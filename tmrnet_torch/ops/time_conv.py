@@ -7,7 +7,14 @@ header says what bounds it and how it is built.
 x (B, W, C); weights in the flax layout (k, Cin, Cout); biases (C,).
 The op `torch.ops.tmrnet.time_conv` (`kernels/library.py`) takes the
 kernel for CUDA tensors and the plain version for CPU tensors; anything
-else raises. `time_conv` calls the op; where autograd records (grad
+else raises. A column slice (tensor parallelism over the model axis,
+`parallel/tensor.py`) takes x (B, W, Cin) whole, weights (k, Cin, Cout)
+and biases (Cout,) of the output channels [c0, c0 + Cout), and gives
+(B, W, Cout): the convolutions read every input channel, the identity
+and causal-max branches x's channels from c0. It is the op
+`torch.ops.tmrnet.time_conv_slice`; `tmrnet::time_conv`, the whole width
+(c0 = 0, Cout = Cin), keeps its schema, so exported artifacts load.
+`time_conv` calls the op; where autograd records (grad
 enabled and an input that requires it) it goes through `TimeConvFunction`,
 whose forward calls the op once and whose backward recomputes the block in
 plain f32 ops from the saved inputs (`time_conv_plain`, in the flax
@@ -26,6 +33,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -42,16 +50,19 @@ _SMEM_BLOCK_MAX = 232448
 BM, BN, HALO, NSTAGE = 64, 64, 3, 5
 
 
-def time_conv_plain(x, w3, b3, w5, b5, w7, b7):
+def time_conv_plain(x, w3, b3, w5, b5, w7, b7, c0: int = 0):
     """The math of `time_conv_reference` (tmrnet_tpu/ops/time_conv.py
     :100-116), in f32 (f64 for f64 inputs), result in x's dtype. The max
     is nested as the flax TimeConv nests it (`tmrnet_tpu/models/blocks.py
     :88-91`), max(max(max(x, b1), max(b2, b3)), b4) with b1-b3 the convs
     and b4 = max(x, shifted x): the values do not depend on the nesting,
     but the split of a tie's gradient (torch.maximum and jnp.maximum halve
-    it) does, and the backward differentiates this function."""
-    xf = at_least_f32(x)
-    xt = xf.transpose(1, 2)                                   # (B, C, W)
+    it) does, and the backward differentiates this function. A column
+    slice: w_k (k, Cin, Cout), the identity and b4 over x's channels [c0,
+    c0 + Cout)."""
+    xa = at_least_f32(x)
+    xt = xa.transpose(1, 2)                                   # (B, C, W)
+    xf = xa[..., c0:c0 + w3.shape[2]]
 
     def conv(wk, bk):
         k = wk.shape[0]
@@ -92,9 +103,11 @@ def time_conv_layout_bytes(plan: TimeConvPlan) -> int:
     return NSTAGE * plan.kc * BN * 2 + nbuf * x_bytes + plan.ck * 2 + 1024
 
 
-def time_conv_grid(b: int, w: int, plan: TimeConvPlan):
-    """The kernel's grid: (row tiles of BM over B*W, column tiles of BN)."""
-    return -(-b * w // BM), plan.c // BN
+def time_conv_grid(b: int, w: int, plan: TimeConvPlan,
+                   cols: Optional[int] = None):
+    """The kernel's grid: (row tiles of BM over B*W, column tiles of BN
+    over the output's `cols` channels, default the plan's C)."""
+    return -(-b * w // BM), (plan.c if cols is None else cols) // BN
 
 
 def time_conv_max_rows(w: int, c: int) -> int:
@@ -141,32 +154,40 @@ def _entries():
     """The library's two C entries, their argument types set once."""
     lib = build.library("time_conv")
     run, smem = lib.tmr_time_conv, lib.tmr_time_conv_smem
-    run.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    run.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     run.restype = ctypes.c_int
     smem.argtypes = [ctypes.c_int] * 3
     smem.restype = ctypes.c_int
     return run, smem
 
 
-def run_in_pieces(launch, x: torch.Tensor, rows: int) -> torch.Tensor:
+def run_in_pieces(launch, x: torch.Tensor, rows: int,
+                  cols: Optional[int] = None) -> torch.Tensor:
     """`launch(x_piece, out_piece)` over pieces of at most `rows` rows of
-    x's first axis, each writing its rows of one output like x; one call
-    where x fits."""
-    out = torch.empty_like(x)
+    x's first axis, each writing its rows of one output like x (of `cols`
+    channels where given); one call where x fits."""
+    out = (torch.empty_like(x) if cols is None else
+           x.new_empty(tuple(x.shape[:-1]) + (cols,)))
     for start in range(0, x.shape[0], rows):
         launch(x[start:start + rows], out[start:start + rows])
     return out
 
 
-def check_time_conv_operands(x, w3, b3, w5, b5, w7, b7):
-    """The kernel's checks of its operands: x (B, W, C) bf16; w_k (k, C, C)
-    bf16; b_k (C,) f32; C a multiple of 64; all contiguous on one CUDA
-    device. Returns (rows of B a launch takes, the plan)."""
+def check_time_conv_operands(x, w3, b3, w5, b5, w7, b7, c0: int = 0):
+    """The kernel's checks of its operands: x (B, W, C) bf16; w_k (k, C,
+    Cout) bf16; b_k (Cout,) f32; C and Cout multiples of 64, the slice's
+    first channel c0 too, c0 + Cout <= C; all contiguous on one CUDA
+    device. Returns (rows of B a launch takes, the plan, Cout)."""
     if x.device.type != "cuda":
         raise ValueError("time_conv_cuda: x is not on CUDA")
-    if x.dim() != 3:
-        raise ValueError(f"time_conv_cuda: x shape {tuple(x.shape)}")
+    if x.dim() != 3 or w3.dim() != 3:
+        raise ValueError(f"time_conv_cuda: x shape {tuple(x.shape)}, w3 "
+                         f"shape {tuple(w3.shape)}")
     b, w, c = x.shape
+    cout = w3.shape[2]
+    if cout % 64 or c0 % 64 or cout < 1 or c0 < 0 or c0 + cout > c:
+        raise ValueError(f"time_conv_cuda: needs C % 64 == 0 for a column "
+                         f"slice of {cout} channels from {c0} of C={c}")
     rows = time_conv_max_rows(w, c)
     if rows < 1:
         raise ValueError(f"time_conv_cuda: one row of W*C = {w * c} elements "
@@ -175,17 +196,19 @@ def check_time_conv_operands(x, w3, b3, w5, b5, w7, b7):
     plan = plan_time_conv(min(b, rows), w, c)
     _check("x", x, x.device, torch.bfloat16, x.shape)
     for k, wk, bk in ((3, w3, b3), (5, w5, b5), (7, w7, b7)):
-        _check(f"w{k}", wk, x.device, torch.bfloat16, (k, c, c))
-        _check(f"b{k}", bk, x.device, torch.float32, (c,))
-    return rows, plan
+        _check(f"w{k}", wk, x.device, torch.bfloat16, (k, c, cout))
+        _check(f"b{k}", bk, x.device, torch.float32, (cout,))
+    return rows, plan, cout
 
 
-def time_conv_cuda(x, w3, b3, w5, b5, w7, b7):
+def time_conv_cuda(x, w3, b3, w5, b5, w7, b7, c0: int = 0):
     """Launch csrc/time_conv.cu under `plan_time_conv`, once per piece of at
-    most `time_conv_max_rows` rows of B. x (B, W, C) bf16; w_k (k, C, C)
-    bf16; b_k (C,) f32; C a multiple of 64; all contiguous on one CUDA
-    device."""
-    rows, plan = check_time_conv_operands(x, w3, b3, w5, b5, w7, b7)
+    most `time_conv_max_rows` rows of B. x (B, W, C) bf16; w_k (k, C,
+    Cout) bf16; b_k (Cout,) f32: the output channels [c0, c0 + Cout)
+    (the whole width by default, Cout = C), (B, W, Cout); C, Cout and c0
+    multiples of 64; all contiguous on one CUDA device."""
+    rows, plan, cout = check_time_conv_operands(x, w3, b3, w5, b5, w7, b7,
+                                                c0)
     w, c = x.shape[1:]
     run, smem_of = _entries()
     smem = smem_of(c, plan.kc, plan.ck)
@@ -196,58 +219,73 @@ def time_conv_cuda(x, w3, b3, w5, b5, w7, b7):
 
     def launch(xp, out):
         err = run(p(xp), p(w3), p(w5), p(w7), p(b3), p(b5), p(b7), p(out),
-                  xp.shape[0], w, c, plan.kc, plan.ck,
+                  xp.shape[0], w, c, cout, c0, plan.kc, plan.ck,
                   build.stream_ptr(x.device))
         build.check(err, "time_conv")
         LAUNCHES["time_conv"] += 1
 
-    return run_in_pieces(launch, x, rows)
+    return run_in_pieces(launch, x, rows, cout)
 
 
-def _time_conv_fake(x, w3, b3, w5, b5, w7, b7):
+def _time_conv_fake(x, w3, b3, w5, b5, w7, b7, c0: int = 0):
     if x.device.type == "cuda":
-        check_time_conv_operands(x, w3, b3, w5, b5, w7, b7)
-    return torch.empty_like(x)
+        check_time_conv_operands(x, w3, b3, w5, b5, w7, b7, c0)
+    return x.new_empty(tuple(x.shape[:-1]) + (w3.shape[2],))
 
 
+_OPERANDS = ("(Tensor x, Tensor w3, Tensor b3, Tensor w5, Tensor b5, "
+             "Tensor w7, Tensor b7")
 time_conv_op = library.define(
-    "time_conv", "(Tensor x, Tensor w3, Tensor b3, Tensor w5, Tensor b5, "
-    "Tensor w7, Tensor b7) -> Tensor", time_conv_cuda, time_conv_plain,
+    "time_conv", _OPERANDS + ") -> Tensor", time_conv_cuda, time_conv_plain,
     _time_conv_fake)
+time_conv_slice_op = library.define(
+    "time_conv_slice", _OPERANDS + ", int c0) -> Tensor", time_conv_cuda,
+    time_conv_plain, _time_conv_fake)
+
+
+def _op_call(x, weights, c0):
+    """The whole-width op where the weights are square and c0 is 0, else
+    the column slice's."""
+    if c0 == 0 and weights[0].shape[2] == x.shape[-1]:
+        return time_conv_op(x, *weights)
+    return time_conv_slice_op(x, *weights, c0)
 
 
 class TimeConvFunction(torch.autograd.Function):
     """Forward: the op, once, on `prepared` where given, else on the
     weights. Backward: `time_conv_plain` in f32 from the saved x and
-    weights."""
+    weights (over the same column slice)."""
 
     @staticmethod
-    def forward(ctx, x, prepared, *weights):
+    def forward(ctx, x, prepared, c0, *weights):
         ctx.save_for_backward(x, *weights)
-        return time_conv_op(x, *(prepared or weights))
+        ctx.c0 = c0
+        return _op_call(x, prepared or weights, c0)
 
     @staticmethod
     def backward(ctx, grad):
         x, *weights = ctx.saved_tensors
-        need = ctx.needs_input_grad[:1] + ctx.needs_input_grad[2:]
+        need = ctx.needs_input_grad[:1] + ctx.needs_input_grad[3:]
         with torch.enable_grad():
             inputs = [at_least_f32(t.detach()).requires_grad_(n)
                       for t, n in zip([x, *weights], need)]
-            out = time_conv_plain(*inputs)
+            out = time_conv_plain(*inputs, c0=ctx.c0)
             wanted = [t for t in inputs if t.requires_grad]
             grads = iter(torch.autograd.grad(out, wanted,
                                              grad.to(out.dtype))
                          if wanted else ())
         got = [next(grads).to(t.dtype) if n else None
                for t, n in zip([x, *weights], need)]
-        return (got[0], None, *got[1:])
+        return (got[0], None, None, *got[1:])
 
 
-def time_conv(x, w3, b3, w5, b5, w7, b7, prepared=None):
-    """(B, W, C) -> (B, W, C); the branch-wise max of the TimeConv block,
-    differentiable in x and the weights. prepared: (w3, b3, w5, b5, w7, b7)
-    in the kernel's layout and dtypes, run in place of the weights."""
+def time_conv(x, w3, b3, w5, b5, w7, b7, prepared=None, c0: int = 0):
+    """(B, W, C) -> (B, W, Cout); the branch-wise max of the TimeConv
+    block over the output channels [c0, c0 + Cout) of (k, C, Cout)
+    weights (the whole width by default), differentiable in x and the
+    weights. prepared: (w3, b3, w5, b5, w7, b7) in the kernel's layout and
+    dtypes, run in place of the weights."""
     weights = (w3, b3, w5, b5, w7, b7)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *weights)):
-        return TimeConvFunction.apply(x, prepared, *weights)
-    return time_conv_op(x, *(prepared or weights))
+        return TimeConvFunction.apply(x, prepared, c0, *weights)
+    return _op_call(x, prepared or weights, c0)

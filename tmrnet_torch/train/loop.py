@@ -21,17 +21,21 @@ from train.seed, the epoch and the step (`step_generator`), where JAX
 folds epoch * 100003 + step into its key: the same schedule of seeds, not
 the same masks.
 
-`mesh=` (a `parallel/mesh.py::DataMesh`, one process a card) trains
-data-parallel as JAX's trainers do over a mesh that spans processes
-(`_BatchFeed` :116-179, `_global_stop` :181-206): every rank derives the
-same seeded batches and assembles only its rows of each
-(`ClipLoader(local_rows=)`), gathers the memory windows of those rows
-alone, starts from rank 0's weights and sums its gradients with the
-others' (`train/state.py`); the metrics are summed over the ranks before
-they are read, the val pass gathers the ranks' predictions and losses and
-takes the labels from `ds.clip_labels`, a preemption check runs over every
-rank every `_STOP_CHECK_EVERY` steps and after each epoch, and rank 0
-writes the checkpoints (`utils/checkpoint.py`). An n-rank run computes
+`mesh=` (a `parallel/mesh.py::DataMesh`, the (data x model) grid, one
+process a card) trains as JAX's trainers do over a mesh that spans
+processes (`_BatchFeed` :116-179, `_global_stop` :181-206, `shard_state`
+through `_maybe_shard` :64-72): every rank derives the same seeded batches
+and assembles only the rows of its data index of each
+(`ClipLoader(local_rows=)`; the ranks of a model group the same rows),
+gathers the memory windows of those rows alone, starts from rank 0's
+weights, keeps its slices of the parameters that the TP rules shard
+(`parallel/tensor.py::shard_model_`, model_parallel M > 1) and sums its
+gradients over the data group (`train/state.py`); the metrics are summed
+over the data group before they are read, the val pass runs the sharded
+model, gathers the data ranks' predictions and losses and takes the
+labels from `ds.clip_labels`, a preemption check runs over every rank
+every `_STOP_CHECK_EVERY` steps and after each epoch, and rank 0 writes
+the checkpoints, whole (`utils/checkpoint.py`). A grid's run computes
 what a one-process run over the same global batches computes.
 
 And `build_lfb`, port of `tmrnet_tpu/train/loop.py::build_lfb` (:589-684),
@@ -74,6 +78,7 @@ from tmrnet_torch.memory.lfb import (FeatureBank, gather_memory_windows,
 from tmrnet_torch.parallel.mesh import (DataMesh, all_gather_host,
                                         all_reduce_host, broadcast_module,
                                         process_local_bounds)
+from tmrnet_torch.parallel.tensor import shard_model_
 from tmrnet_torch.train.losses import balanced_class_weights
 from tmrnet_torch.train.optim import (make_optimizer, make_schedule,
                                       set_learning_rate, slow_modules_for_head)
@@ -88,7 +93,8 @@ def build_lfb(cfg: ExperimentConfig,
               ds: ClipDataset, cache_path: Optional[str] = None,
               force: bool = False, engine: str = "clip", device="cuda",
               fused_kernel: str = "block",
-              mesh: Optional[DataMesh] = None) -> FeatureBank:
+              mesh: Optional[DataMesh] = None,
+              devices: Optional[Sequence] = None) -> FeatureBank:
     """The bank of a dataset from the frozen extractor's weights (head
     `lfb`: trunk and LSTM), f32, on `device`. The `.npz` at `cache_path`
     (default `memory.cache_path`) is read instead where it exists, under
@@ -105,7 +111,8 @@ def build_lfb(cfg: ExperimentConfig,
     `process_local_bounds` of every batch of `data.batch_clips` and gathers
     the rows; the video engine partitions the videos
     (`eval/distributed.py::run_lfb_distributed`). Every rank returns the
-    whole bank; rank 0 writes the cache."""
+    whole bank; rank 0 writes the cache. devices: the video engine's
+    sequence-parallel pass over them (`VideoInference(devices=)`)."""
     path = cache_path or cfg.memory.cache_path
     if mesh is not None:
         device = mesh.device
@@ -125,7 +132,7 @@ def build_lfb(cfg: ExperimentConfig,
         return build_lfb_video(cfg, extractor_state_dict, loaders,
                                lengths=[len(v) for v in videos],
                                cache_path=path, device=device,
-                               fused_kernel=fused_kernel)
+                               fused_kernel=fused_kernel, devices=devices)
     if engine != "clip":
         raise ValueError(f"unknown engine {engine!r} (want clip or video)")
     dev = resolve_device(device)
@@ -205,17 +212,19 @@ def build_lfb_video(cfg: ExperimentConfig,
                     extractor_state_dict: Mapping[str, torch.Tensor],
                     videos: Sequence, lengths: Optional[Sequence[int]] = None,
                     cache_path: Optional[str] = None, device="cuda",
-                    fused_kernel: str = "block") -> FeatureBank:
+                    fused_kernel: str = "block",
+                    devices: Optional[Sequence] = None) -> FeatureBank:
     """One bank row per clip position of each video, in order (f32, as
     JAX's). videos: (N_i, H, W, 3) frames (uint8 raw, as the wire carries
     them, or float), host or device, or zero-arg loaders of them, which
     need `lengths` and are checked against them. cache_path: where to
-    write the bank (`.npz`), if given."""
+    write the bank (`.npz`), if given. devices: the sequence-parallel
+    pass over them."""
     ns = corpus_lengths(videos, lengths)
     engine = VideoInference(
         cfg.replace(model=dataclasses.replace(cfg.model, head="lfb")),
         extractor_state_dict, extractor_state_dict, device=device,
-        fused_kernel=fused_kernel)
+        fused_kernel=fused_kernel, devices=devices)
     bank = FeatureBank.create(cfg.data.sequence_length, ns,
                               cfg.model.hidden_dim, device=engine.device)
     row = 0
@@ -301,22 +310,22 @@ def _global_stop(stop: Optional[dict], mesh: Optional[DataMesh] = None
 
 def _sums(acc, mesh: Optional[DataMesh]) -> Tuple[float, int, int]:
     """The running (loss, correct, count) on the host, summed over the
-    ranks under a mesh."""
+    data group under a mesh."""
     got = np.asarray([float(acc[0]), float(acc[1]), float(acc[2])])
     if mesh is not None:
-        got = all_reduce_host(got, mesh)
+        got = all_reduce_host(got, mesh, data_only=True)
     return float(got[0]), int(got[1]), int(got[2])
 
 
 def _gather_rows(mesh: Optional[DataMesh], *arrays: np.ndarray):
-    """Each array's global batches from every rank's rows: (batches,
-    B / world, ...) on each rank -> (batches, B, ...), the ranks' rows in
-    order. Without a mesh, the arrays as they are."""
+    """Each array's global batches from every data rank's rows: (batches,
+    B / dp, ...) on each rank -> (batches, B, ...), the data ranks' rows
+    in order. Without a mesh, the arrays as they are."""
     if mesh is None:
         return arrays
     out = []
     for a in arrays:
-        g = all_gather_host(a, mesh)          # (world, batches, rows, ...)
+        g = all_gather_host(a, mesh, data_only=True)   # (dp, batches, ...)
         g = np.moveaxis(g, 0, 1)
         out.append(g.reshape((g.shape[0], -1) + g.shape[3:]))
     return tuple(out)
@@ -443,6 +452,9 @@ def _fit(cfg: ExperimentConfig, model_cfg, train_ds: ClipDataset,
     if init_state_dict is None:
         init_state_dict = fresh_init(model_cfg, t.seed)
     model = load_weights(model_cfg, init_state_dict, dev, "block")
+    if mesh is not None:
+        broadcast_module(model, mesh)       # rank 0's weights on all
+        shard_model_(model, mesh)           # then the rank's slices
     state = TrainState(model, make_optimizer(t, model, slow_modules),
                        grad_accum=t.grad_accum, grad_clip=t.grad_clip,
                        mesh=mesh)
@@ -456,8 +468,6 @@ def _fit(cfg: ExperimentConfig, model_cfg, train_ds: ClipDataset,
         state = ckpt.restore(state)
         resume_meta = ckpt.metadata(ckpt.latest_step()).get("metrics", {})
         start_epoch = int(resume_meta.get("epoch", -1)) + 1
-    if mesh is not None:
-        broadcast_module(state.model, mesh)     # rank 0's weights on all
 
     class_weights = (balanced_class_weights(train_ds.manifest.flat_labels(),
                                             model_cfg.num_classes)
@@ -470,7 +480,7 @@ def _fit(cfg: ExperimentConfig, model_cfg, train_ds: ClipDataset,
                                        prep=prep, mesh=mesh)
     d = cfg.data
     local = (None if mesh is None else
-             process_local_bounds(d.batch_clips, mesh.rank, mesh.world))
+             process_local_bounds(d.batch_clips, mesh.data_index, mesh.dp))
     train_loader = ClipLoader(train_ds, d.batch_clips, shuffle=True,
                               num_workers=d.num_workers, prefetch=d.prefetch,
                               seed=t.seed, drop_remainder=True,
@@ -624,9 +634,8 @@ def _epoch_loop(cfg, state, stop, start_epoch, train_step, eval_step,
 def _check_mesh(mesh) -> Optional[DataMesh]:
     if mesh is not None and not isinstance(mesh, DataMesh):
         raise NotImplementedError(
-            f"mesh={type(mesh).__name__}: the trainers take a data mesh "
-            f"over processes (parallel/mesh.py::make_mesh); tensor "
-            f"parallelism is not ported")
+            f"mesh={type(mesh).__name__}: the trainers take the grid over "
+            f"processes (parallel/mesh.py::make_mesh)")
     return mesh
 
 
@@ -638,8 +647,9 @@ def train_stage1(cfg: ExperimentConfig, train_ds: ClipDataset,
                  device="cuda") -> Tuple[TrainState, List[EpochStats]]:
     """Stage-1 memory-bank model training (head stage1) from
     `init_state_dict` (default: fresh flax-distributed weights at
-    train.seed) on `device`, or data-parallel over `mesh` on its device.
-    Returns (the train state, the history)."""
+    train.seed) on `device`, or over the grid `mesh` on its device (only
+    encoder.lstm.weight_ih is sliced over its model axis, as JAX's rules
+    shard it). Returns (the train state, the history)."""
     _check_mesh(mesh)
     model_cfg = dataclasses.replace(cfg.model, head="stage1",
                                     remat=cfg.train.remat)
@@ -658,7 +668,8 @@ def train_stage2(cfg: ExperimentConfig, train_ds: ClipDataset,
                  device="cuda") -> Tuple[TrainState, List[EpochStats]]:
     """TMRNet (or only-non-local) head training over a built bank; train
     and val read their own banks (val_bank defaults to bank). Under a mesh
-    every rank holds the whole banks on its device."""
+    every rank holds the whole banks on its device, and the head's layers
+    that the TP rules name are sliced over its model axis."""
     _check_mesh(mesh)
     if val_ds is not None and val_bank is None:
         val_bank = bank

@@ -20,9 +20,10 @@ accumulation over micro-batches (optax.MultiSteps) are the train state's
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from tmrnet_torch.config import TrainConfig
 
@@ -69,13 +70,24 @@ def make_optimizer(cfg: TrainConfig, model: torch.nn.Module,
 
 
 def clip_by_global_norm_(grads: Sequence[torch.Tensor],
-                         max_norm: float) -> torch.Tensor:
+                         max_norm: float,
+                         sliced: Optional[Sequence[bool]] = None,
+                         mesh=None) -> torch.Tensor:
     """optax.clip_by_global_norm in place: where the global norm |g| of all
     gradients is at least max_norm, every g becomes g / |g| * max_norm
     (torch's clip_grad_norm_ adds 1e-6 to the norm). No host sync. Returns
-    the norm."""
-    norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+    the norm. sliced: which gradients are a model group's slices
+    (`parallel/tensor.py`, under `mesh`): their squares are summed over
+    the model group, a replicated gradient's counted once."""
+    norms = torch.stack([torch.linalg.vector_norm(g.float()) for g in grads])
+    if sliced is None:
+        norm = torch.linalg.vector_norm(norms)
+    else:
+        mask = torch.tensor(list(sliced), device=norms.device)
+        squares = norms.square()
+        part = torch.where(mask, squares, 0.0).sum()
+        dist.all_reduce(part, group=mesh.model_group)
+        norm = (torch.where(mask, 0.0, squares).sum() + part).sqrt()
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, g / norm.to(g.dtype) * max_norm))

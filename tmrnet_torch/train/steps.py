@@ -12,12 +12,14 @@ Stage 1: train_step(state, clips, labels, generator), eval_step(state,
 clips, labels). Stage 2: the same with the (B, window, hidden) memory after
 the clips.
 
-With a data mesh (`parallel/mesh.py`), a train step's clips are this
-rank's rows of the global batch: the forward and backward run inside
-`batch_shard` (BatchNorm on the global batch's statistics, dropout masks
-of the global batch's shape), a 'mean' loss divides by the sample
-weights summed over the ranks, and the state sums the gradients over the
-ranks (`TrainState.mesh`). Its metrics are this rank's.
+With a mesh (`parallel/mesh.py`), a train step's clips are the rows of
+this rank's data index in the global batch: the forward and backward run
+inside `batch_shard` (BatchNorm on the global batch's statistics, dropout
+masks of the global batch's shape), a 'mean' loss divides by the sample
+weights summed over the data group, and the state sums the gradients
+(`TrainState.mesh`). Under tensor parallelism the model makes its model
+group's collectives itself (`parallel/tensor.py`). Its metrics are this
+rank's.
 """
 
 from __future__ import annotations
@@ -57,7 +59,7 @@ def _make_steps(class_weights, loss_reduction: str = "sum",
             # weights of every rank's samples
             total = weighted_cross_entropy(logits.detach(), labels, w,
                                            "weight")
-            all_reduce_sum_([total], mesh)
+            all_reduce_sum_([total], mesh, mesh.data_group)
             loss = (weighted_cross_entropy(logits, labels, w, "sum",
                                            label_smoothing)
                     / torch.clamp(total, min=1e-12))

@@ -32,9 +32,15 @@ its step's write before it is copied, and `wait()` blocks until the write
 is durable (a writer's error is raised there). Until its rename a step
 is a `.tmp` directory that `all_steps` does not list.
 
-`mesh=` (data parallelism over processes, `parallel/mesh.py`): every rank
-holds the same state, and rank 0 alone writes, prunes and promotes the
-best; the others read the shared directory. Every rank calls `save`,
+`mesh=` (the grid over processes, `parallel/mesh.py`): rank 0 alone
+writes, prunes and promotes the best; the others read the shared
+directory. Under tensor parallelism each rank holds slices of some
+parameters and of their optimizer slots (`parallel/tensor.py`): a save
+gathers them whole over each model group first (every rank's collective,
+`TrainState.whole_state`), so a grid's checkpoint holds whole tensors in
+the one-process layout, which one process reads unchanged; a restore
+under the grid cuts them to the rank's slices again, as JAX's Orbax
+checkpoints hold global arrays. Every rank calls `save`,
 `wait`, `barrier` and `restore` at the same points. `wait` is a
 collective (a MAX over the ranks of whether a write failed), so every
 rank waits on rank 0's background write, and a failed write raises on
@@ -121,7 +127,7 @@ class CheckpointManager:
         return {"variables": variables, "train": train_state}
 
     @staticmethod
-    def _snapshot(state):
+    def _snapshot(model_state, train_state):
         """Copies of the model's state dict and the train state, off the
         live tensors, and the event that ends their copies from the card
         (None where nothing is on one)."""
@@ -141,7 +147,7 @@ class CheckpointManager:
                 return type(x)(copy(v) for v in x)
             return x
 
-        model, train = copy(state.model.state_dict()), copy(state.state_dict())
+        model, train = copy(model_state), copy(train_state)
         event = None
         if on_card:
             event = torch.cuda.Event()
@@ -181,16 +187,16 @@ class CheckpointManager:
         self.wait()
         meta = {"step": step, "metrics": metrics or {}}
         path = self._step_dir(step)
+        model_state, train_state = state.whole_state()
         if not self.use_async:
             self._on_primary(lambda: (
-                self._write(step, state.model.state_dict(),
-                            state.state_dict(), meta),
+                self._write(step, model_state, train_state, meta),
                 self._promote_and_prune(step, meta, is_best)))
             return path
         if self.primary:
             self._writer = threading.Thread(
                 target=self._write_async, name=f"checkpoint-{step}",
-                args=(step, *self._snapshot(state), meta))
+                args=(step, *self._snapshot(model_state, train_state), meta))
             self._writer.start()
         if is_best:
             self.wait()
@@ -291,9 +297,8 @@ class CheckpointManager:
             if step is None:
                 raise FileNotFoundError(f"no checkpoints in {self.dir}")
         saved = self._load(self._step_dir(step))
-        state.model.load_state_dict(from_jax_variables(saved["variables"]),
-                                    strict=True)
-        state.load_state_dict(saved["train"])
+        state.load_whole_state(from_jax_variables(saved["variables"]),
+                               saved["train"])
         return state
 
     def restore_weights(self) -> Dict[str, Any]:
