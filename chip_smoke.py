@@ -282,6 +282,33 @@ Phases, in order; any failure exits nonzero:
    (WORLD / MP) x MP grid, one card a rank where the host has them (2 x 2
    over NCCL on four cards), and (c) over 2 cards (card 0 twice on one)
    and over 4 where there are;
+4p. the shard slice (`run_shard_slice`), after 4o, over 4f's directory,
+   the shards of one process over `sp_devices` (card 0 twice on a
+   one-card host): (a) `ClipInference(devices=)` on phase 4's model,
+   bank and 3 requests of 32 clips on the block and the tiled path,
+   against the one-device engine within 2e-2 and 4's argmax rule, per
+   shard forward 12 fused_bottleneck (block; tiled 10
+   fused_bottleneck_tiled and 2 fused_bottleneck), 1 time_conv and 1
+   nl_attention on its card (`build.LAUNCHES_BY_DEVICE`), clips/s of
+   both engines; (b) `build_lfb(engine="clip", devices=)` over 4f's
+   manifest and extractor (folded, batches of 40), within 2e-2 of max
+   |feature| of 4f's clip bank, 12 fused_bottleneck a shard of each
+   batch; (c) `StreamingInference(devices=)`, 16 streams in two groups x
+   24 steps, stream 3 inactive at steps 10-12 (frozen bit for bit),
+   stream 5 reset at step 15, every valid row within 2e-2 of the
+   one-device engine with the argmax rule, each step 24
+   fused_bottleneck, 1 time_conv and 1 nl_attention a group on its card,
+   step p50 / p99 ms of both; (d) `experimental/headlevel_multiscale.py`'s
+   HeadOnly (tmr) at hidden 512, window 40, bf16 over 512 seeded rows:
+   the first forward within 2e-2 of f32 on the CPU, 20 Adam steps of 128
+   rows with finite losses, 1 time_conv and 1 nl_attention a forward;
+   (e) `tmrnet_torch.entry.entry()`: fn(*args) gives finite (2, 7)
+   logits with 1 time_conv and 1 nl_attention. The `kernels` line counts
+   its launches under path "shard". `python3 chip_smoke.py --shard-only`
+   runs (a)-(c) over every visible card ((b) over a 4f directory of its
+   own), and where there are N >= 2, `test --engine clip` and `stream`
+   through `tmrnet_torch.cli.main` with `--set mesh.data_parallel=N`
+   against the same commands on one card;
 5. the int8 gate (tmrnet_torch.experimental.int8_gate) at B = 128 over the
    four stages: the int8 bottleneck chain through the kernels equal to the
    same chain through the plain versions, 2 int8_matmul and 1 int8_conv3x3
@@ -4257,7 +4284,8 @@ def mesh_sp(torch, seed, card, devices):
         for d in set(devices):
             torch.cuda.synchronize(d)
         return out, time.perf_counter() - t0, dict(LAUNCHES), {
-            f"{k}@cuda:{d}": v for (k, d), v in LAUNCHES_BY_DEVICE.items()}
+            f"{k}@cuda:{d}": v for (k, d), v in LAUNCHES_BY_DEVICE.items()
+            if k.startswith("fused_bottleneck")}
 
     one, sp = engines["block"]
     for e in (one, sp):                 # the timed call's shapes, uncounted
@@ -4364,6 +4392,419 @@ def run_mesh_slice(torch, seed, card, kept, refs=None):
           f"{numbers['seconds']:.1f} s on {card} "
           f"{'ok' if ok and good else 'FAIL'}")
     return {"mesh": counts}, numbers, ok and good
+
+
+# Phase 4p: the shards of one process (`devices=`). (c)'s streams and
+# steps, with 4d's inactive stream and reset stream at steps that a run of
+# SHARD_STEPS holds; (d)'s rows, batch and Adam steps of HeadOnly at the
+# multi-scale task's window; the per-shard launches of a clip forward on
+# each fused path.
+SHARD_STEPS, SHARD_INACTIVE, SHARD_RESET = 24, (3, range(10, 13)), (5, 15)
+HEAD_ROWS, HEAD_BATCH, HEAD_STEPS, HEAD_WINDOW = 512, 128, 20, 40
+SHARD_FORWARD = {
+    "block": {"fused_bottleneck": 12, "time_conv": 1, "nl_attention": 1},
+    "tiled": {"fused_bottleneck_tiled": 10, "fused_bottleneck": 2,
+              "time_conv": 1, "nl_attention": 1}}
+
+
+def by_card():
+    """The launches since the last reset by (kernel, card), as
+    "kernel@cuda:i"."""
+    from tmrnet_torch.kernels.build import LAUNCHES_BY_DEVICE
+
+    return {f"{k}@cuda:{d}": v for (k, d), v in LAUNCHES_BY_DEVICE.items()}
+
+
+def per_card(devices, per_shard, times=1):
+    """The launches by card of `times` calls that run `per_shard` on each
+    of `devices` (a repeated card adds up)."""
+    want = {}
+    for d in devices:
+        for k, v in per_shard.items():
+            key = f"{k}@cuda:{d.index}"
+            want[key] = want.get(key, 0) + v * times
+    return want
+
+
+def sync_all(torch, devices):
+    for d in set(devices):
+        torch.cuda.synchronize(d)
+
+
+def shard_clip(torch, seed, card, devices):
+    """Phase 4p (a): ClipInference(devices=) on phase 4's requests on the
+    block and the tiled path against the one-device engine in this call
+    (within TOL, 4's argmax rule), the launches by card (each shard's
+    forward on its card), clips/s of both engines after a warm-up request
+    (the mean of two timed passes each, in the order one device, shards,
+    shards, one device). Returns (launches by kernel, numbers, ok)."""
+    from tmrnet_torch.eval.infer import ClipInference
+    from tmrnet_torch.kernels.build import LAUNCHES, reset_launches
+
+    setup = slice_setup(torch, seed)
+    ecfg, state, bank = setup["ecfg"], setup["state"], setup["bank"]
+    firsts, requests = setup["first_rows"], setup["requests"]
+    ok, counts, numbers = True, {}, {}
+    for kernel, per_shard in SHARD_FORWARD.items():
+        engines = [ClipInference(ecfg, state, bank, fused_kernel=kernel),
+                   ClipInference(ecfg, state, bank, fused_kernel=kernel,
+                                 devices=devices)]
+        for e in engines:
+            e.run_batches(requests[:1], firsts)     # warm-up, not counted
+        res, rates = [None, None], [[], []]
+        for i in (0, 1, 1, 0):
+            sync_all(torch, devices)
+            reset_launches()
+            t0 = time.perf_counter()
+            res[i] = engines[i].run_batches(requests[1:], firsts)
+            sync_all(torch, devices)
+            rates[i].append(REQUESTS * CLIPS / (time.perf_counter() - t0))
+            if i == 1:
+                got, cards = dict(LAUNCHES), by_card()
+        passes, rates = rates, [float(np.mean(r)) for r in rates]
+        want = per_card(devices, per_shard, REQUESTS)
+        good = cards == want
+        counts = add_counts(counts, got)
+        numbers[kernel] = {"clips_s": rates[1], "one_device_clips_s": rates[0],
+                           "passes_clips_s": passes}
+        print(f"  (a) {kernel} path over {[str(d) for d in devices]}: "
+              f"{rates[1]:.1f} clips/s (one device {rates[0]:.1f}) on "
+              f"{card}; launches by card {cards} (want {want}) "
+              f"{'ok' if good else 'FAIL'}")
+        ok &= good
+        ok &= probs_close(f"(a) {kernel} sharded vs one device",
+                          res[1].scores, res[0].scores)
+        ok &= argmax_agrees(f"(a) {kernel} sharded vs one device",
+                            res[1].preds, res[0].preds, res[0].scores,
+                            min_decided=1)
+        del engines
+    del setup, bank
+    torch.cuda.empty_cache()
+    return counts, numbers, ok
+
+
+def shard_bank(torch, card, devices, tdir, want_path):
+    """Phase 4p (b): build_lfb(engine="clip", devices=) over 4f's manifest
+    and extractor `.pth` (folded, data.batch_clips of LFB_BATCH) against
+    the clip bank at `want_path` within TOL of max |feature|; 12
+    fused_bottleneck a shard of each batch on its card (a batch that does
+    not divide, whole on the first). Returns (launches, frames/s, ok)."""
+    from tmrnet_torch import cli
+    from tmrnet_torch.config import ExperimentConfig, apply_override
+    from tmrnet_torch.kernels.build import LAUNCHES, reset_launches
+    from tmrnet_torch.memory.lfb import load_bank
+    from tmrnet_torch.train.loop import build_lfb
+
+    src = lambda name: os.path.join(tdir, name)
+    with open(src("cfg.json")) as f:
+        cfg = apply_override(ExperimentConfig.from_json(f.read()),
+                             "model.folded=true")
+    state = cli.restore_state(cfg, "lfb", src("lfb.pth"))
+    extractor, = cli.folded_weights(cfg, cli.extractor_state(cfg, state))
+    ds = cli.dataset(cfg, cli.load_manifest(src("m.pkl")))
+    clips = ds.num_clips
+    sync_all(torch, devices)
+    reset_launches()
+    t0 = time.perf_counter()
+    bank = build_lfb(cfg, extractor, ds, cache_path=None, force=True,
+                     devices=devices)
+    sync_all(torch, devices)
+    dt = time.perf_counter() - t0
+    batches = -(-clips // cfg.data.batch_clips)
+    shards = (devices if cfg.data.batch_clips % len(devices) == 0
+              else devices[:1])
+    want = per_card(shards, {"fused_bottleneck": 12}, batches)
+    cards = by_card()
+    good = cards == want
+    print(f"  (b) build_lfb(engine='clip') over {[str(d) for d in devices]}: "
+          f"{clips} clips in {dt:.3f} s = {SEQ * clips / dt:.1f} frames/s on "
+          f"{card}; launches by card {cards} (want {want}) "
+          f"{'ok' if good else 'FAIL'}")
+    ref = load_bank(want_path)
+    ok = good and bool(torch.equal(bank.first_rows.cpu(),
+                                   ref.first_rows.cpu().to(
+                                       bank.first_rows.dtype)))
+    ok &= compare(torch, "(b) sharded clip bank vs the one-device build",
+                  bank.features, ref.features)[1]
+    del bank, ref
+    torch.cuda.empty_cache()
+    return dict(LAUNCHES), SEQ * clips / dt, ok
+
+
+def shard_stream(torch, seed, card, devices):
+    """Phase 4p (c): StreamingInference(devices=), STREAMS slots in
+    len(devices) groups over SHARD_STEPS steps of uint8 224x224 frames,
+    4d's inactive stream (frozen bit for bit) and reset stream, against
+    the one-device engine step for step (every valid row within TOL, 4's
+    argmax rule over them all); each step 24 fused_bottleneck, 1 time_conv
+    and 1 nl_attention a group on its card; step p50 / p99 ms of both
+    engines after 4 warm-up steps. Returns (launches, numbers, ok)."""
+    from tmrnet_torch.eval.stream import StreamingInference
+    from tmrnet_torch.kernels.build import LAUNCHES, reset_launches
+
+    ecfg, weights = engine_setup(seed)
+    frames = np.random.default_rng(seed + 4).integers(
+        0, 256, (SHARD_STEPS, STREAMS, IMG, IMG, 3), dtype=np.uint8)
+    engines = [StreamingInference(ecfg, *weights),
+               StreamingInference(ecfg, *weights, devices=devices)]
+    states = [e.init_state(STREAMS) for e in engines]
+    per_step = {"fused_bottleneck": 24, "time_conv": 1, "nl_attention": 1}
+    want_step = per_card(devices, per_step)
+    ok, times, got_p, want_p, counts = True, [[], []], [], [], {}
+    for t in range(SHARD_STEPS):
+        if t == SHARD_RESET[1]:
+            mask = np.arange(STREAMS) == SHARD_RESET[0]
+            states = [e.reset_streams(s, mask)
+                      for e, s in zip(engines, states)]
+        active = np.ones(STREAMS, bool)
+        if t in SHARD_INACTIVE[1]:
+            active[SHARD_INACTIVE[0]] = False
+        act = None if active.all() else active
+        old = [x[SHARD_INACTIVE[0]].clone() for x in (
+            states[1].ext_ring, states[1].tmr_ring, states[1].bank_ring,
+            states[1].count)]
+        outs = []
+        for i, e in enumerate(engines):
+            sync_all(torch, devices)
+            reset_launches()
+            t0 = time.perf_counter()
+            states[i], preds, probs, valid = e.step(states[i], frames[t], act)
+            probs, valid = probs.cpu().numpy(), valid.cpu().numpy()
+            if t >= 4:
+                times[i].append(time.perf_counter() - t0)
+            outs.append((preds.cpu().numpy(), probs, valid))
+            if i == 1:
+                good = by_card() == want_step
+                counts = add_counts(counts, dict(LAUNCHES))
+                if not good:
+                    print(f"  (c) step {t}: launches by card {by_card()} "
+                          f"(want {want_step}) FAIL")
+                ok &= good
+        ok &= bool(np.array_equal(outs[0][2], outs[1][2]))
+        keep = outs[0][2]
+        got_p.append(outs[1][1][keep])
+        want_p.append(outs[0][1][keep])
+        if act is not None:
+            ok &= not outs[1][2][SHARD_INACTIVE[0]] and all(
+                bool(torch.equal(x[SHARD_INACTIVE[0]], o)) for x, o in zip(
+                    (states[1].ext_ring, states[1].tmr_ring,
+                     states[1].bank_ring, states[1].count), old))
+    got_p, want_p = np.concatenate(got_p), np.concatenate(want_p)
+    ms = [np.array(t) * 1e3 for t in times]
+    numbers = {"p50_ms": float(np.percentile(ms[1], 50)),
+               "p99_ms": float(np.percentile(ms[1], 99)),
+               "one_device_p50_ms": float(np.percentile(ms[0], 50)),
+               "one_device_p99_ms": float(np.percentile(ms[0], 99))}
+    print(f"  (c) {STREAMS} streams x {SHARD_STEPS} steps in "
+          f"{len(devices)} groups over {[str(d) for d in devices]}: step "
+          f"p50 {numbers['p50_ms']:.3f} ms, p99 {numbers['p99_ms']:.3f} "
+          f"(one device {numbers['one_device_p50_ms']:.3f} / "
+          f"{numbers['one_device_p99_ms']:.3f}) on {card}; each step "
+          f"{want_step}; inactive slot frozen {'ok' if ok else 'FAIL'}")
+    ok &= probs_close(f"(c) {len(got_p)} valid stream rows vs one device",
+                      got_p, want_p)
+    ok &= argmax_agrees("(c) stream rows vs one device",
+                        got_p.argmax(-1), want_p.argmax(-1), want_p,
+                        min_decided=1)
+    del engines, states, frames
+    torch.cuda.empty_cache()
+    return counts, numbers, ok
+
+
+def shard_head(torch, seed, card):
+    """Phase 4p (d): experimental/headlevel_multiscale.py's HeadOnly (head
+    tmr) at hidden 512, window 40, bf16 on the card over HEAD_ROWS seeded
+    rows: the first forward within TOL of the same weights in f32 on the
+    CPU (plain versions), then HEAD_STEPS Adam steps of HEAD_BATCH rows
+    with finite losses; 1 time_conv and 1 nl_attention a forward. Returns
+    (launches, ms a step, ok)."""
+    from tmrnet_torch.experimental.headlevel_multiscale import (
+        HeadOnly, adam_step, init_head)
+    from tmrnet_torch.kernels.build import LAUNCHES, reset_launches
+
+    rng = np.random.default_rng(seed + 12)
+    st = rng.standard_normal((HEAD_ROWS, HIDDEN), dtype=np.float32)
+    lt = rng.standard_normal((HEAD_ROWS, HEAD_WINDOW, HIDDEN),
+                             dtype=np.float32)
+    y = rng.integers(0, 2, HEAD_ROWS)
+    cpu = init_head(HIDDEN, True, seed, "cpu")
+    model = HeadOnly(HIDDEN, True, compute_dtype="bfloat16").cuda()
+    model.load_state_dict(cpu.state_dict())
+    dev = lambda a: torch.from_numpy(a).cuda()
+    st_d, lt_d, y_d = dev(st), dev(lt), dev(y)
+    reset_launches()
+    with torch.no_grad():
+        got = model(st_d[:HEAD_BATCH], lt_d[:HEAD_BATCH]).float().cpu()
+        want = cpu(torch.from_numpy(st[:HEAD_BATCH]),
+                   torch.from_numpy(lt[:HEAD_BATCH]))
+    ok = dict(LAUNCHES) == {"time_conv": 1, "nl_attention": 1}
+    ok &= compare(torch, "(d) HeadOnly bf16 card vs f32 CPU logits", got,
+                  want)[1]
+    step = adam_step(model)
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(HEAD_STEPS):
+        idx = dev(rng.integers(0, HEAD_ROWS, HEAD_BATCH))
+        losses.append(step(st_d[idx], lt_d[idx], y_d[idx]))
+    losses = torch.stack(losses).cpu().numpy()
+    dt = (time.perf_counter() - t0) / HEAD_STEPS
+    counts = dict(LAUNCHES)
+    want = {"time_conv": 1 + HEAD_STEPS, "nl_attention": 1 + HEAD_STEPS}
+    good = counts == want and bool(np.isfinite(losses).all())
+    print(f"  (d) HeadOnly {HEAD_STEPS} Adam steps of {HEAD_BATCH} rows: "
+          f"losses {losses[0]:.4f} -> {losses[-1]:.4f}, {dt * 1e3:.3f} ms a "
+          f"step on {card}; launches {counts} (want {want}) "
+          f"{'ok' if good else 'FAIL'}")
+    return counts, dt * 1e3, ok and good
+
+
+def shard_entry(torch, card):
+    """Phase 4p (e): `tmrnet_torch.entry.entry()` on the card: fn(*args)
+    gives finite logits (2, 7) with 1 time_conv and 1 nl_attention
+    (the trunk is not folded). Returns (launches, ms, ok)."""
+    from tmrnet_torch.entry import entry
+    from tmrnet_torch.kernels.build import LAUNCHES, reset_launches
+
+    fn, args = entry()
+    fn(*args)                                   # warm-up, not counted
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    logits = fn(*args)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) * 1e3
+    counts = dict(LAUNCHES)
+    ok = (counts == {"time_conv": 1, "nl_attention": 1}
+          and tuple(logits.shape) == (2, 7)
+          and bool(torch.isfinite(logits).all()))
+    print(f"  (e) entry(): logits {tuple(logits.shape)} "
+          f"{logits.dtype}, {dt:.3f} ms a call on {card}, launches {counts} "
+          f"{'ok' if ok else 'FAIL'}")
+    del fn, args
+    torch.cuda.empty_cache()
+    return counts, dt, ok
+
+
+def run_shard_slice(torch, seed, card, kept):
+    """Phase 4p: the shards of one process over `sp_devices` (card 0
+    twice on a one-card host): (a) `shard_clip`, (b) `shard_bank` over
+    4f's directory, (c) `shard_stream`, (d) `shard_head`, (e)
+    `shard_entry`. Returns (counts by path, numbers, ok)."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    devices = sp_devices(torch)
+    numbers = {"devices": [str(d) for d in devices]}
+    c_a, numbers["clip"], ok = shard_clip(torch, seed, card, devices)
+    c_b, numbers["bank_frames_s"], ok_b = shard_bank(
+        torch, card, devices, kept["test"],
+        os.path.join(kept["test"], "bank_clip.npz"))
+    c_c, numbers["stream"], ok_c = shard_stream(torch, seed, card, devices)
+    c_d, numbers["head_step_ms"], ok_d = shard_head(torch, seed, card)
+    c_e, numbers["entry_ms"], ok_e = shard_entry(torch, card)
+    ok &= ok_b and ok_c and ok_d and ok_e
+    counts = add_counts(c_a, c_b, c_c, c_d, c_e)
+    numbers["seconds"] = time.perf_counter() - t0
+    print(f"shard slice: {json.dumps(numbers)}; launches {counts} on {card} "
+          f"{'ok' if ok else 'FAIL'}")
+    return {"shard": counts}, numbers, ok
+
+
+def shard_commands(card, tdir, tmp, n):
+    """`--shard-only` on a host of n >= 2 cards: `test --engine clip` over
+    4f's clip bank and `stream --max-streams 4` through
+    `tmrnet_torch.cli.main` with --set mesh.data_parallel=n against the
+    same commands on one card: the clip engine's softmax within TOL and
+    the argmax rule; the stream's rows the same videos, frames and valid
+    flags, its predictions held by the argmax rule to the one-card
+    stream's, the margins from the one-card clip engine's softmax (the
+    rows carry none); each command's seconds. Returns (launches,
+    seconds, ok)."""
+    src = lambda name: os.path.join(tdir, name)
+    common = ["--config", src("cfg.json"), "--set", "model.folded=true",
+              "--manifest", src("m.pkl"), "--torch-ckpt", src("tmr.pth"),
+              "--extractor-torch-ckpt", src("lfb.pth")]
+    mesh = ["--set", f"mesh.data_parallel={n}"]
+    ok, counts, seconds, out = True, {}, {}, {}
+    for name, extra in (("one", []), ("shards", mesh)):
+        o = lambda f: os.path.join(tmp, f"{name}_{f}")
+        _, c, seconds[f"test {name}"] = run_cli(
+            ["test", *common, "--engine", "clip", "--lfb",
+             src("bank_clip.npz"), "--out", o("clip.npz"), *extra])
+        _, c2, seconds[f"stream {name}"] = run_cli(
+            ["stream", *common, "--max-streams", "4", "--out",
+             o("s.jsonl"), *extra])
+        counts = add_counts(counts, c, c2)
+        with np.load(o("clip.npz")) as z:
+            out[name] = (z["preds"], z["scores"])
+        with open(o("s.jsonl")) as f:
+            out[name + "_rows"] = f.read()
+    ok &= probs_close(f"test --engine clip over {n} cards vs one",
+                      out["shards"][1], out["one"][1])
+    ok &= argmax_agrees(f"test --engine clip over {n} cards vs one",
+                        out["shards"][0], out["one"][0], out["one"][1])
+    rows = [[json.loads(r) for r in out[k].splitlines()]
+            for k in ("one_rows", "shards_rows")]
+    key = lambda r: (r["video"], r["frame"], r["valid"])
+    same = [key(a) for a in rows[0]] == [key(b) for b in rows[1]]
+    print(f"  stream over {n} cards vs one: the same videos, frames and "
+          f"valid flags {same}; seconds {json.dumps(seconds)} on {card} "
+          f"{'ok' if same else 'FAIL'}")
+    from tmrnet_torch.cli import load_manifest, stream_predictions
+
+    manifest = load_manifest(os.path.join(tdir, "m.pkl"))
+    preds = [stream_predictions(os.path.join(tmp, f"{name}_s.jsonl"),
+                                manifest) for name in ("one", "shards")]
+    ok &= same and argmax_agrees(
+        f"stream over {n} cards vs one (margins of the clip engine)",
+        preds[1], preds[0], out["one"][1])
+    return counts, seconds, ok
+
+
+def shard_only(torch, seed):
+    """`--shard-only`: phase 4p (a)-(c) over every visible card (card 0
+    twice on a one-card host), (b) over a 4f directory this run writes
+    (its one-card clip bank from `build-lfb`), then, over two cards or
+    more, `shard_commands`; a JSON line of the numbers, the card's line.
+    Returns the exit code."""
+    from tmrnet_torch.kernels.build import build_all
+
+    card = card_line()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    os.makedirs(ROOT_TMP, exist_ok=True)
+    build_all()
+    n = torch.cuda.device_count()
+    devices = ([torch.device("cuda", i) for i in range(n)] if n >= 2
+               else [torch.device("cuda", 0)] * 2)
+    numbers = {"devices": [str(d) for d in devices]}
+    counts, numbers["clip"], ok = shard_clip(torch, seed, card, devices)
+    with phase_dir("shard") as tmp:
+        cfg = full_width_config(folded=False)
+        paths = write_reference_weights(seed + 1000, tmp, cfg, calibrate=True)
+        write_test_videos(seed, tmp)
+        m = os.path.join(tmp, "m.pkl")
+        run_cli(["manifest", "--config", paths["config"], "--frames",
+                 os.path.join(tmp, "frames"), "--annotations",
+                 os.path.join(tmp, "ann"), "--out", m])
+        run_cli(["build-lfb", "--config", paths["config"], "--set",
+                 "model.folded=true", "--manifest", m, "--torch-ckpt",
+                 paths["lfb"], "--engine", "clip", "--out",
+                 os.path.join(tmp, "bank_clip.npz")])
+        c_b, numbers["bank_frames_s"], ok_b = shard_bank(
+            torch, card, devices, tmp, os.path.join(tmp, "bank_clip.npz"))
+        c_c, numbers["stream"], ok_c = shard_stream(torch, seed, card,
+                                                    devices)
+        c_x, ok_x = {}, True
+        if n >= 2:
+            c_x, numbers["commands_s"], ok_x = shard_commands(
+                card, tmp, tmp, n)
+    ok &= ok_b and ok_c and ok_x
+    counts = add_counts(counts, c_b, c_c, c_x)
+    print(json.dumps({"shard_only": len(devices), "launches": counts,
+                      "numbers": numbers, "ok": ok}))
+    print(card)
+    return 0 if ok else 1
 
 
 # Phase 4l: the calls of each path timed in (a), the host-cost calls of
@@ -5579,6 +6020,11 @@ def main():
                              "there are enough, over BACKEND (nccl or gloo), "
                              "and (c) over 2 cards (card 0 twice on one) "
                              "and 4 where there are, then exit")
+    parser.add_argument("--shard-only", action="store_true",
+                        help="only phase 4p (a)-(c) over every visible card "
+                             "(card 0 twice on one), then `test --engine "
+                             "clip` and `stream` under mesh.data_parallel=N "
+                             "where there are N >= 2, then exit")
     parser.add_argument("--multi-only", nargs=2, metavar=("WORLD", "BACKEND"),
                         help="only phase 4k (b) over WORLD ranks, one card a "
                              "rank where there are enough, over BACKEND "
@@ -5615,6 +6061,8 @@ def main():
         return 0 if ok else 1
     if args.mesh_only:
         return mesh_only(torch, args.seed, *args.mesh_only)
+    if args.shard_only:
+        return shard_only(torch, args.seed)
     from tmrnet_torch.kernels.build import build_all
 
     torch.backends.cudnn.allow_tf32 = False
@@ -5700,7 +6148,9 @@ def main():
                 ("4l artifact", lambda: run_artifact_slice(torch, seed, card,
                                                            kept)),
                 ("4o mesh", lambda: run_mesh_slice(torch, seed, card,
-                                                   kept, refs))):
+                                                   kept, refs)),
+                ("4p shard", lambda: run_shard_slice(torch, seed, card,
+                                                     kept))):
             res = phases.run(name, fn)
             if res:
                 by_path.update(res[0])

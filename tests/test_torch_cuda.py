@@ -1071,3 +1071,139 @@ def test_train_step_on_card_in_f32_matches_cpu(gen, head):
     for k, want in cpu[2].items():
         _close(card[2][k], want, 1e-3)
     assert card[3] == ({"nl_attention": 1} if head == "nl_only" else {})
+
+
+def _sharded_setup(seeds=(11, 12)):
+    """ResNet-50 widths with one identity block (stage 1's second), folded,
+    bf16, window 30: the config and the TMR model's and the extractor's
+    folded weights."""
+    from tmrnet_torch.config import (DataConfig, ExperimentConfig,
+                                     MemoryConfig, ModelConfig)
+    from tmrnet_torch.models.convert import from_jax_variables, random_variables
+    from tmrnet_torch.models.fold_bn import fold_variables
+
+    kw = dict(backbone="resnet50", stage_sizes=(2, 1, 1, 1), hidden_dim=512,
+              head="tmr")
+    weights = [fold_variables(from_jax_variables(random_variables(
+        ModelConfig(**dict(kw, head=head)), seed))) for head, seed in
+        zip(("tmr", "lfb"), seeds)]
+    cfg = ExperimentConfig(
+        data=DataConfig(device_normalize=True),
+        model=ModelConfig(**kw, folded=True, compute_dtype="bfloat16"),
+        memory=MemoryConfig(window=30))
+    return cfg, weights
+
+
+def test_sharded_clip_engine_on_card_matches_one_device(gen):
+    """ClipInference(devices=[cuda:0, cuda:0]) against the one-device
+    engine on the card: a batch of 4 clips in two shards (per shard one
+    fused_bottleneck, one time_conv, one nl_attention, all on card 0), a
+    batch of 3 whole; softmax within 2e-2."""
+    from tmrnet_torch.eval.infer import ClipInference
+    from tmrnet_torch.kernels.build import LAUNCHES_BY_DEVICE
+    from tmrnet_torch.memory.lfb import FeatureBank
+
+    cfg, (state, _) = _sharded_setup()
+    rng = np.random.default_rng(13)
+    bank = FeatureBank(torch.randn(64, 512, generator=gen, device="cuda")
+                       .to(torch.bfloat16),
+                       torch.zeros(64, dtype=torch.int32).cuda())
+    one = ClipInference(cfg, state, bank)
+    sharded = ClipInference(cfg, state, bank,
+                            devices=[torch.device("cuda", 0)] * 2)
+    firsts = np.zeros(64, np.int64)
+    for b, want_counts in ((4, 2), (3, 1)):
+        batch = [(rng.integers(0, 256, (b, 10, 64, 64, 3), dtype=np.uint8),
+                  np.zeros(b, int), rng.integers(0, 64, b), 0)]
+        want = one.run_batches(batch, firsts)
+        reset_launches()
+        got = sharded.run_batches(batch, firsts)
+        assert dict(LAUNCHES) == {"fused_bottleneck": want_counts,
+                                  "time_conv": want_counts,
+                                  "nl_attention": want_counts}
+        assert dict(LAUNCHES_BY_DEVICE) == {
+            (k, 0): want_counts for k in LAUNCHES}
+        assert np.abs(got.scores - want.scores).max() <= REL
+
+
+def test_sharded_stream_engine_on_card_matches_one_device(gen):
+    """StreamingInference(devices=[cuda:0, cuda:0]), 4 slots in two groups
+    over 12 steps, slot 1 inactive at steps 4-5 (frozen bit for bit), slot
+    2 reset at step 7, against the one-device engine: per step 2
+    fused_bottleneck (both trunks), 1 time_conv and 1 nl_attention a
+    group; softmax within 2e-2, the same valid mask."""
+    from tmrnet_torch.eval.stream import StreamingInference
+
+    cfg, weights = _sharded_setup((14, 15))
+    one = StreamingInference(cfg, *weights)
+    sharded = StreamingInference(cfg, *weights,
+                                 devices=[torch.device("cuda", 0)] * 2)
+    frames = np.random.default_rng(16).integers(
+        0, 256, (12, 4, 64, 64, 3), dtype=np.uint8)
+    s1, s2 = one.init_state(4), sharded.init_state(4)
+    for t in range(12):
+        if t == 7:
+            mask = np.arange(4) == 2
+            s1, s2 = one.reset_streams(s1, mask), sharded.reset_streams(
+                s2, mask)
+        active = np.ones(4, bool)
+        active[1] = t not in (4, 5)
+        old = [x[1].clone() for x in (s2.ext_ring, s2.tmr_ring, s2.bank_ring,
+                                      s2.count)]
+        s1, _, q1, v1 = one.step(s1, frames[t], active)
+        reset_launches()
+        s2, _, q2, v2 = sharded.step(s2, frames[t], active)
+        assert dict(LAUNCHES) == {"fused_bottleneck": 4, "time_conv": 2,
+                                  "nl_attention": 2}
+        assert torch.equal(v1, v2)
+        assert (q2 - q1).abs().max().item() <= REL
+        if not active[1]:
+            assert all(torch.equal(a[1], b) for a, b in zip(
+                (s2.ext_ring, s2.tmr_ring, s2.bank_ring, s2.count), old))
+
+
+def test_entry_on_card(gen):
+    """entry() on the card: finite logits (2, 7) from its zero-filled
+    state, and from seeded weights, each call one time_conv and one
+    nl_attention (the trunk is not folded: no fused kernel)."""
+    from tmrnet_torch.config import ModelConfig
+    from tmrnet_torch.entry import entry
+    from tmrnet_torch.models.convert import from_jax_variables, random_variables
+
+    fn, (state, clips, memory) = entry()
+    assert clips.is_cuda and memory.is_cuda
+    seeded = {k: v.cuda() for k, v in from_jax_variables(random_variables(
+        ModelConfig(backbone="resnet50", head="tmr", num_classes=7,
+                    hidden_dim=512), 17)).items()}
+    for weights in (state, seeded):
+        reset_launches()
+        logits = fn(weights, clips, memory)
+        assert dict(LAUNCHES) == {"time_conv": 1, "nl_attention": 1}
+        assert logits.shape == (2, 7) and bool(torch.isfinite(logits).all())
+
+
+def test_head_only_on_card_matches_cpu(gen):
+    """experimental/headlevel_multiscale.py's HeadOnly at hidden 64, window
+    40, bf16 on the card against f32 on the CPU (within 2e-2 of max
+    |logit|), then 3 Adam steps with finite losses; one time_conv and one
+    nl_attention a forward."""
+    from tmrnet_torch.experimental.headlevel_multiscale import (HeadOnly,
+                                                                adam_step,
+                                                                init_head)
+
+    cpu = init_head(64, True, 0)
+    card = HeadOnly(64, True, compute_dtype="bfloat16").cuda()
+    card.load_state_dict(cpu.state_dict())
+    host = torch.Generator().manual_seed(0)
+    st = torch.randn(32, 64, generator=host)
+    lt = torch.randn(32, 40, 64, generator=host)
+    with torch.no_grad():
+        want = cpu(st, lt)
+        reset_launches()
+        got = card(st.cuda(), lt.cuda()).float().cpu()
+    assert dict(LAUNCHES) == {"time_conv": 1, "nl_attention": 1}
+    assert (got - want).abs().max() <= REL * want.abs().max()
+    step = adam_step(card)
+    y = torch.randint(0, 2, (32,), generator=host).cuda()
+    for _ in range(3):
+        assert torch.isfinite(step(st.cuda(), lt.cuda(), y))

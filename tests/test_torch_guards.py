@@ -1,5 +1,6 @@
-"""Guards of the port: it imports nothing of JAX or of the JAX package, and
-its entry points refuse to run without CUDA unless asked for the CPU."""
+"""Guards of the port: it imports nothing of JAX, of the JAX package or of
+its `scripts` (which import JAX), and its entry points refuse to run
+without CUDA unless asked for the CPU."""
 
 import ast
 import dataclasses
@@ -22,7 +23,8 @@ from tmrnet_torch.train.loop import build_lfb, build_lfb_video
 torch.set_num_threads(2)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tmrnet_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tmrnet_tpu",
+             "scripts")
 PORT_FILES = sorted((ROOT / "tmrnet_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -68,7 +70,9 @@ def test_importing_the_port_leaves_jax_out():
             "tmrnet_torch.kernels.library, tmrnet_torch.data.synthetic, "
             "tmrnet_torch.data.stats, tmrnet_torch.migrate, "
             "tmrnet_torch.data.video, tmrnet_torch.data.cutmargin, "
-            "tmrnet_torch.experimental.efficacy_study; "
+            "tmrnet_torch.experimental.efficacy_study, "
+            "tmrnet_torch.experimental.headlevel_multiscale, "
+            "tmrnet_torch.experimental.timeconv_witness; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -4,8 +4,9 @@ it has them: `partition_videos`, `process_local_bounds`,
 JAX's local-row batches, the mesh's checks and refusals (a failed
 rendezvous raises, `data_parallel` must be the world size over
 `model_parallel`, the engines refuse a mesh over several
-processes, `_mesh_for` an indivisible batch, the in-process N > 1 of the
-clip engine, `stream` and the trainers), `doctor --mesh` against JAX's,
+processes, `_mesh_for` an indivisible batch, the in-process N > 1 of
+the trainers and of `--artifact`, `serve` under a grid), `doctor --mesh`
+against JAX's,
 the kernel build's lock
 between two processes (a stand-in `nvcc`), and `dryrun_multichip(2)` and
 `(3)`."""
@@ -190,9 +191,10 @@ def test_rendezvous_failures_raise():
 def test_refusals_of_what_is_not_ported(monkeypatch):
     """The engines refuse a mesh over several processes; _mesh_for exits on
     a global batch that does not divide over the ranks; in one process,
-    mesh.data_parallel=N > 1 (the video engines' sequence-parallel pass)
-    is refused by name by the clip engine, `stream` and the trainers, and
-    mesh.model_parallel > 1 without mesh.multihost by every command."""
+    mesh.data_parallel=N > 1 (the in-process shards) is refused by name by
+    the trainers and by `stream` and `serve` with --artifact, and
+    mesh.model_parallel > 1 without mesh.multihost by every command,
+    `serve` included, which also refuses mesh.multihost by name."""
     from tmrnet_torch.eval.infer import ClipInference
     from tmrnet_torch.eval.stream import StreamingInference
 
@@ -218,18 +220,23 @@ def test_refusals_of_what_is_not_ported(monkeypatch):
         cli._mesh_for(cfg, args)
     assert cli._mesh_for(cfg, args, batch=0) == (ranks.device, ranks)
     sp = apply_override(ExperimentConfig(), "mesh.data_parallel=2")
-    for argv in (["test", "--manifest", "m.pkl", "--torch-ckpt", "t.pth",
-                  "--engine", "clip"],
-                 ["build-lfb", "--manifest", "m.pkl", "--torch-ckpt",
-                  "t.pth", "--engine", "clip", "--out", "b.npz"],
-                 ["stream", "--manifest", "m.pkl", "--torch-ckpt", "t.pth",
-                  "--out", "s.jsonl"],
-                 ["train-bank", "--train-manifest", "m.pkl"],
+    for argv in (["train-bank", "--train-manifest", "m.pkl"],
                  ["train-tmr", "--train-manifest", "m.pkl", "--lfb",
                   "b.npz"]):
-        with pytest.raises(SystemExit, match="sequence-parallel pass of"):
+        with pytest.raises(SystemExit, match="shards the work of"):
             cli.main(argv + ["--device", "cpu", "--set",
                              "mesh.data_parallel=2"])
+    for argv in (["stream", "--manifest", "m.pkl", "--artifact", "a.pt2",
+                  "--out", "s.jsonl"],
+                 ["serve", "--artifact", "a.pt2"]):
+        with pytest.raises(SystemExit, match="--artifact runs on the one"):
+            cli.main(argv + ["--device", "cpu", "--set",
+                             "mesh.data_parallel=2"])
+    for sets, match in ((["mesh.model_parallel=2"], "mesh.multihost=true"),
+                        (["mesh.multihost=true"], "serve runs in one")):
+        with pytest.raises(SystemExit, match=match):
+            cli.main(["serve", "--torch-ckpt", "t.pth", "--device", "cpu"]
+                     + [a for s in sets for a in ("--set", s)])
     assert cli._sp_devices(sp, args, "test") == [torch.device("cpu")] * 2
     # N above the visible cards exits (one card, as it would be seen)
     import tmrnet_torch.device

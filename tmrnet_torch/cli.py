@@ -83,12 +83,20 @@ the outputs equal a one-process run's. For example
         --set mesh.multihost=true --set mesh.model_parallel=2
 
 Without mesh.multihost every command runs on one card, except that `--set
-mesh.data_parallel=N` (N > 1) runs `test --engine video|corpus` and
-`build-lfb --engine video` as the sequence-parallel pass over cuda:0 ..
-cuda:N-1 (`eval/infer.py::VideoInference(devices=)`; N CPU shards with
-`--device cpu`); the clip engine, `stream` and the trainers refuse it,
-and N above the visible cards exits. JAX builds a mesh over every
-visible device by itself; the port takes N explicitly.
+mesh.data_parallel=N` (N > 1) shards the work of one process over cuda:0
+.. cuda:N-1 (N CPU shards with `--device cpu`), as JAX's commands do over
+a process-local mesh: `test --engine video|corpus` and `build-lfb
+--engine video` run the sequence-parallel pass
+(`eval/infer.py::VideoInference(devices=)`); `test --engine clip`,
+`build-lfb --engine clip` and `parity` shard each batch
+(`ClipInference(devices=)`, `train/loop.py::build_lfb(devices=)`), whose
+size (`eval.batch_clips` for the clip engine, `data.batch_clips` for a
+bank build) must divide by N; `stream` and `serve` split their slots
+(`eval/stream.py::StreamingInference(devices=)`), the slot count rounded
+up to a multiple of N, the surplus slots idle on blank frames (JAX
+:932-935, :1075-1078). The trainers and `--artifact` (which bakes one
+card) refuse it, and N above the visible cards exits. JAX builds a mesh
+over every visible device by itself; the port takes N explicitly.
 
 Config: --config <json> loads an ExperimentConfig (a JSON written by either
 package; fields the port lacks are skipped, and a `config_ignored` line on
@@ -409,13 +417,16 @@ def _mesh_for(cfg: ExperimentConfig, args, batch: Optional[int] = None,
 
 
 def _sp_devices(cfg: ExperimentConfig, args, what: str,
-                allowed: bool = True):
-    """The sequence-parallel pass's devices under --set
+                allowed: bool = True, batches=()):
+    """The devices of one process's shards under --set
     mesh.data_parallel=N (N > 1) without mesh.multihost: cuda:0 ..
     cuda:N-1, or N CPU shards with --device cpu; None without the
     setting (or under multihost, where N is the data axis of the grid).
-    `what` (a command that does not run the pass) refuses it by name, and
-    N above the visible cards exits."""
+    The shards are the video engines' sequence-parallel pass, the clip
+    engine's batches and the stream engine's slots. `what` (a command
+    that runs none of them) refuses it by name; a config key of
+    `batches` whose batch does not divide by N exits naming it, and N
+    above the visible cards exits."""
     from tmrnet_torch.device import resolve_device
 
     n = cfg.mesh.data_parallel
@@ -424,11 +435,17 @@ def _sp_devices(cfg: ExperimentConfig, args, what: str,
     if not allowed:
         raise SystemExit(
             f"{what} runs on one card in one process: mesh.data_parallel={n} "
-            f"without mesh.multihost is the sequence-parallel pass of `test "
-            f"--engine video|corpus` and `build-lfb --engine video` only "
-            f"(launch ranks with --set mesh.multihost=true for the grid)")
+            f"without mesh.multihost shards the work of `test`, `build-lfb`, "
+            f"`parity`, `stream` and `serve` only (launch ranks with --set "
+            f"mesh.multihost=true for the grid)")
     if n < 1:
         raise SystemExit(f"mesh.data_parallel={n}: want -1 or N >= 1")
+    for key in batches:
+        section, field = key.split(".")
+        b = getattr(getattr(cfg, section), field)
+        if b % n:
+            raise SystemExit(f"{key}={b} must be divisible by "
+                             f"mesh.data_parallel={n}; adjust {key}")
     dev = resolve_device(args.device)
     if dev.type == "cpu":
         return [dev] * n
@@ -436,10 +453,23 @@ def _sp_devices(cfg: ExperimentConfig, args, what: str,
 
     have = torch.cuda.device_count()
     if n > have:
-        raise SystemExit(f"mesh.data_parallel={n}: the sequence-parallel "
-                         f"pass takes one card a shard, and {have} are "
-                         f"visible")
+        raise SystemExit(f"mesh.data_parallel={n}: the in-process shards "
+                         f"take one card each, and {have} are visible")
     return [torch.device("cuda", i) for i in range(n)]
+
+
+def _round_slots(slots: int, devices) -> int:
+    """The slot count rounded up to a multiple of the stream engine's
+    devices (JAX :932-935): the surplus slots idle on blank frames."""
+    n = len(devices) if devices else 1
+    return -(-slots // n) * n
+
+
+def _refuse_artifact_shards(args, devices) -> None:
+    if args.artifact and devices:
+        raise SystemExit(f"--artifact runs on the one device it was "
+                         f"exported on: mesh.data_parallel={len(devices)} "
+                         f"is not supported with it")
 
 
 def _writes(mesh) -> bool:
@@ -655,7 +685,9 @@ def cmd_build_lfb(args) -> int:
     manifest; one backbone pass per frame) or the clip engine, which crop
     types outside 1/2/3 and --videos fall back to. Under mesh.multihost
     the clip engine splits each batch over the ranks and the video engine
-    the videos; rank 0 writes the bank."""
+    the videos; rank 0 writes the bank. Under mesh.data_parallel=N in one
+    process the clip engine shards each batch over N devices and the
+    video engine runs the sequence-parallel pass."""
     from tmrnet_torch.train.loop import build_lfb
 
     cfg = load_config(args)
@@ -668,8 +700,8 @@ def cmd_build_lfb(args) -> int:
     if args.engine == "video" and args.videos:
         # before the dataset's probe and the weights' load
         raise SystemExit("build-lfb --engine video needs a frame manifest")
-    devices = _sp_devices(cfg, args, f"build-lfb --engine {args.engine}",
-                          allowed=args.engine == "video")
+    devices = _sp_devices(cfg, args, "build-lfb", batches=(
+        () if args.engine == "video" else ("data.batch_clips",)))
     device, mesh = _mesh_for(cfg, args, batch=(
         0 if args.engine == "video" else cfg.data.batch_clips))
     ds = (video_dataset(cfg, args.videos, args.annotations, False)
@@ -850,7 +882,9 @@ def cmd_test(args) -> int:
     memory.compat_cross_video, --lfb or --load-lfb, and for a memoryless
     head (stage1). Under mesh.multihost only the corpus engine runs, its
     videos partitioned over the ranks (`eval/distributed.py`); rank 0
-    writes the outputs."""
+    writes the outputs. Under mesh.data_parallel=N in one process the
+    clip engine (and its bank build) shards each batch over N devices,
+    the video engines run the sequence-parallel pass."""
     from tmrnet_torch.eval.infer import (ClipInference, InferenceResult,
                                          memoryless_head)
     from tmrnet_torch.eval.metrics import classification_metrics
@@ -897,8 +931,11 @@ def cmd_test(args) -> int:
                 "--engine video builds per-video memory windows; the "
                 "reference cross-video quirk (memory.compat_cross_video) "
                 "requires --engine clip")
-    devices = _sp_devices(cfg, args, f"test --engine {args.engine}",
-                          allowed=args.engine == "video")
+    builds = (args.engine == "clip" and not memoryless
+              and not (args.lfb and os.path.exists(args.lfb)))
+    devices = _sp_devices(cfg, args, "test", batches=(
+        () if args.engine == "video" else ("eval.batch_clips",)
+        + (("data.batch_clips",) if builds else ())))
     device, mesh = _mesh_for(cfg, args, batch=0)
     m = load_manifest(args.manifest)
     seq = cfg.data.sequence_length
@@ -924,10 +961,12 @@ def cmd_test(args) -> int:
             extractor, = folded_weights(
                 cfg, extractor_for(cfg, state, args))
             bank = build_lfb(cfg, extractor, ds, cache_path=args.lfb,
-                             force=not args.load_lfb, device=device)
+                             force=not args.load_lfb, device=device,
+                             devices=devices)
             del extractor
         state, = folded_weights(cfg, state)
-        res = ClipInference(cfg, state, bank, device=device).run(ds)
+        res = ClipInference(cfg, state, bank, device=device,
+                            devices=devices).run(ds)
     if not _writes(mesh):
         return 0
     np.savez(args.out, preds=res.preds, scores=res.scores, rows=res.rows)
@@ -997,7 +1036,9 @@ def cmd_stream(args) -> int:
     rows grouped by video in manifest order (the interleaving of a
     one-process run's steps is a rank's own). With --artifact the model
     is the exported step (`eval/saved.py`) over its slot count; surplus
-    slots idle on blank frames."""
+    slots idle on blank frames. Under mesh.data_parallel=N in one process
+    the slots split over N devices, their count rounded up to a multiple
+    of N (the surplus idle on blank frames, as JAX's)."""
     from collections import deque
 
     from tmrnet_torch.data.pipeline import load_frame
@@ -1005,7 +1046,8 @@ def cmd_stream(args) -> int:
     from tmrnet_torch.eval.stream import StreamingInference
 
     cfg = load_config(args)
-    _sp_devices(cfg, args, "stream", allowed=False)
+    devices = _sp_devices(cfg, args, "stream")
+    _refuse_artifact_shards(args, devices)
     engine = mesh = None
     if args.artifact:
         engine, cfg = _stream_artifact_engine(args, cfg)
@@ -1025,7 +1067,8 @@ def cmd_stream(args) -> int:
                               args.ckpt)
         state, extractor = folded_weights(
             cfg, state, extractor_for(cfg, state, args))
-        engine = StreamingInference(cfg, state, extractor, device=device)
+        engine = StreamingInference(cfg, state, extractor, device=device,
+                                    devices=devices)
         del state, extractor
 
     tf = eval_transform(cfg)
@@ -1043,8 +1086,8 @@ def cmd_stream(args) -> int:
     # bounds the decoded videos held in host memory.
     n_mine = max(len(my_videos), 1)
     max_streams = n_mine if args.max_streams < 0 else args.max_streams
-    num_slots = (engine.slots if args.artifact
-                 else min(max_streams or n_mine, n_mine))
+    num_slots = (engine.slots if args.artifact else
+                 _round_slots(min(max_streams or n_mine, n_mine), devices))
     stream = engine.init_state(num_slots)
 
     # A video is decoded, only its streamed prefix, when its slot starts,
@@ -1146,17 +1189,28 @@ def cmd_serve(args) -> int:
     first frame, leave on "end", and any number of them multiplex onto the
     fixed slots; `{"step": true}` runs one tick. With --artifact the
     model, the slot count and the config are the artifact's
-    (`eval/saved.py`)."""
+    (`eval/saved.py`). Under mesh.data_parallel=N the slots split over N
+    devices of this process, --slots rounded up to a multiple of N; the
+    daemon is one process, so mesh.multihost exits, and
+    mesh.model_parallel > 1 exits as on every command."""
     if args.listen and args.input != "-":
         # fail before the (slow) weight restore and engine build
         raise SystemExit("--listen and --input are exclusive "
                          "(TCP clients replace the input file)")
-    from tmrnet_torch.device import resolve_device
     from tmrnet_torch.eval.serve import serve_loop
     from tmrnet_torch.eval.stream import StreamingInference
 
     cfg = load_config(args)
-    engine, num_slots = None, args.slots
+    if cfg.mesh.multihost:
+        # JAX's StreamingInference refuses a mesh over processes
+        raise SystemExit("serve runs in one process (its stream engine "
+                         "takes no mesh over processes): drop "
+                         "mesh.multihost, or shard its slots over this "
+                         "process's cards with mesh.data_parallel=N")
+    devices = _sp_devices(cfg, args, "serve")
+    _refuse_artifact_shards(args, devices)
+    device, _ = _mesh_for(cfg, args, batch=0)
+    engine, num_slots = None, _round_slots(args.slots, devices)
     if args.artifact:
         engine, cfg = _stream_artifact_engine(args, cfg)
         num_slots = engine.slots
@@ -1164,8 +1218,6 @@ def cmd_serve(args) -> int:
             print(json.dumps({"note": f"--slots {args.slots} ignored: the "
                               f"artifact was exported with {num_slots} "
                               "slots"}), file=sys.stderr, flush=True)
-    else:
-        device = resolve_device(args.device)
     if cfg.data.test_crop_type not in (1, 2, 3):
         raise SystemExit(
             "serve needs a deterministic frame-wise crop (test_crop_type "
@@ -1176,7 +1228,8 @@ def cmd_serve(args) -> int:
                               args.ckpt)
         state, extractor = folded_weights(
             cfg, state, extractor_for(cfg, state, args))
-        engine = StreamingInference(cfg, state, extractor, device=device)
+        engine = StreamingInference(cfg, state, extractor, device=device,
+                                    devices=devices)
         del state, extractor
 
     server = None
@@ -1263,15 +1316,24 @@ def cmd_parity(args) -> int:
     boundaries, memory.compat_cross_video, unless --set says otherwise),
     the phase trees exported, and the relaxed-boundary scoring under
     --protocol, else the config's eval.protocol (JAX's parity reads only
-    --protocol, so a preset's m2cai would score as cholec80 there)."""
-    from tmrnet_torch.device import resolve_device
+    --protocol, so a preset's m2cai would score as cholec80 there). Under
+    mesh.data_parallel=N the bank build and the clip engine shard each
+    batch over N devices of this process; it runs in one process, so
+    mesh.multihost exits."""
     from tmrnet_torch.eval.export import export_predictions, load_exported
     from tmrnet_torch.eval.infer import ClipInference
     from tmrnet_torch.eval.metrics import evaluate_protocol
     from tmrnet_torch.train.loop import build_lfb
 
-    device = resolve_device(args.device)
     cfg = load_config(args)
+    if cfg.mesh.multihost:
+        raise SystemExit("parity runs in one process (its clip engine takes "
+                         "no mesh over processes): drop mesh.multihost, or "
+                         "shard its batches over this process's cards with "
+                         "mesh.data_parallel=N")
+    devices = _sp_devices(cfg, args, "parity", batches=(
+        "eval.batch_clips", "data.batch_clips"))
+    device, _ = _mesh_for(cfg, args, batch=0)
     protocol = args.protocol or cfg.eval.protocol
     if not any(o.startswith("memory.compat_cross_video")
                for o in args.set or []):
@@ -1286,10 +1348,12 @@ def cmd_parity(args) -> int:
     bank = build_lfb(cfg, extractor, ds,
                      cache_path=args.lfb or os.path.join(args.workdir,
                                                          "lfb.npz"),
-                     force=not args.load_lfb, device=device)
+                     force=not args.load_lfb, device=device,
+                     devices=devices)
     del extractor
     state, = folded_weights(cfg, state)
-    res = ClipInference(cfg, state, bank, device=device).run(ds)
+    res = ClipInference(cfg, state, bank, device=device,
+                        devices=devices).run(ds)
     np.savez(os.path.join(args.workdir, "predictions.npz"),
              preds=res.preds, scores=res.scores, rows=res.rows)
     pred_dir = os.path.join(args.workdir, "phase")
@@ -1562,7 +1626,8 @@ def mesh_report(cfg: ExperimentConfig, args) -> str:
     if mp == 1:
         devices = _sp_devices(cfg, args, "doctor")
         text += (f"; in one process, the sequence-parallel pass of the "
-                 f"video engines over {[str(d) for d in devices]}")
+                 f"video engines, the clip engine's batches and the stream "
+                 f"slots over {[str(d) for d in devices]}")
     return text
 
 

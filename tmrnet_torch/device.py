@@ -18,6 +18,9 @@ def resolve_device(device="cuda") -> torch.device:
         raise ValueError(f"unsupported device {device!r}")
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
+    if dev.type == "cuda" and dev.index >= torch.cuda.device_count():
+        raise RuntimeError(f"{dev} is not present: "
+                           f"{torch.cuda.device_count()} cards are visible")
     return dev
 
 

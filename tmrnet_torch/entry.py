@@ -1,5 +1,14 @@
 """Driver entry points of the port.
 
+`entry(device="cuda")`, the counterpart of `__graft_entry__.py:17-45`:
+`(fn, (state, clips, memory))` for the flagship forward, TMRNet with
+ResNet-50, head tmr, 7 classes, hidden 512, bf16, BN not folded; the
+example args are a zero-filled state dict of the model's names and
+shapes, clips (2, 10, 224, 224, 3) and memory (2, 30, 512), both bf16, on
+`device` (a CPU caller passes "cpu"). `fn(state, clips, memory)` runs the
+model in eval mode on those weights and returns the logits (B, 7); on
+the card the head launches 1 `time_conv` and 1 `nl_attention` a call.
+
 `dryrun_multichip(n)`, the counterpart of `__graft_entry__.py:48-146`: n
 gloo ranks on the CPU, one process each, as a (n/2 x 2) grid where n is
 even (tensor parallelism over model groups of 2, JAX's `mp = 2`), else
@@ -36,9 +45,34 @@ import numpy as np
 import torch
 
 CLIPS_PER_RANK, FRAMES, IMG, WINDOW, HIDDEN = 2, 2, 64, 8, 512
+# entry()'s example batch: clips of 10 224x224 frames, a 30-row window.
+FLAGSHIP_CLIPS, FLAGSHIP_FRAMES, FLAGSHIP_IMG, FLAGSHIP_WINDOW = 2, 10, 224, 30
 VIDEO_LENGTHS = (5, 4, 3)
 LOSS_RTOL = 1e-4
 RANK_TIMEOUT = 600
+
+
+def entry(device="cuda"):
+    """(fn, (state, clips, memory)): the flagship forward and its example
+    args on `device`; fn(state, clips, memory) -> logits (B, 7) in bf16."""
+    from tmrnet_torch.config import ModelConfig
+    from tmrnet_torch.models.tmrnet import build_model
+
+    model = build_model(ModelConfig(backbone="resnet50", head="tmr",
+                                    num_classes=7, hidden_dim=HIDDEN,
+                                    compute_dtype="bfloat16"), device)
+    dev = next(model.parameters()).device
+    state = {k: torch.zeros_like(v) for k, v in model.state_dict().items()}
+    clips = torch.zeros((FLAGSHIP_CLIPS, FLAGSHIP_FRAMES, FLAGSHIP_IMG,
+                         FLAGSHIP_IMG, 3), dtype=torch.bfloat16, device=dev)
+    memory = torch.zeros((FLAGSHIP_CLIPS, FLAGSHIP_WINDOW, HIDDEN),
+                         dtype=torch.bfloat16, device=dev)
+
+    def fn(state, clips, memory):
+        with torch.inference_mode():
+            return torch.func.functional_call(model, state, (clips, memory))
+
+    return fn, (state, clips, memory)
 
 
 def flagship_config():

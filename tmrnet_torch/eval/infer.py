@@ -22,6 +22,19 @@ program per bucket), the port runs the true length: windows only look back,
 so the outputs are the same. The trunk runs over chunks of at most
 `trunk_chunk` frames (`plan_trunk_chunk` picks it from the card's limits).
 
+`ClipInference(devices=[...])`, JAX's `ClipInference(mesh=)` (:65-192,
+batches pre-sharded over the data axis, the weights and bank replicated)
+in one process over local cards: a replica of the model, its prep and a
+copy of the bank on each listed device (a device may repeat: one replica
+serves each repeat), each batch (crops flattened) cut with its window
+rows into contiguous shards, one a device, every shard copied to its
+device before any forward, each forward under its device's guard, the
+softmax rows gathered in order on the first device. A batch whose size
+does not divide over the devices runs whole on the first, as JAX's
+`build_lfb` places such a batch replicated (`train/loop.py:651-655`).
+`replicas`, `on_device` and `run_shards` are the pattern: `build_lfb`
+shares all three, the stream engine the first two.
+
 The sequence-parallel pass, JAX's `VideoInference(mesh=)` (:205-242,
 `corpus_features` :531-546) in one process over local cards:
 `VideoInference(devices=[...])` keeps a replica of both trunks on each
@@ -89,6 +102,54 @@ def load_weights(cfg_model, state_dict, device, fused_kernel):
     return model
 
 
+def shard_devices(devices, mesh, what: str) -> Optional[List[torch.device]]:
+    """The listed devices of an engine's in-process shards, resolved (an
+    absent card raises); None for no list. A mesh beside them raises."""
+    if not devices:
+        return None
+    if mesh is not None:
+        raise ValueError(f"{what} takes a mesh or devices, not both")
+    return [resolve_device(d) for d in devices]
+
+
+def replicas(devices: Sequence[torch.device], own, make) -> list:
+    """[(device, replica)], one a listed device: `own` (a tuple) serves the
+    first device, `make(device)` builds one tuple for each other distinct
+    device, and a repeated device shares its replica."""
+    made = {devices[0]: own}
+    for d in devices:
+        if d not in made:
+            made[d] = make(d)
+    return [(d, *made[d]) for d in devices]
+
+
+def on_device(device: torch.device):
+    """The guard a shard launches under: our kernels launch on the current
+    card."""
+    return (torch.cuda.device(device) if device.type == "cuda"
+            else contextlib.nullcontext())
+
+
+def run_shards(shards: Sequence[tuple], out_device: torch.device, fn,
+               *tensors):
+    """`tensors` (None passes through) cut along dim 0 into contiguous
+    shards, one a (device, *replica) of `shards`; every shard copied to its
+    device before any launch (a copy from the first card queues behind the
+    work already on it), `fn(*replica, *parts)` launched for each under its
+    device's guard before any is waited on, and the output tensors
+    concatenated in order on `out_device`."""
+    cut = [torch.tensor_split(t, len(shards)) if t is not None
+           else [None] * len(shards) for t in tensors]
+    parts = [(sh, [c[i] if c[i] is None else c[i].to(sh[0]) for c in cut])
+             for i, sh in enumerate(shards)]
+    outs = []
+    for sh, args in parts:
+        if args[0].shape[0]:
+            with on_device(sh[0]):
+                outs.append(fn(*sh[1:], *args))
+    return torch.cat([o.to(out_device) for o in outs])
+
+
 class ClipInference:
     """Batched clip inference with the memory-window gather on the card.
 
@@ -101,12 +162,19 @@ class ClipInference:
     mesh: a data mesh of one process (its device is the engine's); one
     over several processes raises (`parallel/mesh.py::
     require_single_controller`), as in JAX's engines.
+    devices: each batch sharded over these devices (the first is the
+    engine's; `device` is not read); one device, or None, is the
+    one-device engine.
     """
 
     def __init__(self, cfg: ExperimentConfig,
                  state_dict: Mapping[str, torch.Tensor],
                  bank: Optional[FeatureBank] = None, device="cuda",
-                 fused_kernel: str = "block", mesh=None):
+                 fused_kernel: str = "block", mesh=None,
+                 devices: Optional[Sequence] = None):
+        devices = shard_devices(devices, mesh, "ClipInference")
+        if devices:
+            device = devices[0]
         self.device = _engine_device(mesh, device, "ClipInference")
         self.memoryless = memoryless_head(cfg.model.head)
         if not self.memoryless:
@@ -122,20 +190,42 @@ class ClipInference:
                                   fused_kernel)
         self.prep = DevicePrep(cfg.data, cfg.model.compute_dtype, self.device)
         self.bank = bank
+        # The shards: (device, its model, prep and bank features), one a
+        # listed device.
+        self.shards = None
+        if devices and len(devices) > 1:
+            features = None if self.memoryless else bank.features
+            self.shards = replicas(
+                devices, (self.model, self.prep, features),
+                lambda d: (load_weights(cfg.model, state_dict, d,
+                                        fused_kernel),
+                           DevicePrep(cfg.data, cfg.model.compute_dtype, d),
+                           None if features is None else features.to(d)))
+
+    def _probs(self, model, prep, features, clips, idx) -> torch.Tensor:
+        """One device's forward: f32 softmax (B, classes)."""
+        clips = prep(clips)
+        if features is None:
+            # stage1 emits logits for every step; score the clip's last frame
+            logits = model(clips)[:, -1, :]
+        else:
+            logits = model(clips, features[idx])
+        return torch.softmax(logits.float(), dim=-1)
 
     @torch.inference_mode()
     def infer(self, clips: torch.Tensor, idx: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
         """clips (B, T, H, W, 3) and window rows idx (B, window), both on the
         engine's device (idx None for head stage1) -> (argmax (B,), f32
-        softmax (B, classes))."""
-        clips = self.prep(clips)
-        if self.memoryless:
-            # stage1 emits logits for every step; score the clip's last frame
-            logits = self.model(clips)[:, -1, :]
+        softmax (B, classes)) on it. Over several devices, a B that divides
+        runs in contiguous shards (`run_shards`), another whole on the
+        first device."""
+        if self.shards is None or clips.shape[0] % len(self.shards):
+            features = None if self.memoryless else self.bank.features
+            probs = self._probs(self.model, self.prep, features, clips, idx)
         else:
-            logits = self.model(clips, self.bank.features[idx])
-        probs = torch.softmax(logits.float(), dim=-1)
+            probs = run_shards(self.shards, self.device, self._probs, clips,
+                               idx)
         return probs.argmax(dim=-1), probs
 
     def window_rows(self, rows: np.ndarray, first_rows: np.ndarray) -> np.ndarray:
@@ -306,11 +396,8 @@ class VideoInference:
                  device="cuda", fused_kernel: str = "block",
                  backbone_chunk: Optional[int] = None, mesh=None,
                  devices: Optional[Sequence] = None):
+        devices = shard_devices(devices, mesh, "VideoInference")
         if devices:
-            if mesh is not None:
-                raise ValueError("VideoInference takes a mesh or devices, "
-                                 "not both")
-            devices = [resolve_device(d) for d in devices]
             device = devices[0]
         self.device = _engine_device(mesh, device, "VideoInference")
         self.cfg = cfg
@@ -332,20 +419,18 @@ class VideoInference:
         # on the first device: its replica there}), one a listed device.
         self.shards = None
         if devices and len(devices) > 1:
-            replicas = {self.device: (self.prep, {
+            def make(d):
+                ext = load_weights(dataclasses.replace(cfg.model, head="lfb"),
+                                   extractor_state_dict, d, fused_kernel)
+                mod = (ext if cfg.model.head == "lfb" else load_weights(
+                    cfg.model, state_dict, d, fused_kernel))
+                return (DevicePrep(cfg.data, self.cdt, d),
+                        {id(self.extractor.backbone): ext.backbone,
+                         id(self.model.backbone): mod.backbone})
+
+            self.shards = replicas(devices, (self.prep, {
                 id(m.backbone): m.backbone
-                for m in (self.extractor, self.model)})}
-            for d in devices:
-                if d not in replicas:
-                    ext = load_weights(
-                        dataclasses.replace(cfg.model, head="lfb"),
-                        extractor_state_dict, d, fused_kernel)
-                    mod = (ext if cfg.model.head == "lfb" else load_weights(
-                        cfg.model, state_dict, d, fused_kernel))
-                    replicas[d] = (DevicePrep(cfg.data, self.cdt, d), {
-                        id(self.extractor.backbone): ext.backbone,
-                        id(self.model.backbone): mod.backbone})
-            self.shards = [(d, *replicas[d]) for d in devices]
+                for m in (self.extractor, self.model)}), make)
 
     @staticmethod
     def bucket_frames(n: int) -> int:
@@ -408,21 +493,10 @@ class VideoInference:
     def _sharded_trunk(self, backbone, frames: torch.Tensor) -> torch.Tensor:
         """One chunk's frames in contiguous shards, each through the trunk's
         replica on its device, the features gathered in order on the first
-        device. Every shard's frames are copied to its card before any
-        trunk is launched (a copy from the first card queues behind the
-        work already on it), then every trunk is launched before any is
-        waited on, each with its card current (the kernels launch on the
-        current card)."""
-        parts = [(dev, prep, trunks, part.to(dev))
-                 for (dev, prep, trunks), part in zip(
-                     self.shards, torch.tensor_split(frames, len(self.shards)))
-                 if part.shape[0]]
-        feats = []
-        for dev, prep, trunks, part in parts:
-            with (torch.cuda.device(dev) if dev.type == "cuda"
-                  else contextlib.nullcontext()):
-                feats.append(trunks[id(backbone)](prep(part)))
-        return torch.cat([f.to(self.device) for f in feats])
+        device (`run_shards`)."""
+        return run_shards(self.shards, self.device,
+                          lambda prep, trunks, part:
+                          trunks[id(backbone)](prep(part)), frames)
 
     def _embed(self, model, windows: torch.Tensor) -> torch.Tensor:
         """The LSTM of `model` over (C, seq, F) windows -> the last step

@@ -17,12 +17,22 @@ part (frames to the card, the active mask, inference mode) and calls
 `_step_impl`, which takes tensors on the card only, as JAX's does
 (`tmrnet_tpu/eval/stream.py:147`): `eval/saved.py::export_stream`
 exports it. `reset_state` is the slot reset, weight-free.
+
+`StreamingInference(devices=[...])`, JAX's `StreamingInference(mesh=)`
+(:53-112: the B axis sharded over the data axis, the weights replicated)
+in one process over local cards: the B slots split into contiguous
+groups, one a listed device, each group's rings and counts on its device
+(`ShardedStreamState`), a one-device engine a distinct device (a repeated
+device shares it). A step copies every group's frames and mask to its
+device, launches every group's step before it waits on any, and gathers
+(preds, probs, valid) in slot order on the first device; B must divide
+over the devices.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Tuple
+from typing import List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -30,7 +40,8 @@ import torch
 from tmrnet_torch.config import ExperimentConfig
 from tmrnet_torch.data.device_feed import DevicePrep
 from tmrnet_torch.device import torch_dtype
-from tmrnet_torch.eval.infer import _engine_device, load_weights
+from tmrnet_torch.eval.infer import (_engine_device, load_weights,
+                                     on_device, replicas, shard_devices)
 
 
 @dataclasses.dataclass
@@ -41,6 +52,24 @@ class StreamState:
     tmr_ring: torch.Tensor   # (B, seq, F) TMR-trunk backbone features
     bank_ring: torch.Tensor  # (B, window, hidden) LFB features, newest first
     count: torch.Tensor      # (B,) int32 frames seen
+
+
+@dataclasses.dataclass
+class ShardedStreamState:
+    """The carry of B streams in contiguous groups, one a device; the
+    fields read as the whole (B, ...) tensors, gathered on the first
+    group's device (what `eval/serve.py` checkpoints)."""
+
+    groups: List[StreamState]
+
+    def _whole(self, name: str) -> torch.Tensor:
+        first = self.groups[0].count.device
+        return torch.cat([getattr(g, name).to(first) for g in self.groups])
+
+    ext_ring = property(lambda self: self._whole("ext_ring"))
+    tmr_ring = property(lambda self: self._whole("tmr_ring"))
+    bank_ring = property(lambda self: self._whole("bank_ring"))
+    count = property(lambda self: self._whole("count"))
 
 
 def reset_state(state: StreamState, mask: torch.Tensor) -> StreamState:
@@ -54,13 +83,18 @@ def reset_state(state: StreamState, mask: torch.Tensor) -> StreamState:
 
 class StreamingInference:
     """state_dict: TMR model weights (head tmr or nl_only);
-    extractor_state_dict: the extractor's (head lfb); fused_kernel and
-    mesh as in `ClipInference`."""
+    extractor_state_dict: the extractor's (head lfb); fused_kernel,
+    mesh and devices as in `ClipInference` (devices: the slots split into
+    contiguous groups, one a device)."""
 
     def __init__(self, cfg: ExperimentConfig,
                  state_dict: Mapping[str, torch.Tensor],
                  extractor_state_dict: Mapping[str, torch.Tensor],
-                 device="cuda", fused_kernel: str = "block", mesh=None):
+                 device="cuda", fused_kernel: str = "block", mesh=None,
+                 devices: Optional[Sequence] = None):
+        devices = shard_devices(devices, mesh, "StreamingInference")
+        if devices:
+            device = devices[0]
         self.device = _engine_device(mesh, device, "StreamingInference")
         if cfg.model.head not in ("tmr", "nl_only"):
             raise ValueError(f"head {cfg.model.head!r}: streams score a "
@@ -78,8 +112,28 @@ class StreamingInference:
         self.feature_dim = self.model.backbone.num_features
         self.prep = DevicePrep(cfg.data, self.cdt, self.device)
         self._all_active = {}
+        # The groups: (device, the one-device engine there), one a listed
+        # device.
+        self.groups = None
+        if devices and len(devices) > 1:
+            self.groups = replicas(devices, (self,), lambda d: (
+                StreamingInference(cfg, state_dict, extractor_state_dict,
+                                   device=d, fused_kernel=fused_kernel),))
 
-    def init_state(self, num_streams: int) -> StreamState:
+    def init_state(self, num_streams: int):
+        """Zero rings and counts for `num_streams` slots; over several
+        devices a `ShardedStreamState`, whose slot count must divide over
+        them (JAX: "B must divide by the data-axis size")."""
+        if self.groups is not None:
+            n = len(self.groups)
+            if num_streams % n:
+                raise ValueError(f"{num_streams} streams do not divide over "
+                                 f"the {n} devices")
+            return ShardedStreamState([eng._zero_state(num_streams // n)
+                                       for _, eng in self.groups])
+        return self._zero_state(num_streams)
+
+    def _zero_state(self, num_streams: int) -> StreamState:
         b, dev = num_streams, self.device
         ring = lambda n, f: torch.zeros((b, n, f), dtype=self.cdt, device=dev)
         return StreamState(
@@ -91,11 +145,42 @@ class StreamingInference:
     def _mask(self, mask) -> torch.Tensor:
         return torch.as_tensor(np.asarray(mask, bool)).to(self.device)
 
+    def _group_states(self, state) -> List[StreamState]:
+        """The groups' states of `state`: a ShardedStreamState's own, or a
+        whole StreamState (e.g. restored by `eval/serve.py`) cut into the
+        groups and moved to their devices."""
+        if isinstance(state, ShardedStreamState):
+            if len(state.groups) != len(self.groups):
+                raise ValueError(f"a state of {len(state.groups)} groups "
+                                 f"for {len(self.groups)} devices")
+            return state.groups
+        if state.count.shape[0] % len(self.groups):
+            raise ValueError(f"{state.count.shape[0]} streams do not divide "
+                             f"over the {len(self.groups)} devices")
+        cut = [torch.tensor_split(t, len(self.groups)) for t in (
+            state.ext_ring, state.tmr_ring, state.bank_ring, state.count)]
+        return [StreamState(*(c[i].to(d) for c in cut))
+                for i, (d, _) in enumerate(self.groups)]
+
+    @staticmethod
+    def _cut(x, n: int) -> list:
+        """Host or device rows (B, ...) in n contiguous groups."""
+        if isinstance(x, torch.Tensor):
+            return list(torch.tensor_split(x, n))
+        return np.array_split(np.asarray(x), n)
+
     @torch.inference_mode()
-    def reset_streams(self, state: StreamState, mask) -> StreamState:
+    def reset_streams(self, state, mask):
         """Slots where mask (B,) is True restart as fresh streams (rings
         and counts zero), so a finished stream's slot takes a new video
-        without touching the others."""
+        without touching the others; over several devices each group on
+        its own."""
+        if self.groups is not None:
+            groups = self._group_states(state)
+            masks = self._cut(np.asarray(mask, bool), len(groups))
+            return ShardedStreamState([
+                reset_state(g, eng._mask(m))
+                for g, (_, eng), m in zip(groups, self.groups, masks)])
         return reset_state(state, self._mask(mask))
 
     @torch.inference_mode()
@@ -107,6 +192,13 @@ class StreamingInference:
         valid False. Returns (state, preds (B,), probs (B, classes) f32,
         valid (B,)) on the device; valid is False until a stream has seen
         seq frames."""
+        if self.groups is not None:
+            return self._sharded_step(state, frames, active)
+        frames, act = self._inputs(frames, active)
+        return self._step_impl(state, frames, act)
+
+    def _inputs(self, frames, active) -> Tuple[torch.Tensor, torch.Tensor]:
+        """frames and the active mask on this engine's device."""
         if not isinstance(frames, torch.Tensor):
             frames = torch.from_numpy(np.ascontiguousarray(frames))
         b = frames.shape[0]
@@ -117,7 +209,30 @@ class StreamingInference:
                     (b,), dtype=torch.bool, device=self.device)
         else:
             act = self._mask(active)
-        return self._step_impl(state, frames.to(self.device), act)
+        return frames.to(self.device), act
+
+    def _sharded_step(self, state, frames, active):
+        """`step` over the groups: every group's frames and mask copied to
+        its device before any step is launched, every step launched (under
+        its device's guard) before any is waited on, the outputs gathered
+        on the first device in slot order."""
+        n = len(self.groups)
+        groups = self._group_states(state)
+        if frames.shape[0] != sum(g.count.shape[0] for g in groups):
+            raise ValueError(f"{frames.shape[0]} frames for "
+                             f"{sum(g.count.shape[0] for g in groups)} "
+                             f"streams")
+        acts = [None] * n if active is None else self._cut(
+            np.asarray(active, bool), n)
+        inputs = [eng._inputs(f, a) for (_, eng), f, a in zip(
+            self.groups, self._cut(frames, n), acts)]
+        outs = []
+        for (d, eng), g, (f, a) in zip(self.groups, groups, inputs):
+            with on_device(d):
+                outs.append(eng._step_impl(g, f, a))
+        gather = lambda k: torch.cat([o[k].to(self.device) for o in outs])
+        return (ShardedStreamState([o[0] for o in outs]), gather(1),
+                gather(2), gather(3))
 
     def _step_impl(self, state: StreamState, frames: torch.Tensor,
                    act: torch.Tensor

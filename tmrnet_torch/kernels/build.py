@@ -15,9 +15,9 @@ Every C entry point returns `cudaGetLastError()` after its launch;
 `check()` raises when that is not 0 (cudaSuccess).
 
 `LAUNCHES` counts kernel launches by name: each wrapper adds one where it
-launches its kernel, and nowhere else. The bottleneck kernels, which the
-video engines' sequence-parallel pass runs on several cards, count
-through `count`, which also adds one to `LAUNCHES_BY_DEVICE[(name, card
+launches its kernel, and nowhere else. The four bf16 kernels of the
+engines, whose in-process shards run on several cards, count through
+`count`, which also adds one to `LAUNCHES_BY_DEVICE[(name, card
 index)]`.
 """
 

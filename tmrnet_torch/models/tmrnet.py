@@ -213,8 +213,14 @@ def init_state_dict(cfg: ModelConfig, seed: int = 0) -> Dict[str, torch.Tensor]:
     variance 2/(fan_in + fan_out)), every bias and BN shift 0, BN (2-D and
     1-D) and LayerNorm scales 1, BN running means 0 and variances 1. The
     draws are not JAX's: the distributions are."""
-    gen = torch.Generator().manual_seed(seed)
     model = build_model(dataclasses.replace(cfg, folded=False), device="cpu")
+    init_weights_(model, torch.Generator().manual_seed(seed))
+    return model.state_dict()
+
+
+def init_weights_(model: nn.Module, gen: torch.Generator) -> nn.Module:
+    """`model`'s weights drawn in place from `gen` by the distributions of
+    `init_state_dict` (everything else zero)."""
 
     def trunc_normal_(t, variance):
         std = math.sqrt(variance) / _TRUNC_STD
@@ -223,6 +229,8 @@ def init_state_dict(cfg: ModelConfig, seed: int = 0) -> Dict[str, torch.Tensor]:
     lecun_dense = {id(fc) for m in model.modules()
                    if isinstance(m, SplitAttention) for fc in (m.fc1, m.fc2)}
     with torch.no_grad():
+        for t in model.state_dict().values():
+            t.zero_()
         for module in model.modules():
             if isinstance(module, (nn.Conv2d, nn.Conv1d)):
                 w = module.weight
@@ -240,4 +248,4 @@ def init_state_dict(cfg: ModelConfig, seed: int = 0) -> Dict[str, torch.Tensor]:
                 module.weight.fill_(1.0)
                 if isinstance(module, _BatchNorm):
                     module.running_var.fill_(1.0)
-    return model.state_dict()
+    return model

@@ -25,7 +25,6 @@ import torch
 
 from tmrnet_torch.device import at_least_f32
 from tmrnet_torch.kernels import build, library
-from tmrnet_torch.kernels.build import LAUNCHES
 
 # Shared memory a Hopper block may opt into.
 _SMEM_BLOCK_MAX = 232448
@@ -123,7 +122,7 @@ def nl_attention_cuda(q: torch.Tensor, k: torch.Tensor,
     err = run(p(q), p(k), p(v), p(out), b, w, f,
               int(q.dtype == torch.float32), build.stream_ptr(q.device))
     build.check(err, "nl_attention")
-    LAUNCHES["nl_attention"] += 1
+    build.count("nl_attention", q.device)
     return out
 
 

@@ -40,7 +40,6 @@ import torch.nn.functional as F
 
 from tmrnet_torch.device import at_least_f32
 from tmrnet_torch.kernels import build, library
-from tmrnet_torch.kernels.build import LAUNCHES
 
 # Shared memory a Hopper block may opt into.
 _SMEM_BLOCK_MAX = 232448
@@ -222,7 +221,7 @@ def time_conv_cuda(x, w3, b3, w5, b5, w7, b7, c0: int = 0):
                   xp.shape[0], w, c, cout, c0, plan.kc, plan.ck,
                   build.stream_ptr(x.device))
         build.check(err, "time_conv")
-        LAUNCHES["time_conv"] += 1
+        build.count("time_conv", x.device)
 
     return run_in_pieces(launch, x, rows, cout)
 

@@ -52,7 +52,12 @@ fill the same bank, one row per clip position:
 Under `mesh=`, the clip engine runs each rank over its rows of every batch
 and gathers the bank rows; the video engine partitions the videos over
 the ranks (`eval/distributed.py::run_lfb_distributed`). Rank 0 writes the
-cache.
+cache. Under `devices=` (one process, JAX's `build_lfb(mesh=)` over a
+process-local mesh, :589-660) the clip engine keeps an extractor replica
+on each listed device and cuts each loader batch into contiguous shards,
+one a device (`eval/infer.py::run_shards`), the features gathered on the
+first; a batch that does not divide runs whole on the first (:651-655);
+the video engine runs its sequence-parallel pass.
 """
 
 from __future__ import annotations
@@ -72,7 +77,8 @@ from tmrnet_torch.data.indexing import quirk_window_table
 from tmrnet_torch.data.pipeline import ClipDataset, ClipLoader
 from tmrnet_torch.device import resolve_device
 from tmrnet_torch.eval.infer import (VideoInference, corpus_lengths,
-                                     load_video, load_weights)
+                                     load_video, load_weights, replicas,
+                                     run_shards, shard_devices)
 from tmrnet_torch.memory.lfb import (FeatureBank, gather_memory_windows,
                                      load_bank, save_bank, update_bank)
 from tmrnet_torch.parallel.mesh import (DataMesh, all_gather_host,
@@ -111,9 +117,15 @@ def build_lfb(cfg: ExperimentConfig,
     `process_local_bounds` of every batch of `data.batch_clips` and gathers
     the rows; the video engine partitions the videos
     (`eval/distributed.py::run_lfb_distributed`). Every rank returns the
-    whole bank; rank 0 writes the cache. devices: the video engine's
-    sequence-parallel pass over them (`VideoInference(devices=)`)."""
+    whole bank; rank 0 writes the cache. devices: in one process, the
+    clip engine's batches sharded over them, or the video engine's
+    sequence-parallel pass (`VideoInference(devices=)`); the first is the
+    bank's device (`device` is not read), and the bank is the one-device
+    build's. A mesh beside them raises."""
     path = cache_path or cfg.memory.cache_path
+    devices = shard_devices(devices, mesh, "build_lfb")
+    if devices:
+        device = devices[0]
     if mesh is not None:
         device = mesh.device
     if path and os.path.exists(path) and cfg.memory.load_cached and not force:
@@ -141,6 +153,13 @@ def build_lfb(cfg: ExperimentConfig,
     prep = DevicePrep(cfg.data, cfg.model.compute_dtype, dev)
     bank = FeatureBank.create(ds.seq_len, ds.manifest.video_lengths,
                               cfg.model.hidden_dim, device=dev)
+    extract = lambda model, prep, clips: model(prep(clips))
+    shards = None
+    if devices and len(devices) > 1:
+        shards = replicas(devices, (model, prep), lambda d: (
+            load_weights(dataclasses.replace(cfg.model, head="lfb"),
+                         extractor_state_dict, d, fused_kernel),
+            DevicePrep(cfg.data, cfg.model.compute_dtype, d)))
     d = cfg.data
     local = (None if mesh is None else
              process_local_bounds(d.batch_clips, mesh.rank, mesh.world))
@@ -152,8 +171,12 @@ def build_lfb(cfg: ExperimentConfig,
         for clips, _, rows, pad in device_prefetch(loader.epoch(0), device=dev,
                                                    array_indices=(0, 2)):
             b = len(rows) - pad
-            if mesh is None:
-                update_bank(bank.features, rows[:b], model(prep(clips))[:b])
+            if shards is not None and len(clips) % len(shards) == 0:
+                update_bank(bank.features, rows[:b],
+                            run_shards(shards, dev, extract, clips)[:b])
+            elif mesh is None:
+                update_bank(bank.features, rows[:b], extract(model, prep,
+                                                             clips)[:b])
             else:
                 mine.append((rows, b, model(prep(clips))))
         if mine:
