@@ -31,7 +31,8 @@ Phases, in order; any failure exits nonzero:
    / 4 / 64, bottlenecks N = 16 / 4 / 2,048 / 400 / 640); and time_conv
    at B = 139,811, W = 30, C = 512,
    one row past one launch's 32-bit limit: 2 launches, the rows at the
-   split and 256 seeded others against the plain version; (d) time_conv's
+   split and 256 seeded others against the plain version (time_conv's f32
+   kernel is checked in 4q, after the paths); (d) time_conv's
    column slices (tensor parallelism over M = 2 and 4 ranks: weights (k,
    512, 512 / M), the output channels from c0) at B = 8 and 2,582, W = 30:
    each M's slices side by side equal to the whole call bit for bit, the
@@ -112,7 +113,10 @@ Phases, in order; any failure exits nonzero:
    loader's share (host clock around each next() of ClipLoader);
 4g. the training slice (`run_train_slice`): a train step of each stage on
    the card against the CPU, 20 steps that learn, the training commands
-   with exact launch counts, preemption and resume, step times;
+   with exact launch counts, preemption and resume (4j (e)'s run under
+   train.async_checkpoint beside it; both subprocess pairs in threads
+   while the train steps' CPU references run), step times; each part's
+   seconds;
 4j. the ResNeSt and training-options slice (`run_options_slice`), over
    4g's directory: (a) a ResNeSt-50 train step of each stage on the card
    against the CPU as 4g's, the bf16 aggregates by ResNeSt's own limits
@@ -184,9 +188,9 @@ Phases, in order; any failure exits nonzero:
    (b) two ranks sharing the card over gloo (NCCL refuses two ranks on one
    device), each with 4 of a global batch of 8 uint8 224x224 clips of 10
    frames, ResNet-50, hidden 512, window 30, 2 SGD steps (lr 1e-3) of
-   head tmr in bf16 (time_conv's kernel takes bf16 only) and of head
-   nl_only in f32, against the same steps in this process over the whole
-   batch by `train/step_check.py`'s limits (`multi_train`), each rank's
+   head tmr in bf16 (the main path's dtype; 4q (b) holds tmr in f32) and
+   of head nl_only in f32, against the same steps in this process over
+   the whole batch by `train/step_check.py`'s limits (`multi_train`), each rank's
    launches, the steps' ms and the host gathers' ms; (c) `test --engine
    corpus` and `build-lfb --engine video` over 4f's videos and `.pth`
    files as two ranks sharing the card over gloo under mesh.multihost:
@@ -309,6 +313,26 @@ Phases, in order; any failure exits nonzero:
    own), and where there are N >= 2, `test --engine clip` and `stream`
    through `tmrnet_torch.cli.main` with `--set mesh.data_parallel=N`
    against the same commands on one card;
+4q. the f32 slice (`run_f32_slice`), after 4p, over 4f's directory and
+   4g A's CPU step: (a) csrc/time_conv_f32.cu (f32 FFMA, no TF32) at W =
+   30, C = 512 and B = 16, 2,582 and 44,000, and over the last 256
+   output columns at B = 2,582 (its two slices side by side equal to the
+   whole call bit for bit), against `time_conv_plain` in f32 (TF32 off)
+   within 1e-5 of max |plain|, with eager ms (at B = 16 also the card's
+   own), the plain version's, the FFMA bound and the cuDNN chain's (three
+   conv1d and the maxes, TF32 off); the kernel's record on the `kernels`
+   line as `time_conv_f32`; (b) 4g A's full-width tmr step (ResNet-50
+   224x224, hidden 512, window 30, 8 clips) at
+   model.compute_dtype=float32 on the card against 4g A's f32 step on the
+   CPU by `train/step_check.py`'s f32 limits, 1 time_conv_f32 and 1
+   nl_attention launch; (c) `test --engine clip` over 4f's directory at
+   model.compute_dtype=float32, unfolded, through `tmrnet_torch.cli.main`:
+   1 time_conv_f32 and 1 nl_attention a batch of 64 clips and no
+   bottleneck kernel, the softmax within 2e-2 of 4f's bf16 clip engine
+   with the argmax rule and at 8 rows within 1e-3 of the engine in f32 on
+   the CPU; then `stream --max-streams 2` at f32 over the same videos:
+   the slot plan's 300 steps, 1 time_conv_f32 and 1 nl_attention a step;
+   its launches count under path "f32";
 5. the int8 gate (tmrnet_torch.experimental.int8_gate) at B = 128 over the
    four stages: the int8 bottleneck chain through the kernels equal to the
    same chain through the plain versions, 2 int8_matmul and 1 int8_conv3x3
@@ -324,6 +348,7 @@ It needs a CUDA card and the rest of the repository beside it.
 """
 
 import argparse
+import concurrent.futures
 import contextlib
 import dataclasses
 import io
@@ -417,13 +442,13 @@ def bound(flops, nbytes, peak):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def compare(torch, name, got, want):
+def compare(torch, name, got, want, limit=TOL):
     err = (got.float() - want.float()).abs().max().item()
     scale = want.float().abs().max().item()
     rel = err / scale if scale > 0 else err
-    ok = bool(np.isfinite(rel)) and rel <= TOL
+    ok = bool(np.isfinite(rel)) and rel <= limit
     print(f"  {name}: max_abs_err {err:.4g}, /max|ref| {rel:.4g} "
-          f"(limit {TOL}) {'ok' if ok else 'FAIL'}")
+          f"(limit {limit}) {'ok' if ok else 'FAIL'}")
     return err, ok
 
 
@@ -2094,7 +2119,7 @@ def one_step(torch, head, weights, batch, device, dtype=None, **model):
     return loss, deltas, stats, counts
 
 
-def check_step_vs_cpu(torch, seed, card, backbone="resnet50"):
+def check_step_vs_cpu(torch, seed, card, backbone="resnet50", refs=None):
     """Phase 4g A (4j a with backbone resnest50): one SGD step of the
     full-width model on TRAIN_CLIPS uint8 clips on the card against the
     same step in f32 on the CPU through the plain versions
@@ -2106,11 +2131,12 @@ def check_step_vs_cpu(torch, seed, card, backbone="resnet50"):
     the head's and LSTM's deltas laid end to end within the backbone's
     `step_check.AGG_LIMITS`, and each tensor that the CPU's bf16 step
     resolves within 5e-2 or twice that step's distance. In f32 (heads
-    stage1 and, on ResNet-50, nl_only; time_conv's kernel takes bf16
-    only): the loss and the running statistics within STEP_F32_TOL, each
+    stage1 and, on ResNet-50, nl_only; the f32 tmr step is 4q (b)): the
+    loss and the running statistics within STEP_F32_TOL, each
     tensor's delta within 5e-2 (cosine 0.95 for the backbone), the
-    nl_attention kernel launched once in nl_only's step; before it, the
-    spread of the CPU's own f32 stage-1 step between two thread counts.
+    nl_attention kernel launched once in nl_only's step. The tmr step's
+    weights, clips and CPU f32 step go into `refs` (ResNet-50), for 4q (b)
+    to hold the card's f32 tmr step against.
     On ResNeSt-50 each bf16 statistic lands within TOL or within twice the
     CPU bf16 step's error there (at the split attention's fc1 the batch
     mean is ~30x its spread, and bf16 rounding moves the batch variance),
@@ -2144,6 +2170,8 @@ def check_step_vs_cpu(torch, seed, card, backbone="resnet50"):
         cpu = one_step(torch, head, weights, batch, "cpu", backbone=backbone)
         print(f"train step {tag}{head}: CPU f32 step "
               f"{time.perf_counter() - t0:.1f} s, loss {cpu[0]:.6g}")
+        if refs is not None and head == "tmr" and backbone == "resnet50":
+            refs["tmr_cpu_f32"] = (weights, batch, cpu)
         if head != "nl_only":
             t0 = time.perf_counter()
             ref = one_step(torch, head, weights, batch, "cpu", "bfloat16",
@@ -2196,20 +2224,6 @@ def check_step_vs_cpu(torch, seed, card, backbone="resnet50"):
                   f"{[k for k in unresolved if not k.startswith('backbone.')]} "
                   f"{'ok' if good else 'FAIL'}")
             ok &= good
-        if head == "stage1":
-            # the f32 step's own spread: the same CPU step with half the
-            # threads sums in another order
-            n = torch.get_num_threads()
-            torch.set_num_threads(max(1, n // 2))
-            try:
-                half = one_step(torch, head, weights, batch, "cpu",
-                                backbone=backbone)
-            finally:
-                torch.set_num_threads(n)
-            dist = {k: distance(k, half[1][k], w) for k, w in cpu[1].items()}
-            print(f"  {head} f32 on the CPU with {max(1, n // 2)} threads "
-                  f"against {n}: worst {worst_by_group(dist)}; aggregates "
-                  f"{json.dumps(aggregate(half[1], cpu[1]))}")
         if head != "tmr":
             g32 = one_step(torch, head, weights, batch, "cuda", "float32",
                            backbone=backbone)
@@ -2352,6 +2366,26 @@ def bench_steps(torch, seed, card, heads=("stage1", "tmr"), **model):
           f"{'ok' if good else 'FAIL'}")
     torch.cuda.empty_cache()
     return counts, numbers, ok and good
+
+
+class Laps:
+    """Seconds of a phase's parts: each call closes the part since the
+    last."""
+
+    def __init__(self):
+        self.t, self.parts = time.perf_counter(), {}
+
+    def __call__(self, name):
+        now = time.perf_counter()
+        self.parts[name] = round(now - self.t, 1)
+        self.t = now
+
+    def report(self):
+        return json.dumps(self.parts)
+
+
+# 4j (e)'s flag: train-tmr's checkpoints written by a thread
+ASYNC_SET = ("--set", "train.async_checkpoint=true")
 
 
 def write_train_config(tmp):
@@ -2500,7 +2534,7 @@ def train_split():
             -(-clips["val"] // TRAIN_BATCH))
 
 
-def run_train_slice(torch, seed, card, kept=None):
+def run_train_slice(torch, seed, card, kept=None, refs=None):
     """Phase 4g: the training slice. A: a stage-2 and a stage-1 step on the
     card against the CPU; B: the head learns; C: `manifest` (train and val
     splits of 4f's videos), `train-bank`, `build-lfb --ckpt` (both splits,
@@ -2508,15 +2542,15 @@ def run_train_slice(torch, seed, card, kept=None):
     through `tmrnet_torch.cli.main`, exact launch counts per command, the
     best checkpoint's val_acc against the trainer's val pass re-run on its
     weights, and `test`'s softmax and argmax against that pass's; D:
-    preemption and resume of `train-tmr` as a subprocess; E: train step
-    times, frames/s and peak memory per stage. Returns (counts by path,
+    preemption and resume of `train-tmr` as a subprocess, and where
+    `refs` is given 4j (e)'s under train.async_checkpoint beside it (its
+    verdict left in `refs` for 4j); E: train step times, frames/s and peak
+    memory per stage. C runs first; D's subprocesses then run in threads
+    while A's CPU steps run here (nothing of A is timed), and B and E
+    after both. Prints each part's seconds. Returns (counts by path,
     numbers, ok)."""
-    counts, numbers = {}, {}
-    counts["train-step"], ok_a = check_step_vs_cpu(torch, seed, card)
-    counts["train-learn"], ok_b = check_learns(torch, seed, card)
-    counts["train-bench"], numbers["steps"], ok_e = bench_steps(torch, seed,
-                                                                card)
-    ok = ok_a and ok_b and ok_e
+    counts, numbers, laps = {}, {}, Laps()
+    ok = True
     os.makedirs(ROOT_TMP, exist_ok=True)
     split, clips, steps, val_batches = train_split()
     want = {
@@ -2609,9 +2643,34 @@ def run_train_slice(torch, seed, card, kept=None):
               f"(train-bank {BANK_EPOCHS} epoch, train-tmr {TMR_EPOCHS}, "
               f"{clips['train']} train and {clips['val']} val clips) on "
               f"{card}")
-        ok &= preemption_run(torch, tmp, tmr_args, card)
-    print(f"train slice: {json.dumps(numbers)} on {card} "
-          f"{'ok' if ok else 'FAIL'}")
+        laps("C")
+        runs = [lambda: preemption_run(torch, tmp, tmr_args, card)]
+        if refs is not None:
+            runs.append(lambda: preemption_run(
+                torch, tmp, [*tmr_args, *ASYNC_SET], card, name="async"))
+        with concurrent.futures.ThreadPoolExecutor(len(runs)) as pool:
+            futures = [pool.submit(r) for r in runs]
+            try:
+                counts["train-step"], good = check_step_vs_cpu(
+                    torch, seed, card, refs=refs)
+                ok &= good
+                laps("A")
+            finally:
+                done = [f.result() for f in futures]
+        ok &= done[0]
+        if refs is not None:
+            refs["async_preemption"] = done[1]
+        laps("D (beside A)" if refs is None
+             else "D with 4j (e)'s async run (beside A)")
+    counts["train-learn"], good = check_learns(torch, seed, card)
+    ok &= good
+    laps("B")
+    counts["train-bench"], numbers["steps"], good = bench_steps(torch, seed,
+                                                                card)
+    ok &= good
+    laps("E")
+    print(f"train slice: {json.dumps(numbers)}; seconds {laps.report()} on "
+          f"{card} {'ok' if ok else 'FAIL'}")
     torch.cuda.empty_cache()
     return counts, numbers, ok
 
@@ -2954,19 +3013,21 @@ def resnest_workflow(torch, tmp, card, cfg_path, manifests):
     return counts, seconds, ok and good
 
 
-def run_options_slice(torch, seed, card, tmp):
+def run_options_slice(torch, seed, card, tmp, refs=None):
     """Phase 4j: the ResNeSt and training-options slice, over 4g's
     directory `tmp`. (a) a ResNeSt-50 train step of each stage on the card
     against the CPU; (b) the two-stage workflow on ResNeSt-50; (c)
     ResNeSt-50's train step at TRAIN_BATCH clips; (d) remat on
     ResNet-50; (e) async checkpoints: save()'s blocking time and 4g D's
     preemption and resume under train.async_checkpoint; (f) the native
-    preprocess; (g) the checkpoint flags on 4g's checkpoints. Returns
-    (counts by path, numbers, ok)."""
-    t0 = time.perf_counter()
+    preprocess; (g) the checkpoint flags on 4g's checkpoints. (e)'s
+    preemption ran beside 4g D's where `refs` holds its verdict. Prints
+    each part's seconds. Returns (counts by path, numbers, ok)."""
+    t0, laps = time.perf_counter(), Laps()
     counts, numbers = {}, {}
     counts["resnest-train-step"], ok = check_step_vs_cpu(torch, seed, card,
                                                          "resnest50")
+    laps("a")
     cfg_path = os.path.join(tmp, "train_cfg.json")
     manifests = ["--train-manifest", os.path.join(tmp, "train.pkl"),
                  "--val-manifest", os.path.join(tmp, "val.pkl")]
@@ -2974,29 +3035,41 @@ def run_options_slice(torch, seed, card, tmp):
         torch, tmp, card, cfg_path, manifests)
     counts.update(got)
     ok &= good
+    laps("b")
     counts["resnest-train-bench"], numbers["resnest_steps"], good = (
         bench_steps(torch, seed, card, backbone="resnest50"))
     ok &= good
+    laps("c")
     counts["remat"], numbers["remat"], good = check_remat(torch, seed, card)
     ok &= good
+    laps("d")
     numbers["save_ms"], good = save_blocking(torch, seed, card, tmp)
     ok &= good
-    tmr_args = ["--config", cfg_path, *manifests, "--lfb",
-                os.path.join(tmp, "bank_train.npz"), "--val-lfb",
-                os.path.join(tmp, "bank_val.npz"), "--stage1-ckpt",
-                os.path.join(tmp, "ck1"), "--set", f"train.epochs={TMR_EPOCHS}",
-                "--set", "train.async_checkpoint=true"]
-    ok &= preemption_run(torch, tmp, tmr_args, card, name="async")
+    if refs is not None and "async_preemption" in refs:
+        good = refs.pop("async_preemption")
+        print(f"  train-tmr under train.async_checkpoint: preempted and "
+              f"resumed beside 4g D (above) {'ok' if good else 'FAIL'}")
+    else:
+        tmr_args = ["--config", cfg_path, *manifests, "--lfb",
+                    os.path.join(tmp, "bank_train.npz"), "--val-lfb",
+                    os.path.join(tmp, "bank_val.npz"), "--stage1-ckpt",
+                    os.path.join(tmp, "ck1"), "--set",
+                    f"train.epochs={TMR_EPOCHS}", *ASYNC_SET]
+        good = preemption_run(torch, tmp, tmr_args, card, name="async")
+    ok &= good
+    laps("e")
     got, numbers["native"], good = check_native(torch, tmp, card, cfg_path,
                                                 manifests)
     counts.update({f"train-bank-{k}": v for k, v in got.items()})
     ok &= good
+    laps("f")
     got, numbers["flags_s"], good = check_checkpoint_flags(torch, tmp, card,
                                                            cfg_path)
     counts.update(got)
     ok &= good
-    print(f"options slice: {json.dumps(numbers)} in "
-          f"{time.perf_counter() - t0:.1f} s on {card} "
+    laps("g")
+    print(f"options slice: {json.dumps(numbers)}; seconds {laps.report()}; "
+          f"in {time.perf_counter() - t0:.1f} s on {card} "
           f"{'ok' if ok else 'FAIL'}")
     torch.cuda.empty_cache()
     return counts, numbers, ok
@@ -3636,9 +3709,10 @@ def run_score_slice(torch, seed, card, kept):
 
 
 # Phase 4k, the multi-process slice: the global batch of (b) and its
-# steps, the heads and dtypes of (b) (time_conv's kernel takes bf16 only,
-# so the f32 step runs head nl_only and the TMR head's runs in bf16), how
-# long a rank may take, and the determinism (a)'s two runs share.
+# steps, the heads and dtypes of (b) (the TMR head in bf16, the main
+# path's dtype, and head nl_only in f32; 4q (b) holds the TMR head's step
+# in f32), how long a rank may take, and the determinism (a)'s two runs
+# share.
 MULTI_CLIPS, MULTI_STEPS, MULTI_LR, MULTI_TIMEOUT = 8, 2, 1e-3, 300
 # 4k (a)'s epochs (one checkpoint an epoch; the whole script's time)
 NCCL_EPOCHS = 1
@@ -3910,8 +3984,8 @@ def multi_train(torch, seed, card, tmp, world=2, backend="gloo", mp=1,
     `--multi-only` one card a rank over NCCL) take MULTI_STEPS steps of
     the full-width model (ResNet-50 224x224, hidden 512, window 30) at a
     global batch of MULTI_CLIPS clips of SEQ frames, split over them,
-    against the same steps in this process over the whole batch: TMR in bf16 (time_conv's kernel
-    takes bf16 only) by the losses within STEP_LOSS_TOL, the statistics
+    against the same steps in this process over the whole batch: TMR in
+    bf16 (the main path's dtype) by the losses within STEP_LOSS_TOL, the statistics
     within TOL and the first step's aggregates within
     `step_check.AGG_LIMITS`; nl_only in f32 by `step_check`'s f32 limits:
     the losses and statistics within STEP_F32_TOL and each delta of the
@@ -4131,8 +4205,8 @@ def run_multi_slice(torch, seed, card, kept, refs=None):
     return {"multi": counts}, numbers, ok and good
 
 
-# Phase 4o, the mesh slice: the heads of (a) and their dtypes (time_conv's
-# kernel takes bf16 only; stage 1 in f32 holds each tensor); the model
+# Phase 4o, the mesh slice: the heads of (a) and their dtypes (tmr in
+# bf16, the main path's dtype; stage 1 in f32 holds each tensor); the model
 # axis of (a) and (b); the sequence-parallel shards of (c); the frames of
 # bank_features' positions in (c).
 MESH_HEADS = (("tmr", "bfloat16"), ("stage1", "float32"))
@@ -5891,6 +5965,271 @@ def run_reference_slice(torch, seed, card, device="cuda"):
             ok and good)
 
 
+# Phase 4q, the f32 slice: the f32 time_conv kernel's limit (of max
+# |plain|: the same f32 products summed in another order), the batches of
+# (a) (a train step's 16 rows, the corpus's head call, a head group of 8
+# videos of 5,500 clips), its column slice (B and M ranks), and (c)'s
+# limit of the card's f32 softmax from the CPU's f32 (cuDNN and oneDNN
+# sum the trunk's convolutions in other orders).
+F32_REL = 1e-5
+F32_BATCHES = (16, 2582, 44000)
+F32_SLICE = (2582, 2)
+F32_CPU_TOL = 1e-3
+
+
+def f32_time_conv_args(torch, gen, b):
+    """x (b, WINDOW, HIDDEN) and the weights of a layer, f32 on the card."""
+    dev = torch.device("cuda")
+    x = torch.randn((b, WINDOW, HIDDEN), generator=gen, device=dev)
+    ws = []
+    for ksz in (3, 5, 7):
+        ws += [torch.randn((ksz, HIDDEN, HIDDEN), generator=gen, device=dev)
+               * (1.0 / (ksz * HIDDEN)) ** 0.5,
+               torch.randn((HIDDEN,), generator=gen, device=dev) * 0.02]
+    return x, ws
+
+
+def check_time_conv_f32(torch, seed, card):
+    """Phase 4q (a): csrc/time_conv_f32.cu at W = 30, C = 512 and each B of
+    F32_BATCHES, and over the last 512 / M output columns at F32_SLICE,
+    against `time_conv_plain` in f32 (TF32 off) within F32_REL of max
+    |plain|: the eager ms of the kernel, the plain version and the cuDNN
+    chain (three conv1d and the maxes in f32, TF32 off), the FFMA bound
+    (operations over 67 TFLOP/s, or bytes: x, the weights and the output
+    once), and at B = 16 the card's own time (CUDA-graph replays). The
+    record (B = 16) goes on the kernels line; the other B under
+    "engine_shapes", the slice under "slices". Returns (record, ok)."""
+    import torch.nn.functional as F
+
+    from tmrnet_torch.experimental.kernel_timing import graph_ms
+    from tmrnet_torch.ops.time_conv import time_conv_cuda, time_conv_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 40)
+    c, ok, rows = HIDDEN, True, []
+    cut = lambda t, c0, n: (t[..., c0:c0 + n] if t.dim() == 3
+                            else t[c0:c0 + n]).contiguous()
+
+    def measure(b, x, ws, c0=0):
+        nonlocal ok
+        cout = ws[0].shape[2]
+        err, good = compare(torch, f"time_conv_f32 B={b}"
+                            + (f" ({cout} columns from {c0})" if c0 else ""),
+                            time_conv_cuda(x, *ws, c0=c0),
+                            time_conv_plain(x, *ws, c0=c0), F32_REL)
+        ok &= good
+        xt = x.transpose(1, 2)
+        xs = xt[:, c0:c0 + cout]
+        wt = [(ws[2 * i].permute(2, 1, 0).contiguous(), ws[2 * i + 1])
+              for i in range(3)]
+
+        def chain():
+            out = torch.maximum(xs, F.pad(xs, (1, 0))[:, :, :-1])
+            for (w_, b_), ksz in zip(wt, (3, 5, 7)):
+                out = torch.maximum(out, F.conv1d(xt, w_, b_,
+                                                  padding=ksz // 2))
+            return out.transpose(1, 2)
+
+        m = b * WINDOW
+        iters = 3 if b > 10000 else 10
+        b_ms, b_by = bound(2 * m * c * cout * 15,
+                           4 * (m * c + m * cout + 15 * c * cout + 3 * cout),
+                           PEAK_F32)
+        row = dict(shape=f"B={b}", max_abs_err=err,
+                   ms=time_ms(torch, lambda: time_conv_cuda(x, *ws, c0=c0),
+                              iters, 1),
+                   plain_ms=time_ms(torch, lambda: time_conv_plain(
+                       x, *ws, c0=c0), iters, 1),
+                   bound_ms=b_ms, bound_by=b_by,
+                   library_ms=time_ms(torch, chain, iters, 1))
+        if b <= 16:
+            row["device_ms"] = graph_ms(torch, lambda: time_conv_cuda(x, *ws))
+        print(f"    eager {row['ms']:.4f} ms"
+              + (f", device {row['device_ms']:.5f} ms" if b <= 16 else "")
+              + f", plain {row['plain_ms']:.4f} ms, cuDNN chain "
+              f"{row['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+              f"{b_ms / row['ms']:.3f} of it)")
+        return row
+
+    for b in F32_BATCHES:
+        x, ws = f32_time_conv_args(torch, gen, b)
+        rows.append(measure(b, x, ws))
+        del x, ws
+        torch.cuda.empty_cache()
+    b, m = F32_SLICE
+    x, ws = f32_time_conv_args(torch, gen, b)
+    cout = c // m
+    sl = [cut(t, c - cout, cout) for t in ws]
+    whole = time_conv_cuda(x, *ws)
+    parts = [time_conv_cuda(x, *(cut(t, j * cout, cout) for t in ws),
+                            c0=j * cout) for j in range(m)]
+    same = torch.equal(torch.cat(parts, dim=-1), whole)
+    print(f"  time_conv_f32 B={b}: its {m} slices side by side equal the "
+          f"whole call bit for bit: {same} {'ok' if same else 'FAIL'}")
+    ok &= same
+    sliced = dict(measure(b, x, sl, c - cout), model_parallel=m, cout=cout,
+                  c0=c - cout)
+    del x, ws, sl, whole, parts
+    torch.cuda.empty_cache()
+    head, *shapes = rows
+    rec = dict(name="time_conv_f32", route="cuda",
+               source="tmrnet_torch/csrc/time_conv_f32.cu",
+               replaces="tmrnet_tpu/ops/time_conv.py:76",
+               **{k: v for k, v in head.items() if k != "shape"},
+               engine_shapes=shapes, slices=[sliced])
+    rec["max_abs_err"] = max(r["max_abs_err"] for r in rows + [sliced])
+    print(f"time_conv_f32 vs plain on {card} {'ok' if ok else 'FAIL'}")
+    return rec, ok
+
+
+def f32_tmr_step(torch, seed, card, refs):
+    """Phase 4q (b): 4g A's tmr step (its weights and TRAIN_CLIPS clips)
+    in f32 on the card against the same step in f32 on the CPU (4g A's,
+    kept in `refs`, else run here) by `train/step_check.py`'s f32 limits:
+    the loss and the running statistics within STEP_F32_TOL, each delta
+    within TENSOR_LIMIT (a bias before a train-mode BatchNorm left to the
+    aggregates); one time_conv_f32 and one nl_attention launch. Returns
+    (launches, ok)."""
+    from tmrnet_torch.models.convert import from_jax_variables, random_variables
+    from tmrnet_torch.train.step_check import (TENSOR_LIMIT, aggregate,
+                                               distance, rounding_only,
+                                               worst_by_group)
+
+    if "tmr_cpu_f32" not in refs:
+        weights = from_jax_variables(random_variables(
+            train_model_config("tmr", "cpu"), seed + 21))
+        batch = train_batch(torch, seed + 20, TRAIN_CLIPS)
+        refs["tmr_cpu_f32"] = (weights, batch, one_step(
+            torch, "tmr", weights, batch, "cpu"))
+    weights, batch, cpu = refs["tmr_cpu_f32"]
+    t0 = time.perf_counter()
+    g32 = one_step(torch, "tmr", weights, batch, "cuda", "float32")
+    dt = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    rel = abs(g32[0] - cpu[0]) / abs(cpu[0])
+    dist = {k: distance(k, g32[1][k], w) for k, w in cpu[1].items()}
+    held = {k: d for k, d in dist.items() if not rounding_only(k)}
+    sterr = max(float((g32[2][k] - w).abs().max())
+                / max(float(w.abs().max()), 1e-12) for k, w in cpu[2].items())
+    want = {"time_conv_f32": 1, "nl_attention": 1}
+    ok = (rel <= STEP_F32_TOL and sterr <= STEP_F32_TOL
+          and all(d <= TENSOR_LIMIT for d in held.values())
+          and g32[3] == want)
+    print(f"f32 tmr step ({TRAIN_CLIPS} clips, ResNet-50 224x224, hidden "
+          f"{HIDDEN}, window {WINDOW}) on the card vs the CPU: loss "
+          f"{g32[0]:.8g} / {cpu[0]:.8g} rel {rel:.3g}, running stats "
+          f"{sterr:.4g} (limit {STEP_F32_TOL} each); {len(held)} deltas, "
+          f"worst {worst_by_group(held)} (limit {TENSOR_LIMIT} each); "
+          f"aggregates {json.dumps(aggregate(g32[1], cpu[1]))}; launches "
+          f"{g32[3]} (want {want}); {dt:.1f} s on {card} "
+          f"{'ok' if ok else 'FAIL'}")
+    return g32[3], ok
+
+
+def f32_test(torch, seed, card, tdir):
+    """Phase 4q (c): `test --engine clip` over 4f's directory (its
+    config, `.pth` files, manifest and clip bank) at
+    model.compute_dtype=float32, unfolded, through `tmrnet_torch.cli.main`:
+    launches (1 time_conv_f32 and 1 nl_attention a batch of TEST_BATCH
+    clips, no bottleneck kernel), the softmax within TOL of 4f's bf16 clip
+    engine with the argmax rule, and at 8 rows within F32_CPU_TOL of the
+    same engine in f32 on the CPU over the same bank; clips/s. Then
+    `stream --max-streams SCORE_SLOTS` at f32 over the same videos: the
+    slot plan's steps and predictions, 1 time_conv_f32 and 1 nl_attention
+    a step; steps/s. Returns (launches, numbers, ok)."""
+    from tmrnet_torch import cli
+    from tmrnet_torch.config import ExperimentConfig
+    from tmrnet_torch.eval.infer import ClipInference
+    from tmrnet_torch.memory.lfb import load_bank
+
+    out = lambda name: os.path.join(tdir, name)
+    clips = sum(max(0, n - SEQ + 1) for n in TEST_LENGTHS)
+    f32 = ["--set", "model.compute_dtype=float32", "--set",
+           "model.folded=false"]
+    lines, counts, dt = run_cli(
+        ["test", "--config", out("cfg.json"), *f32, "--manifest", out("m.pkl"),
+         "--torch-ckpt", out("tmr.pth"), "--extractor-torch-ckpt",
+         out("lfb.pth"), "--engine", "clip", "--lfb", out("bank_clip.npz"),
+         "--out", out("clip_f32.npz")])
+    batches = -(-clips // TEST_BATCH)
+    want = {"time_conv_f32": batches, "nl_attention": batches}
+    ok = counts == want
+    print(f"  test --engine clip at f32: launches {counts} (want {want}) "
+          f"{'ok' if ok else 'FAIL'}")
+    with np.load(out("clip_f32.npz")) as z:
+        scores, preds = z["scores"], z["preds"]
+    with np.load(out("clip.npz")) as z:
+        bf_scores, bf_preds = z["scores"], z["preds"]
+    summary = json.loads(lines[-1])
+    labels = cli.clip_labels(cli.load_manifest(out("m.pkl")), SEQ)
+    good = (scores.shape == (clips, CLASSES)
+            and bool(np.isfinite(scores).all())
+            and summary["clip_accuracy"] == float((preds == labels).mean()))
+    print(f"  test --engine clip at f32: clip accuracy "
+          f"{summary['clip_accuracy']:.4f} (bf16 "
+          f"{float((bf_preds == labels).mean()):.4f}) "
+          f"{'ok' if good else 'FAIL'}")
+    ok &= good and probs_close("test clip f32 vs bf16 softmax", scores,
+                               bf_scores)
+    ok &= argmax_agrees("test clip f32 vs bf16", preds, bf_preds, bf_scores,
+                        min_decided=1)
+    with open(out("cfg.json")) as f:
+        cfg = ExperimentConfig.from_json(f.read())
+    cfg = cfg.replace(model=dataclasses.replace(
+        cfg.model, compute_dtype="float32", folded=False))
+    state = cli.restore_state(cfg, "tmr", out("tmr.pth"))
+    ds = cli.dataset(cfg, cli.load_manifest(out("m.pkl")))
+    rows = np.random.default_rng(seed + 41).choice(clips, 8, replace=False)
+    batch = np.stack([ds.get_clip(int(r))[0] for r in rows])
+    cpu = ClipInference(cfg, state, load_bank(out("bank_clip.npz"),
+                                              device="cpu"),
+                        device="cpu").run_batches(
+        [(batch, labels[rows], rows, 0)], ds.first_rows)
+    ok &= probs_close(f"test clip f32 vs the CPU's f32 at rows "
+                      f"{sorted(rows.tolist())}", scores[rows], cpu.scores,
+                      F32_CPU_TOL)
+    ok &= argmax_agrees("test clip f32 vs the CPU's f32", preds[rows],
+                        cpu.preds, cpu.scores, F32_CPU_TOL)
+    # the stream engine at f32: one time_conv_f32 and one nl_attention a
+    # step of the slot plan, none in a slot reset
+    steps = len(slot_schedule(TEST_LENGTHS, SCORE_SLOTS))
+    lines, streamed, sdt = run_cli(
+        ["stream", "--config", out("cfg.json"), *f32, "--manifest",
+         out("m.pkl"), "--torch-ckpt", out("tmr.pth"),
+         "--extractor-torch-ckpt", out("lfb.pth"), "--max-streams",
+         str(SCORE_SLOTS), "--out", out("stream_f32.jsonl")])
+    swant = {"time_conv_f32": steps, "nl_attention": steps}
+    summary = json.loads(lines[-1])
+    good = (streamed == swant and summary["steps"] == steps
+            and summary["predictions"] == clips)
+    print(f"  stream --max-streams {SCORE_SLOTS} at f32: {summary['steps']} "
+          f"steps (want {steps}), {summary['predictions']} predictions "
+          f"(want {clips}); launches {streamed} (want {swant}) "
+          f"{'ok' if good else 'FAIL'}")
+    ok &= good
+    return (add_counts(counts, streamed),
+            {"test_clip_f32_clips_s": clips / dt,
+             "stream_f32_steps_s": steps / sdt}, ok)
+
+
+def run_f32_slice(torch, seed, card, kept, refs, records):
+    """Phase 4q: (a) the f32 time_conv kernel, its record appended to
+    `records`, (b) the f32 tmr train step, (c) `test --engine clip` at
+    f32. Returns (counts by path, numbers, ok); its launches go under path
+    "f32"."""
+    t0 = time.perf_counter()
+    rec, ok = check_time_conv_f32(torch, seed, card)
+    records.append(rec)
+    step, good = f32_tmr_step(torch, seed, card, refs)
+    ok &= good
+    test, numbers, good = f32_test(torch, seed, card, kept["test"])
+    ok &= good
+    print(f"f32 slice: {json.dumps(numbers)} in "
+          f"{time.perf_counter() - t0:.1f} s on {card} "
+          f"{'ok' if ok else 'FAIL'}")
+    torch.cuda.empty_cache()
+    return {"f32": add_counts(step, test)}, numbers, ok
+
+
 def run_gate(torch, seed, card):
     """Phase 5: the int8 gate at B = 128 over the four stages: the int8
     bottleneck chain through the kernels against the same chain through the
@@ -6130,15 +6469,17 @@ def main():
     serve = phases.run("4e serve", lambda: run_serve_slice(torch, seed, card))
     by_path["serve"] = serve[0] if serve else {}
     os.makedirs(ROOT_TMP, exist_ok=True)
-    refs = {}       # 4k (b)'s one-process steps, for 4o (a)
+    # 4k (b)'s one-process steps, for 4o (a); 4g A's CPU f32 tmr step, for
+    # 4q (b); 4j (e)'s preemption verdict, run beside 4g D
+    refs = {}
     with tempfile.TemporaryDirectory(prefix="kept-", dir=ROOT_TMP) as root:
         kept = {"root": root}       # 4f, 4g and 4h's directories, for 4i, 4k
         for name, fn in (
                 ("4f test", lambda: run_test_slice(torch, seed, card, kept)),
                 ("4g train", lambda: run_train_slice(torch, seed, card,
-                                                     kept)),
+                                                     kept, refs)),
                 ("4j options", lambda: run_options_slice(
-                    torch, seed, card, kept["train"])),
+                    torch, seed, card, kept["train"], refs)),
                 ("4h resnest", lambda: run_resnest_slice(torch, seed, card,
                                                          kept)),
                 ("4i score", lambda: run_score_slice(torch, seed, card,
@@ -6150,7 +6491,9 @@ def main():
                 ("4o mesh", lambda: run_mesh_slice(torch, seed, card,
                                                    kept, refs)),
                 ("4p shard", lambda: run_shard_slice(torch, seed, card,
-                                                     kept))):
+                                                     kept)),
+                ("4q f32", lambda: run_f32_slice(torch, seed, card, kept,
+                                                 refs, records))):
             res = phases.run(name, fn)
             if res:
                 by_path.update(res[0])

@@ -202,5 +202,25 @@ def test_training_commands_refuse(files, runs, monkeypatch):
 
     monkeypatch.setattr(device, "resolve_device",
                         lambda d: torch.device("cuda", 0))
-    with pytest.raises(SystemExit, match="bf16 only on the card"):
+    # head tmr at model.compute_dtype=float32 passes the dtype check on a
+    # (faked) card, turning TF32 off there, and goes on to its bank; a
+    # folded trunk in f32 is refused by its kernels' names
+    from tmrnet_torch.memory import lfb
+
+    class ReachedTheBank(Exception):
+        pass
+
+    def load_bank(path, **kw):
+        assert kw["device"] == torch.device("cuda", 0)
+        raise ReachedTheBank(path)
+
+    monkeypatch.setattr(lfb, "load_bank", load_bank)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    with pytest.raises(ReachedTheBank):
         cli.main(["train-tmr", *base, "--lfb", "x"])
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
+    with pytest.raises(SystemExit, match="fused_bottleneck"):
+        cli.main(["train-tmr", *base, "--lfb", "x", "--set",
+                  "model.folded=true"])

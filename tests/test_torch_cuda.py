@@ -13,6 +13,8 @@ imports none and runs without the repository's conftest:
 Tolerance: max |kernel - plain| <= 2e-2 * max |plain|. The kernels take
 bf16 inputs and round their output (and the fused bottleneck its y1 and y2)
 to bf16, 2^-8 relative each; the plain versions run in f32 (TF32 off).
+The f32 time_conv kernel is held to 1e-5 of max |plain|: the same f32
+products, summed in another order.
 The int8 kernels are held to their plain versions bit for bit: both sum the
 integer products exactly and take the same f32 epilogue steps. The two
 bf16 bottleneck kernels are held to equal bits only against themselves, on
@@ -158,6 +160,114 @@ def test_time_conv_kernel_refuses_a_slice_off_the_tiles(gen):
     for c0 in (32, 96):
         with pytest.raises(ValueError, match="column slice"):
             time_conv_cuda(x, *ws, c0=c0)
+
+
+# The f32 kernel (csrc/time_conv_f32.cu: FFMA, no TF32) against the
+# plain version in f32 with TF32 off: max |diff| <= 1e-5 max |plain| (the
+# same f32 products, summed in another order); one launch of
+# time_conv_f32 a call. Windows 30 and 40, sequences shorter and longer
+# than the 64-row tile, C from 64 to 1024, B at the engines' 2,582.
+F32_REL = 1e-5
+
+
+def _tc_f32(gen, b, w, c):
+    x = _randn(gen, (b, w, c), dtype=torch.float32)
+    return x, [t.float() for t in _tc_weights(gen, c)]
+
+
+@pytest.mark.parametrize("b,w,c", [(32, 30, 512), (3, 7, 64), (5, 13, 128),
+                                   (1, 1, 64), (32, 40, 512), (2, 70, 256),
+                                   (3, 37, 128), (4, 30, 1024),
+                                   (2582, 30, 512)])
+def test_time_conv_f32_kernel(gen, b, w, c):
+    x, ws = _tc_f32(gen, b, w, c)
+    reset_launches()
+    got = time_conv_cuda(x, *ws)
+    assert dict(LAUNCHES) == {"time_conv_f32": 1}
+    assert got.dtype == torch.float32 and got.shape == (b, w, c)
+    _close(got, time_conv_plain(x, *ws), F32_REL)
+
+
+def test_time_conv_f32_kernel_repeats_bit_for_bit(gen):
+    x, ws = _tc_f32(gen, 32, 30, 512)
+    first = time_conv_cuda(x, *ws)
+    for _ in range(3):
+        assert torch.equal(time_conv_cuda(x, *ws), first)
+
+
+@pytest.mark.parametrize("b,w,c,m", [(8, 30, 512, 2), (8, 30, 512, 4),
+                                     (2582, 30, 512, 2), (2, 70, 256, 2)])
+def test_time_conv_f32_kernel_column_slices(gen, b, w, c, m):
+    x, ws = _tc_f32(gen, b, w, c)
+    cout = c // m
+    parts = []
+    for j in range(m):
+        c0 = j * cout
+        sl = [t[..., c0:c0 + cout].contiguous() if t.dim() == 3
+              else t[c0:c0 + cout].contiguous() for t in ws]
+        reset_launches()
+        parts.append(time_conv_cuda(x, *sl, c0=c0))
+        assert dict(LAUNCHES) == {"time_conv_f32": 1}
+        _close(parts[-1], time_conv_plain(x, *sl, c0=c0), F32_REL)
+    assert torch.equal(torch.cat(parts, dim=-1), time_conv_cuda(x, *ws))
+
+
+def test_time_conv_f32_past_the_limit_splits(gen):
+    """B = 139,811 at W = 30, C = 512 (~8.6 GB of f32), one row past one
+    launch's 32-bit limit: two launches of time_conv_f32, and the rows at
+    the split and 256 seeded others match the plain version."""
+    b, w, c = time_conv_max_rows(30, 512) + 1, 30, 512
+    x = torch.randn((b, w, c), generator=gen, device="cuda")
+    ws = [t.float() for t in _tc_weights(gen, c)]
+    reset_launches()
+    out = time_conv_cuda(x, *ws)
+    assert dict(LAUNCHES) == {"time_conv_f32": 2}
+    rows = torch.cat([torch.arange(b - 3, b, device="cuda"),
+                      torch.randint(0, b, (256,), generator=gen,
+                                    device="cuda")])
+    _close(out[rows], time_conv_plain(x[rows], *ws), F32_REL)
+    del x, out
+
+
+def test_time_conv_f32_refuses_mixed_dtypes_and_odd_shapes(gen):
+    x, ws = _tc_f32(gen, 2, 3, 64)
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        time_conv_cuda(x, *[t.bfloat16() if t.dim() == 3 else t for t in ws])
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        time_conv_cuda(x.half(), *[t.half() if t.dim() == 3 else t
+                                   for t in ws])
+    x48, ws48 = _tc_f32(gen, 2, 3, 48)
+    with pytest.raises(ValueError, match="C % 64"):
+        time_conv_cuda(x48, *ws48)
+    flat = torch.empty(x.numel() + 1, device="cuda")
+    x_off = flat[1:].view(x.shape).copy_(x)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        time_conv_cuda(x_off, *ws)
+
+
+def test_timeconv_module_f32_on_the_card(gen):
+    """models/blocks.py::TimeConv at compute_dtype float32 on the card:
+    the forward through the f32 kernel (one launch) against the same
+    module on the CPU, and its gradients (the plain f32 recompute)
+    against the CPU's, both to 1e-5 of their largest value."""
+    from tmrnet_torch.models.blocks import TimeConv
+
+    torch.manual_seed(0)
+    cpu = TimeConv(512, torch.float32)
+    card = TimeConv(512, torch.float32).cuda()
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn((8, 30, 512), generator=gen, device="cuda")
+    xc = x.cpu().requires_grad_(True)
+    xg = x.clone().requires_grad_(True)
+    reset_launches()
+    got = card(xg)
+    assert dict(LAUNCHES) == {"time_conv_f32": 1}
+    want = cpu(xc)
+    _close(got.cpu(), want, F32_REL)
+    got.square().sum().backward()
+    want.square().sum().backward()
+    _close(xg.grad.cpu(), xc.grad, F32_REL)
+    _close(card.conv_k7.weight.grad.cpu(), cpu.conv_k7.weight.grad, F32_REL)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -101,9 +101,14 @@ def test_tiny_model_refused_on_the_card(tmp_path):
         with pytest.raises(SystemExit, match="runs on the CPU only"):
             study.main(["--work", str(tmp_path / "x"), *argv])
     assert not (tmp_path / "x").exists()
-    with pytest.raises(SystemExit, match="runs on the CPU only"):
+    # ResNet-50 in f32 passes the scale check on the card; the missing
+    # card is refused next, before anything is written
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         study.run_study(str(tmp_path / "y"), scale={"backbone": "resnet50"})
-    assert study.card_sets("cuda") == ("data.use_flip=false",)
+    assert not (tmp_path / "y").exists()
+    # the card's crop-and-flip recipe only where cv2 does not import
+    assert study.card_sets("cuda") == (
+        () if study.have_cv2() else ("data.use_flip=false",))
     assert study.folded_sets("cuda") == ["--set", "model.folded=true"]
     assert study.card_sets("cpu") == () and study.folded_sets("cpu") == []
 

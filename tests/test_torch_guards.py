@@ -71,6 +71,7 @@ def test_importing_the_port_leaves_jax_out():
             "tmrnet_torch.data.stats, tmrnet_torch.migrate, "
             "tmrnet_torch.data.video, tmrnet_torch.data.cutmargin, "
             "tmrnet_torch.experimental.efficacy_study, "
+            "tmrnet_torch.experimental.efficacy_grid, "
             "tmrnet_torch.experimental.headlevel_multiscale, "
             "tmrnet_torch.experimental.timeconv_witness; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "

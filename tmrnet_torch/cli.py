@@ -373,6 +373,25 @@ def frame_loader(cfg: ExperimentConfig):
     return lambda path: tf(np.stack([load_frame(path)]))[0]
 
 
+def _card_precision(cfg: ExperimentConfig, device):
+    """Returns `device` once f32 on it means f32: under
+    model.compute_dtype=float32 on CUDA, TF32 goes off for cuDNN and cuBLAS
+    (`device.set_precision`), and a folded ResNet trunk exits by name,
+    since its identity blocks' kernels (fused_bottleneck,
+    fused_bottleneck_tiled) take bf16 only."""
+    from tmrnet_torch.device import exact_f32, set_precision
+
+    set_precision(cfg.model.compute_dtype, device)
+    if (cfg.model.folded and cfg.model.backbone != "resnest50"
+            and exact_f32(cfg.model.compute_dtype, device)):
+        raise SystemExit(
+            "model.folded=true at model.compute_dtype=float32 on the card: "
+            "the folded identity blocks' kernels (fused_bottleneck, "
+            "fused_bottleneck_tiled) take bf16 only; run the f32 trunk "
+            "unfolded (model.folded=false) or in bfloat16")
+    return device
+
+
 def _mesh_for(cfg: ExperimentConfig, args, batch: Optional[int] = None,
               what: str = "data.batch_clips", grid: bool = False):
     """(the command's device, its mesh or None). Under mesh.multihost: join
@@ -392,13 +411,14 @@ def _mesh_for(cfg: ExperimentConfig, args, batch: Optional[int] = None,
                 f"mesh.model_parallel={cfg.mesh.model_parallel}: the grid "
                 f"runs one process a card; launch the ranks with --set "
                 f"mesh.multihost=true (torchrun ... -m tmrnet_torch ...)")
-        return resolve_device(args.device), None
+        return _card_precision(cfg, resolve_device(args.device)), None
     from tmrnet_torch.eval.distributed import local_eval_mesh
 
     try:
         mesh = local_eval_mesh(cfg, args.device)
     except ValueError as e:
         raise SystemExit(str(e))
+    _card_precision(cfg, mesh.device)
     print(json.dumps({"mesh": {"rank": mesh.rank, "world": mesh.world,
                                "backend": mesh.backend,
                                "device": str(mesh.device),
@@ -796,12 +816,6 @@ def cmd_train_tmr(args) -> int:
     _sp_devices(cfg, args, "train-tmr", allowed=False)
     device, mesh = _mesh_for(cfg, args, grid=True)     # before the logger
     head = cfg.model.head if cfg.model.head in ("tmr", "nl_only") else "tmr"
-    if (device.type == "cuda" and head == "tmr"
-            and cfg.model.compute_dtype != "bfloat16"):
-        raise SystemExit(
-            f"model.compute_dtype={cfg.model.compute_dtype} with head tmr: "
-            f"time_conv's kernel takes bf16 only on the card; train with "
-            f"model.compute_dtype=bfloat16, or on the CPU (--device cpu)")
     if args.videos:
         train_ds, val_ds = _video_train_val(cfg, args)
     else:
@@ -1501,8 +1515,8 @@ def cmd_export_model(args) -> int:
     from tmrnet_torch.eval.saved import (export_inference, export_stream,
                                          save_artifact)
 
-    device = resolve_device(args.device)
     cfg = load_config(args)
+    device = _card_precision(cfg, resolve_device(args.device))
     head = cfg.model.head
     if args.stream:
         if head not in ("tmr", "nl_only"):

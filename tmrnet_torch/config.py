@@ -110,7 +110,9 @@ class ModelConfig:
     dropout_stage1: float = 0.2
     dropout_head: float = 0.5
     dropout_nl: float = 0.2
-    compute_dtype: str = "bfloat16"  # bfloat16 on the card; float32 for parity
+    # bfloat16 on the card; float32 for parity, on the CPU or the card
+    # (unfolded there: the folded identity blocks' kernels are bf16)
+    compute_dtype: str = "bfloat16"
     # Inference-only: BatchNorm pre-folded into conv weights (models/fold_bn).
     folded: bool = False
     # Each ResNet bottleneck recomputed in the backward pass (ResNeSt

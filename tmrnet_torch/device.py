@@ -36,3 +36,19 @@ def torch_dtype(name) -> torch.dtype:
 def at_least_f32(t: torch.Tensor) -> torch.Tensor:
     """t in f32, or in its own dtype where that is wider (f64)."""
     return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+def exact_f32(compute_dtype, device) -> bool:
+    """Whether a run in `compute_dtype` on `device` keeps TF32 off: f32 on
+    CUDA, where cuDNN runs f32 convolutions in TF32 (10 bits of mantissa)
+    by default, so that f32 on the card means f32 as on the CPU."""
+    return (torch_dtype(compute_dtype) == torch.float32
+            and torch.device(device).type == "cuda")
+
+
+def set_precision(compute_dtype, device) -> None:
+    """Where `exact_f32`, turn TF32 off for cuDNN's convolutions and
+    cuBLAS's products; else leave both settings as they are."""
+    if exact_f32(compute_dtype, device):
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False

@@ -17,14 +17,16 @@ rows (stdout JSON lines and `efficacy_results.json`) and the margin
 summary are JAX's.
 
 The tiny default (backbone tiny, f32) runs on the CPU only (`--device
-cpu`): the card's bf16 kernels need C and P to be multiples of 64, and
-f32 raises there for head tmr. `--full-scale` is ResNet-50 at 224² crops
-of 250² frames, hidden 512, bf16. What the card adds, printed in the first
-JSON line: `--device` on every command that takes it; on the card,
+cpu`): the card's kernels need C and P to be multiples of 64.
+`--full-scale` is ResNet-50 at 224² crops of 250² frames, hidden 512,
+bf16; `--set model.compute_dtype=float32` makes it f32 (TF32 off, as the
+commands set it). What the card adds, printed in the first JSON line:
+`--device` on every command that takes it; on the card in bf16,
 `model.folded=true` on `test` and `build-lfb` (the identity blocks run
-the fused kernel) and `data.use_flip=false` (the card's machine has no
-cv2 for the jitter and the rotation). After each seed's rows, a JSON line
-gives each command's seconds.
+the fused kernel, which is bf16 only); and, where cv2 does not import,
+`data.use_flip=false` (crop and flip only, since the colour jitter and
+the rotation are cv2's), named by `recipe`. After each seed's rows, a
+JSON line gives each command's seconds.
 """
 
 from __future__ import annotations
@@ -45,10 +47,37 @@ FULL_SCALE = {"hw": 250, "hidden": 512, "backbone": "resnet50",
               "compute_dtype": "bfloat16"}
 
 
+def have_cv2() -> bool:
+    """Whether cv2, which the colour jitter and the rotation need,
+    imports."""
+    try:
+        import cv2  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
 def card_sets(device: str) -> tuple:
-    """Overrides every arm takes on `device`: on the card, crop and flip
-    only (no cv2 there for the colour jitter and the rotation)."""
-    return ("data.use_flip=false",) if device != "cpu" else ()
+    """Overrides every arm takes on `device`: on the card where cv2 does
+    not import, crop and flip only; else none (JAX's recipe)."""
+    return (("data.use_flip=false",) if device != "cpu" and not have_cv2()
+            else ())
+
+
+def recipe(device: str) -> str:
+    """The augmentation `card_sets(device)` leaves: the reference's
+    (crop, flip, colour jitter, rotation) or crop and flip alone."""
+    return "crop_and_flip" if card_sets(device) else "reference"
+
+
+def set_value(argv, key: str, default: str) -> str:
+    """The value a command line's `--set`s give `key` (the last one wins,
+    as in the CLI), else `default`."""
+    value = default
+    for a, b in zip(argv, argv[1:]):
+        if a == "--set" and b.startswith(key + "="):
+            value = b.split("=", 1)[1]
+    return value
 
 
 def run_cli(argv, device: str = "cuda", clock=None) -> str:
@@ -106,10 +135,12 @@ def common_overrides(work: str, seed: int, hw: int = 32, hidden: int = 32,
     return [x for s in sets for x in ("--set", s)]
 
 
-def folded_sets(device: str) -> list:
-    """`test` and `build-lfb` on the card fold BN, so that the identity
-    blocks run the fused kernel."""
-    return ["--set", "model.folded=true"] if device != "cpu" else []
+def folded_sets(device: str, compute_dtype: str = "bfloat16") -> list:
+    """`test` and `build-lfb` on the card in bf16 fold BN, so that the
+    identity blocks run the fused kernel (bf16 only: an f32 trunk stays
+    unfolded)."""
+    return (["--set", "model.folded=true"]
+            if device != "cpu" and compute_dtype == "bfloat16" else [])
 
 
 def train_and_score(work: str, seed: int, head: str, stage1_dir: str,
@@ -179,7 +210,8 @@ def score_arm(work: str, seed: int, arm: str, ckpt: str,
     preds = f"{work}/preds-{arm}-s{seed}.npz"
     argv = ["test", "--manifest", f"{work}/test.pkl", "--ckpt", ckpt,
             "--out", preds, *ov, "--set", f"model.head={arm}",
-            *folded_sets(device)]
+            *folded_sets(device, set_value(ov, "model.compute_dtype",
+                                           "float32"))]
     if extractor:
         argv += ["--extractor-ckpt", extractor]
     t = last_json(run_cli(argv, device, clock))
@@ -202,19 +234,31 @@ def score_arm(work: str, seed: int, arm: str, ckpt: str,
             "protocol_jaccard": rep["mean_jaccard"]}
 
 
+def scale_sets(scale: dict) -> list:
+    """A scale's `extra_sets` as `--set` arguments."""
+    return [x for s in scale.get("extra_sets", ()) for x in ("--set", s)]
+
+
+def scale_dtype(scale: dict) -> str:
+    """The compute dtype of a scale: its own, or the last of its
+    `extra_sets` that names one."""
+    return set_value(scale_sets(scale), "model.compute_dtype",
+                     scale.get("compute_dtype", "float32"))
+
+
 def check_scale(scale: dict, device: str) -> None:
-    """Refuse, by name, a model the card's kernels cannot run; then, before
-    anything is written, a card that is not there."""
+    """Refuse, by name, a model the card's kernels cannot run (the tiny
+    backbone, in either dtype); then, before anything is written, a card
+    that is not there."""
     from tmrnet_torch.device import resolve_device
 
     backbone = scale.get("backbone", "tiny")
-    dtype = scale.get("compute_dtype", "float32")
-    if device != "cpu" and (backbone == "tiny" or dtype != "bfloat16"):
+    if device != "cpu" and backbone == "tiny":
         raise SystemExit(
-            f"the study's {backbone} model in {dtype} runs on the CPU only: "
-            f"the card's bf16 kernels need C and P to be multiples of 64, "
-            f"and f32 raises on the card for head tmr; pass --full-scale "
-            f"(ResNet-50, bf16) for the card, or --device cpu")
+            f"the study's {backbone} model in {scale_dtype(scale)} runs on "
+            f"the CPU only: the card's kernels need C and P to be multiples "
+            f"of 64; pass --full-scale (ResNet-50) for the card, or --device "
+            f"cpu")
     resolve_device(device)
 
 
@@ -260,7 +304,8 @@ def run_study(work: str, seed: int = 0, videos=(8, 2, 4),
     for split in ("train", "val"):
         run_cli(["build-lfb", "--manifest", f"{work}/{split}.pkl",
                  "--ckpt", s1, "--out", f"{work}/lfb_{split}.npz", *ov,
-                 *folded_sets(device)], device, clock)
+                 *folded_sets(device, set_value(ov, "model.compute_dtype",
+                                           "float32"))], device, clock)
 
     # 4) stage-2 heads over the bank
     for head in heads:
@@ -312,12 +357,19 @@ def main(argv=None) -> int:
     scale = dict(FULL_SCALE) if args.full_scale else {}
     if args.extra_sets:
         scale = {**scale, "extra_sets": tuple(args.extra_sets)}
+    dtype = scale_dtype(scale)
+    sets = scale_sets({"extra_sets": scale.get("extra_sets", ())
+                       + card_sets(args.device)})
     print(json.dumps({"study": {
         "device": args.device, "full_scale": args.full_scale,
+        "compute_dtype": dtype,
         "device_flag_on": list(DEVICE_COMMANDS),
-        "folded_on": ["test", "build-lfb"] if folded_sets(args.device)
-        else [],
-        "card_sets": list(card_sets(args.device))}}), flush=True)
+        "folded_on": ["test", "build-lfb"]
+        if folded_sets(args.device, dtype) else [],
+        "recipe": recipe(args.device),
+        "card_sets": list(card_sets(args.device)),
+        "use_flip": set_value(sets, "data.use_flip", "true").lower()
+        in ("true", "1")}}), flush=True)
     all_rows = []
     for seed in args.seeds:
         clock = {}

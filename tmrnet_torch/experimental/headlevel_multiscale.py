@@ -23,9 +23,9 @@ initialisers' distributions, its batches drawn by numpy's
 
 The tiny default (backbone tiny, f32, hidden 32) runs on the CPU only
 (`--device cpu`); on the card, `--full-scale` (ResNet-50 at 224² crops,
-hidden 512, bf16) is required, and anything else is refused by name
-(`efficacy_study.check_scale`): the card's `time_conv` takes bf16 and C a
-multiple of 64.
+hidden 512, bf16) is required, and the tiny model is refused by name
+(`efficacy_study.check_scale`): the card's kernels need C a multiple of
+64.
 """
 
 from __future__ import annotations

@@ -15,10 +15,10 @@ Every C entry point returns `cudaGetLastError()` after its launch;
 `check()` raises when that is not 0 (cudaSuccess).
 
 `LAUNCHES` counts kernel launches by name: each wrapper adds one where it
-launches its kernel, and nowhere else. The four bf16 kernels of the
-engines, whose in-process shards run on several cards, count through
-`count`, which also adds one to `LAUNCHES_BY_DEVICE[(name, card
-index)]`.
+launches its kernel, and nowhere else. The engines' kernels (the four
+bf16 ones and `time_conv_f32`), whose in-process shards run on several
+cards, count through `count`, which also adds one to
+`LAUNCHES_BY_DEVICE[(name, card index)]`.
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tmrnet_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("nl_attention", "time_conv", "fused_bottleneck",
+SOURCES = ("nl_attention", "time_conv", "time_conv_f32", "fused_bottleneck",
            "fused_bottleneck_tiled", "int8_matmul", "int8_conv3x3")
 
 LAUNCHES: collections.Counter = collections.Counter()

@@ -1,8 +1,11 @@
-"""The namespace `tmrnet`: the main path's four bf16 kernels as
-`torch.library` ops, `torch.ops.tmrnet.{nl_attention, time_conv,
-fused_bottleneck, fused_bottleneck_tiled}`, and `time_conv_slice`, the
-time_conv kernel over a column slice (tensor parallelism; its own op, so
-that `time_conv`'s schema, which exported artifacts hold, is unchanged).
+"""The namespace `tmrnet`: the main path's kernels as `torch.library`
+ops, `torch.ops.tmrnet.{nl_attention, time_conv, fused_bottleneck,
+fused_bottleneck_tiled}`, and `time_conv_slice`, the time_conv kernels
+over a column slice (tensor parallelism; its own op, so that
+`time_conv`'s schema, which exported artifacts hold, is unchanged).
+`nl_attention`, `time_conv` and `time_conv_slice` take bf16 or f32 (the
+time_conv ops launch `csrc/time_conv.cu` or `csrc/time_conv_f32.cu` by
+dtype); the bottleneck ops bf16.
 
 Each op has three implementations, registered by the module of its kernel
 (`ops/nl_attention.py`, `ops/time_conv.py`,

@@ -2,9 +2,10 @@
 PyTorch version: `nl_attention`, `time_conv` and `int8_matmul` (CUDA C++),
 and the int8 quantizers.
 
-Importing this package registers the main path's four bf16 kernels as the
+Importing this package registers the main path's kernels as the
 `torch.library` ops `torch.ops.tmrnet.*` (`kernels/library.py`), the
-backbone's two among them, which a loaded export needs."""
+backbone's two among them, which a loaded export needs; `time_conv` takes
+bf16 or f32 (`csrc/time_conv.cu` or `csrc/time_conv_f32.cu`)."""
 
 from tmrnet_torch.experimental.fused_bottleneck import fused_bottleneck  # noqa: F401
 from tmrnet_torch.experimental.fused_bottleneck_tiled import (  # noqa: F401

@@ -1,10 +1,13 @@
 """TimeConv pyramid: max(x, causal2max(x), conv3+b3, conv5+b5, conv7+b7).
 
 Port of the Pallas TPU kernel `tmrnet_tpu/ops/time_conv.py::time_conv_fused`
-(:76-97, pallas_call at :82); the CUDA kernel is `csrc/time_conv.cu`, whose
-header says what bounds it and how it is built.
+(:76-97, pallas_call at :82). Two CUDA kernels, chosen by the operands'
+dtype (`time_conv_dtype`: x and the weights in one dtype, bf16 or f32;
+anything else on the card raises): `csrc/time_conv.cu` in bf16 on the
+tensor cores and `csrc/time_conv_f32.cu` in f32 on the FFMA units (no
+TF32). Each source's header says what bounds it and how it is built.
 
-x (B, W, C); weights in the flax layout (k, Cin, Cout); biases (C,).
+x (B, W, C); weights in the flax layout (k, Cin, Cout); biases (C,) f32.
 The op `torch.ops.tmrnet.time_conv` (`kernels/library.py`) takes the
 kernel for CUDA tensors and the plain version for CPU tensors; anything
 else raises. A column slice (tensor parallelism over the model axis,
@@ -21,11 +24,11 @@ plain f32 ops from the saved inputs (`time_conv_plain`, in the flax
 module's nesting of the max), with no second launch. A caller whose
 weights are not in the kernel's layout and dtype (a module's f32
 parameters) passes `prepared`, copies that are, and the weights themselves
-for the gradient. `plan_time_conv` decides how the kernel cuts
-a launch into blocks. The kernel's offsets are 32-bit, so one launch takes
-at most `time_conv_max_rows(W, C)` rows of B; a call past that launches
-once per piece of at most that many rows (rows are independent along B, so
-the output is the same).
+for the gradient. `plan_time_conv` (bf16) and `plan_time_conv_f32` decide
+how a kernel cuts a launch into blocks. The kernels' offsets are 32-bit,
+so one launch takes at most `time_conv_max_rows(W, C)` rows of B; a call
+past that launches once per piece of at most that many rows (rows are
+independent along B, so the output is the same).
 """
 
 from __future__ import annotations
@@ -47,6 +50,10 @@ _SMEM_BLOCK_MAX = 232448
 # with a halo of 3 (the k = 7 branch) on each side; a ring of NSTAGE K
 # chunks.
 BM, BN, HALO, NSTAGE = 64, 64, 3, 5
+# time_conv_f32.cu's block: 256 threads on a tile of BM x BN; K chunks of
+# F32_KC channels, the 15 taps' weights and x's BM + 6 rows (F32_LDX floats
+# apart) and a zero row staged a chunk at a time.
+F32_THREADS, F32_KC, F32_LDX, TAPS = 256, 16, 20, 15
 
 
 def time_conv_plain(x, w3, b3, w5, b5, w7, b7, c0: int = 0):
@@ -148,6 +155,67 @@ def _check(name, t, device, dtype, shape):
         raise ValueError(f"time_conv_cuda: {name} is not contiguous")
 
 
+def time_conv_dtype(x_dtype, w_dtypes) -> torch.dtype:
+    """Which kernel takes the operands on the card: x's dtype where it and
+    the three weights' are one, bf16 (csrc/time_conv.cu) or f32
+    (csrc/time_conv_f32.cu); else TypeError (mixed dtypes, f16, f64)."""
+    dtypes = {x_dtype, *w_dtypes}
+    if len(dtypes) != 1 or x_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(
+            f"time_conv_cuda: x {x_dtype} and weights "
+            f"{', '.join(str(d) for d in w_dtypes)}: the card's kernels take "
+            f"bf16 or f32, x and the weights in one dtype")
+    return x_dtype
+
+
+@dataclasses.dataclass(frozen=True)
+class TimeConvF32Plan:
+    """How csrc/time_conv_f32.cu cuts a call: `rows` rows of B a launch (the
+    32-bit limit), `pieces` launches, a full launch's `grid` (row tiles of
+    BM over rows x W, column tiles of BN over Cout) and a block's shared
+    memory `smem` (the 15 taps' weights of a chunk, F32_KC x BN each, and
+    BM + 6 + 1 staged rows of F32_LDX floats)."""
+    rows: int
+    pieces: int
+    grid: tuple
+    smem: int
+
+
+def time_conv_f32_smem() -> int:
+    """A block's shared memory, as `SMEM` in csrc/time_conv_f32.cu."""
+    return (TAPS * F32_KC * BN + (BM + 2 * HALO + 1) * F32_LDX) * 4
+
+
+def plan_time_conv_f32(b: int, w: int, c: int, cout: int) -> TimeConvF32Plan:
+    """The f32 kernel's plan of a call of B rows: C and Cout multiples of
+    64 (BN, and whole float4 loads); pieces of at most
+    `time_conv_max_rows(W, C)` rows."""
+    if c % BN or cout % BN or cout < BN or b < 1 or w < 1:
+        raise ValueError(f"time_conv_cuda: needs C and Cout multiples of 64 "
+                         f"and a nonempty batch, got B={b}, W={w}, C={c}, "
+                         f"Cout={cout}")
+    rows = time_conv_max_rows(w, c)
+    if rows < 1:
+        raise ValueError(f"time_conv_cuda: one row of W*C = {w * c} elements "
+                         f"passes 32-bit offsets")
+    rows = min(b, rows)
+    return TimeConvF32Plan(rows, -(-b // rows),
+                           (-(-rows * w // BM), cout // BN),
+                           time_conv_f32_smem())
+
+
+@functools.lru_cache(maxsize=None)
+def _f32_entries():
+    """The f32 library's two C entries, their argument types set once."""
+    lib = build.library("time_conv_f32")
+    run, smem = lib.tmr_time_conv_f32, lib.tmr_time_conv_f32_smem
+    run.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    run.restype = ctypes.c_int
+    smem.argtypes = []
+    smem.restype = ctypes.c_int
+    return run, smem
+
+
 @functools.lru_cache(maxsize=None)
 def _entries():
     """The library's two C entries, their argument types set once."""
@@ -173,15 +241,18 @@ def run_in_pieces(launch, x: torch.Tensor, rows: int,
 
 
 def check_time_conv_operands(x, w3, b3, w5, b5, w7, b7, c0: int = 0):
-    """The kernel's checks of its operands: x (B, W, C) bf16; w_k (k, C,
-    Cout) bf16; b_k (Cout,) f32; C and Cout multiples of 64, the slice's
-    first channel c0 too, c0 + Cout <= C; all contiguous on one CUDA
-    device. Returns (rows of B a launch takes, the plan, Cout)."""
+    """The kernels' checks of their operands: x (B, W, C) bf16 or f32; w_k
+    (k, C, Cout) in x's dtype (`time_conv_dtype`); b_k (Cout,) f32; C and
+    Cout multiples of 64, the slice's first channel c0 too, c0 + Cout <= C;
+    all contiguous on one CUDA device. Returns (rows of B a launch takes,
+    the plan: a `TimeConvPlan` in bf16, a `TimeConvF32Plan` in f32,
+    Cout)."""
     if x.device.type != "cuda":
         raise ValueError("time_conv_cuda: x is not on CUDA")
     if x.dim() != 3 or w3.dim() != 3:
         raise ValueError(f"time_conv_cuda: x shape {tuple(x.shape)}, w3 "
                          f"shape {tuple(w3.shape)}")
+    dtype = time_conv_dtype(x.dtype, (w3.dtype, w5.dtype, w7.dtype))
     b, w, c = x.shape
     cout = w3.shape[2]
     if cout % 64 or c0 % 64 or cout < 1 or c0 < 0 or c0 + cout > c:
@@ -192,22 +263,28 @@ def check_time_conv_operands(x, w3, b3, w5, b5, w7, b7, c0: int = 0):
         raise ValueError(f"time_conv_cuda: one row of W*C = {w * c} elements "
                          f"passes 32-bit offsets")
     # the plan depends on C alone: one for every piece
-    plan = plan_time_conv(min(b, rows), w, c)
-    _check("x", x, x.device, torch.bfloat16, x.shape)
+    plan = (plan_time_conv(min(b, rows), w, c) if dtype == torch.bfloat16
+            else plan_time_conv_f32(b, w, c, cout))
+    _check("x", x, x.device, dtype, x.shape)
     for k, wk, bk in ((3, w3, b3), (5, w5, b5), (7, w7, b7)):
-        _check(f"w{k}", wk, x.device, torch.bfloat16, (k, c, cout))
+        _check(f"w{k}", wk, x.device, dtype, (k, c, cout))
         _check(f"b{k}", bk, x.device, torch.float32, (cout,))
     return rows, plan, cout
 
 
 def time_conv_cuda(x, w3, b3, w5, b5, w7, b7, c0: int = 0):
-    """Launch csrc/time_conv.cu under `plan_time_conv`, once per piece of at
-    most `time_conv_max_rows` rows of B. x (B, W, C) bf16; w_k (k, C,
-    Cout) bf16; b_k (Cout,) f32: the output channels [c0, c0 + Cout)
-    (the whole width by default, Cout = C), (B, W, Cout); C, Cout and c0
-    multiples of 64; all contiguous on one CUDA device."""
+    """Launch csrc/time_conv.cu (bf16 operands) under `plan_time_conv` or
+    csrc/time_conv_f32.cu (f32) under `plan_time_conv_f32`, once per piece
+    of at most `time_conv_max_rows` rows of B. x (B, W, C); w_k (k, C,
+    Cout) in x's dtype; b_k (Cout,) f32: the output channels [c0, c0 +
+    Cout) (the whole width by default, Cout = C), (B, W, Cout) in x's
+    dtype; C, Cout and c0 multiples of 64; all contiguous on one CUDA
+    device."""
     rows, plan, cout = check_time_conv_operands(x, w3, b3, w5, b5, w7, b7,
                                                 c0)
+    if x.dtype == torch.float32:
+        return _time_conv_f32_cuda(x, (w3, b3, w5, b5, w7, b7), rows, plan,
+                                   cout, c0)
     w, c = x.shape[1:]
     run, smem_of = _entries()
     smem = smem_of(c, plan.kc, plan.ck)
@@ -222,6 +299,30 @@ def time_conv_cuda(x, w3, b3, w5, b5, w7, b7, c0: int = 0):
                   build.stream_ptr(x.device))
         build.check(err, "time_conv")
         build.count("time_conv", x.device)
+
+    return run_in_pieces(launch, x, rows, cout)
+
+
+def _time_conv_f32_cuda(x, weights, rows, plan, cout, c0):
+    """csrc/time_conv_f32.cu over the pieces of `rows` rows; its float4
+    loads want every operand 16-byte aligned."""
+    w3, b3, w5, b5, w7, b7 = weights
+    for name, t in zip(("x", "w3", "b3", "w5", "b5", "w7", "b7"),
+                       (x, *weights)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"time_conv_cuda: {name} is not 16-byte aligned")
+    w, c = x.shape[1:]
+    run, smem_of = _f32_entries()
+    if smem_of() != plan.smem:
+        raise RuntimeError(f"time_conv_f32: the kernel lays out {smem_of()} "
+                           f"bytes of shared memory, the plan {plan.smem}")
+    p = build.ptr
+
+    def launch(xp, out):
+        err = run(p(xp), p(w3), p(w5), p(w7), p(b3), p(b5), p(b7), p(out),
+                  xp.shape[0], w, c, cout, c0, build.stream_ptr(x.device))
+        build.check(err, "time_conv_f32")
+        build.count("time_conv_f32", x.device)
 
     return run_in_pieces(launch, x, rows, cout)
 
