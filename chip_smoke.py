@@ -6230,6 +6230,270 @@ def run_f32_slice(torch, seed, card, kept, refs, records):
     return {"f32": add_counts(step, test)}, numbers, ok
 
 
+# Phase 4r: the folded f32 trunk. The odd N the kernels are also checked
+# at, the frames of the trunk-feature check, and the features' limit (of
+# max |feature|) against the unfolded f32 trunk on cuDNN; the launches of
+# one folded f32 forward by path.
+F32_ODD_N, F32_TRUNK_FRAMES, F32_FEATURE_TOL = 7, 16, 1e-4
+F32_FORWARD = {"block": {"fused_bottleneck_f32": 12},
+               "tiled": {"fused_bottleneck_tiled_f32": 10,
+                         "fused_bottleneck_f32": 2}}
+
+
+def check_bottleneck_f32(torch, seed, card, records):
+    """Phase 4r (a): csrc/fused_bottleneck_f32.cu at ResNet-50's four
+    identity stages and csrc/fused_bottleneck_tiled_f32.cu at those the
+    tiled path gives it (C < 2048), each at N = CLIPS * SEQ and at
+    F32_ODD_N, against `fused_bottleneck_plain` in f32 (TF32 off) within
+    F32_REL of max |plain|; at N = CLIPS * SEQ the eager ms of each, of the
+    plain version and of the cuDNN f32 chain (TF32 off), and the FFMA bound
+    (operations over 67 TFLOP/s, or bytes: x, the weights and the output
+    once). Per-forward numbers weight each stage by its identity blocks.
+    Appends the two records to `records`; returns (None, ok)."""
+    import torch.nn.functional as F
+
+    from tmrnet_torch.experimental.fused_bottleneck import (
+        fused_bottleneck_cuda, fused_bottleneck_plain)
+    from tmrnet_torch.experimental.fused_bottleneck_tiled import (
+        fused_bottleneck_tiled_cuda)
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 50)
+    f32 = lambda shape, s=1.0: torch.randn(shape, generator=gen,
+                                           device="cuda") * s
+    n, ok = CLIPS * SEQ, True
+    kernels = {"block": fused_bottleneck_cuda,
+               "tiled": fused_bottleneck_tiled_cuda}
+    keys = ("ms", "plain_ms", "library_ms", "flops", "bytes")
+    tot = {k: dict.fromkeys(keys, 0.0) for k in kernels}
+    max_err = dict.fromkeys(kernels, 0.0)
+    stages = {k: [] for k in kernels}
+    for h, cc, p, count in STAGES:
+        paths = [k for k in kernels if k == "block" or cc < TILED_MAX_C]
+        for frames in (F32_ODD_N, n):
+            xs = torch.relu(f32((frames, h, h, cc)))
+            w1 = f32((cc, p), (2.0 / cc) ** 0.5)
+            w2 = f32((3, 3, p, p), (2.0 / (9 * p)) ** 0.5)
+            w3 = f32((p, cc), 0.25 * (2.0 / p) ** 0.5)
+            b1, b2, b3 = (f32((s,), 0.05) for s in (p, p, cc))
+            args = (xs, w1, b1, w2, b2, w3, b3)
+            want = fused_bottleneck_plain(*args)
+            for path in paths:
+                err, good = compare(
+                    torch, f"{kernels[path].__name__[:-5]} f32 N={frames} "
+                    f"{h}x{h}x{cc} P={p}", kernels[path](*args), want,
+                    F32_REL)
+                ok &= good
+                max_err[path] = max(max_err[path], err)
+            del want
+        # the cuDNN chain on the same NHWC data (channels_last views), f32
+        xc = xs.permute(0, 3, 1, 2)
+        cw1 = w1.t().reshape(p, cc, 1, 1).contiguous(
+            memory_format=torch.channels_last)
+        cw2 = w2.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        cw3 = w3.t().reshape(cc, p, 1, 1).contiguous(
+            memory_format=torch.channels_last)
+
+        def chain():
+            y = torch.relu(F.conv2d(xc, cw1, b1))
+            y = torch.relu(F.conv2d(y, cw2, b2, padding=1))
+            return torch.relu(F.conv2d(y, cw3, b3) + xc)
+
+        plain = time_ms(torch, lambda: fused_bottleneck_plain(*args), 2, 1)
+        library = time_ms(torch, chain, 3, 1)
+        flops = 2.0 * n * h * h * (cc * p + 9 * p * p + p * cc)
+        nbytes = 4.0 * (2 * n * h * h * cc + 2 * cc * p + 9 * p * p
+                        + 2 * p + cc)
+        b_ms = bound(flops, nbytes, PEAK_F32)[0]
+        for path in paths:
+            ms = time_ms(torch, lambda: kernels[path](*args), 3, 1)
+            print(f"    {path} f32 stage {h}x{h}: kernel {ms:.4f} ms "
+                  f"({flops / ms / 1e9:.2f} TFLOP/s), plain {plain:.4f} ms, "
+                  f"cuDNN f32 chain {library:.4f} ms, bound {b_ms:.4f} ms "
+                  f"({b_ms / ms:.3f} of it), x{count} per forward")
+            stages[path].append(dict(
+                stage=f"{h}x{h}x{cc} P={p}", per_forward=count, ms=ms,
+                tflops=flops / ms / 1e9, plain_ms=plain, library_ms=library,
+                bound_ms=b_ms))
+            for key, val in (("ms", ms), ("plain_ms", plain),
+                             ("library_ms", library), ("flops", flops),
+                             ("bytes", nbytes)):
+                tot[path][key] += count * val
+        del xs, args, xc
+        torch.cuda.empty_cache()
+    for path, name, source, replaces in (
+            ("block", "fused_bottleneck_f32",
+             "tmrnet_torch/csrc/fused_bottleneck_f32.cu",
+             "tmrnet_tpu/experimental/fused_bottleneck.py:58"),
+            ("tiled", "fused_bottleneck_tiled_f32",
+             "tmrnet_torch/csrc/fused_bottleneck_tiled_f32.cu",
+             "tmrnet_tpu/experimental/fused_bottleneck_tiled.py:123")):
+        t = tot[path]
+        b_ms, b_by = bound(t["flops"], t["bytes"], PEAK_F32)
+        records.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            max_abs_err=max_err[path], ms=t["ms"], plain_ms=t["plain_ms"],
+            bound_ms=b_ms, bound_by=b_by, library_ms=t["library_ms"],
+            stages=stages[path]))
+        print(f"  {name}: {t['ms']:.3f} ms a forward, bound {b_ms:.3f} ms "
+              f"({b_by}), plain {t['plain_ms']:.3f} ms, cuDNN f32 chain "
+              f"{t['library_ms']:.3f} ms")
+    print(f"f32 bottleneck kernels vs plain on {card} "
+          f"{'ok' if ok else 'FAIL'}")
+    return None, ok
+
+
+def f32_clip_forward(torch, seed, card):
+    """Phase 4r (b): a full-width TMRNet at model.compute_dtype=float32,
+    BN folded, on the card. The trunk alone on F32_TRUNK_FRAMES frames, on
+    both fused_kernel paths, against the unfolded f32 trunk on cuDNN (TF32
+    off) within F32_FEATURE_TOL of max |feature|; then one clip forward
+    (CLIPS clips of SEQ frames, after a warm-up) through ClipInference on
+    each path: launches (F32_FORWARD, one time_conv_f32 and one
+    nl_attention; no bf16 bottleneck), and the softmax of the first 2
+    clips within F32_CPU_TOL of the same engine in f32 on the CPU, with the
+    argmax rule. Returns (launches, frames/s by path, ok)."""
+    from tmrnet_torch.config import (DataConfig, ExperimentConfig,
+                                     MemoryConfig, ModelConfig)
+    from tmrnet_torch.eval.infer import ClipInference
+    from tmrnet_torch.kernels.build import LAUNCHES, reset_launches
+    from tmrnet_torch.memory.lfb import FeatureBank
+    from tmrnet_torch.models.convert import (from_jax_variables,
+                                             random_variables)
+    from tmrnet_torch.models.fold_bn import fold_variables
+    from tmrnet_torch.models.tmrnet import build_model
+
+    cfg = ModelConfig(backbone="resnet50", head="tmr", hidden_dim=HIDDEN,
+                      num_classes=CLASSES, compute_dtype="float32",
+                      folded=True)
+    unfolded_cfg = dataclasses.replace(cfg, folded=False)
+    raw = scale_logits(from_jax_variables(random_variables(unfolded_cfg,
+                                                           seed + 51)))
+    state = fold_variables(raw)
+    rng = np.random.default_rng(seed + 52)
+    frames = torch.from_numpy(rng.standard_normal(
+        (F32_TRUNK_FRAMES, IMG, IMG, 3), dtype=np.float32)).cuda()
+    ref = build_model(unfolded_cfg, fused_kernel="block")
+    ref.load_state_dict(raw, strict=True)
+    with torch.no_grad():
+        want = ref.backbone(frames)
+    del ref
+    counts, rates, ok = {}, {}, True
+    for path in ("block", "tiled"):
+        model = build_model(cfg, fused_kernel=path)
+        model.load_state_dict(state, strict=True)
+        reset_launches()
+        with torch.no_grad():
+            got = model.backbone(frames)
+        torch.cuda.synchronize()
+        trunk = dict(LAUNCHES)
+        good = trunk == F32_FORWARD[path] and got.dtype == torch.float32
+        print(f"  folded f32 trunk ({path}): {F32_TRUNK_FRAMES} frames, "
+              f"launches {trunk} (want {F32_FORWARD[path]}) "
+              f"{'ok' if good else 'FAIL'}")
+        ok &= good
+        ok &= compare(torch, f"folded f32 trunk ({path}) vs unfolded f32 "
+                      f"on cuDNN, features", got, want, F32_FEATURE_TOL)[1]
+        del model, got
+    ecfg = ExperimentConfig(data=DataConfig(device_normalize=True), model=cfg,
+                            memory=MemoryConfig(window=WINDOW))
+    bank_np = rng.standard_normal((BANK_ROWS, HIDDEN), dtype=np.float32)
+    first_rows = np.repeat(np.arange(0, BANK_ROWS, 1024),
+                           1024).astype(np.int32)
+    bank = FeatureBank(torch.from_numpy(bank_np).cuda(),
+                       torch.from_numpy(first_rows).cuda())
+    request = (rng.integers(0, 256, (CLIPS, SEQ, IMG, IMG, 3), dtype=np.uint8),
+               rng.integers(0, CLASSES, CLIPS),
+               rng.integers(0, BANK_ROWS, CLIPS), 0)
+    clips, labels, rows, _ = request
+    cpu = ClipInference(ecfg, state, FeatureBank(torch.from_numpy(bank_np),
+                                                 torch.from_numpy(first_rows)),
+                        device="cpu").run_batches(
+        [(clips[:2], labels[:2], rows[:2], 0)], first_rows)
+    for path in ("block", "tiled"):
+        engine = ClipInference(ecfg, state, bank, device="cuda",
+                               fused_kernel=path)
+        engine.run_batches([request], first_rows)   # warm-up, not counted
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        res = engine.run_batches([request], first_rows)
+        dt = time.perf_counter() - t0
+        counts = add_counts(counts, dict(LAUNCHES))
+        want = {**F32_FORWARD[path], "time_conv_f32": 1, "nl_attention": 1}
+        good = (dict(LAUNCHES) == want
+                and res.scores.shape == (CLIPS, CLASSES)
+                and bool(np.isfinite(res.scores).all()))
+        rates[path] = CLIPS * SEQ / dt
+        print(f"  folded f32 clip forward ({path}): {CLIPS * SEQ} frames in "
+              f"{dt:.4f} s = {rates[path]:.1f} frames/s; launches "
+              f"{dict(LAUNCHES)} (want {want}) {'ok' if good else 'FAIL'}")
+        ok &= good
+        ok &= probs_close(f"folded f32 clip forward ({path}) vs the CPU's "
+                          f"f32 at 2 clips", res.scores[:2], cpu.scores,
+                          F32_CPU_TOL)
+        ok &= argmax_agrees(f"folded f32 clip forward ({path}) vs the CPU's "
+                            f"f32", res.preds[:2], cpu.preds, cpu.scores,
+                            F32_CPU_TOL, min_decided=1)
+        del engine
+    del bank
+    torch.cuda.empty_cache()
+    return counts, rates, ok
+
+
+def f32_folded_test(torch, card, tdir):
+    """Phase 4r (c): `test --engine clip` over 4f's directory at
+    model.compute_dtype=float32 with model.folded=true, through
+    `tmrnet_torch.cli.main`: launches (12 fused_bottleneck_f32, one
+    time_conv_f32 and one nl_attention a batch of TEST_BATCH clips), and
+    the softmax within F32_CPU_TOL of 4q (c)'s unfolded f32 run over the
+    same bank, with the argmax rule. Returns (launches, clips/s, ok)."""
+    out = lambda name: os.path.join(tdir, name)
+    clips = sum(max(0, n - SEQ + 1) for n in TEST_LENGTHS)
+    lines, counts, dt = run_cli(
+        ["test", "--config", out("cfg.json"), "--set",
+         "model.compute_dtype=float32", "--set", "model.folded=true",
+         "--manifest", out("m.pkl"), "--torch-ckpt", out("tmr.pth"),
+         "--extractor-torch-ckpt", out("lfb.pth"), "--engine", "clip",
+         "--lfb", out("bank_clip.npz"), "--out", out("clip_f32_folded.npz")])
+    batches = -(-clips // TEST_BATCH)
+    want = {"fused_bottleneck_f32": 12 * batches,
+            "time_conv_f32": batches, "nl_attention": batches}
+    ok = counts == want
+    print(f"  test --engine clip at f32, folded: launches {counts} (want "
+          f"{want}) {'ok' if ok else 'FAIL'}")
+    with np.load(out("clip_f32_folded.npz")) as z:
+        scores, preds = z["scores"], z["preds"]
+    with np.load(out("clip_f32.npz")) as z:
+        f32_scores, f32_preds = z["scores"], z["preds"]
+    ok &= scores.shape == (clips, CLASSES) and bool(np.isfinite(scores).all())
+    ok &= probs_close("test clip f32 folded vs unfolded softmax", scores,
+                      f32_scores, F32_CPU_TOL)
+    ok &= argmax_agrees("test clip f32 folded vs unfolded", preds, f32_preds,
+                        f32_scores, F32_CPU_TOL, min_decided=1)
+    return counts, clips / dt, ok
+
+
+def run_folded_f32_slice(torch, seed, card, kept, records):
+    """Phase 4r: (a) the f32 bottleneck kernels, their records appended to
+    `records`, (b) the folded f32 trunk and clip forward on both paths,
+    (c) `test --engine clip` at f32, folded. Returns (counts by path,
+    numbers, ok); its launches go under path "f32_folded"."""
+    t0 = time.perf_counter()
+    _, ok = check_bottleneck_f32(torch, seed, card, records)
+    forward, rates, good = f32_clip_forward(torch, seed, card)
+    ok &= good
+    test, clips_s, good = f32_folded_test(torch, card, kept["test"])
+    ok &= good
+    numbers = {"clip_f32_folded_frames_s": rates,
+               "test_clip_f32_folded_clips_s": clips_s}
+    print(f"folded f32 slice: {json.dumps(numbers)} in "
+          f"{time.perf_counter() - t0:.1f} s on {card} "
+          f"{'ok' if ok else 'FAIL'}")
+    torch.cuda.empty_cache()
+    return {"f32_folded": add_counts(forward, test)}, numbers, ok
+
+
 def run_gate(torch, seed, card):
     """Phase 5: the int8 gate at B = 128 over the four stages: the int8
     bottleneck chain through the kernels against the same chain through the
@@ -6493,7 +6757,9 @@ def main():
                 ("4p shard", lambda: run_shard_slice(torch, seed, card,
                                                      kept)),
                 ("4q f32", lambda: run_f32_slice(torch, seed, card, kept,
-                                                 refs, records))):
+                                                 refs, records)),
+                ("4r f32 folded", lambda: run_folded_f32_slice(
+                    torch, seed, card, kept, records))):
             res = phases.run(name, fn)
             if res:
                 by_path.update(res[0])

@@ -203,8 +203,8 @@ def test_training_commands_refuse(files, runs, monkeypatch):
     monkeypatch.setattr(device, "resolve_device",
                         lambda d: torch.device("cuda", 0))
     # head tmr at model.compute_dtype=float32 passes the dtype check on a
-    # (faked) card, turning TF32 off there, and goes on to its bank; a
-    # folded trunk in f32 is refused by its kernels' names
+    # (faked) card, turning TF32 off there, and goes on to its bank; so
+    # does a folded trunk in f32 (the f32 bottleneck kernels take it)
     from tmrnet_torch.memory import lfb
 
     class ReachedTheBank(Exception):
@@ -221,6 +221,8 @@ def test_training_commands_refuse(files, runs, monkeypatch):
         cli.main(["train-tmr", *base, "--lfb", "x"])
     assert not torch.backends.cudnn.allow_tf32
     assert not torch.backends.cuda.matmul.allow_tf32
-    with pytest.raises(SystemExit, match="fused_bottleneck"):
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    with pytest.raises(ReachedTheBank):
         cli.main(["train-tmr", *base, "--lfb", "x", "--set",
                   "model.folded=true"])
+    assert not torch.backends.cudnn.allow_tf32

@@ -1,7 +1,7 @@
 """What the learning-efficacy study adds on the card, on the CPU: the
 reference's recipe where cv2 imports and crop and flip alone where it does
-not (`card_sets`, `recipe`), BN folded on `test` / `build-lfb` in bf16
-only (`folded_sets`), the scale check that lets ResNet-50 run in either
+not (`card_sets`, `recipe`), BN folded on `test` / `build-lfb` on the card
+in both dtypes (`folded_sets`), the scale check that lets ResNet-50 run in either
 dtype and refuses the tiny model, the first JSON line that names all of
 it; and `experimental/efficacy_grid.py`'s arms, rows and merge. The
 commands themselves are stubbed: the card's runs go through the chip."""
@@ -36,11 +36,16 @@ def test_card_sets_follow_cv2(cv2):
 
 
 @pytest.mark.parametrize("dtype,folded", [("bfloat16", True),
-                                          ("float32", False)])
+                                          ("float32", True)])
 def test_folded_sets_fold_bf16_only(dtype, folded):
-    assert study.folded_sets("cuda", dtype) == (
+    # the card folds whichever dtype the study runs in (an f32 trunk runs
+    # the f32 bottleneck kernels); the CPU in neither
+    scale = {**study.FULL_SCALE,
+             "extra_sets": (f"model.compute_dtype={dtype}",)}
+    assert study.scale_dtype(scale) == dtype
+    assert study.folded_sets("cuda") == (
         ["--set", "model.folded=true"] if folded else [])
-    assert study.folded_sets("cpu", dtype) == []
+    assert study.folded_sets("cpu") == []
 
 
 def test_the_last_set_wins():
@@ -96,8 +101,8 @@ class _Commands:
 
 @pytest.mark.parametrize("sets,stage2,want_s1,want_s2", [
     ((), (), True, True),                                    # bf16
-    (("model.compute_dtype=float32",), (), False, False),    # f32 throughout
-    ((), ("model.compute_dtype=float32",), True, False),     # f32 head only
+    (("model.compute_dtype=float32",), (), True, True),      # f32 throughout
+    ((), ("model.compute_dtype=float32",), True, True),      # f32 head only
 ])
 def test_study_folds_the_bf16_commands_only(tmp_path, monkeypatch, sets,
                                             stage2, want_s1, want_s2):
@@ -126,8 +131,7 @@ def test_first_line_names_the_recipe(tmp_path, monkeypatch, capsys, cv2,
                        "--full-scale", *extra]) == 0
     head = json.loads(capsys.readouterr().out.splitlines()[0])["study"]
     assert head["compute_dtype"] == dtype
-    assert head["folded_on"] == (["test", "build-lfb"]
-                                 if dtype == "bfloat16" else [])
+    assert head["folded_on"] == ["test", "build-lfb"]
     assert head["recipe"] == ("reference" if cv2 else "crop_and_flip")
     assert head["use_flip"] is (cv2 and not flip_set)
 

@@ -106,9 +106,9 @@ def test_fake_cuda_operands_take_the_kernels_checks(name):
         out = _op(name)(*args)
         assert out.device.type == "cuda" and out.shape == args[0].shape
         assert out.dtype == bf16
-        # what each kernel refuses: f32 activations (the bottlenecks and
-        # time_conv take bf16; nl_attention one dtype for q, k and v), a
-        # channel count off the kernel's tiles, an NCHW-strided input
+        # what each kernel refuses: f32 activations beside bf16 weights
+        # (each op takes bf16 or f32, in one dtype), a channel count off
+        # the kernel's tiles, an NCHW-strided input
         with pytest.raises(TypeError, match="dtype"):
             _op(name)(args[0].float(), *args[1:])
         with pytest.raises(ValueError):

@@ -376,19 +376,12 @@ def frame_loader(cfg: ExperimentConfig):
 def _card_precision(cfg: ExperimentConfig, device):
     """Returns `device` once f32 on it means f32: under
     model.compute_dtype=float32 on CUDA, TF32 goes off for cuDNN and cuBLAS
-    (`device.set_precision`), and a folded ResNet trunk exits by name,
-    since its identity blocks' kernels (fused_bottleneck,
-    fused_bottleneck_tiled) take bf16 only."""
-    from tmrnet_torch.device import exact_f32, set_precision
+    (`device.set_precision`). A folded ResNet trunk then runs its identity
+    blocks on the f32 bottleneck kernels (fused_bottleneck_f32,
+    fused_bottleneck_tiled_f32: FFMA, no TF32)."""
+    from tmrnet_torch.device import set_precision
 
     set_precision(cfg.model.compute_dtype, device)
-    if (cfg.model.folded and cfg.model.backbone != "resnest50"
-            and exact_f32(cfg.model.compute_dtype, device)):
-        raise SystemExit(
-            "model.folded=true at model.compute_dtype=float32 on the card: "
-            "the folded identity blocks' kernels (fused_bottleneck, "
-            "fused_bottleneck_tiled) take bf16 only; run the f32 trunk "
-            "unfolded (model.folded=false) or in bfloat16")
     return device
 
 

@@ -21,9 +21,10 @@ cpu`): the card's kernels need C and P to be multiples of 64.
 `--full-scale` is ResNet-50 at 224² crops of 250² frames, hidden 512,
 bf16; `--set model.compute_dtype=float32` makes it f32 (TF32 off, as the
 commands set it). What the card adds, printed in the first JSON line:
-`--device` on every command that takes it; on the card in bf16,
-`model.folded=true` on `test` and `build-lfb` (the identity blocks run
-the fused kernel, which is bf16 only); and, where cv2 does not import,
+`--device` on every command that takes it; on the card, in bf16 and in
+f32, `model.folded=true` on `test` and `build-lfb` (the identity blocks
+run the fused kernels, bf16 or f32 by the trunk's dtype); and, where cv2
+does not import,
 `data.use_flip=false` (crop and flip only, since the colour jitter and
 the rotation are cv2's), named by `recipe`. After each seed's rows, a
 JSON line gives each command's seconds.
@@ -135,12 +136,11 @@ def common_overrides(work: str, seed: int, hw: int = 32, hidden: int = 32,
     return [x for s in sets for x in ("--set", s)]
 
 
-def folded_sets(device: str, compute_dtype: str = "bfloat16") -> list:
-    """`test` and `build-lfb` on the card in bf16 fold BN, so that the
-    identity blocks run the fused kernel (bf16 only: an f32 trunk stays
-    unfolded)."""
-    return (["--set", "model.folded=true"]
-            if device != "cpu" and compute_dtype == "bfloat16" else [])
+def folded_sets(device: str) -> list:
+    """`test` and `build-lfb` on the card fold BN, so that the identity
+    blocks run the fused kernels, bf16 or f32 by the trunk's dtype; the
+    CPU's run unfolded."""
+    return ["--set", "model.folded=true"] if device != "cpu" else []
 
 
 def train_and_score(work: str, seed: int, head: str, stage1_dir: str,
@@ -210,8 +210,7 @@ def score_arm(work: str, seed: int, arm: str, ckpt: str,
     preds = f"{work}/preds-{arm}-s{seed}.npz"
     argv = ["test", "--manifest", f"{work}/test.pkl", "--ckpt", ckpt,
             "--out", preds, *ov, "--set", f"model.head={arm}",
-            *folded_sets(device, set_value(ov, "model.compute_dtype",
-                                           "float32"))]
+            *folded_sets(device)]
     if extractor:
         argv += ["--extractor-ckpt", extractor]
     t = last_json(run_cli(argv, device, clock))
@@ -304,8 +303,7 @@ def run_study(work: str, seed: int = 0, videos=(8, 2, 4),
     for split in ("train", "val"):
         run_cli(["build-lfb", "--manifest", f"{work}/{split}.pkl",
                  "--ckpt", s1, "--out", f"{work}/lfb_{split}.npz", *ov,
-                 *folded_sets(device, set_value(ov, "model.compute_dtype",
-                                           "float32"))], device, clock)
+                 *folded_sets(device)], device, clock)
 
     # 4) stage-2 heads over the bank
     for head in heads:
@@ -364,8 +362,8 @@ def main(argv=None) -> int:
         "device": args.device, "full_scale": args.full_scale,
         "compute_dtype": dtype,
         "device_flag_on": list(DEVICE_COMMANDS),
-        "folded_on": ["test", "build-lfb"]
-        if folded_sets(args.device, dtype) else [],
+        "folded_on": ["test", "build-lfb"] if folded_sets(args.device)
+        else [],
         "recipe": recipe(args.device),
         "card_sets": list(card_sets(args.device)),
         "use_flip": set_value(sets, "data.use_flip", "true").lower()

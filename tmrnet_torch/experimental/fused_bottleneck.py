@@ -7,9 +7,12 @@ header says what bounds it and how it is built.
 
 x (N, H, W, C); w1 (C, P), w2 (3, 3, P, P) HWIO, w3 (P, C); biases are the
 BN-folded shifts. The op `torch.ops.tmrnet.fused_bottleneck`
-(`kernels/library.py`), which `fused_bottleneck` calls, takes the kernel
+(`kernels/library.py`), which `fused_bottleneck` calls, takes a kernel
 for CUDA tensors and the plain version for CPU tensors; anything else
-raises. `plan_bottleneck` decides how the kernel cuts a call into blocks.
+raises. On the card x and the weights are bf16 (`csrc/fused_bottleneck.cu`,
+planned by `plan_bottleneck`) or f32 (`csrc/fused_bottleneck_f32.cu`, FFMA
+and no TF32, planned by `plan_bottleneck_f32`), in one dtype
+(`bottleneck_dtype`); the biases f32.
 """
 
 from __future__ import annotations
@@ -143,6 +146,111 @@ def plan_bottleneck(n: int, h: int, w: int, c: int, p: int) -> BottleneckPlan:
     return best[1]
 
 
+# csrc/bottleneck_f32.cuh's block: 256 threads as TX across N by 256 / TX
+# down M, each owning 8 x 8 outputs, so the block tile is BM = 2048 / TX
+# rows by BN = 8 TX columns (every TX: 16,384 outputs); K chunks of 16
+# through a ring of f32 slots; x's staged rows 20 floats apart.
+_F32_THREADS, _F32_KC, _F32_LDA = 256, 16, 20
+F32_TX = (64, 32, 16, 8)
+BLOCK_F32_NSTAGE = 2    # fused_bottleneck_f32.cu's ring: a double buffer
+
+
+@dataclasses.dataclass(frozen=True)
+class BottleneckF32Plan:
+    """How an f32 bottleneck kernel cuts one call: `th` image rows per
+    block; `tx` threads across N (the kernels' template argument): the
+    block tile is `bm` = 2048 / tx rows by `bn` = 8 tx columns; `nstage`
+    ring slots; `smem` bytes of shared memory a block takes."""
+    th: int
+    tx: int
+    nstage: int
+    smem: int
+
+    @property
+    def bm(self) -> int:
+        return 8 * (_F32_THREADS // self.tx)
+
+    @property
+    def bn(self) -> int:
+        return 8 * self.tx
+
+
+def f32_layout_bytes(w: int, p: int, th: int, tx: int, nstage: int) -> int:
+    """A block's shared memory, as `Layout` in csrc/bottleneck_f32.cuh
+    computes it: `nstage` ring slots (an A part of bm x 20 floats, phase 1's
+    x rows, and a B part of 16 x bn), y1's (th + 2) w rows and one zero row,
+    and y2's th w rows, each row p + 4 floats."""
+    bm, bn, ldy = 8 * (_F32_THREADS // tx), 8 * tx, p + 4
+    slot = bm * _F32_LDA + _F32_KC * bn
+    return 4 * (nstage * slot + ((th + 2) * w + 1) * ldy + th * w * ldy)
+
+
+def f32_chunks(h: int, w: int, c: int, p: int, th: int, tx: int):
+    """K chunks of 16 each block of an image multiplies, each a bm x bn x
+    16 product (the same 262,144 FMAs at every tx): phase 1's row tiles x
+    column passes x C/16, phase 2's x 9P/16, phase 3's C/bn passes x
+    P/16."""
+    bm, bn = 8 * (_F32_THREADS // tx), 8 * tx
+    out = []
+    for _, rows, lo, hi in block_rows(h, th):
+        t1, t2 = -(-(hi - lo) * w // bm), -(-rows * w // bm)
+        out.append(t1 * (p // bn) * (c // _F32_KC)
+                   + t2 * (p // bn) * (9 * p // _F32_KC)
+                   + t2 * (c // bn) * (p // _F32_KC))
+    return out
+
+
+def plan_f32(n: int, h: int, w: int, c: int, p: int, what: str,
+             one_tile: bool, stages) -> BottleneckF32Plan:
+    """The least modelled time over tx (8 tx dividing P and C; where
+    `one_tile`, bm >= w) and th (where `one_tile`, th w <= bm): waves of
+    one block per SM times the chunks of the longest block; ties go to more
+    ring slots, then fewer chunks in all. Each (tx, th) takes the first of
+    `stages` whose layout fits 227 KB."""
+    best = None
+    for tx in F32_TX:
+        bm = 8 * (_F32_THREADS // tx)
+        if p % (8 * tx) or c % (8 * tx) or (one_tile and bm < w):
+            continue
+        for th in range(1, (min(h, bm // w) if one_tile else h) + 1):
+            nstage = next((s for s in stages if f32_layout_bytes(
+                w, p, th, tx, s) <= _SMEM_BLOCK_MAX), None)
+            if nstage is None:
+                continue
+            chunks = f32_chunks(h, w, c, p, th, tx)
+            waves = -(-n * len(chunks) // _SMS)
+            key = (waves * max(chunks), -nstage, n * sum(chunks))
+            if best is None or key < best[0]:
+                best = (key, BottleneckF32Plan(
+                    th, tx, nstage, f32_layout_bytes(w, p, th, tx, nstage)))
+    if best is None:
+        raise ValueError(f"{what}: W={w}, P={p}, C={c} does not fit shared "
+                         f"memory at one row per block in f32")
+    return best[1]
+
+
+@functools.lru_cache(maxsize=256)   # called once per launch, 12 a forward
+def plan_bottleneck_f32(n: int, h: int, w: int, c: int,
+                        p: int) -> BottleneckF32Plan:
+    """The plan of one f32 call of csrc/fused_bottleneck_f32.cu: a block
+    walks as many row tiles as its th rows need; a two-slot ring."""
+    return plan_f32(n, h, w, c, p, "fused_bottleneck_f32", False,
+                    (BLOCK_F32_NSTAGE,))
+
+
+def bottleneck_dtype(x_dtype, w_dtypes) -> torch.dtype:
+    """Which kernel takes the operands on the card: x's dtype where it and
+    the three weights' are one, bf16 or f32; else TypeError (mixed dtypes,
+    f16, f64)."""
+    if len({x_dtype, *w_dtypes}) != 1 or x_dtype not in (torch.bfloat16,
+                                                         torch.float32):
+        raise TypeError(
+            f"fused bottleneck: x dtype {x_dtype} and weights "
+            f"{', '.join(str(d) for d in w_dtypes)}: the card's kernels take "
+            f"bf16 or f32, x and the weights in one dtype")
+    return x_dtype
+
+
 def _check(name, t, device, dtype, shape, what):
     if t.device != device:
         raise ValueError(f"{what}: {name} on {t.device}, x on {device}")
@@ -158,8 +266,9 @@ def _check(name, t, device, dtype, shape, what):
 
 def check_operands(what, x, w1, b1, w2, b2, w3, b3):
     """The CUDA wrappers' checks of a bottleneck's operands: x (N, H, W, C)
-    bf16 NHWC-contiguous on CUDA; w1/w2/w3 bf16 contiguous; biases f32;
-    P and C multiples of 64. Returns (N, H, W, C, P)."""
+    NHWC-contiguous on CUDA; w1/w2/w3 contiguous, in x's dtype, bf16 or f32
+    (`bottleneck_dtype`); biases f32; P and C multiples of 64. Returns (N,
+    H, W, C, P)."""
     if x.device.type != "cuda":
         raise ValueError(f"{what}: x is not on CUDA")
     if x.dim() != 4 or w1.dim() != 2:
@@ -171,22 +280,69 @@ def check_operands(what, x, w1, b1, w2, b2, w3, b3):
                          f"x, got C={c}, P={p}, x {tuple(x.shape)}")
     if n > 65535:   # one grid row of blocks per image
         raise ValueError(f"{what}: at most 65535 images, got {n}")
+    dt = bottleneck_dtype(x.dtype, (w1.dtype, w2.dtype, w3.dtype))
     for name, t, dtype, shape in (
-            ("x", x, torch.bfloat16, (n, h, w, c)),
-            ("w1", w1, torch.bfloat16, (c, p)), ("b1", b1, torch.float32, (p,)),
-            ("w2", w2, torch.bfloat16, (3, 3, p, p)),
+            ("x", x, dt, (n, h, w, c)),
+            ("w1", w1, dt, (c, p)), ("b1", b1, torch.float32, (p,)),
+            ("w2", w2, dt, (3, 3, p, p)),
             ("b2", b2, torch.float32, (p,)),
-            ("w3", w3, torch.bfloat16, (p, c)), ("b3", b3, torch.float32, (c,))):
+            ("w3", w3, dt, (p, c)), ("b3", b3, torch.float32, (c,))):
         _check(name, t, x.device, dtype, shape, what)
     return n, h, w, c, p
 
 
+def check_aligned(what, *tensors):
+    """The f32 kernels' float4 and cp.async copies want every operand
+    16-byte aligned."""
+    names = ("x", "w1", "b1", "w2", "b2", "w3", "b3")
+    for name, t in zip(names, tensors):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} is not 16-byte aligned")
+
+
+@functools.lru_cache(maxsize=None)
+def _f32_entries():
+    """fused_bottleneck_f32's two C entries, their argument types set
+    once."""
+    lib = build.library("fused_bottleneck_f32")
+    run, smem = lib.tmr_fused_bottleneck_f32, lib.tmr_fused_bottleneck_f32_smem
+    run.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    run.restype = ctypes.c_int
+    smem.argtypes = [ctypes.c_int] * 4
+    smem.restype = ctypes.c_int
+    return run, smem
+
+
+def _fused_bottleneck_f32_cuda(x, w1, b1, w2, b2, w3, b3, shape):
+    """csrc/fused_bottleneck_f32.cu under `plan_bottleneck_f32`."""
+    n, h, w, c, p = shape
+    check_aligned("fused_bottleneck_cuda", x, w1, b1, w2, b2, w3, b3)
+    plan = plan_bottleneck_f32(n, h, w, c, p)
+    run, smem_of = _f32_entries()
+    smem = smem_of(w, p, plan.th, plan.tx)
+    if smem != plan.smem:
+        raise RuntimeError(f"fused_bottleneck_f32: the kernel lays out "
+                           f"{smem} bytes of shared memory, the plan "
+                           f"{plan.smem}")
+    out = torch.empty_like(x)
+    q = build.ptr
+    err = run(q(x), q(w1), q(b1), q(w2), q(b2), q(w3), q(b3), q(out),
+              n, h, w, c, p, plan.th, plan.tx, build.stream_ptr(x.device))
+    build.check(err, "fused_bottleneck_f32")
+    build.count("fused_bottleneck_f32", x.device)
+    return out
+
+
 def fused_bottleneck_cuda(x, w1, b1, w2, b2, w3, b3):
-    """Launch csrc/fused_bottleneck.cu under `plan_bottleneck`. x (N, H, W,
-    C) bf16 NHWC-contiguous; w1/w2/w3 bf16 contiguous; biases f32; P and C
-    multiples of 64."""
-    n, h, w, c, p = check_operands("fused_bottleneck_cuda", x, w1, b1, w2, b2,
-                                   w3, b3)
+    """Launch csrc/fused_bottleneck.cu under `plan_bottleneck` (bf16
+    operands) or csrc/fused_bottleneck_f32.cu under `plan_bottleneck_f32`
+    (f32). x (N, H, W, C) NHWC-contiguous; w1/w2/w3 contiguous in x's
+    dtype; biases f32; P and C multiples of 64; in f32 every operand
+    16-byte aligned."""
+    shape = check_operands("fused_bottleneck_cuda", x, w1, b1, w2, b2, w3, b3)
+    if x.dtype == torch.float32:
+        return _fused_bottleneck_f32_cuda(x, w1, b1, w2, b2, w3, b3, shape)
+    n, h, w, c, p = shape
     plan = plan_bottleneck(n, h, w, c, p)
     lib = build.library("fused_bottleneck")
     lib.tmr_fused_bottleneck_smem.argtypes = [ctypes.c_int] * 6
@@ -210,8 +366,10 @@ def fused_bottleneck_cuda(x, w1, b1, w2, b2, w3, b3):
 
 def _fused_bottleneck_fake(x, w1, b1, w2, b2, w3, b3):
     if x.device.type == "cuda":
-        plan_bottleneck(*check_operands("fused_bottleneck_cuda", x, w1, b1,
-                                        w2, b2, w3, b3))
+        shape = check_operands("fused_bottleneck_cuda", x, w1, b1, w2, b2,
+                               w3, b3)
+        (plan_bottleneck_f32 if x.dtype == torch.float32
+         else plan_bottleneck)(*shape)
     return torch.empty_like(x)
 
 

@@ -12,12 +12,16 @@ It computes the same function as `fused_bottleneck` (both are held to
 `fused_bottleneck_reference` in JAX), so its plain version is
 `fused_bottleneck_plain`. Unlike the TPU kernel it takes any H and N: the
 last H tile may be partial. The op `torch.ops.tmrnet.fused_bottleneck_tiled`
-(`kernels/library.py`), which `fused_bottleneck_tiled` calls, takes the
+(`kernels/library.py`), which `fused_bottleneck_tiled` calls, takes a
 kernel for CUDA tensors and the plain version for CPU tensors; anything
-else raises.
-`plan_bottleneck_tiled` decides how the kernel cuts a call into blocks;
-`tiled_blocks`, `chunk_boxes` and `tiled_layout_bytes` say what a block
-copies and where it keeps it, as the kernel computes them.
+else raises. On the card x and the weights are bf16 or f32, in one dtype
+(`fused_bottleneck.bottleneck_dtype`); the biases f32.
+In bf16 `plan_bottleneck_tiled` decides how the kernel cuts a call into
+blocks; `tiled_blocks`, `chunk_boxes` and `tiled_layout_bytes` say what a
+block copies and where it keeps it, as the kernel computes them. In f32
+the kernel is `csrc/fused_bottleneck_tiled_f32.cu` (FFMA, no TF32, the
+halo'd slab through a cp.async ring, phase 3's residual staged in shared
+memory) under `plan_bottleneck_tiled_f32`.
 """
 
 from __future__ import annotations
@@ -33,8 +37,11 @@ from tmrnet_torch.experimental.fused_bottleneck import (
     _SMEM_BLOCK_MAX,
     _SMS,
     BOTTLENECK_SCHEMA,
+    BottleneckF32Plan,
+    check_aligned,
     check_operands,
     fused_bottleneck_plain,
+    plan_f32,
 )
 from tmrnet_torch.kernels import build, library
 
@@ -175,13 +182,67 @@ def plan_bottleneck_tiled(n: int, h: int, w: int, c: int,
     return best[1]
 
 
+@functools.lru_cache(maxsize=256)   # called once per launch, 10 a forward
+def plan_bottleneck_tiled_f32(n: int, h: int, w: int, c: int,
+                              p: int) -> BottleneckF32Plan:
+    """The plan of one f32 call of csrc/fused_bottleneck_tiled_f32.cu:
+    th w <= bm, so phases 2-3 are one row tile (the staged residual's
+    tile); a three-slot ring where it fits, else two. W <= 256, as the
+    bf16 plan takes: the largest bm."""
+    if w > _BOX_MAX:
+        raise ValueError(f"fused_bottleneck_tiled_f32: W = {w} > {_BOX_MAX}, "
+                         f"the most rows a block tile holds")
+    return plan_f32(n, h, w, c, p, "fused_bottleneck_tiled_f32", True, (3, 2))
+
+
+@functools.lru_cache(maxsize=None)
+def _f32_entries():
+    """fused_bottleneck_tiled_f32's two C entries, their argument types set
+    once."""
+    lib = build.library("fused_bottleneck_tiled_f32")
+    run = lib.tmr_fused_bottleneck_tiled_f32
+    smem = lib.tmr_fused_bottleneck_tiled_f32_smem
+    run.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    run.restype = ctypes.c_int
+    smem.argtypes = [ctypes.c_int] * 5
+    smem.restype = ctypes.c_int
+    return run, smem
+
+
+def _fused_bottleneck_tiled_f32_cuda(x, w1, b1, w2, b2, w3, b3, shape):
+    """csrc/fused_bottleneck_tiled_f32.cu under `plan_bottleneck_tiled_f32`."""
+    n, h, w, c, p = shape
+    plan = plan_bottleneck_tiled_f32(n, h, w, c, p)
+    check_aligned("fused_bottleneck_tiled_cuda", x, w1, b1, w2, b2, w3, b3)
+    run, smem_of = _f32_entries()
+    smem = smem_of(w, p, plan.th, plan.tx, plan.nstage)
+    if smem != plan.smem:
+        raise RuntimeError(f"fused_bottleneck_tiled_f32: the kernel lays out "
+                           f"{smem} bytes of shared memory, the plan "
+                           f"{plan.smem}")
+    out = torch.empty_like(x)
+    q = build.ptr
+    err = run(q(x), q(w1), q(b1), q(w2), q(b2), q(w3), q(b3), q(out),
+              n, h, w, c, p, plan.th, plan.tx, plan.nstage,
+              build.stream_ptr(x.device))
+    build.check(err, "fused_bottleneck_tiled_f32")
+    build.count("fused_bottleneck_tiled_f32", x.device)
+    return out
+
+
 def fused_bottleneck_tiled_cuda(x, w1, b1, w2, b2, w3, b3):
-    """Launch csrc/fused_bottleneck_tiled.cu under `plan_bottleneck_tiled`.
-    x (N, H, W, C) bf16 NHWC-contiguous; w1/w2/w3 bf16 contiguous; biases
-    f32; P and C multiples of 64; W <= 256; every tensor 16-byte
-    aligned (TMA)."""
-    n, h, w, c, p = check_operands("fused_bottleneck_tiled_cuda", x, w1, b1,
-                                   w2, b2, w3, b3)
+    """Launch csrc/fused_bottleneck_tiled.cu under `plan_bottleneck_tiled`
+    (bf16 operands) or csrc/fused_bottleneck_tiled_f32.cu under
+    `plan_bottleneck_tiled_f32` (f32). x (N, H, W, C) NHWC-contiguous;
+    w1/w2/w3 contiguous in x's dtype; biases f32; P and C multiples of 64;
+    W <= 256; every tensor 16-byte aligned (TMA; the f32 kernel's
+    cp.async)."""
+    shape = check_operands("fused_bottleneck_tiled_cuda", x, w1, b1, w2, b2,
+                           w3, b3)
+    if x.dtype == torch.float32:
+        return _fused_bottleneck_tiled_f32_cuda(x, w1, b1, w2, b2, w3, b3,
+                                                shape)
+    n, h, w, c, p = shape
     plan = plan_bottleneck_tiled(n, h, w, c, p)
     if any(t.data_ptr() % 16 for t in (x, w1, w2, w3)):
         raise ValueError("fused_bottleneck_tiled_cuda: x and the weights must "
@@ -210,8 +271,10 @@ def fused_bottleneck_tiled_cuda(x, w1, b1, w2, b2, w3, b3):
 
 def _fused_bottleneck_tiled_fake(x, w1, b1, w2, b2, w3, b3):
     if x.device.type == "cuda":
-        plan_bottleneck_tiled(*check_operands(
-            "fused_bottleneck_tiled_cuda", x, w1, b1, w2, b2, w3, b3))
+        shape = check_operands("fused_bottleneck_tiled_cuda", x, w1, b1, w2,
+                               b2, w3, b3)
+        (plan_bottleneck_tiled_f32 if x.dtype == torch.float32
+         else plan_bottleneck_tiled)(*shape)
     return torch.empty_like(x)
 
 

@@ -3,9 +3,11 @@ ops, `torch.ops.tmrnet.{nl_attention, time_conv, fused_bottleneck,
 fused_bottleneck_tiled}`, and `time_conv_slice`, the time_conv kernels
 over a column slice (tensor parallelism; its own op, so that
 `time_conv`'s schema, which exported artifacts hold, is unchanged).
-`nl_attention`, `time_conv` and `time_conv_slice` take bf16 or f32 (the
-time_conv ops launch `csrc/time_conv.cu` or `csrc/time_conv_f32.cu` by
-dtype); the bottleneck ops bf16.
+Every op takes bf16 or f32: the time_conv ops launch `csrc/time_conv.cu`
+or `csrc/time_conv_f32.cu` by dtype, the bottleneck ops
+`csrc/fused_bottleneck{,_tiled}.cu` or `csrc/fused_bottleneck{,_tiled}_f32.cu`
+(their schemas are those of the bf16-only ops before them, so artifacts
+exported with those still load).
 
 Each op has three implementations, registered by the module of its kernel
 (`ops/nl_attention.py`, `ops/time_conv.py`,

@@ -13,7 +13,9 @@ such identity blocks. `kernel` picks the fused kernel as
 `apply_fused_resnet(kernel=...)` does (:87-105): "block" sends every
 identity block to `fused_bottleneck`; "tiled" sends those with C < 2048 to
 `fused_bottleneck_tiled` (10 in ResNet-50) and the others (stage 4's 2) to
-`fused_bottleneck`.
+`fused_bottleneck`. The ops take the trunk's compute dtype: on the card bf16
+runs the tensor-core kernels and f32 the FFMA ones (no TF32), as JAX folds
+a trunk in either dtype.
 
 `remat=True` recomputes each bottleneck in the backward pass, as JAX's
 `nn.remat(Bottleneck)` does (:89-90): `torch.utils.checkpoint` keeps a
