@@ -15,7 +15,8 @@ Phases, in order; any failure exits nonzero:
    and replayed, beside `ms`, back-to-back eager calls, which at that size
    time the host's launch path): the bf16
    kernels (nl_attention, time_conv, fused_bottleneck,
-   fused_bottleneck_tiled) against the plain version in f32 (TF32 off) on
+   fused_bottleneck_tiled, the last two also with their device ms per
+   stage) against the plain version in f32 (TF32 off) on
    the same inputs, max |kernel - plain| / max |plain|
    <= 2e-2; the two bottleneck kernels per ResNet-50 stage at N = 320
    frames, with the achieved TFLOP/s and the kernel / cuDNN-chain ratio
@@ -333,6 +334,20 @@ Phases, in order; any failure exits nonzero:
    the CPU; then `stream --max-streams 2` at f32 over the same videos:
    the slot plan's 300 steps, 1 time_conv_f32 and 1 nl_attention a step;
    its launches count under path "f32";
+4r. the folded f32 trunk (`run_folded_f32_slice`), after 4q: (a)
+   csrc/fused_bottleneck_f32.cu (f32 FFMA, no TF32; clusters of CTAs that
+   share each weight chunk by TMA multicast and y1's halo by DSMEM)
+   through both wrappers, fused_bottleneck_f32 and
+   fused_bottleneck_tiled_f32, at ResNet-50's identity stages (the tiled
+   one at C < 2048) at N = 7 and 320 within 1e-5 of max
+   |plain|, with eager and device ms, the plain version's, the cuDNN f32
+   chain's and the FFMA bound, and each plan's cut (cluster size, CTA
+   tile, span, real-row share, the weights' modelled GB from L2); (b) the
+   folded f32 trunk on both paths against the unfolded one on cuDNN within
+   1e-4 of max |feature|, and a clip forward on both paths against the
+   engine in f32 on the CPU; (c) `test --engine clip` at f32, folded,
+   against 4q (c)'s unfolded run; its launches count under path
+   "f32_folded";
 5. the int8 gate (tmrnet_torch.experimental.int8_gate) at B = 128 over the
    four stages: the int8 bottleneck chain through the kernels equal to the
    same chain through the plain versions, 2 int8_matmul and 1 int8_conv3x3
@@ -538,7 +553,7 @@ def check_kernels(torch, seed):
     # N = B*T frames; per-forward numbers weight each stage by its count of
     # identity blocks.
     n = CLIPS * SEQ
-    keys = ("ms", "plain_ms", "library_ms", "flops", "bytes")
+    keys = ("ms", "device_ms", "plain_ms", "library_ms", "flops", "bytes")
     tot = {k: dict.fromkeys(keys, 0.0) for k in ("block", "tiled")}
     max_err = dict(block=0.0, tiled=0.0)
     stages = dict(block=[], tiled=[])
@@ -579,17 +594,20 @@ def check_kernels(torch, seed):
         b_ms = bound(flops, nbytes, PEAK_BF16)[0]
         for path, kernel in kernels.items():
             ms = time_ms(torch, lambda: kernel(*args), 5, 1)
+            device = graph_ms(torch, lambda: kernel(*args), 5, 3)
             tflops = flops / ms / 1e9
-            print(f"    {path} stage {h}x{h}: kernel {ms:.4f} ms "
-                  f"({tflops:.1f} TFLOP/s), plain {plain:.4f} ms, cuDNN chain "
-                  f"{library:.4f} ms (kernel / cuDNN {ms / library:.3f}), "
-                  f"bound {b_ms:.4f} ms, x{count} per forward")
+            print(f"    {path} stage {h}x{h}: kernel {ms:.4f} ms, device "
+                  f"{device:.4f} ms ({tflops:.1f} TFLOP/s), plain {plain:.4f} "
+                  f"ms, cuDNN chain {library:.4f} ms (kernel / cuDNN "
+                  f"{ms / library:.3f}), bound {b_ms:.4f} ms, x{count} per "
+                  f"forward")
             stages[path].append(dict(
                 stage=f"{h}x{h}x{cc} P={p}", per_forward=count, ms=ms,
-                tflops=tflops, library_ms=library, bound_ms=b_ms))
-            for key, val in (("ms", ms), ("plain_ms", plain),
-                             ("library_ms", library), ("flops", flops),
-                             ("bytes", nbytes)):
+                device_ms=device, tflops=tflops, library_ms=library,
+                bound_ms=b_ms))
+            for key, val in (("ms", ms), ("device_ms", device),
+                             ("plain_ms", plain), ("library_ms", library),
+                             ("flops", flops), ("bytes", nbytes)):
                 tot[path][key] += count * val
         del xs, args, argsf, xc
     for path, name, source, replaces in (
@@ -604,7 +622,7 @@ def check_kernels(torch, seed):
             name=name, route="cuda", source=source, replaces=replaces,
             max_abs_err=max_err[path], ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=b_ms, bound_by=b_by, library_ms=t["library_ms"],
-            stages=stages[path]))
+            device_ms=t["device_ms"], stages=stages[path]))
     torch.cuda.empty_cache()
     return records, all_ok
 
@@ -6241,21 +6259,28 @@ F32_FORWARD = {"block": {"fused_bottleneck_f32": 12},
 
 
 def check_bottleneck_f32(torch, seed, card, records):
-    """Phase 4r (a): csrc/fused_bottleneck_f32.cu at ResNet-50's four
-    identity stages and csrc/fused_bottleneck_tiled_f32.cu at those the
-    tiled path gives it (C < 2048), each at N = CLIPS * SEQ and at
+    """Phase 4r (a): csrc/fused_bottleneck_f32.cu through
+    `fused_bottleneck_cuda` at ResNet-50's four identity stages and
+    through `fused_bottleneck_tiled_cuda` at those the tiled path gives it
+    (C < 2048), each at N = CLIPS * SEQ and at
     F32_ODD_N, against `fused_bottleneck_plain` in f32 (TF32 off) within
-    F32_REL of max |plain|; at N = CLIPS * SEQ the eager ms of each, of the
-    plain version and of the cuDNN f32 chain (TF32 off), and the FFMA bound
-    (operations over 67 TFLOP/s, or bytes: x, the weights and the output
-    once). Per-forward numbers weight each stage by its identity blocks.
-    Appends the two records to `records`; returns (None, ok)."""
+    F32_REL of max |plain|; at N = CLIPS * SEQ the eager ms of each, its
+    device ms (CUDA-graph replays), the plain version's and the cuDNN f32
+    chain's (TF32 off) eager ms, and the FFMA bound (operations over 67
+    TFLOP/s, or bytes: x, the weights and the output once), beside the
+    plan's cut over the card's active clusters (`card_clusters`, printed):
+    cluster size, CTA tile, span, real-row share and the weights' modelled
+    GB from L2. Per-forward numbers weight each stage by
+    its identity blocks. Appends the two records to `records`; returns
+    (None, ok)."""
     import torch.nn.functional as F
 
     from tmrnet_torch.experimental.fused_bottleneck import (
-        fused_bottleneck_cuda, fused_bottleneck_plain)
+        card_clusters, fused_bottleneck_cuda, fused_bottleneck_plain,
+        plan_bottleneck_f32)
     from tmrnet_torch.experimental.fused_bottleneck_tiled import (
-        fused_bottleneck_tiled_cuda)
+        fused_bottleneck_tiled_cuda, plan_bottleneck_tiled_f32)
+    from tmrnet_torch.experimental.kernel_timing import graph_ms
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 50)
     f32 = lambda shape, s=1.0: torch.randn(shape, generator=gen,
@@ -6263,7 +6288,10 @@ def check_bottleneck_f32(torch, seed, card, records):
     n, ok = CLIPS * SEQ, True
     kernels = {"block": fused_bottleneck_cuda,
                "tiled": fused_bottleneck_tiled_cuda}
-    keys = ("ms", "plain_ms", "library_ms", "flops", "bytes")
+    plans = {"block": plan_bottleneck_f32, "tiled": plan_bottleneck_tiled_f32}
+    active = card_clusters(torch.cuda.current_device())
+    print(f"    active clusters on the card (size, clusters): {active}")
+    keys = ("ms", "device_ms", "plain_ms", "library_ms", "flops", "bytes")
     tot = {k: dict.fromkeys(keys, 0.0) for k in kernels}
     max_err = dict.fromkeys(kernels, 0.0)
     stages = {k: [] for k in kernels}
@@ -6307,17 +6335,25 @@ def check_bottleneck_f32(torch, seed, card, records):
         b_ms = bound(flops, nbytes, PEAK_F32)[0]
         for path in paths:
             ms = time_ms(torch, lambda: kernels[path](*args), 3, 1)
-            print(f"    {path} f32 stage {h}x{h}: kernel {ms:.4f} ms "
-                  f"({flops / ms / 1e9:.2f} TFLOP/s), plain {plain:.4f} ms, "
-                  f"cuDNN f32 chain {library:.4f} ms, bound {b_ms:.4f} ms "
-                  f"({b_ms / ms:.3f} of it), x{count} per forward")
+            device = graph_ms(torch, lambda: kernels[path](*args), 3, 2)
+            plan = plans[path](n, h, h, cc, p, active)
+            cut = dict(cluster=plan.cs, tile=[plan.bm, plan.bn],
+                       span=plan.span, nstage=plan.nstage,
+                       real_share=plan.real_share,
+                       weight_gb=plan.weight_bytes / 1e9, waves=plan.waves)
+            print(f"    {path} f32 stage {h}x{h}: kernel {ms:.4f} ms, device "
+                  f"{device:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s), plain "
+                  f"{plain:.4f} ms, cuDNN f32 chain {library:.4f} ms (kernel "
+                  f"/ cuDNN {ms / library:.3f}), bound {b_ms:.4f} ms "
+                  f"({b_ms / ms:.3f} of it), x{count} per forward; cut "
+                  f"{json.dumps(cut)}")
             stages[path].append(dict(
                 stage=f"{h}x{h}x{cc} P={p}", per_forward=count, ms=ms,
-                tflops=flops / ms / 1e9, plain_ms=plain, library_ms=library,
-                bound_ms=b_ms))
-            for key, val in (("ms", ms), ("plain_ms", plain),
-                             ("library_ms", library), ("flops", flops),
-                             ("bytes", nbytes)):
+                device_ms=device, tflops=flops / ms / 1e9, plain_ms=plain,
+                library_ms=library, bound_ms=b_ms, **cut))
+            for key, val in (("ms", ms), ("device_ms", device),
+                             ("plain_ms", plain), ("library_ms", library),
+                             ("flops", flops), ("bytes", nbytes)):
                 tot[path][key] += count * val
         del xs, args, xc
         torch.cuda.empty_cache()
@@ -6326,7 +6362,7 @@ def check_bottleneck_f32(torch, seed, card, records):
              "tmrnet_torch/csrc/fused_bottleneck_f32.cu",
              "tmrnet_tpu/experimental/fused_bottleneck.py:58"),
             ("tiled", "fused_bottleneck_tiled_f32",
-             "tmrnet_torch/csrc/fused_bottleneck_tiled_f32.cu",
+             "tmrnet_torch/csrc/fused_bottleneck_f32.cu",
              "tmrnet_tpu/experimental/fused_bottleneck_tiled.py:123")):
         t = tot[path]
         b_ms, b_by = bound(t["flops"], t["bytes"], PEAK_F32)
@@ -6334,9 +6370,10 @@ def check_bottleneck_f32(torch, seed, card, records):
             name=name, route="cuda", source=source, replaces=replaces,
             max_abs_err=max_err[path], ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=b_ms, bound_by=b_by, library_ms=t["library_ms"],
-            stages=stages[path]))
-        print(f"  {name}: {t['ms']:.3f} ms a forward, bound {b_ms:.3f} ms "
-              f"({b_by}), plain {t['plain_ms']:.3f} ms, cuDNN f32 chain "
+            device_ms=t["device_ms"], stages=stages[path]))
+        print(f"  {name}: {t['ms']:.3f} ms a forward (device "
+              f"{t['device_ms']:.3f} ms), bound {b_ms:.3f} ms ({b_by}), "
+              f"plain {t['plain_ms']:.3f} ms, cuDNN f32 chain "
               f"{t['library_ms']:.3f} ms")
     print(f"f32 bottleneck kernels vs plain on {card} "
           f"{'ok' if ok else 'FAIL'}")

@@ -289,3 +289,42 @@ def test_doctor_lines_and_exit_code(files, tmp_path):
                              "--checkpoint", str(tmp_path / "none")])
     assert rc == 1
     assert checks["artifact"] == ["FAIL"] and checks["checkpoint"] == ["FAIL"]
+
+
+@pytest.mark.parametrize("command", ["stream", "serve"])
+def test_f32_artifact_turns_tf32_off_on_a_card(files, command, monkeypatch):
+    # An f32 stream artifact on a (faked) card under a bf16 command line:
+    # the artifact's dtype sets the precision, so cuDNN and cuBLAS run f32
+    # with TF32 off, as the engine it was exported from did.
+    from tmrnet_torch import device
+    from tmrnet_torch.eval import saved
+
+    d, _ = files
+    card = torch.device("cuda", 0)
+
+    class ReachedTheStep(Exception):
+        pass
+
+    class CardEngine:
+        def __init__(self, artifact):
+            self.meta, self.device = artifact.meta, card
+            self.slots = int(artifact.meta["slots"])
+
+        def init_state(self, num_streams):
+            raise ReachedTheStep(num_streams)
+
+    monkeypatch.setattr(device, "resolve_device", lambda d: card)
+    monkeypatch.setattr(saved, "ArtifactStreamEngine", CardEngine)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    assert json.loads((d / "stream.pt2.json").read_text())[
+        "compute_dtype"] == "float32"
+    argv = [command, "--config", str(d / "cfg.json"), "--set",
+            "model.compute_dtype=bfloat16", "--artifact",
+            str(d / "stream.pt2")]
+    argv += (["--manifest", str(d / "m.pkl"), "--out", str(d / "x.jsonl")]
+             if command == "stream" else ["--input", _events(d)])
+    with pytest.raises(ReachedTheStep):
+        cli.main(argv)
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32

@@ -30,9 +30,11 @@ import torch
 from tmrnet_torch.experimental.fused_bottleneck import (
     fused_bottleneck_cuda,
     fused_bottleneck_plain,
+    plan_bottleneck_f32,
 )
 from tmrnet_torch.experimental.fused_bottleneck_tiled import (
     fused_bottleneck_tiled_cuda,
+    plan_bottleneck_tiled_f32,
 )
 from tmrnet_torch.experimental.quant_conv import (
     PLANS,
@@ -781,6 +783,99 @@ def test_fused_bottleneck_f32_kernels_refuse(gen, kernel):
     with pytest.raises(ValueError, match="does not fit" if kernel == "block"
                        else "W = 257"):
         op(*_fb_f32(gen, 1, 2, 400 if kernel == "block" else 257, 64, 64))
+
+
+# The cluster cut (bottleneck_f32.cuh): N = 1, N smaller than a cluster
+# (CTAs with no pixels), odd N, H that no span divides, spans that cross
+# image boundaries and recompute y1 at clusters' edges inside an image.
+@pytest.mark.parametrize("kernel", sorted(F32_BOTTLENECKS))
+@pytest.mark.parametrize("n,h,w,c,p", [
+    (1, 56, 56, 256, 64), (1, 14, 14, 1024, 256), (1, 7, 7, 2048, 512),
+    (3, 7, 7, 2048, 512), (1, 1, 1, 256, 64), (5, 28, 28, 512, 128),
+    (7, 14, 14, 1024, 256), (2, 15, 14, 1024, 256), (3, 9, 7, 2048, 512),
+    (5, 13, 13, 512, 128)])
+def test_fused_bottleneck_f32_cluster_cut(gen, kernel, n, h, w, c, p):
+    args = _fb_f32(gen, n, h, w, c, p)
+    _close(F32_BOTTLENECKS[kernel](*args), fused_bottleneck_plain(*args),
+           F32_REL)
+
+
+# relu(b1) far from 0 where a cluster's edge lies inside an image (stage 1
+# at N = 2: spans of 910 pixels in 3,136-pixel images; stage 3 at N = 5:
+# spans of half an image) or an image boundary inside a span (stage 1;
+# stage 4 at N = 64: spans of 5 images) meets the halo: y1 off the image,
+# computed instead of read as the zero row, would show.
+@pytest.mark.parametrize("kernel", sorted(F32_BOTTLENECKS))
+@pytest.mark.parametrize("n,h,w,c,p", [(2, 56, 56, 256, 64),
+                                       (5, 14, 14, 1024, 256),
+                                       (64, 7, 7, 2048, 512)])
+def test_fused_bottleneck_f32_cluster_halo_trap(gen, kernel, n, h, w, c, p):
+    from tmrnet_torch.experimental.fused_bottleneck import f32_cut
+
+    from tmrnet_torch.experimental.fused_bottleneck import card_clusters
+
+    plan = (plan_bottleneck_f32 if kernel == "block"
+            else plan_bottleneck_tiled_f32)(
+        n, h, w, c, p, card_clusters(torch.cuda.current_device()))
+    cuts = [f32_cut(n * h * w, h, w, plan.span, plan.cs, k)
+            for k in range(plan.clusters)]
+    # the shapes do what they are here for
+    assert (any(own[0] % (h * w) for own, _ in cuts[1:])
+            or any((own[0] // (h * w)) != (own[-1] - 1) // (h * w)
+                   for own, _ in cuts))
+    args = _fb_f32(gen, n, h, w, c, p, b1_shift=1.0)
+    _close(F32_BOTTLENECKS[kernel](*args), fused_bottleneck_plain(*args),
+           F32_REL)
+
+
+# The same inputs twice give the same bits at every stage's cut: a slot
+# refilled before every CTA of the cluster read it, or a halo read before
+# its neighbour wrote it, would not.
+@pytest.mark.parametrize("kernel", sorted(F32_BOTTLENECKS))
+@pytest.mark.parametrize("n,h,w,c,p", [(16, 56, 56, 256, 64),
+                                       (24, 28, 28, 512, 128),
+                                       (32, 7, 7, 2048, 512)])
+def test_fused_bottleneck_f32_cluster_repeats_bit_for_bit(gen, kernel, n, h,
+                                                          w, c, p):
+    args = _fb_f32(gen, n, h, w, c, p)
+    first = F32_BOTTLENECKS[kernel](*args)
+    for _ in range(3):
+        assert torch.equal(F32_BOTTLENECKS[kernel](*args), first)
+
+
+def test_fused_bottleneck_f32_cluster_failures_raise(gen, monkeypatch):
+    import dataclasses
+
+    import tmrnet_torch.experimental.fused_bottleneck as fb
+
+    args = _fb_f32(gen, 2, 14, 14, 1024, 256)
+    shape = (2, 14, 14, 1024, 256)
+    index = torch.cuda.current_device()
+    plan = fb.plan_bottleneck_f32(*shape, fb.card_clusters(index))
+    # the card's active clusters: read once a card, each size it may run;
+    # a failed query raises and names the cluster size
+    assert [cs for cs, _ in fb.card_clusters(index)] == list(fb.F32_CLUSTERS)
+    assert all(k >= 0 for _, k in fb.card_clusters(index))
+    run, smem, _ = fb.f32_entries()
+    fb.card_clusters.cache_clear()
+    monkeypatch.setattr(fb, "f32_entries", lambda: (run, smem, lambda cs: -2))
+    with pytest.raises(RuntimeError, match="clusters of 8 on cuda:"):
+        fused_bottleneck_cuda(*args)
+    monkeypatch.undo()
+    fb.card_clusters.cache_clear()
+    # a plan the kernel refuses (a cluster of 16, its layout's bytes)
+    # fails the launch
+    bad = dataclasses.replace(plan, cs=16, smem=fb.f32_layout_bytes(
+        14, 256, plan.tx, -(-plan.span // 16), plan.nstage, plan.overlay))
+    with pytest.raises(RuntimeError, match="N=2 H=14 .*launch failed"):
+        fb.launch_f32("fused_bottleneck_f32", "t", *args, shape, bad)
+    # x off TMA's 16-byte alignment past the wrapper's check: the tensor
+    # map does not encode
+    flat = torch.empty(args[0].numel() + 2, device="cuda")
+    x = flat[2:].view(args[0].shape).copy_(args[0])
+    monkeypatch.setattr(fb, "check_aligned", lambda *a: None)
+    with pytest.raises(RuntimeError, match="N=2 H=14 .*tensor map"):
+        fb.launch_f32("fused_bottleneck_f32", "t", x, *args[1:], shape, plan)
 
 
 def _i8(gen, shape):

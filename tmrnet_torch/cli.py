@@ -1000,9 +1000,11 @@ def _stream_artifact_engine(args, cfg: ExperimentConfig):
     exported with, which replaces `cfg`). The artifact holds both trunks,
     so an extractor flag is an error, and runs on the one device it was
     exported on: `--device` must name its kind, and `mesh.multihost` is
-    refused. A file that does not load exits and names `doctor
+    refused. Precision follows the artifact's recorded compute_dtype on
+    its device (`device.set_precision`: TF32 off for an f32 artifact on
+    the card). A file that does not load exits and names `doctor
     --artifact`."""
-    from tmrnet_torch.device import resolve_device
+    from tmrnet_torch.device import resolve_device, set_precision
     from tmrnet_torch.eval.saved import ArtifactStreamEngine, load_artifact
 
     device = resolve_device(args.device)
@@ -1026,6 +1028,9 @@ def _stream_artifact_engine(args, cfg: ExperimentConfig):
                          f"{engine.device}; --device is {device}")
     if engine.meta.get("config"):
         cfg = ExperimentConfig.from_json(json.dumps(engine.meta["config"]))
+    # the artifact's dtype, not the command line's: an f32 step on the card
+    # runs cuDNN with TF32 off, as the engine it was exported from did
+    set_precision(engine.meta["compute_dtype"], engine.device)
     return engine, cfg
 
 

@@ -1,6 +1,10 @@
 // Tensor Memory Accelerator (TMA) copies and mbarriers on Hopper, for
 // fused_bottleneck_tiled (tensor boxes) and nl_attention (1-D bulk copies);
-// int8_conv3x3 takes only its proxy fence.
+// int8_conv3x3 takes only its proxy fence. The f32 bottleneck kernels
+// (bottleneck_f32.cuh) also take the thread-block-cluster side: a box
+// multicast into every CTA of the cluster, arrivals on another CTA's
+// mbarrier, cluster barriers and loads from another CTA's shared memory
+// (distributed shared memory, DSMEM).
 //
 // Device side: one thread issues a cp.async.bulk.tensor load of a whole box
 // (up to 5-D) from device memory into shared memory; the copy engine
@@ -67,12 +71,77 @@ __device__ __forceinline__ bool mbar_try_wait(unsigned bar, unsigned parity) {
   return done != 0;
 }
 
+// Whether the phase of parity `parity` has completed, without waiting.
+__device__ __forceinline__ bool mbar_test_wait(unsigned bar, unsigned parity) {
+  unsigned done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
 // Wait until the barrier's phase of parity `parity` has completed. A wait
 // that never ends (a fault in the ring's protocol) traps after 2^28 tries,
 // so the launch fails instead of hanging the card.
 __device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
   for (unsigned i = 0; !mbar_try_wait(bar, parity);)
     if (++i == (1u << 28)) __trap();
+}
+
+// ---- clusters ----
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The cluster barrier in two halves; every thread of every CTA of the
+// cluster takes part (`.aligned`: a warp's threads together, so each half
+// first reconverges the warp). arrive
+// releases this thread's earlier memory operations, wait acquires the
+// others' once all have arrived.
+__device__ __forceinline__ void cluster_arrive() {
+  __syncwarp();
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  __syncwarp();
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The same shared-memory offset in the CTA of rank `rank`, as a
+// shared::cluster address.
+__device__ __forceinline__ unsigned map_rank(unsigned addr, unsigned rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ float4 ld_cluster_f4(unsigned addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// Arrive once on the mbarrier at offset `bar` of the CTA of rank `rank`.
+__device__ __forceinline__ void mbar_arrive_remote(unsigned bar,
+                                                   unsigned rank) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(
+                   map_rank(bar, rank))
+               : "memory");
 }
 
 __device__ __forceinline__ uint64_t map_addr(const CUtensorMap& m) {
@@ -88,6 +157,29 @@ __device__ __forceinline__ void load_1d(unsigned dst, const void* src,
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];\n" ::"r"(dst),
       "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void load_2d(unsigned dst, const CUtensorMap& m,
+                                        unsigned bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(map_addr(m)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// One box into the shared memory of every CTA of the cluster in `mask`
+// (bit i: rank i), at the same offset `dst` in each, each CTA's mbarrier
+// at offset `bar` told of the box's bytes.
+__device__ __forceinline__ void load_2d_multicast(unsigned dst,
+                                                  const CUtensorMap& m,
+                                                  unsigned bar, int c0, int c1,
+                                                  unsigned short mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes.multicast::cluster [%0], [%1, {%4, %5}], [%2], %3;\n" ::"r"(dst),
+      "l"(map_addr(m)), "r"(bar), "h"(mask), "r"(c0), "r"(c1)
       : "memory");
 }
 
@@ -181,6 +273,27 @@ inline int encode_bf16(CUtensorMap* m, const void* base, int rank,
   return (int)fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
                  const_cast<void*>(base), d, s, b, e,
                  CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// An f32 tensor map, as encode_bf16 (strides in elements); no swizzle.
+inline int encode_f32(CUtensorMap* m, const void* base, int rank,
+                      const uint64_t* dims, const uint64_t* strides,
+                      const uint32_t* box) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)CUDA_ERROR_NOT_FOUND;
+  cuuint64_t d[5], s[4];
+  cuuint32_t b[5], e[5];
+  for (int i = 0; i < rank; ++i) {
+    d[i] = dims[i];
+    b[i] = box[i];
+    e[i] = 1;
+    if (i > 0) s[i - 1] = strides[i - 1] * 4;  // bytes
+  }
+  return (int)fn(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank,
+                 const_cast<void*>(base), d, s, b, e,
+                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }

@@ -165,6 +165,8 @@ class ClipInference:
     devices: each batch sharded over these devices (the first is the
     engine's; `device` is not read); one device, or None, is the
     one-device engine.
+    TF32 stays as the caller set it: for f32 on the card as on the CPU,
+    call `device.set_precision` first (the CLI's commands do).
     """
 
     def __init__(self, cfg: ExperimentConfig,
@@ -387,7 +389,8 @@ class VideoInference:
     > 0 = that many. mesh as in `ClipInference`.
     devices: the sequence-parallel pass over these devices (the first is
     the engine's; `device` is not read); one device, or None, is the
-    one-device engine.
+    one-device engine. TF32 stays as the caller set it, as in
+    `ClipInference`.
     """
 
     def __init__(self, cfg: ExperimentConfig,

@@ -85,7 +85,8 @@ class StreamingInference:
     """state_dict: TMR model weights (head tmr or nl_only);
     extractor_state_dict: the extractor's (head lfb); fused_kernel,
     mesh and devices as in `ClipInference` (devices: the slots split into
-    contiguous groups, one a device)."""
+    contiguous groups, one a device). TF32 stays as the caller set it, as
+    in `ClipInference`."""
 
     def __init__(self, cfg: ExperimentConfig,
                  state_dict: Mapping[str, torch.Tensor],

@@ -146,25 +146,49 @@ def plan_bottleneck(n: int, h: int, w: int, c: int, p: int) -> BottleneckPlan:
     return best[1]
 
 
-# csrc/bottleneck_f32.cuh's block: 256 threads as TX across N by 256 / TX
-# down M, each owning 8 x 8 outputs, so the block tile is BM = 2048 / TX
-# rows by BN = 8 TX columns (every TX: 16,384 outputs); K chunks of 16
-# through a ring of f32 slots; x's staged rows 20 floats apart.
-_F32_THREADS, _F32_KC, _F32_LDA = 256, 16, 20
+# csrc/bottleneck_f32.cuh's CTA: 256 threads as TX across N by 256 / TX
+# down M, each owning 8 x 8 outputs, so the CTA tile is BM = 2048 / TX
+# pixels by BN = 8 TX columns (every TX: 16,384 outputs); K chunks of 16
+# through a ring of f32 slots (BM x 16 of x and 16 x BN of a weight). CTAs
+# run in clusters that own consecutive pixels, share each weight chunk (TMA
+# multicast) and y1's halo (DSMEM).
+_F32_THREADS, _F32_KC, _F32_ALIGN = 256, 16, 128
 F32_TX = (64, 32, 16, 8)
-BLOCK_F32_NSTAGE = 2    # fused_bottleneck_f32.cu's ring: a double buffer
+F32_CLUSTERS = (8, 4, 2)
+F32_NSTAGES = (4, 3)
+# cudaOccupancyMaxActiveClusters on an H100 SXM (132 SMs) at one CTA an
+# SM, (cluster size, clusters): what a plan counts waves over where no card
+# is asked (the fake implementations, CPU tests); the wrappers plan with
+# the card's own (`card_clusters`).
+F32_ACTIVE_CLUSTERS = ((8, 15), (4, 30), (2, 66))
 
 
 @dataclasses.dataclass(frozen=True)
 class BottleneckF32Plan:
-    """How an f32 bottleneck kernel cuts one call: `th` image rows per
-    block; `tx` threads across N (the kernels' template argument): the
-    block tile is `bm` = 2048 / tx rows by `bn` = 8 tx columns; `nstage`
-    ring slots; `smem` bytes of shared memory a block takes."""
-    th: int
+    """How an f32 bottleneck kernel cuts one call. The N H W pixels, in
+    NHWC order, fall into spans of `span` consecutive pixels, one a
+    cluster of `cs` CTAs; each CTA owns at most `rows` = ceil(span / cs)
+    <= bm of them (`f32_cut`). `tx` threads across N (the kernels' template
+    argument): the CTA tile is `bm` = 2048 / tx pixels by `bn` = 8 tx
+    columns; `nstage` ring slots; `overlay`: y2 over y1 (phase 2 one column
+    pass); `staged`: phase 3's residual staged in shared memory (where it
+    fits, else read from device memory); `smem` bytes a CTA. The model:
+    `clusters` launched, `waves` of them over the card's active clusters,
+    `real_share` of the products on the call's own pixels (the rest fall
+    on tile padding and on y1 at clusters' edges), `weight_bytes` of
+    W1, W2 and W3 read from L2 a launch (once a cluster)."""
     tx: int
+    cs: int
+    span: int
+    rows: int
     nstage: int
+    overlay: bool
+    staged: bool
     smem: int
+    clusters: int
+    waves: int
+    real_share: float
+    weight_bytes: int
 
     @property
     def bm(self) -> int:
@@ -175,67 +199,127 @@ class BottleneckF32Plan:
         return 8 * self.tx
 
 
-def f32_layout_bytes(w: int, p: int, th: int, tx: int, nstage: int) -> int:
-    """A block's shared memory, as `Layout` in csrc/bottleneck_f32.cuh
-    computes it: `nstage` ring slots (an A part of bm x 20 floats, phase 1's
-    x rows, and a B part of 16 x bn), y1's (th + 2) w rows and one zero row,
-    and y2's th w rows, each row p + 4 floats."""
+def f32_layout(w: int, p: int, tx: int, rows: int, nstage: int,
+               overlay: bool) -> dict:
+    """A CTA's shared memory, as `Layout` in csrc/bottleneck_f32.cuh lays it
+    out from its 128-byte aligned start, offsets in floats: `nstage` ring
+    slots (an A part of bm x 16 floats, then 16 x bn), y1's window of rows
+    + 2 (w + 1) rows, the zero row, y2's rows (or over y1), the 2 nstage
+    mbarriers; `res` the staged residual's start; `total` bytes with 128 of
+    slack for the alignment."""
     bm, bn, ldy = 8 * (_F32_THREADS // tx), 8 * tx, p + 4
-    slot = bm * _F32_LDA + _F32_KC * bn
-    return 4 * (nstage * slot + ((th + 2) * w + 1) * ldy + th * w * ldy)
+    a_part = bm * _F32_KC
+    slot = a_part + _F32_KC * bn
+    y1 = nstage * slot
+    zero = y1 + (rows + 2 * (w + 1)) * ldy
+    y2 = y1 if overlay else zero + ldy
+    res = y1 + rows * ldy if overlay else y1
+    bars = zero + ldy if overlay else y2 + rows * ldy
+    return dict(bm=bm, bn=bn, ldy=ldy, a_part=a_part, slot=slot, y1=y1,
+                zero=zero, y2=y2, res=res, bars=bars,
+                total=_F32_ALIGN + 4 * bars + 16 * nstage)
 
 
-def f32_chunks(h: int, w: int, c: int, p: int, th: int, tx: int):
-    """K chunks of 16 each block of an image multiplies, each a bm x bn x
-    16 product (the same 262,144 FMAs at every tx): phase 1's row tiles x
-    column passes x C/16, phase 2's x 9P/16, phase 3's C/bn passes x
-    P/16."""
-    bm, bn = 8 * (_F32_THREADS // tx), 8 * tx
-    out = []
-    for _, rows, lo, hi in block_rows(h, th):
-        t1, t2 = -(-(hi - lo) * w // bm), -(-rows * w // bm)
-        out.append(t1 * (p // bn) * (c // _F32_KC)
-                   + t2 * (p // bn) * (9 * p // _F32_KC)
-                   + t2 * (c // bn) * (p // _F32_KC))
-    return out
+def f32_layout_bytes(w: int, p: int, tx: int, rows: int, nstage: int,
+                     overlay: bool) -> int:
+    return f32_layout(w, p, tx, rows, nstage, overlay)["total"]
+
+
+def f32_stage_fits(w: int, p: int, tx: int, rows: int, nstage: int,
+                   overlay: bool) -> bool:
+    """The staged residual (rows x bn + 4 floats) fits before the zero
+    row."""
+    lay = f32_layout(w, p, tx, rows, nstage, overlay)
+    return lay["res"] + rows * (lay["bn"] + 4) <= lay["zero"]
+
+
+def f32_cut(npix: int, h: int, w: int, span: int, cs: int, cluster: int):
+    """The kernel's `Cut` of one cluster: (own, slices), each cs + 1
+    boundaries. CTA i owns the output pixels own[i] .. own[i + 1] - 1 and
+    computes y1 on slices[i] .. slices[i + 1] - 1: R, the cluster's pixels
+    and w + 1 more each side cut at their images, split evenly. Its y1
+    window's row 0 is pixel own[i] - w - 1."""
+    hw = h * w
+    u0 = cluster * span
+    nu = min(span, npix - u0)
+    last = u0 + nu - 1
+    r0 = max(u0 - w - 1, u0 - u0 % hw)
+    nr = min(u0 + nu + w + 1, last - last % hw + hw) - r0
+    return ([u0 + i * nu // cs for i in range(cs + 1)],
+            [r0 + i * nr // cs for i in range(cs + 1)])
+
+
+def f32_spans(npix: int, hw: int, w: int, cs: int, bm: int, rows: int):
+    """The spans a cluster of cs CTAs of `rows` own pixels may take: the
+    longest whose y1 (the span and w + 1 pixels each side) splits into
+    slices of at most bm, and the longest of whole images (whose y1 is the
+    span); none past the call's pixels."""
+    out = {min(cs * rows, cs * bm - 2 * (w + 1), npix)}
+    if hw <= cs * rows:
+        out.add(min(cs * rows // hw * hw, npix))
+    return sorted(x for x in out if x >= 1)
 
 
 def plan_f32(n: int, h: int, w: int, c: int, p: int, what: str,
-             one_tile: bool, stages) -> BottleneckF32Plan:
-    """The least modelled time over tx (8 tx dividing P and C; where
-    `one_tile`, bm >= w) and th (where `one_tile`, th w <= bm): waves of
-    one block per SM times the chunks of the longest block; ties go to more
-    ring slots, then fewer chunks in all. Each (tx, th) takes the first of
-    `stages` whose layout fits 227 KB."""
+             active=F32_ACTIVE_CLUSTERS) -> BottleneckF32Plan:
+    """The least modelled time: waves of clusters over the card's active
+    clusters (`active`: (cluster size, clusters) pairs, as `card_clusters`
+    reads them; a size the card runs none of is not planned), times a CTA's
+    products (bm pixels through the three phases, whatever it owns); ties
+    go to fewer products in all (a higher real share), then the staged
+    residual, then more ring slots, then smaller clusters. Over tx (8 tx
+    dividing P and C), the cluster size, the ring (4 or 3 slots), y2 over
+    y1 or not (only where P = bn) and the span (`f32_spans`, its rows the
+    most that fit 227 KB)."""
+    hw, npix = h * w, n * h * w
+    if npix + 2 * hw >= 2 ** 31:
+        raise ValueError(f"{what}: N H W = {npix} pixels, past the kernel's "
+                         f"32-bit pixel index")
+    wbytes = 4 * (2 * c * p + 9 * p * p)
+    active = dict(active)
+    if not any(active.get(cs, 0) > 0 for cs in F32_CLUSTERS):
+        raise ValueError(f"{what}: the card runs no cluster of "
+                         f"{', '.join(map(str, F32_CLUSTERS))} CTAs at one "
+                         f"CTA an SM ({active})")
     best = None
     for tx in F32_TX:
-        bm = 8 * (_F32_THREADS // tx)
-        if p % (8 * tx) or c % (8 * tx) or (one_tile and bm < w):
+        bm, bn = 8 * (_F32_THREADS // tx), 8 * tx
+        if p % bn or c % bn:
             continue
-        for th in range(1, (min(h, bm // w) if one_tile else h) + 1):
-            nstage = next((s for s in stages if f32_layout_bytes(
-                w, p, th, tx, s) <= _SMEM_BLOCK_MAX), None)
-            if nstage is None:
-                continue
-            chunks = f32_chunks(h, w, c, p, th, tx)
-            waves = -(-n * len(chunks) // _SMS)
-            key = (waves * max(chunks), -nstage, n * sum(chunks))
-            if best is None or key < best[0]:
-                best = (key, BottleneckF32Plan(
-                    th, tx, nstage, f32_layout_bytes(w, p, th, tx, nstage)))
+        for cs in (k for k in F32_CLUSTERS if active.get(k, 0) > 0):
+            for nstage in F32_NSTAGES:
+                for overlay in ((False, True) if p == bn else (False,)):
+                    fit = next((r for r in range(bm, 0, -1) if f32_layout_bytes(
+                        w, p, tx, r, nstage, overlay) <= _SMEM_BLOCK_MAX), 0)
+                    for span in f32_spans(npix, hw, w, cs, bm, fit):
+                        rows = -(-span // cs)
+                        staged = f32_stage_fits(w, p, tx, rows, nstage,
+                                                overlay)
+                        clusters = -(-npix // span)
+                        waves = -(-clusters // active[cs])
+                        key = (waves * bm, clusters * cs * bm, not staged,
+                               -nstage, cs, overlay)
+                        if best is None or key < best[0]:
+                            best = (key, BottleneckF32Plan(
+                                tx, cs, span, rows, nstage, overlay, staged,
+                                f32_layout_bytes(w, p, tx, rows, nstage,
+                                                 overlay),
+                                clusters, waves,
+                                npix / (clusters * cs * bm),
+                                clusters * wbytes))
     if best is None:
         raise ValueError(f"{what}: W={w}, P={p}, C={c} does not fit shared "
-                         f"memory at one row per block in f32")
+                         f"memory in f32 (y1's window needs 2 W + 2 rows "
+                         f"beside the CTA's own)")
     return best[1]
 
 
 @functools.lru_cache(maxsize=256)   # called once per launch, 12 a forward
-def plan_bottleneck_f32(n: int, h: int, w: int, c: int,
-                        p: int) -> BottleneckF32Plan:
-    """The plan of one f32 call of csrc/fused_bottleneck_f32.cu: a block
-    walks as many row tiles as its th rows need; a two-slot ring."""
-    return plan_f32(n, h, w, c, p, "fused_bottleneck_f32", False,
-                    (BLOCK_F32_NSTAGE,))
+def plan_bottleneck_f32(n: int, h: int, w: int, c: int, p: int,
+                        active=F32_ACTIVE_CLUSTERS) -> BottleneckF32Plan:
+    """The plan of one f32 call of csrc/fused_bottleneck_f32.cu from
+    `fused_bottleneck_cuda`, over `active` clusters (`plan_f32`)."""
+    return plan_f32(n, h, w, c, p, "fused_bottleneck_f32", active)
 
 
 def bottleneck_dtype(x_dtype, w_dtypes) -> torch.dtype:
@@ -292,8 +376,8 @@ def check_operands(what, x, w1, b1, w2, b2, w3, b3):
 
 
 def check_aligned(what, *tensors):
-    """The f32 kernels' float4 and cp.async copies want every operand
-    16-byte aligned."""
+    """The f32 kernels' TMA boxes, float4 and cp.async copies want every
+    operand 16-byte aligned."""
     names = ("x", "w1", "b1", "w2", "b2", "w3", "b3")
     for name, t in zip(names, tensors):
         if t.data_ptr() % 16:
@@ -301,36 +385,81 @@ def check_aligned(what, *tensors):
 
 
 @functools.lru_cache(maxsize=None)
-def _f32_entries():
-    """fused_bottleneck_f32's two C entries, their argument types set
-    once."""
-    lib = build.library("fused_bottleneck_f32")
-    run, smem = lib.tmr_fused_bottleneck_f32, lib.tmr_fused_bottleneck_f32_smem
-    run.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    run.restype = ctypes.c_int
-    smem.argtypes = [ctypes.c_int] * 4
-    smem.restype = ctypes.c_int
-    return run, smem
+def f32_entries(path=None):
+    """The three C entries of csrc/fused_bottleneck_f32.cu's library (the
+    launch, its shared memory, the card's active clusters), their argument
+    types set once; `path`: another build of that source to load instead
+    (the probe's)."""
+    lib = (build.library("fused_bottleneck_f32") if path is None
+           else ctypes.CDLL(str(path)))
+    run, smem, clusters = (getattr(lib, f"tmr_fused_bottleneck_f32{x}")
+                           for x in ("", "_smem", "_clusters"))
+    run.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [
+        ctypes.c_void_p]
+    for fn in (run, smem, clusters):
+        fn.restype = ctypes.c_int
+    smem.argtypes = [ctypes.c_int] * 7
+    clusters.argtypes = [ctypes.c_int]
+    return run, smem, clusters
 
 
-def _fused_bottleneck_f32_cuda(x, w1, b1, w2, b2, w3, b3, shape):
-    """csrc/fused_bottleneck_f32.cu under `plan_bottleneck_f32`."""
+@functools.lru_cache(maxsize=None)
+def card_clusters(index: int) -> tuple:
+    """How many clusters of each size in F32_CLUSTERS card `index` runs at
+    once at one CTA an SM (cudaOccupancyMaxActiveClusters), as (cluster
+    size, clusters) pairs: what the f32 plans count waves over. Read once a
+    card; a CUDA error raises."""
+    clusters_of = f32_entries()[2]
+    out = []
+    with torch.cuda.device(index):
+        for cs in F32_CLUSTERS:
+            active = clusters_of(cs)
+            if active < 0:
+                raise RuntimeError(
+                    f"fused_bottleneck_f32: cudaOccupancyMaxActiveClusters "
+                    f"for clusters of {cs} on cuda:{index} failed (CUDA error "
+                    f"{-active})")
+            out.append((cs, active))
+    return tuple(out)
+
+
+def launch_f32(name, what, x, w1, b1, w2, b2, w3, b3, shape, plan,
+               entries=None):
+    """Launch csrc/fused_bottleneck_f32.cu's kernel (`entries`, by default
+    its library's) under `plan`, counted as `name`; every failure raises
+    and names the call's shape: a layout that disagrees with the plan's
+    bytes, a tensor map that does not encode, a launch the card refuses."""
     n, h, w, c, p = shape
-    check_aligned("fused_bottleneck_cuda", x, w1, b1, w2, b2, w3, b3)
-    plan = plan_bottleneck_f32(n, h, w, c, p)
-    run, smem_of = _f32_entries()
-    smem = smem_of(w, p, plan.th, plan.tx)
+    at = f"{name} at N={n} H={h} W={w} C={c} P={p} (tx={plan.tx}, " \
+         f"cluster {plan.cs}, span {plan.span})"
+    check_aligned(what, x, w1, b1, w2, b2, w3, b3)
+    run, smem_of, _ = entries or f32_entries()
+    smem = smem_of(w, p, plan.tx, plan.span, plan.cs, plan.nstage,
+                   int(plan.overlay))
     if smem != plan.smem:
-        raise RuntimeError(f"fused_bottleneck_f32: the kernel lays out "
-                           f"{smem} bytes of shared memory, the plan "
-                           f"{plan.smem}")
+        raise RuntimeError(f"{at}: the kernel lays out {smem} bytes of "
+                           f"shared memory, the plan {plan.smem}")
     out = torch.empty_like(x)
     q = build.ptr
     err = run(q(x), q(w1), q(b1), q(w2), q(b2), q(w3), q(b3), q(out),
-              n, h, w, c, p, plan.th, plan.tx, build.stream_ptr(x.device))
-    build.check(err, "fused_bottleneck_f32")
-    build.count("fused_bottleneck_f32", x.device)
+              n, h, w, c, p, plan.tx, plan.span, plan.cs, plan.nstage,
+              int(plan.overlay), int(plan.staged), build.stream_ptr(x.device))
+    if err >= 100000:
+        raise RuntimeError(f"{at}: a tensor map does not encode (CUresult "
+                           f"{err - 100000})")
+    if err != 0:
+        raise RuntimeError(f"{at}: the cluster launch failed (CUDA error "
+                           f"{err})")
+    build.count(name, x.device)
     return out
+
+
+def _fused_bottleneck_f32_cuda(x, w1, b1, w2, b2, w3, b3, shape):
+    """csrc/fused_bottleneck_f32.cu under `plan_bottleneck_f32` over the
+    card's active clusters."""
+    plan = plan_bottleneck_f32(*shape, card_clusters(x.device.index))
+    return launch_f32("fused_bottleneck_f32", "fused_bottleneck_cuda", x, w1,
+                      b1, w2, b2, w3, b3, shape, plan)
 
 
 def fused_bottleneck_cuda(x, w1, b1, w2, b2, w3, b3):

@@ -19,9 +19,12 @@ else raises. On the card x and the weights are bf16 or f32, in one dtype
 In bf16 `plan_bottleneck_tiled` decides how the kernel cuts a call into
 blocks; `tiled_blocks`, `chunk_boxes` and `tiled_layout_bytes` say what a
 block copies and where it keeps it, as the kernel computes them. In f32
-the kernel is `csrc/fused_bottleneck_tiled_f32.cu` (FFMA, no TF32, the
-halo'd slab through a cp.async ring, phase 3's residual staged in shared
-memory) under `plan_bottleneck_tiled_f32`.
+the kernel is `fused_bottleneck`'s, `csrc/fused_bottleneck_f32.cu` (FFMA,
+no TF32, x through a TMA ring in K chunks, y1's halo shared by DSMEM
+within a cluster of CTAs, phase 3's residual staged in shared memory where
+it fits), with no tiled structure of its own: it runs under
+`plan_bottleneck_tiled_f32` (the block plan, W <= 256) and counts its
+launches as `fused_bottleneck_tiled_f32`.
 """
 
 from __future__ import annotations
@@ -37,10 +40,12 @@ from tmrnet_torch.experimental.fused_bottleneck import (
     _SMEM_BLOCK_MAX,
     _SMS,
     BOTTLENECK_SCHEMA,
+    F32_ACTIVE_CLUSTERS,
     BottleneckF32Plan,
-    check_aligned,
+    card_clusters,
     check_operands,
     fused_bottleneck_plain,
+    launch_f32,
     plan_f32,
 )
 from tmrnet_torch.kernels import build, library
@@ -183,56 +188,30 @@ def plan_bottleneck_tiled(n: int, h: int, w: int, c: int,
 
 
 @functools.lru_cache(maxsize=256)   # called once per launch, 10 a forward
-def plan_bottleneck_tiled_f32(n: int, h: int, w: int, c: int,
-                              p: int) -> BottleneckF32Plan:
-    """The plan of one f32 call of csrc/fused_bottleneck_tiled_f32.cu:
-    th w <= bm, so phases 2-3 are one row tile (the staged residual's
-    tile); a three-slot ring where it fits, else two. W <= 256, as the
-    bf16 plan takes: the largest bm."""
+def plan_bottleneck_tiled_f32(n: int, h: int, w: int, c: int, p: int,
+                              active=F32_ACTIVE_CLUSTERS) -> BottleneckF32Plan:
+    """The plan of one f32 call from `fused_bottleneck_tiled_cuda`: the
+    block kernel's (`plan_f32`), which it launches too, with the TPU tiled
+    kernel's limit W <= 256, as the bf16 kernel's TMA boxes take."""
     if w > _BOX_MAX:
         raise ValueError(f"fused_bottleneck_tiled_f32: W = {w} > {_BOX_MAX}, "
-                         f"the most rows a block tile holds")
-    return plan_f32(n, h, w, c, p, "fused_bottleneck_tiled_f32", True, (3, 2))
-
-
-@functools.lru_cache(maxsize=None)
-def _f32_entries():
-    """fused_bottleneck_tiled_f32's two C entries, their argument types set
-    once."""
-    lib = build.library("fused_bottleneck_tiled_f32")
-    run = lib.tmr_fused_bottleneck_tiled_f32
-    smem = lib.tmr_fused_bottleneck_tiled_f32_smem
-    run.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    run.restype = ctypes.c_int
-    smem.argtypes = [ctypes.c_int] * 5
-    smem.restype = ctypes.c_int
-    return run, smem
+                         f"the widest image the tiled kernels take")
+    return plan_f32(n, h, w, c, p, "fused_bottleneck_tiled_f32", active)
 
 
 def _fused_bottleneck_tiled_f32_cuda(x, w1, b1, w2, b2, w3, b3, shape):
-    """csrc/fused_bottleneck_tiled_f32.cu under `plan_bottleneck_tiled_f32`."""
-    n, h, w, c, p = shape
-    plan = plan_bottleneck_tiled_f32(n, h, w, c, p)
-    check_aligned("fused_bottleneck_tiled_cuda", x, w1, b1, w2, b2, w3, b3)
-    run, smem_of = _f32_entries()
-    smem = smem_of(w, p, plan.th, plan.tx, plan.nstage)
-    if smem != plan.smem:
-        raise RuntimeError(f"fused_bottleneck_tiled_f32: the kernel lays out "
-                           f"{smem} bytes of shared memory, the plan "
-                           f"{plan.smem}")
-    out = torch.empty_like(x)
-    q = build.ptr
-    err = run(q(x), q(w1), q(b1), q(w2), q(b2), q(w3), q(b3), q(out),
-              n, h, w, c, p, plan.th, plan.tx, plan.nstage,
-              build.stream_ptr(x.device))
-    build.check(err, "fused_bottleneck_tiled_f32")
-    build.count("fused_bottleneck_tiled_f32", x.device)
-    return out
+    """csrc/fused_bottleneck_f32.cu's kernel under
+    `plan_bottleneck_tiled_f32` over the card's active clusters, counted as
+    fused_bottleneck_tiled_f32."""
+    plan = plan_bottleneck_tiled_f32(*shape, card_clusters(x.device.index))
+    return launch_f32("fused_bottleneck_tiled_f32",
+                      "fused_bottleneck_tiled_cuda", x, w1, b1, w2, b2, w3,
+                      b3, shape, plan)
 
 
 def fused_bottleneck_tiled_cuda(x, w1, b1, w2, b2, w3, b3):
     """Launch csrc/fused_bottleneck_tiled.cu under `plan_bottleneck_tiled`
-    (bf16 operands) or csrc/fused_bottleneck_tiled_f32.cu under
+    (bf16 operands) or csrc/fused_bottleneck_f32.cu's kernel under
     `plan_bottleneck_tiled_f32` (f32). x (N, H, W, C) NHWC-contiguous;
     w1/w2/w3 contiguous in x's dtype; biases f32; P and C multiples of 64;
     W <= 256; every tensor 16-byte aligned (TMA; the f32 kernel's

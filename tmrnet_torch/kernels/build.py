@@ -17,7 +17,8 @@ Every C entry point returns `cudaGetLastError()` after its launch;
 `LAUNCHES` counts kernel launches by name: each wrapper adds one where it
 launches its kernel, and nowhere else. The engines' kernels (the four
 bf16 ones and their f32 counterparts `time_conv_f32`,
-`fused_bottleneck_f32` and `fused_bottleneck_tiled_f32`), whose
+`fused_bottleneck_f32` and `fused_bottleneck_tiled_f32`, the last two
+one kernel of `csrc/fused_bottleneck_f32.cu` counted by wrapper), whose
 in-process shards run on several cards, count through `count`, which also
 adds one to `LAUNCHES_BY_DEVICE[(name, card index)]`.
 """
@@ -38,8 +39,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tmrnet_torch_kernel
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 SOURCES = ("nl_attention", "time_conv", "time_conv_f32", "fused_bottleneck",
-           "fused_bottleneck_f32", "fused_bottleneck_tiled",
-           "fused_bottleneck_tiled_f32", "int8_matmul", "int8_conv3x3")
+           "fused_bottleneck_f32", "fused_bottleneck_tiled", "int8_matmul",
+           "int8_conv3x3")
 
 LAUNCHES: collections.Counter = collections.Counter()
 LAUNCHES_BY_DEVICE: collections.Counter = collections.Counter()
